@@ -1,0 +1,528 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``quantized_tpu_torch``) on one NVIDIA GPU.
+
+Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
+CUDA GPU and the CUDA toolkit (nvcc); the kernels are built from
+``quantized_tpu_torch/csrc`` at first use. Without a GPU, or without the
+package beside it, it exits non-zero before printing any result.
+
+Phases, each printed as it runs; any failure ends the run with an exception
+and a non-zero exit:
+
+1. device: the GPU's name, and its name and power limit from nvidia-smi;
+2. build: one nvcc per CUDA source, all started together;
+3. kernels: each kernel against its plain PyTorch version on the same GPU
+   tensors, at the shapes the serving path gives it (batch 32, 224x224):
+   int8 outputs must be equal, f32 outputs within F32_ATOL; then each one's
+   device time (CUDA events, the L2 flushed and the host's launch hidden
+   behind a sleep kernel), its time between CUDA events with the host's
+   launch time in it (``event_ms``), its plain version's
+   device time, the device time of one PyTorch call computing the same
+   integer product (``torch._int_mm``, a yardstick only; the port never
+   calls it) and the least time the card could take (the bytes the function
+   must move over 3.35 TB/s or its int8 operations over 1979 TOP/s,
+   whichever is larger);
+4. serve, the main path: a ResNet-50 (ImageNet geometry, 224x224, layers
+   [3, 4, 6, 3], 1000 classes) from a seeded generator, calibrated with the
+   port's ``_calibrated_model``, built by ``build_int8_resident(...,
+   backend="pallas")`` and served through ``IntExecutor(..., ingest="u8")``:
+   3 requests of 32 uint8 images. The launch counts are set to 0 just before
+   and read just after: each forward must launch the direct conv 53 times
+   (1 stem in its gather-K form, 48 block convs, 4 downsamples) and the GEMM
+   once (the fc). One batch of 2 images is then held against the same engine
+   built on the CPU (plain versions): int8 stages equal, logits within
+   F32_ATOL of their magnitude;
+5. gemm path: the same model with ``backend="gemm"`` (im2col + the GEMM,
+   requant epilogue on 33 convs per forward), counted the same way and held
+   against the main path (int8 blocks within 1 step, logits within
+   LOGIT_ATOL);
+6. throughput: batch-128 uint8 forwards timed with CUDA events, and a
+   profile of where the device time goes;
+7. the kernels line: one JSON object with each kernel's numbers; ``launches``
+   is the count from the path that runs the kernel (``path``);
+8. last line: ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parent
+SERVE_BATCH = 32
+SERVE_REQUESTS = 3
+THROUGHPUT_BATCH = 128
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
+F32_ATOL = 1e-3  # f32 outputs against their plain versions, and GPU logits against CPU ones
+LOGIT_ATOL = 0.25  # gemm backend against pallas: the two round their requant in another order
+L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
+
+KERNEL_INFO = {
+    "int8_matmul": ("quantized_tpu_torch/csrc/int8_gemm.cu", "quantized_tpu/ops/int8_matmul.py:56"),
+    "int8_matmul_requant": ("quantized_tpu_torch/csrc/int8_gemm.cu", "quantized_tpu/ops/int8_matmul.py:76"),
+    "int8_conv_direct": ("quantized_tpu_torch/csrc/int8_conv.cu", "quantized_tpu/ops/int8_conv_pallas.py:57"),
+    "int8_conv_direct_gatherk": ("quantized_tpu_torch/csrc/int8_conv.cu",
+                                 "quantized_tpu/ops/int8_conv_pallas.py:106"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def require_environment():
+    """The GPU and the package, or exit non-zero with nothing printed on stdout."""
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch sees no CUDA GPU; this script runs on one")
+    if not (ROOT / "quantized_tpu_torch" / "csrc").is_dir():
+        sys.exit("chip_smoke: quantized_tpu_torch/ is not beside this script; run it from a checkout")
+    sys.path.insert(0, str(ROOT))
+
+
+# ----------------------------------------------------------------- timing
+
+
+class Timer:
+    """Times of a callable between CUDA events, the L2 cache flushed before
+    each call, as a forward pass would find the weights cold.
+
+    ``ms`` is device time: before each call the device is held busy (a
+    sleep kernel) for twice as long as the host takes to launch the call, so
+    the host has enqueued the whole call before the start event fires and
+    no host time falls between the events. ``event_ms`` leaves the sleep
+    out, so it also counts the device waiting for the host to launch."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+        cycles = 1 << 22
+        torch.cuda._sleep(cycles)  # first launch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        self.cycles_per_ms = cycles / start.elapsed_time(end)
+
+    def ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
+        return self._time(fn, iters, warmup, hold=True)
+
+    def event_ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
+        return self._time(fn, iters, warmup, hold=False)
+
+    def _time(self, fn, iters, warmup, hold):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.flush.zero_()
+        fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        sleep = int(self.cycles_per_ms * (2 * host_ms + 0.05))
+        pairs = []
+        for _ in range(iters):
+            if hold:
+                torch.cuda._sleep(sleep)
+            self.flush.zero_()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def library_ms(timer, fn):
+    """Time of the PyTorch yardstick, or None where this build refuses the
+    call (the yardstick is not part of the port; its refusal is printed)."""
+    try:
+        fn()
+    except RuntimeError as exc:
+        log(f"[kernels] yardstick refused: {exc}")
+        return None
+    return timer.ms(fn)
+
+
+def window_extent(size: int, out: int, k: int, stride: int, pad: int) -> int:
+    """Input rows (or columns) that a conv's windows read: all of them when
+    the windows cover the image, a share when a stride skips some (a 1x1
+    stride-2 conv reads every other one)."""
+    return len({o * stride - pad + t for o in range(out) for t in range(k)} & set(range(size)))
+
+
+def bound(bytes_moved: int, ops: int):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------- phases
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} device 0: {name} "
+        f"(count {torch.cuda.device_count()})")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
+    return name, card
+
+
+def phase_build():
+    from quantized_tpu_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    seconds = _cuda.build_kernels()
+    log(f"[build] {json.dumps({k: round(v, 2) for k, v in seconds.items()})} "
+        f"wall {time.perf_counter() - t0:.2f} s")
+    for source, text in _cuda.BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build] {source}: {line.strip()}")
+
+
+def _rand_int8(gen, shape, low=-128, high=128, device="cuda"):
+    return torch.randint(low, high, shape, generator=gen, dtype=torch.int8).to(device)
+
+
+def _epilogue_params(gen, n, device):
+    alpha = (torch.rand(n, generator=gen) * 2e-5 + 1e-5).to(device)
+    beta = (torch.rand(n, generator=gen) - 0.5).to(device)
+    return alpha, beta
+
+
+def phase_kernels(timer):
+    """Each kernel against its plain version at serving shapes; returns
+    {kernel name: numbers} for the kernels line."""
+    from quantized_tpu_torch import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1234)
+    results = {}
+
+    def record(name, case, kernel, plain, lib, nbytes, nops, representative, plain_iters=10):
+        before = ops.KERNELS[name].launches
+        got = kernel()
+        if ops.KERNELS[name].launches != before + 1:
+            raise AssertionError(f"{case} did not go through {name}")
+        want = plain()
+        if got.dtype == torch.int8:
+            err = (got.to(torch.int32) - want.to(torch.int32)).abs().max().item()
+            ok = err == 0
+        else:
+            err = (got - want).abs().max().item()
+            ok = err <= F32_ATOL
+        if not ok:
+            raise AssertionError(f"{name} {case}: kernel and plain version differ by {err}")
+        ms, event_ms = timer.ms(kernel), timer.event_ms(kernel)
+        plain_ms = timer.ms(plain, iters=plain_iters, warmup=1)
+        lib_ms = None if lib is None else library_ms(timer, lib)
+        b_ms, b_by = bound(nbytes, nops)
+        log(f"[kernels] {name} {case}: max_abs_err {err} ms {ms:.4f} event_ms {event_ms:.4f} "
+            f"plain_ms {plain_ms:.4f} library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)} "
+            f"bound_ms {b_ms:.4f} ({b_by}, {nbytes} bytes) ops/s {nops / ms * 1e3:.3e}")
+        entry = results.setdefault(name, {"max_abs_err": 0.0})
+        entry["max_abs_err"] = max(entry["max_abs_err"], float(err))
+        if representative:
+            entry.update(case=case, ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=b_ms, bound_by=b_by)
+
+    # K1, f32 form: the fc head, (32, 2048) x (2048, 1000)
+    m, k, n = SERVE_BATCH, 2048, 1000
+    a, w = _rand_int8(gen, (m, k)), _rand_int8(gen, (n, k), low=-127)
+    alpha, beta = _epilogue_params(gen, n, dev)
+    record("int8_matmul", f"fc {m}x{k}x{n} f32",
+           lambda: ops.int8_matmul_nk(a, w, alpha, beta),
+           lambda: ops.int8_matmul_plain(a, w, alpha, beta),
+           lambda: torch._int_mm(a, w.T),
+           m * k + n * k + 8 * n + 4 * m * n, 2 * m * k * n, True)
+
+    # K1, requant form: layer1's 3x3 conv through im2col on the gemm path
+    m, k, n = SERVE_BATCH * 56 * 56, 9 * 64, 64
+    a2, w2 = _rand_int8(gen, (m, k)), _rand_int8(gen, (n, k), low=-127)
+    alpha2, beta2 = _epilogue_params(gen, n, dev)
+    record("int8_matmul_requant", f"im2col {m}x{k}x{n} s8",
+           lambda: ops.int8_matmul_requant_nk(a2, w2, alpha2, beta2, 0.05, 113, True),
+           lambda: ops.int8_matmul_requant_plain(a2, w2, alpha2, beta2, 0.05, 113, True),
+           lambda: torch._int_mm(a2, w2.T),
+           m * k + n * k + 8 * n + m * n, 2 * m * k * n, True)
+
+    # K2: the four per-tap shapes of ResNet-50, then the stem in gather-K form
+    b = SERVE_BATCH
+    conv_cases = [
+        # name, label, (h, cin, cout, k, stride, pad, requant), representative
+        ("int8_conv_direct", "layer1 1x1 s1 64->256 f32", (56, 64, 256, 1, 1, 0, None), False),
+        ("int8_conv_direct", "layer1 3x3 s1 64->64 s8", (56, 64, 64, 3, 1, 1, (0.05, 113)), True),
+        ("int8_conv_direct", "layer2 3x3 s2 128->128 s8", (56, 128, 128, 3, 2, 1, (0.05, 113)), False),
+        ("int8_conv_direct", "layer2 1x1 s2 256->512 f32", (56, 256, 512, 1, 2, 0, None), False),
+        ("int8_conv_direct_gatherk", "stem s2d 4x4 s1 12->64 s8", (115, 12, 64, 4, 1, 0, (0.05, 113)), True),
+    ]
+    for name, label, (h, cin, cout, kk, s, p, req), rep in conv_cases:
+        x = _rand_int8(gen, (b, h, h, cin))
+        wc = _rand_int8(gen, (cout, kk * kk * cin), low=-127)
+        ac, bc = _epilogue_params(gen, cout, dev)
+        args = ((kk, kk), ac, bc, s, p, -5, True, req)
+        ho = (h + 2 * p - kk) // s + 1
+        rows = window_extent(h, ho, kk, s, p)
+        in_bytes = b * rows * rows * cin
+        out_bytes = b * ho * ho * cout * (1 if req else 4)
+        record(name, f"{label} batch {b}",
+               lambda x=x, wc=wc, args=args: ops.int8_conv_direct_ck(x, wc, *args),
+               lambda x=x, wc=wc, args=args: ops.int8_conv_direct_plain(x, wc, *args),
+               None, in_bytes + wc.numel() + 8 * cout + out_bytes,
+               2 * b * ho * ho * kk * kk * cin * cout, rep, plain_iters=3)
+    return results
+
+
+def _stage_outputs(engine, u8):
+    """Stored-int8 output of the stem, the pool and each stage, and the logits."""
+    from quantized_tpu_torch.engine.int8_resident import maxpool_3x3_s2_int8, u8_to_stored
+
+    with torch.inference_mode():
+        x = engine.stem.run_q(u8_to_stored(u8, engine.stem.grid), relu=True,
+                              out_requant=engine.stem_out_grid)
+        outs = {"stem": x}
+        h = maxpool_3x3_s2_int8(x)
+        for i in range(1, 5):
+            h = getattr(engine, f"layer{i}")(h)
+            outs[f"layer{i}"] = h
+        outs["logits"] = engine.fc(h.mean(dim=(1, 2)))
+    return outs
+
+
+def _check_int8(got, want, what, exact: bool):
+    diff = (got.cpu().to(torch.int32) - want.cpu().to(torch.int32)).abs()
+    step, share = diff.max().item(), (diff > 0).float().mean().item()
+    if exact and step != 0:
+        raise AssertionError(f"{what}: int8 outputs differ by up to {step} steps")
+    if step > 1 or share >= 0.01:
+        raise AssertionError(f"{what}: {step} steps, {share:.4%} of elements differ")
+    return step, share
+
+
+def _check_logits(got, want, what):
+    err = (got.cpu() - want.cpu()).abs().max().item()
+    log(f"[compare] {what} logits: max abs diff {err:.6g} (tolerance {LOGIT_ATOL})")
+    if not err <= LOGIT_ATOL:
+        raise AssertionError(f"{what}: logits differ by {err}")
+
+
+def _compare_stages(outs_a, outs_b, what):
+    """Stage by stage, each engine on its own activations: int8 outputs
+    equal, f32 outputs (the logits) within F32_ATOL of their magnitude."""
+    for key in outs_a:
+        a, b = outs_a[key].cpu(), outs_b[key].cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what} {key}: {a.shape}/{a.dtype} vs {b.shape}/{b.dtype}")
+        if a.dtype == torch.int8:
+            step, _ = _check_int8(a, b, f"{what} {key}", exact=True)
+            log(f"[compare] {what} {key}: int8 equal")
+        else:
+            err, tol = (a - b).abs().max().item(), F32_ATOL * max(1.0, a.abs().max().item())
+            log(f"[compare] {what} {key}: max abs diff {err:.6g} (tolerance {tol:.3g})")
+            if not err <= tol:
+                raise AssertionError(f"{what} {key}: f32 outputs differ by {err}")
+
+
+def _compare_blocks(ref, other, u8, what):
+    """Every int8 block of ``other`` fed ``ref``'s input to that block:
+    within 1 step, on under 1% of the elements (the two backends round their
+    requant in a different order); then the logits end to end."""
+    from quantized_tpu_torch.engine.int8_resident import maxpool_3x3_s2_int8, u8_to_stored
+
+    worst = (0, 0.0)
+    with torch.inference_mode():
+        x = u8_to_stored(u8, ref.stem.grid)
+        h = ref.stem.run_q(x, relu=True, out_requant=ref.stem_out_grid)
+        worst = max(worst, _check_int8(other.stem.run_q(x, relu=True, out_requant=other.stem_out_grid),
+                                       h, f"{what} stem", exact=False))
+        h = maxpool_3x3_s2_int8(h)
+        for i in range(1, 5):
+            ref_stage, other_stage = getattr(ref, f"layer{i}"), getattr(other, f"layer{i}")
+            for k in range(ref_stage.num_blocks):
+                nxt = getattr(ref_stage, str(k))(h)
+                if nxt.dtype == torch.int8:
+                    got = getattr(other_stage, str(k))(h)
+                    worst = max(worst, _check_int8(got, nxt, f"{what} layer{i}.{k}", exact=False))
+                h = nxt
+        log(f"[compare] {what} int8 blocks on shared inputs: worst {worst[0]} step(s), "
+            f"largest differing share {worst[1]:.6f}")
+        _check_logits(other.run_u8(u8), ref.run_u8(u8), what)
+
+
+def _build(backend: str, device: str):
+    from quantized_tpu_torch.engine import build_int8_resident
+    from quantized_tpu_torch.entry import _calibrated_model
+
+    model = _calibrated_model("resnet_quantized_float_bn", device="cpu",
+                              generator=torch.Generator().manual_seed(0), dataset="imagenet", depth=50)
+    return build_int8_resident(model, backend=backend, device=device)
+
+
+def _check_launches(counts, expected, what):
+    log(f"[{what}] launches {json.dumps(counts)}")
+    for name, n in expected.items():
+        if counts.get(name, 0) != n:
+            raise AssertionError(f"{what}: {name} launched {counts.get(name, 0)} times, expected {n}")
+
+
+def phase_serve():
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.engine import IntExecutor
+
+    t0 = time.perf_counter()
+    engine = _build("pallas", "cuda")
+    executor = IntExecutor(engine, ingest="u8", device="cuda")
+    log(f"[serve] ResNet-50 int8-resident engine built on the GPU in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(7)
+    requests = [torch.randint(0, 256, (SERVE_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8)
+                for _ in range(SERVE_REQUESTS)]
+    executor.warmup(requests[0][:2])
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    answers = []
+    for i, req in enumerate(requests):
+        t = time.perf_counter()
+        logits = executor(req)
+        torch.cuda.synchronize()
+        answers.append(logits)
+        log(f"[serve] request {i}: {tuple(logits.shape)} in {(time.perf_counter() - t) * 1e3:.1f} ms")
+    counts = ops.launch_counts()
+    n = SERVE_REQUESTS
+    _check_launches(counts, {"int8_conv_direct": 52 * n, "int8_conv_direct_gatherk": 1 * n,
+                             "int8_matmul": 1 * n, "int8_matmul_requant": 0}, "serve")
+    for logits in answers:
+        if tuple(logits.shape) != (SERVE_BATCH, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
+    log(f"[serve] {n} requests of {SERVE_BATCH} images answered: shape ({SERVE_BATCH}, 1000), finite; "
+        f"K2 launches per forward {(counts['int8_conv_direct'] + counts['int8_conv_direct_gatherk']) // n}, "
+        f"K1 launches per forward {counts['int8_matmul'] // n}")
+
+    # the same engine on the CPU, from the same seed, on 2 of the images
+    sample = requests[0][:2]
+    cpu_engine = _build("pallas", "cpu")
+    outs_gpu = _stage_outputs(engine, sample.cuda())
+    outs_cpu = _stage_outputs(cpu_engine, sample)
+    _compare_stages(outs_gpu, outs_cpu, "gpu vs cpu")
+    return engine, executor, counts, sample
+
+
+def phase_gemm(pallas_engine, sample):
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.engine import IntExecutor
+
+    engine = _build("gemm", "cuda")
+    executor = IntExecutor(engine, ingest="u8", device="cuda")
+    executor.warmup(sample)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    logits = executor(sample)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    _check_launches(counts, {"int8_matmul_requant": 33, "int8_matmul": 21, "int8_conv_direct": 0,
+                             "int8_conv_direct_gatherk": 0}, "gemm")
+    if tuple(logits.shape) != (sample.shape[0], 1000) or not torch.isfinite(logits).all():
+        raise AssertionError("gemm path: bad logits")
+    _compare_blocks(pallas_engine, engine, sample.cuda(), "gemm vs pallas")
+    return counts
+
+
+def phase_throughput(executor, card):
+    gen = torch.Generator().manual_seed(11)
+    host = torch.randint(0, 256, (THROUGHPUT_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8)
+    dev = host.cuda()
+    executor.warmup(dev)
+    iters = 10
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        executor(dev)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / iters
+    t = time.perf_counter()
+    for _ in range(iters):
+        executor(host)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t) / iters * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    executor(dev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    log(f"[throughput] batch {THROUGHPUT_BATCH} uint8 224x224, input on the device: {ms:.3f} ms/batch, "
+        f"{THROUGHPUT_BATCH / ms * 1e3:.1f} img/s; from host memory (pageable, host clock): "
+        f"{host_ms:.3f} ms/batch, {THROUGHPUT_BATCH / host_ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB; "
+        f"card {card}")
+
+    n_prof = 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            executor(dev)
+        torch.cuda.synchronize()
+    rows = sorted(((evt.self_device_time_total / n_prof, evt.count // n_prof, evt.key)
+                   for evt in prof.key_averages()
+                   if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0),
+                  reverse=True)
+    if not rows:
+        log("[profile] torch.profiler recorded no device kernels here: breakdown not measured")
+        return ms
+    total = sum(r[0] for r in rows) / 1e3
+    ours = sum(r[0] for r in rows if "int8_conv_kernel" in r[2] or "int8_matmul_kernel" in r[2]) / 1e3
+    log(f"[profile] per batch-{THROUGHPUT_BATCH} forward: kernels {total:.3f} ms of {ms:.3f} ms "
+        f"(idle share {max(0.0, 1 - total / ms):.3f}); K1+K2 {ours:.3f} ms, "
+        f"other kernels {total - ours:.3f} ms in {sum(r[1] for r in rows)} launches")
+    for us, count, key in rows[:12]:
+        log(f"[profile] {us / 1e3:9.3f} ms {count:4d}x {key[:100]}")
+    return ms
+
+
+def main() -> int:
+    require_environment()
+    from quantized_tpu_torch import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name, card = phase_device()
+    phase_build()
+    timer = Timer("cuda")
+    kernel_numbers = phase_kernels(timer)
+    pallas_engine, executor, serve_counts, sample = phase_serve()
+    gemm_counts = phase_gemm(pallas_engine, sample)
+    phase_throughput(executor, card)
+
+    kernels = []
+    for kname, (source, replaces) in KERNEL_INFO.items():
+        numbers = kernel_numbers[kname]
+        path, counts = ("gemm", gemm_counts) if kname == "int8_matmul_requant" else ("main", serve_counts)
+        kernels.append({
+            "name": kname, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[kname], "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],
+            "plain_ms": numbers["plain_ms"], "bound_ms": numbers["bound_ms"],
+            "bound_by": numbers["bound_by"], "library_ms": numbers["library_ms"],
+            "event_ms": numbers["event_ms"], "path": path, "case": numbers["case"],
+        })
+        if kernels[-1]["launches"] <= 0:
+            raise AssertionError(f"{kname} was not launched on its path")
+    if set(ops.KERNELS) != set(KERNEL_INFO):
+        raise AssertionError(f"kernels {sorted(ops.KERNELS)} are not the ones this script reports")
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,107 @@
+// Shared block-tile machinery of the int8 kernels (int8_gemm.cu, int8_conv.cu).
+//
+// A block computes a 64x64 tile of C = A (M,K) x W (N,K)^T with int32
+// accumulation. Both operands are K-major int8, which is exactly the operand
+// form of mma.sync.m16n8k32.row.col.s32.s8.s8.s32: every fragment register is
+// one aligned 32-bit word of four consecutive K bytes. K is staged through
+// shared memory 64 bytes at a time; the 80-byte row pitch keeps 16-byte
+// stores aligned and makes the fragment reads of a warp hit 32 distinct banks.
+// Four warps each own a 32x32 sub-tile (2 x 4 mma tiles, 32 int32 registers).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace qt {
+
+constexpr int BM = 64;       // output rows per block
+constexpr int BN = 64;       // output columns per block
+constexpr int BK = 64;       // K bytes staged per step
+constexpr int LDS = BK + 16; // shared-memory row pitch in bytes
+constexpr int THREADS = 128;
+
+struct Acc {
+  int v[2][4][4];
+};
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Multiply the staged A tile (BM x BK) by the staged W tile (BN x BK) into acc.
+__device__ __forceinline__ void mma_tile(const int8_t* As, const int8_t* Ws, Acc& acc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 32) {
+    uint32_t a[2][4], b[4][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int8_t* p = As + (wm + mi * 16 + g) * LDS + kk + t * 4;
+      a[mi][0] = *reinterpret_cast<const uint32_t*>(p);
+      a[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS);
+      a[mi][2] = *reinterpret_cast<const uint32_t*>(p + 16);
+      a[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * LDS + 16);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int8_t* p = Ws + (wn + ni * 8 + g) * LDS + kk + t * 4;
+      b[ni][0] = *reinterpret_cast<const uint32_t*>(p);
+      b[ni][1] = *reinterpret_cast<const uint32_t*>(p + 16);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+        mma_s8(acc.v[mi][ni], a[mi][0], a[mi][1], a[mi][2], a[mi][3], b[ni][0], b[ni][1]);
+  }
+}
+
+// Stage rows [r0, r0+64) x bytes [k0, k0+BK) of a K-major (R, K) int8 matrix;
+// zero outside it (zero weight bytes add nothing to the accumulator).
+// vec: K % 16 == 0 and the base is 16-byte aligned, so 16-byte loads apply.
+__device__ __forceinline__ void stage_rows(int8_t* S, const int8_t* X, int R, int K, int r0,
+                                           int k0, bool vec) {
+  if (vec) {
+    for (int i = threadIdx.x; i < 64 * (BK / 16); i += THREADS) {
+      const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
+      const int row = r0 + r, k = k0 + c;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (row < R && k < K) v = *reinterpret_cast<const uint4*>(X + (size_t)row * K + k);
+      *reinterpret_cast<uint4*>(S + r * LDS + c) = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < 64 * BK; i += THREADS) {
+      const int r = i / BK, c = i % BK;
+      const int row = r0 + r, k = k0 + c;
+      S[r * LDS + c] = (row < R && k < K) ? X[(size_t)row * K + k] : int8_t(0);
+    }
+  }
+}
+
+// Visit every accumulator element of this thread with its tile-local (row, col).
+template <typename F>
+__device__ __forceinline__ void for_each_acc(const Acc& acc, F&& f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f(wm + mi * 16 + g + (r >> 1) * 8, wn + ni * 8 + t * 2 + (r & 1), acc.v[mi][ni][r]);
+}
+
+}  // namespace qt
+
+extern "C" const char* qt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,172 @@
+"""Integer-executing layers (counterparts of ``quantized_tpu/engine/int_layers.py``).
+
+Each layer owns its input grid (from the source model's frozen observer),
+per-channel int8 weights with BN folded in, and the fused epilogue
+(alpha, beta). Activations are stored int8 (logical uint8 - 128).
+
+The weights are kept in the layout the kernels take, packed once when the
+layer is built: a conv holds (Cout, Kh*Kw*Cin) and a dense layer (N, K).
+:meth:`IntConv2d.weights` and :attr:`IntLinear.w_q` give them back in the
+JAX package's layouts (HWIO and (K, N)).
+
+Backends of :class:`IntConv2d`: ``"pallas"`` runs the direct conv (kernel
+K2, ``ops/int8_conv_pallas.py``), ``"gemm"`` runs im2col + the int8 GEMM
+(kernel K1). :class:`IntLinear` runs K1. The XLA and bf16 forms of the JAX
+package, int4, ``y_clip`` and the int16 residual leg are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from quantized_tpu_torch.ops.int8_conv import int8_conv_gemm_ck, pack_conv_weight
+from quantized_tpu_torch.ops.int8_conv_pallas import int8_conv_direct_ck
+from quantized_tpu_torch.ops.int8_matmul import f32, int8_matmul_nk
+
+Grid = Tuple[float, int]
+CONV_BACKENDS = ("pallas", "gemm")
+
+
+def quantize_input_stored(x: torch.Tensor, scale: float, zero_point: int) -> torch.Tensor:
+    """f32 -> stored int8 (logical uint8 - 128) on the layer's activation
+    grid: ``clip(round(x * f32(1/s) + f32(zp - 128)), -128, 127)``."""
+    q = torch.round(x * f32(1.0 / scale) + f32(zero_point - 128))
+    return torch.clamp(q, -128.0, 127.0).to(torch.int8)
+
+
+def dequantize_stored(x_q: torch.Tensor, scale: float, zero_point: int) -> torch.Tensor:
+    """Stored int8 -> f32: ``(u - zp) * scale`` with ``u = stored + 128``."""
+    return (x_q.to(torch.float32) + f32(128 - zero_point)) * f32(scale)
+
+
+def requantize_stored(x_q: torch.Tensor, from_grid: Grid, to_grid: Grid) -> torch.Tensor:
+    """Regrid a stored-int8 tensor onto another uint8 grid."""
+    return quantize_input_stored(dequantize_stored(x_q, *from_grid), *to_grid)
+
+
+class IntConv2d(nn.Module):
+    """Integer conv with folded BN and the fused epilogue."""
+
+    def __init__(
+        self,
+        w_q: torch.Tensor,  # (Kh, Kw, Cin, Cout) int8
+        alpha: torch.Tensor,  # (Cout,) f32
+        beta: torch.Tensor,  # (Cout,) f32
+        act_scale: float,
+        act_zero_point: int,
+        stride=(1, 1),
+        padding=(0, 0),
+        groups: int = 1,
+        relu: bool = False,
+        backend: str = "pallas",
+    ):
+        super().__init__()
+        if groups != 1:
+            raise ValueError("grouped int8 convs are not ported yet")
+        if backend not in CONV_BACKENDS:
+            raise ValueError(f"backend {backend!r} is not one of {CONV_BACKENDS}")
+        self.kernel_size = tuple(w_q.shape[:2])
+        self.register_buffer("w_ck", pack_conv_weight(w_q))
+        self.register_buffer("alpha", alpha.to(torch.float32).contiguous())
+        self.register_buffer("beta", beta.to(torch.float32).contiguous())
+        self.act_scale = float(act_scale)
+        self.act_zero_point = int(act_zero_point)
+        self.stride = tuple(stride)
+        self.padding = tuple(padding)
+        self.groups = groups
+        self.relu = relu
+        self.backend = backend
+
+    def weights(self) -> torch.Tensor:
+        """The int8 kernel in HWIO."""
+        kh, kw = self.kernel_size
+        cout = self.w_ck.shape[0]
+        return self.w_ck.reshape(cout, kh, kw, -1).permute(1, 2, 3, 0)
+
+    @property
+    def stored_zp(self) -> int:
+        return self.act_zero_point - 128
+
+    @property
+    def grid(self) -> Grid:
+        """(scale, zero_point) of the uint8 grid this conv expects its input on."""
+        return (self.act_scale, self.act_zero_point)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x_q = quantize_input_stored(x, self.act_scale, self.act_zero_point)
+        return self.run_q(x_q, relu=self.relu)
+
+    def run_q(
+        self,
+        x_q: torch.Tensor,
+        relu: Optional[bool] = None,
+        out_requant: Optional[Grid] = None,
+        out_prescale: Optional[Tuple[float, float]] = None,
+    ) -> torch.Tensor:
+        """Quantized-input entry: ``x_q`` stored int8 on ``self.grid``.
+        Returns f32, or int8 on ``out_requant``'s grid with ReLU applied
+        before the requant.
+
+        ``out_prescale=(scale, shift)`` returns f32 ``y / scale + shift`` (no
+        ReLU, no requant), the division folded into alpha/beta as the JAX
+        package folds it."""
+        relu = self.relu if relu is None else relu
+        alpha, beta = self.alpha, self.beta
+        if out_prescale is not None:
+            if out_requant is not None or relu:
+                raise ValueError("out_prescale excludes out_requant and relu")
+            scale, shift = out_prescale
+            inv = f32(1.0 / scale)
+            alpha = alpha * inv
+            beta = beta * inv + f32(shift)
+        conv = int8_conv_direct_ck if self.backend == "pallas" else int8_conv_gemm_ck
+        return conv(x_q, self.w_ck, self.kernel_size, alpha, beta, stride=self.stride,
+                    padding=self.padding, stored_zp=self.stored_zp, relu=relu,
+                    out_requant=out_requant)
+
+
+class IntLinear(nn.Module):
+    """Integer dense layer on kernel K1; weights (K, N) = (in, out) int8,
+    held K-major as (N, K)."""
+
+    def __init__(
+        self,
+        w_q_kn: torch.Tensor,
+        alpha: torch.Tensor,
+        beta: torch.Tensor,
+        act_scale: float,
+        act_zero_point: int,
+        relu: bool = False,
+    ):
+        super().__init__()
+        self.register_buffer("w_nk", w_q_kn.T.contiguous())
+        self.register_buffer("alpha", alpha.to(torch.float32).contiguous())
+        self.register_buffer("beta", beta.to(torch.float32).contiguous())
+        self.act_scale = float(act_scale)
+        self.act_zero_point = int(act_zero_point)
+        self.relu = relu
+
+    @property
+    def w_q(self) -> torch.Tensor:
+        """The int8 weights as (K, N)."""
+        return self.w_nk.T
+
+    @property
+    def grid(self) -> Grid:
+        return (self.act_scale, self.act_zero_point)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.run_q(quantize_input_stored(x, self.act_scale, self.act_zero_point))
+
+    def run_q(self, x_q: torch.Tensor, relu: Optional[bool] = None,
+              out_requant: Optional[Grid] = None) -> torch.Tensor:
+        """Quantized-input entry: f32 out, or int8 on ``out_requant``'s grid
+        (a separate quantize pass, as in the JAX package)."""
+        relu = self.relu if relu is None else relu
+        y = int8_matmul_nk(x_q, self.w_nk, self.alpha, self.beta, relu=relu)
+        if out_requant is not None:
+            return quantize_input_stored(y, *out_requant)
+        return y

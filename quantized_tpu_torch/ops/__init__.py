@@ -1,0 +1,26 @@
+"""Integer ops of the port: the hand-written CUDA kernels (K1, K2), their
+plain PyTorch versions, and the tensor plumbing around them."""
+
+from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches
+from quantized_tpu_torch.ops.int8_conv import (
+    im2col_int8,
+    int8_conv_gemm,
+    int8_conv_gemm_ck,
+    int8_conv_xla,
+    pack_conv_weight,
+    pad_stored_zp,
+)
+from quantized_tpu_torch.ops.int8_conv_pallas import (
+    int8_conv_direct,
+    int8_conv_direct_ck,
+    int8_conv_direct_plain,
+)
+from quantized_tpu_torch.ops.int8_matmul import (
+    int8_matmul,
+    int8_matmul_nk,
+    int8_matmul_plain,
+    int8_matmul_requant,
+    int8_matmul_requant_nk,
+    int8_matmul_requant_plain,
+    matmul_epilogue_params,
+)
