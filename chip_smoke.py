@@ -18,10 +18,12 @@ and a non-zero exit:
    behind a sleep kernel), its time between CUDA events with the host's
    launch time in it (``event_ms``), its plain version's
    device time, the device time of one PyTorch call computing the same
-   integer product (``torch._int_mm``, a yardstick only; the port never
-   calls it) and the least time the card could take (the bytes the function
-   must move over 3.35 TB/s or its int8 operations over 1979 TOP/s,
-   whichever is larger);
+   integer product where there is one (``torch._int_mm`` for K1 and for
+   K2's 1x1 stride-1 case, a yardstick only; the port never calls it) and
+   the least time the card could take (the bytes the function must move
+   over 3.35 TB/s or its int8 operations over 1979 TOP/s, whichever is
+   larger). The fused bottleneck kernels (B3) run at five of ResNet-50's
+   block shapes; no PyTorch call computes a fused block;
 4. serve, the main path: a ResNet-50 (ImageNet geometry, 224x224, layers
    [3, 4, 6, 3], 1000 classes) from a seeded generator, calibrated with the
    port's ``_calibrated_model``, built by ``build_int8_resident(...,
@@ -36,15 +38,26 @@ and a non-zero exit:
    requant epilogue on 33 convs per forward), counted the same way and held
    against the main path (int8 blocks within 1 step, logits within
    LOGIT_ATOL);
-6. throughput: batch-128 uint8 forwards timed with CUDA events, and a
-   profile of where the device time goes;
-7. the kernels line: one JSON object with each kernel's numbers; ``launches``
+6. fused path: the main path's engine turned into its fused form by
+   ``fuse_resident_blocks`` (15 blocks) and served the same 3 requests;
+   each forward must launch the fused identity kernel 11 times, the fused
+   downsample kernel 4 times, the direct conv 3 times (the last block) plus
+   once in gather-K form (the stem) and the GEMM once. It is held against
+   the fused engine built on the CPU (int8 stages equal, logits within
+   F32_ATOL of their magnitude) and, block by block on shared inputs,
+   against the unfused GPU engine (int8 within 1 step, logits within
+   LOGIT_ATOL: the fused downsample blocks carry the int16 shortcut leg);
+7. throughput: batch-128 uint8 forwards of the unfused and the fused engine
+   timed with CUDA events in turns (unfused, fused, fused, unfused), and a
+   profile of where the device time goes in each;
+8. the kernels line: one JSON object with each kernel's numbers; ``launches``
    is the count from the path that runs the kernel (``path``);
-8. last line: ``{"ok": true, "device": {...}}``.
+9. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import subprocess
 import sys
@@ -62,7 +75,7 @@ THROUGHPUT_BATCH = 128
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
 F32_ATOL = 1e-3  # f32 outputs against their plain versions, and GPU logits against CPU ones
-LOGIT_ATOL = 0.25  # gemm backend against pallas: the two round their requant in another order
+LOGIT_ATOL = 0.25  # gemm or fused against pallas: they round their requant in another order
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 KERNEL_INFO = {
@@ -71,7 +84,11 @@ KERNEL_INFO = {
     "int8_conv_direct": ("quantized_tpu_torch/csrc/int8_conv.cu", "quantized_tpu/ops/int8_conv_pallas.py:57"),
     "int8_conv_direct_gatherk": ("quantized_tpu_torch/csrc/int8_conv.cu",
                                  "quantized_tpu/ops/int8_conv_pallas.py:106"),
+    "fused_bottleneck_s1": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:54"),
+    "fused_bottleneck_ds": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:368"),
 }
+KERNEL_PATH = {"int8_matmul_requant": "gemm", "fused_bottleneck_s1": "fused", "fused_bottleneck_ds": "fused"}
+OUR_KERNELS = ("int8_conv_kernel", "int8_matmul_kernel", "fused_bottleneck_kernel")  # device kernel names
 
 
 def log(msg: str) -> None:
@@ -261,7 +278,9 @@ def phase_kernels(timer):
     # K2: the four per-tap shapes of ResNet-50, then the stem in gather-K form
     b = SERVE_BATCH
     conv_cases = [
-        # name, label, (h, cin, cout, k, stride, pad, requant), representative
+        # name, label, (h, cin, cout, k, stride, pad, requant), representative;
+        # torch._int_mm computes the 1x1 stride-1 case's integer product, and no
+        # PyTorch call computes an int8 conv on CUDA for the others
         ("int8_conv_direct", "layer1 1x1 s1 64->256 f32", (56, 64, 256, 1, 1, 0, None), False),
         ("int8_conv_direct", "layer1 3x3 s1 64->64 s8", (56, 64, 64, 3, 1, 1, (0.05, 113)), True),
         ("int8_conv_direct", "layer2 3x3 s2 128->128 s8", (56, 128, 128, 3, 2, 1, (0.05, 113)), False),
@@ -277,11 +296,46 @@ def phase_kernels(timer):
         rows = window_extent(h, ho, kk, s, p)
         in_bytes = b * rows * rows * cin
         out_bytes = b * ho * ho * cout * (1 if req else 4)
+        lib = (lambda x=x, wc=wc: torch._int_mm(x.reshape(-1, x.shape[-1]), wc.T)) if (kk, s) == (1, 1) else None
         record(name, f"{label} batch {b}",
                lambda x=x, wc=wc, args=args: ops.int8_conv_direct_ck(x, wc, *args),
                lambda x=x, wc=wc, args=args: ops.int8_conv_direct_plain(x, wc, *args),
-               None, in_bytes + wc.numel() + 8 * cout + out_bytes,
+               lib, in_bytes + wc.numel() + 8 * cout + out_bytes,
                2 * b * ho * ho * kk * kk * cin * cout, rep, plain_iters=3)
+
+    # B3: the fused bottlenecks at ResNet-50's block shapes, with the int16
+    # shortcut leg (ds_fine = 32) as the engine passes it
+    fused_cases = [
+        # name, label, (h, c, cm, cout, stride), representative
+        ("fused_bottleneck_s1", "layer1.1 56x56 256->64->256", (56, 256, 64, 256, 1), True),
+        ("fused_bottleneck_s1", "layer4.1 7x7 2048->512->2048", (7, 2048, 512, 2048, 1), False),
+        ("fused_bottleneck_ds", "layer1.0 s1 56x56 64->64->256", (56, 64, 64, 256, 1), False),
+        ("fused_bottleneck_ds", "layer2.0 s2 56x56 256->128->512", (56, 256, 128, 512, 2), True),
+        ("fused_bottleneck_ds", "layer4.0 s2 14x14 1024->512->2048", (14, 1024, 512, 2048, 2), False),
+    ]
+    for name, label, (h, c, cm, cout, s), rep in fused_cases:
+        ds = name == "fused_bottleneck_ds"
+        x = _rand_int8(gen, (b, h, h, c))
+        ws = [_rand_int8(gen, shape, low=-127) for shape in
+              [(cm, c), (cm, 9 * cm), (cout, cm)] + ([(cout, c)] if ds else [])]
+        vecs = []
+        for k, n in [(c, cm), (9 * cm, cm), (cm, cout)] + ([(c, cout)] if ds else []):
+            vecs += [((torch.rand(n, generator=gen) + 0.5) * (6e-3 / k ** 0.5)).to(dev),
+                     ((torch.rand(n, generator=gen) - 0.5) * 16).to(dev)]
+        if ds:
+            args = (*ws, *vecs, s, -21.0, -9.0, -3.0, -21, 32.0)
+            kernel, plain = ops.fused_bottleneck_ds_ck, ops.fused_bottleneck_ds_plain
+        else:
+            args = (*ws, *vecs, -21.0, -9.0, -3.0, -21, 0.8137192, 2.71828)
+            kernel, plain = ops.fused_bottleneck_s1_ck, ops.fused_bottleneck_s1_plain
+        ho = h // s
+        nbytes = x.numel() + b * ho * ho * cout + sum(w.numel() for w in ws) + 4 * sum(v.numel() for v in vecs)
+        nops = 2 * b * (h * h * c * cm + 9 * ho * ho * cm * cm + ho * ho * cm * cout
+                        + (ho * ho * c * cout if ds else 0))
+        record(name, f"{label} batch {b}",
+               lambda x=x, args=args, kernel=kernel: kernel(x, *args),
+               lambda x=x, args=args, plain=plain: plain(x, *args),
+               None, nbytes, nops, rep, plain_iters=3)
     return results
 
 
@@ -416,7 +470,7 @@ def phase_serve():
     outs_gpu = _stage_outputs(engine, sample.cuda())
     outs_cpu = _stage_outputs(cpu_engine, sample)
     _compare_stages(outs_gpu, outs_cpu, "gpu vs cpu")
-    return engine, executor, counts, sample
+    return engine, executor, counts, sample, requests, cpu_engine
 
 
 def phase_gemm(pallas_engine, sample):
@@ -439,54 +493,112 @@ def phase_gemm(pallas_engine, sample):
     return counts
 
 
-def phase_throughput(executor, card):
-    gen = torch.Generator().manual_seed(11)
-    host = torch.randint(0, 256, (THROUGHPUT_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8)
-    dev = host.cuda()
-    executor.warmup(dev)
-    iters = 10
+def phase_fused(unfused_engine, cpu_engine, requests, sample):
+    """The fused path: 15 blocks on the fused kernels, served the main
+    path's requests, held against the fused CPU engine and the unfused GPU
+    engine."""
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.engine import IntExecutor, fuse_resident_blocks
+
+    engine = copy.deepcopy(unfused_engine)
+    n_fused = fuse_resident_blocks(engine)
+    if n_fused != 15:
+        raise AssertionError(f"fuse_resident_blocks fused {n_fused} blocks, expected 15")
+    executor = IntExecutor(engine, ingest="u8", device="cuda")
+    executor.warmup(requests[0][:2])
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    answers = []
+    for i, req in enumerate(requests):
+        t = time.perf_counter()
+        logits = executor(req)
+        torch.cuda.synchronize()
+        answers.append(logits)
+        log(f"[fused] request {i}: {tuple(logits.shape)} in {(time.perf_counter() - t) * 1e3:.1f} ms")
+    counts = ops.launch_counts()
+    n = len(requests)
+    _check_launches(counts, {"fused_bottleneck_s1": 11 * n, "fused_bottleneck_ds": 4 * n,
+                             "int8_conv_direct": 3 * n, "int8_conv_direct_gatherk": 1 * n,
+                             "int8_matmul": 1 * n, "int8_matmul_requant": 0}, "fused")
+    for logits in answers:
+        if tuple(logits.shape) != (SERVE_BATCH, 1000) or not torch.isfinite(logits).all():
+            raise AssertionError(f"fused path: bad logits, shape {tuple(logits.shape)}")
+    log(f"[fused] {n} requests of {SERVE_BATCH} images answered: shape ({SERVE_BATCH}, 1000), finite; "
+        f"per forward {counts['fused_bottleneck_s1'] // n} fused s1, {counts['fused_bottleneck_ds'] // n} "
+        f"fused ds, {counts['int8_conv_direct'] // n} + {counts['int8_conv_direct_gatherk'] // n} K2, "
+        f"{counts['int8_matmul'] // n} K1")
+
+    cpu_fused = copy.deepcopy(cpu_engine)
+    fuse_resident_blocks(cpu_fused)
+    _compare_stages(_stage_outputs(engine, sample.cuda()), _stage_outputs(cpu_fused, sample),
+                    "fused gpu vs fused cpu")
+    _compare_blocks(unfused_engine, engine, sample.cuda(), "fused vs unfused")
+    return engine, executor, counts
+
+
+def _time_forward(executor, dev_batch, iters=10):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(iters):
-        executor(dev)
+        executor(dev_batch)
     end.record()
     torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / iters
-    t = time.perf_counter()
-    for _ in range(iters):
-        executor(host)
-    torch.cuda.synchronize()
-    host_ms = (time.perf_counter() - t) / iters * 1e3
-    torch.cuda.reset_peak_memory_stats()
-    executor(dev)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() / 2**20
-    log(f"[throughput] batch {THROUGHPUT_BATCH} uint8 224x224, input on the device: {ms:.3f} ms/batch, "
-        f"{THROUGHPUT_BATCH / ms * 1e3:.1f} img/s; from host memory (pageable, host clock): "
-        f"{host_ms:.3f} ms/batch, {THROUGHPUT_BATCH / host_ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB; "
-        f"card {card}")
+    return start.elapsed_time(end) / iters
 
-    n_prof = 3
+
+def _profile(executor, dev_batch, ms, what, n_prof=3):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
-            executor(dev)
+            executor(dev_batch)
         torch.cuda.synchronize()
     rows = sorted(((evt.self_device_time_total / n_prof, evt.count // n_prof, evt.key)
                    for evt in prof.key_averages()
                    if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0),
                   reverse=True)
     if not rows:
-        log("[profile] torch.profiler recorded no device kernels here: breakdown not measured")
-        return ms
+        log(f"[profile] {what}: torch.profiler recorded no device kernels here: breakdown not measured")
+        return
     total = sum(r[0] for r in rows) / 1e3
-    ours = sum(r[0] for r in rows if "int8_conv_kernel" in r[2] or "int8_matmul_kernel" in r[2]) / 1e3
-    log(f"[profile] per batch-{THROUGHPUT_BATCH} forward: kernels {total:.3f} ms of {ms:.3f} ms "
-        f"(idle share {max(0.0, 1 - total / ms):.3f}); K1+K2 {ours:.3f} ms, "
-        f"other kernels {total - ours:.3f} ms in {sum(r[1] for r in rows)} launches")
+    ours = [r for r in rows if any(k in r[2] for k in OUR_KERNELS)]
+    ours_ms = sum(r[0] for r in ours) / 1e3
+    log(f"[profile] {what}, per batch-{THROUGHPUT_BATCH} forward: kernels {total:.3f} ms of {ms:.3f} ms "
+        f"(idle share {max(0.0, 1 - total / ms):.3f}); hand-written kernels {ours_ms:.3f} ms in "
+        f"{sum(r[1] for r in ours)} launches, other kernels (glue) {total - ours_ms:.3f} ms in "
+        f"{sum(r[1] for r in rows) - sum(r[1] for r in ours)} launches")
     for us, count, key in rows[:12]:
-        log(f"[profile] {us / 1e3:9.3f} ms {count:4d}x {key[:100]}")
-    return ms
+        log(f"[profile] {what} {us / 1e3:9.3f} ms {count:4d}x {key[:100]}")
+
+
+def phase_throughput(executors, card):
+    """Batch-128 forwards of each engine, timed in turns (a b b a ...)."""
+    gen = torch.Generator().manual_seed(11)
+    host = torch.randint(0, 256, (THROUGHPUT_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8)
+    dev = host.cuda()
+    for ex in executors.values():
+        ex.warmup(dev)
+    order = list(executors) + list(reversed(executors))
+    times = {name: [] for name in executors}
+    for name in order:
+        times[name].append(_time_forward(executors[name], dev))
+    for name, ex in executors.items():
+        ms = sum(times[name]) / len(times[name])
+        iters = 10
+        t = time.perf_counter()
+        for _ in range(iters):
+            ex(host)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t) / iters * 1e3
+        torch.cuda.reset_peak_memory_stats()
+        ex(dev)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        log(f"[throughput] {name}: batch {THROUGHPUT_BATCH} uint8 224x224, input on the device: "
+            f"{ms:.3f} ms/batch ({', '.join(f'{v:.3f}' for v in times[name])}), "
+            f"{THROUGHPUT_BATCH / ms * 1e3:.1f} img/s; from host memory (pageable, host clock): "
+            f"{host_ms:.3f} ms/batch, {THROUGHPUT_BATCH / host_ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB; "
+            f"card {card}")
+        _profile(ex, dev, ms, name)
 
 
 def main() -> int:
@@ -499,14 +611,16 @@ def main() -> int:
     phase_build()
     timer = Timer("cuda")
     kernel_numbers = phase_kernels(timer)
-    pallas_engine, executor, serve_counts, sample = phase_serve()
+    pallas_engine, executor, serve_counts, sample, requests, cpu_engine = phase_serve()
     gemm_counts = phase_gemm(pallas_engine, sample)
-    phase_throughput(executor, card)
+    _, fused_executor, fused_counts = phase_fused(pallas_engine, cpu_engine, requests, sample)
+    phase_throughput({"unfused": executor, "fused": fused_executor}, card)
 
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         numbers = kernel_numbers[kname]
-        path, counts = ("gemm", gemm_counts) if kname == "int8_matmul_requant" else ("main", serve_counts)
+        path = KERNEL_PATH.get(kname, "main")
+        counts = {"main": serve_counts, "gemm": gemm_counts, "fused": fused_counts}[path]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[kname], "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],

@@ -1,4 +1,5 @@
-// Shared block-tile machinery of the int8 kernels (int8_gemm.cu, int8_conv.cu).
+// Shared block-tile machinery of the int8 kernels (int8_gemm.cu, int8_conv.cu,
+// fused_block.cu).
 //
 // A block computes a 64x64 tile of C = A (M,K) x W (N,K)^T with int32
 // accumulation. Both operands are K-major int8, which is exactly the operand
@@ -85,9 +86,11 @@ __device__ __forceinline__ void stage_rows(int8_t* S, const int8_t* X, int R, in
   }
 }
 
-// Visit every accumulator element of this thread with its tile-local (row, col).
+// Visit every accumulator element of this thread with its tile-local
+// (row, col), together with the element at the same place in a second
+// accumulator of the same tile.
 template <typename F>
-__device__ __forceinline__ void for_each_acc(const Acc& acc, F&& f) {
+__device__ __forceinline__ void for_each_acc_pair(const Acc& a, const Acc& b, F&& f) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
@@ -97,7 +100,14 @@ __device__ __forceinline__ void for_each_acc(const Acc& acc, F&& f) {
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        f(wm + mi * 16 + g + (r >> 1) * 8, wn + ni * 8 + t * 2 + (r & 1), acc.v[mi][ni][r]);
+        f(wm + mi * 16 + g + (r >> 1) * 8, wn + ni * 8 + t * 2 + (r & 1), a.v[mi][ni][r],
+          b.v[mi][ni][r]);
+}
+
+// Visit every accumulator element of this thread with its tile-local (row, col).
+template <typename F>
+__device__ __forceinline__ void for_each_acc(const Acc& acc, F&& f) {
+  for_each_acc_pair(acc, acc, [&](int row, int col, int v, int) { f(row, col, v); });
 }
 
 }  // namespace qt

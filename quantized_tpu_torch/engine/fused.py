@@ -1,0 +1,153 @@
+"""Fused-block execution for the int8-resident engine (counterpart of the
+bottleneck part of ``quantized_tpu/engine/fused.py``).
+
+``fuse_resident_blocks`` replaces every eligible bottleneck of a built
+:class:`~quantized_tpu_torch.engine.int8_resident.Int8ResNet` with a twin that
+runs the whole block in one kernel (``ops/fused_block.py``): identity blocks
+on ``fused_bottleneck_s1``, downsample blocks on ``fused_bottleneck_ds``. The
+last block emits f32 for the pool and stays unfused. The epilogue constants
+are derived here exactly as the JAX package derives them (``alpha / f32(s)``,
+a division, where the unfused ``run_q`` multiplies by ``f32(1/s)``), so the
+port's fused blocks equal the JAX package's fused blocks; against the
+unfused blocks they agree within 1 int step. The fused downsample blocks
+carry the int16 shortcut leg (``S16_FINE``), which the unfused "pallas"
+blocks do not.
+
+The BasicBlock twins, the MobileNet stages and the autotuner's
+fused-vs-unfused race are not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from quantized_tpu_torch.engine.int8_resident import Int8Bottleneck, Int8ResNet
+from quantized_tpu_torch.engine.int_layers import S16_FINE, IntConv2d
+from quantized_tpu_torch.ops.fused_block import fused_bottleneck_ds_ck, fused_bottleneck_s1_ck
+
+
+def _is_1x1_s1(conv: IntConv2d) -> bool:
+    return _is_1x1_s(conv, 1)
+
+
+def _is_3x3_s1(conv: IntConv2d) -> bool:
+    return _is_3x3_s(conv, 1)
+
+
+def _is_3x3_s(conv: IntConv2d, s: int) -> bool:
+    return (conv.groups == 1 and conv.stride == (s, s) and conv.padding == (1, 1)
+            and conv.kernel_size == (3, 3))
+
+
+def _is_1x1_s(conv: IntConv2d, s: int) -> bool:
+    return (conv.groups == 1 and conv.stride == (s, s) and conv.padding == (0, 0)
+            and conv.kernel_size == (1, 1))
+
+
+def _folded(v: torch.Tensor, scale: float, shift: float = 0.0) -> torch.Tensor:
+    """``v / f32(scale) + f32(shift)`` in float32, one rounding per operation,
+    computed on the host (a GPU divides by a scalar through its reciprocal)."""
+    out = v.detach().cpu().numpy() / np.float32(scale)
+    if shift:
+        out = out + np.float32(shift)
+    return torch.from_numpy(out).to(v.device)
+
+
+class _FusedBottleneckBase(nn.Module):
+    """Buffers and scalars that both fused bottlenecks share. The weights are
+    the convs' own K-major tensors: conv1 (Cm, C), conv2 (Cm, 9*Cm), conv3
+    (Cout, Cm)."""
+
+    def __init__(self, blk: Int8Bottleneck):
+        super().__init__()
+        c1, c2, c3 = blk.conv1, blk.conv2, blk.conv3
+        s2, zp2 = c2.grid
+        s3, zp3 = c3.grid
+        s_out, zp_out = blk.out_grid
+        shift = zp_out - 128
+        self.register_buffer("w1", c1.w_ck)
+        self.register_buffer("w2", c2.w_ck)
+        self.register_buffer("w3", c3.w_ck)
+        # conv1/conv2: requant onto the next conv's grid (ReLU in the clip
+        # floor); conv3: prescaled by the out grid
+        self.register_buffer("a1", _folded(c1.alpha, s2))
+        self.register_buffer("b1", _folded(c1.beta, s2, zp2 - 128))
+        self.register_buffer("a2", _folded(c2.alpha, s3))
+        self.register_buffer("b2", _folded(c2.beta, s3, zp3 - 128))
+        self.register_buffer("a3", _folded(c3.alpha, s_out))
+        self.register_buffer("b3", _folded(c3.beta, s_out, shift))
+        self.lo1 = float(zp2 - 128)
+        self.lo2 = float(zp3 - 128)
+        self.shift = float(shift)
+        self.zp2_stored = int(zp2 - 128)
+        self.in_grid = c1.grid
+        self.out_grid = blk.out_grid
+
+
+class FusedInt8Bottleneck(_FusedBottleneckBase):
+    """Identity bottleneck in one kernel launch (``fused_bottleneck_s1``)."""
+
+    def __init__(self, blk: Int8Bottleneck):
+        super().__init__(blk)
+        s1, zp1 = blk.conv1.grid
+        s_out = blk.out_grid[0]
+        self.id_k = float(s1 / s_out)
+        self.id_c = float((128 - zp1) * (s1 / s_out))
+
+    def forward(self, x_q: torch.Tensor) -> torch.Tensor:
+        return fused_bottleneck_s1_ck(
+            x_q, self.w1, self.w2, self.w3, self.a1, self.b1, self.a2, self.b2, self.a3, self.b3,
+            self.lo1, self.lo2, self.shift, self.zp2_stored, self.id_k, self.id_c)
+
+
+class FusedInt8BottleneckDS(_FusedBottleneckBase):
+    """Downsample bottleneck (1x1 -> 3x3/s -> 1x1, 1x1/s shortcut conv) in one
+    kernel launch (``fused_bottleneck_ds``), with the int16 shortcut leg."""
+
+    def __init__(self, blk: Int8Bottleneck):
+        super().__init__(blk)
+        d = blk.downsample
+        s_out = blk.out_grid[0]
+        self.register_buffer("wd", d.w_ck)  # (Cout, C)
+        self.register_buffer("ad", _folded(d.alpha, s_out))
+        self.register_buffer("bd", _folded(d.beta, s_out))
+        self.stride = int(blk.conv2.stride[0])
+
+    def forward(self, x_q: torch.Tensor) -> torch.Tensor:
+        return fused_bottleneck_ds_ck(
+            x_q, self.w1, self.w2, self.w3, self.wd, self.a1, self.b1, self.a2, self.b2,
+            self.a3, self.b3, self.ad, self.bd, self.stride, self.lo1, self.lo2, self.shift,
+            self.zp2_stored, ds_fine=S16_FINE)  # the int16 shortcut leg
+
+
+def fusable(blk) -> bool:
+    if not isinstance(blk, Int8Bottleneck):
+        return False
+    if blk.out_grid is None or not _is_1x1_s1(blk.conv1) or not _is_1x1_s1(blk.conv3):
+        return False
+    if blk.downsample is None:
+        return _is_3x3_s1(blk.conv2)
+    s = blk.conv2.stride[0]
+    return s in (1, 2) and _is_3x3_s(blk.conv2, s) and _is_1x1_s(blk.downsample, s)
+
+
+def fuse_block(blk: Int8Bottleneck) -> nn.Module:
+    """Fused twin of an eligible block (``fusable(blk)`` must hold)."""
+    if blk.downsample is not None:
+        return FusedInt8BottleneckDS(blk)
+    return FusedInt8Bottleneck(blk)
+
+
+def fuse_resident_blocks(model: Int8ResNet) -> int:
+    """Replace eligible blocks in place; returns how many were fused."""
+    fused = 0
+    for i in range(model.num_stages):
+        stage = getattr(model, f"layer{i + 1}")
+        for j in range(stage.num_blocks):
+            blk = getattr(stage, str(j))
+            if fusable(blk):
+                stage.add_module(str(j), fuse_block(blk))
+                fused += 1
+    return fused

@@ -12,8 +12,11 @@ built on conv1's grid.
 Every conv runs on kernel K2 (backend ``"pallas"``, the default here) or on
 im2col + K1 (``"gemm"``); the fc head runs on K1. The stem is the
 space-to-depth form, a 4x4 stride-1 conv over Cin = 12, which K2 runs in its
-gather-K form. The BasicBlock geometry, the RangeBN flavor and the int16
-residual leg are not ported yet.
+gather-K form. ``engine/fused.fuse_resident_blocks`` turns a built engine
+into its fused form: 15 of ResNet-50's 16 blocks each run as one fused
+bottleneck kernel (kernel B3), with the int16 shortcut leg in the
+downsample ones. The BasicBlock geometry, the RangeBN flavor and the int16
+residual leg of the unfused blocks are not ported yet.
 """
 
 from __future__ import annotations

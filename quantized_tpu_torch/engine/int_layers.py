@@ -12,7 +12,9 @@ JAX package's layouts (HWIO and (K, N)).
 Backends of :class:`IntConv2d`: ``"pallas"`` runs the direct conv (kernel
 K2, ``ops/int8_conv_pallas.py``), ``"gemm"`` runs im2col + the int8 GEMM
 (kernel K1). :class:`IntLinear` runs K1. The XLA and bf16 forms of the JAX
-package, int4, ``y_clip`` and the int16 residual leg are not ported yet.
+package, int4, ``y_clip`` and the int16 residual leg of the unfused blocks
+(``prescale_s16``) are not ported yet; the fused downsample block
+(``engine/fused.py``) carries that leg in its kernel.
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ from quantized_tpu_torch.ops.int8_matmul import f32, int8_matmul_nk
 
 Grid = Tuple[float, int]
 CONV_BACKENDS = ("pallas", "gemm")
+# Fine grain of the int16 shortcut leg: one count is 1/S16_FINE of the
+# consumer's output step. Only the fused downsample block carries the leg so
+# far; the unfused "pallas" downsample leg stays f32, as in the JAX package.
+S16_FINE = 32.0
 
 
 def quantize_input_stored(x: torch.Tensor, scale: float, zero_point: int) -> torch.Tensor:

@@ -1,7 +1,16 @@
-"""Integer ops of the port: the hand-written CUDA kernels (K1, K2), their
-plain PyTorch versions, and the tensor plumbing around them."""
+"""Integer ops of the port: the hand-written CUDA kernels (K1, K2, the fused
+bottlenecks B3), their plain PyTorch versions, and the tensor plumbing
+around them."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches
+from quantized_tpu_torch.ops.fused_block import (
+    fused_bottleneck_ds,
+    fused_bottleneck_ds_ck,
+    fused_bottleneck_ds_plain,
+    fused_bottleneck_s1,
+    fused_bottleneck_s1_ck,
+    fused_bottleneck_s1_plain,
+)
 from quantized_tpu_torch.ops.int8_conv import (
     im2col_int8,
     int8_conv_gemm,

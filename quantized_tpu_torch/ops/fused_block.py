@@ -1,0 +1,216 @@
+"""Fused int8 bottleneck blocks (kernel B3): a whole ResNet bottleneck in one
+launch, its interior activations kept out of device memory.
+
+Counterparts of the JAX package's ``fused_bottleneck_s1`` (identity block)
+and ``fused_bottleneck_ds`` (downsample block, 1x1/s shortcut conv). Per
+output element, in the Pallas kernels' order, one float32 rounding per
+operation:
+
+    h1  = clip(round(acc1 * a1 + b1), lo1, 127)      conv1 1x1, onto conv2's grid
+    h2  = clip(round(acc2 * a2 + b2), lo2, 127)      conv2 3x3/s over h1, halo = zp2_stored
+    y   = acc3 * a3 + b3                             conv3 1x1, prescaled by the out grid
+    idq = x * f32(id_k) + f32(id_c)                  identity (s1), or
+    idq = accd * ad + bd                             shortcut conv (ds), and with ds_fine
+        -> clip(round(idq * ds_fine), +-32767) * f32(1/ds_fine)
+    out = clip(round(y + idq), shift, 127)
+
+h1's border is the stored zero point of conv2's input grid (it dequantizes
+to exactly 0), not conv1 applied to padded x.
+
+One CUDA kernel serves both (``csrc/fused_block.cu``). It takes the weights
+K-major: ``w1`` (Cm, C), ``w2`` (Cm, 9*Cm) in (kh, kw, c) order, ``w3``
+(Cout, Cm), ``wd`` (Cout, C), which is how
+:class:`~quantized_tpu_torch.engine.int_layers.IntConv2d` already stores a
+conv's weights; the ``*_ck`` wrappers take that form, and
+:func:`fused_bottleneck_s1` / :func:`fused_bottleneck_ds` keep the JAX
+signatures ((C, Cm), HWIO, (Cm, Cout), (C, Cout)).
+
+A block of the kernel owns one image and a band of ``R`` output rows
+(:func:`band_rows`); it recomputes conv1 on the halo rows that the
+neighbouring band also needs, so h1 and h2 live in its shared memory.
+
+A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
+tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from quantized_tpu_torch.ops import _cuda
+from quantized_tpu_torch.ops.int8_conv import int8_conv_acc, pack_conv_weight
+from quantized_tpu_torch.ops.int8_matmul import exact_int_matmul, f32
+
+FUSED_S1 = _cuda.CudaKernel("fused_bottleneck_s1", "fused_block.cu", "qt_fused_bottleneck_s1",
+                            ["ptr"] * 11 + ["int"] * 7 + ["float"] * 5)
+FUSED_DS = _cuda.CudaKernel("fused_bottleneck_ds", "fused_block.cu", "qt_fused_bottleneck_ds",
+                            ["ptr"] * 14 + ["int"] * 9 + ["float"] * 5)
+
+# Shared-memory plan of a kernel block (csrc/fused_block.cu keeps the same
+# layout): the A and W staging tiles (64 rows at an 80-byte pitch each), h1
+# for the band plus its halo, (R-1)*S + 3 rows of W + 2 pixels, and h2, R
+# rows of W/S pixels, both at a pitch of Cm + 16 bytes per pixel.
+STAGE_BYTES = 2 * 64 * 80
+SMEM_PER_BLOCK = 232448  # the H100's opt-in limit for one block
+SMEM_TWO_PER_SM = 113 * 1024  # small enough for two blocks to share an SM's 228 KB
+TARGET_ROWS = 256  # GEMM rows (output pixels) a band aims for
+
+
+def fused_smem_bytes(r: int, w: int, cm: int, stride: int) -> int:
+    pitch = cm + 16
+    return STAGE_BYTES + ((r - 1) * stride + 3) * (w + 2) * pitch + r * (w // stride) * pitch
+
+
+def band_rows(ho: int, w: int, cm: int, stride: int) -> int:
+    """Output rows per kernel block: about TARGET_ROWS output pixels, bands
+    of equal height, fewer rows until two blocks fit on an SM."""
+    wo = w // stride
+    nb = -(-ho // max(1, min(ho, TARGET_ROWS // wo)))
+    r = -(-ho // nb)
+    while r > 1 and fused_smem_bytes(r, w, cm, stride) > SMEM_TWO_PER_SM:
+        nb += 1
+        r = -(-ho // nb)
+    if fused_smem_bytes(r, w, cm, stride) > SMEM_PER_BLOCK:
+        raise ValueError(f"a fused block over W={w}, Cm={cm} does not fit in shared memory")
+    return r
+
+
+# ----------------------------------------------------------------- plain versions
+
+
+def _requant(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor, lo: float) -> torch.Tensor:
+    q = torch.round(acc.to(torch.float32) * a + b)
+    return torch.clamp(q, f32(lo), 127.0).to(torch.int8)
+
+
+def _h2(x_q, w1_nk, w2_ck, a1, b1, a2, b2, stride, lo1, lo2, zp2_stored) -> torch.Tensor:
+    """conv1 and conv2 with their requant epilogues: h2, (N*Ho*Wo, Cm) int8."""
+    n, h, w, c = x_q.shape
+    cm = w1_nk.shape[0]
+    h1 = _requant(exact_int_matmul(x_q.reshape(-1, c), w1_nk), a1, b1, lo1).reshape(n, h, w, cm)
+    acc2 = int8_conv_acc(h1, w2_ck, (3, 3), stride, 1, int(zp2_stored))
+    return _requant(acc2, a2, b2, lo2).reshape(-1, cm)
+
+
+def _final(y: torch.Tensor, idq: torch.Tensor, shift: float) -> torch.Tensor:
+    return torch.clamp(torch.round(y + idq), f32(shift), 127.0).to(torch.int8)
+
+
+def fused_bottleneck_s1_plain(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3,
+                              lo1, lo2, shift, zp2_stored, id_k, id_c) -> torch.Tensor:
+    """Plain version of the identity block: exact int32 accumulators, then
+    the epilogues in the Pallas kernel's order."""
+    n, h, w, c = x_q.shape
+    h2 = _h2(x_q, w1_nk, w2_ck, a1, b1, a2, b2, 1, lo1, lo2, zp2_stored)
+    y = exact_int_matmul(h2, w3_nk).to(torch.float32) * a3 + b3
+    idq = x_q.reshape(-1, c).to(torch.float32) * f32(id_k) + f32(id_c)
+    return _final(y, idq, shift).reshape(n, h, w, c)
+
+
+def fused_bottleneck_ds_plain(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3, ad, bd,
+                              stride, lo1, lo2, shift, zp2_stored, ds_fine=0.0) -> torch.Tensor:
+    """Plain version of the downsample block; the shortcut reads x[::s, ::s]."""
+    n, h, w, c = x_q.shape
+    s = int(stride)
+    cout = w3_nk.shape[0]
+    h2 = _h2(x_q, w1_nk, w2_ck, a1, b1, a2, b2, s, lo1, lo2, zp2_stored)
+    y = exact_int_matmul(h2, w3_nk).to(torch.float32) * a3 + b3
+    xs = x_q[:, ::s, ::s, :].reshape(-1, c)
+    idq = exact_int_matmul(xs, wd_nk).to(torch.float32) * ad + bd
+    if ds_fine:
+        idq = torch.clamp(torch.round(idq * f32(ds_fine)), -32767.0, 32767.0) * f32(1.0 / ds_fine)
+    return _final(y, idq, shift).reshape(n, h // s, w // s, cout)
+
+
+# ----------------------------------------------------------------- wrappers
+
+
+def _check(x_q, mats, vecs):
+    """mats: (tensor, expected shape, name); vecs: (tensor, length, name)."""
+    if x_q.ndim != 4:
+        raise ValueError(f"x_q must be NHWC, got shape {tuple(x_q.shape)}")
+    _cuda.check_dtype(x_q, torch.int8, "x_q")
+    for t, shape, name in mats:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        _cuda.check_dtype(t, torch.int8, name)
+    for t, n, name in vecs:
+        if tuple(t.shape) != (n,):
+            raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
+        _cuda.check_dtype(t, torch.float32, name)
+
+
+def _check_widths(c: int, cm: int):
+    if c % 16 or cm % 16:
+        raise ValueError(f"the fused kernel gathers 16-byte chunks and needs C and Cm multiples of 16, "
+                         f"got C={c}, Cm={cm}")
+
+
+def fused_bottleneck_s1_ck(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3,
+                           lo1, lo2, shift, zp2_stored, id_k, id_c) -> torch.Tensor:
+    """Identity block on K-major weights: w1 (Cm, C), w2 (Cm, 9*Cm), w3 (C, Cm)."""
+    n, h, w, c = x_q.shape
+    cm = w1_nk.shape[0]
+    _check(x_q, [(w1_nk, (cm, c), "w1"), (w2_ck, (cm, 9 * cm), "w2"), (w3_nk, (c, cm), "w3")],
+           [(a1, cm, "a1"), (b1, cm, "b1"), (a2, cm, "a2"), (b2, cm, "b2"), (a3, c, "a3"), (b3, c, "b3")])
+    args = (lo1, lo2, shift, zp2_stored, id_k, id_c)
+    if x_q.device.type == "cpu":
+        return fused_bottleneck_s1_plain(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3, *args)
+    dev = _cuda.require_cuda_tensors(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3)
+    _check_widths(c, cm)
+    r = band_rows(h, w, cm, 1)
+    out = torch.empty_like(x_q)
+    FUSED_S1(dev, x_q.data_ptr(), w1_nk.data_ptr(), w2_ck.data_ptr(), w3_nk.data_ptr(),
+             a1.data_ptr(), b1.data_ptr(), a2.data_ptr(), b2.data_ptr(), a3.data_ptr(), b3.data_ptr(),
+             out.data_ptr(), n, h, w, c, cm, r, int(zp2_stored),
+             f32(lo1), f32(lo2), f32(shift), f32(id_k), f32(id_c))
+    return out
+
+
+def fused_bottleneck_ds_ck(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3, ad, bd,
+                           stride, lo1, lo2, shift, zp2_stored, ds_fine=0.0) -> torch.Tensor:
+    """Downsample block on K-major weights: w1 (Cm, C), w2 (Cm, 9*Cm),
+    w3 (Cout, Cm), wd (Cout, C). Returns (N, H/s, W/s, Cout)."""
+    n, h, w, c = x_q.shape
+    cm, cout, s = w1_nk.shape[0], w3_nk.shape[0], int(stride)
+    _check(x_q, [(w1_nk, (cm, c), "w1"), (w2_ck, (cm, 9 * cm), "w2"), (w3_nk, (cout, cm), "w3"),
+                 (wd_nk, (cout, c), "wd")],
+           [(a1, cm, "a1"), (b1, cm, "b1"), (a2, cm, "a2"), (b2, cm, "b2"), (a3, cout, "a3"),
+            (b3, cout, "b3"), (ad, cout, "ad"), (bd, cout, "bd")])
+    if s not in (1, 2) or h % s or w % s:
+        raise ValueError(f"stride {s} over {h}x{w}: the fused block takes stride 1 or 2 over an "
+                         f"image it divides")
+    args = (s, lo1, lo2, shift, zp2_stored, ds_fine)
+    if x_q.device.type == "cpu":
+        return fused_bottleneck_ds_plain(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3,
+                                         ad, bd, *args)
+    dev = _cuda.require_cuda_tensors(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3, ad, bd)
+    _check_widths(c, cm)
+    r = band_rows(h // s, w, cm, s)
+    out = torch.empty((n, h // s, w // s, cout), dtype=torch.int8, device=dev)
+    inv_fine = f32(1.0 / ds_fine) if ds_fine else 0.0
+    FUSED_DS(dev, x_q.data_ptr(), w1_nk.data_ptr(), w2_ck.data_ptr(), w3_nk.data_ptr(),
+             wd_nk.data_ptr(), a1.data_ptr(), b1.data_ptr(), a2.data_ptr(), b2.data_ptr(),
+             a3.data_ptr(), b3.data_ptr(), ad.data_ptr(), bd.data_ptr(), out.data_ptr(),
+             n, h, w, c, cm, cout, s, r, int(zp2_stored),
+             f32(lo1), f32(lo2), f32(shift), f32(ds_fine), inv_fine)
+    return out
+
+
+def _nk(w_kn: torch.Tensor) -> torch.Tensor:
+    return w_kn.T.contiguous()
+
+
+def fused_bottleneck_s1(x_q, w1, w2, w3, a1, b1, a2, b2, a3, b3,
+                        lo1, lo2, shift, zp2_stored, id_k, id_c) -> torch.Tensor:
+    """JAX-layout entry: w1 (C, Cm), w2 (3, 3, Cm, Cm) HWIO, w3 (Cm, C)."""
+    return fused_bottleneck_s1_ck(x_q, _nk(w1), pack_conv_weight(w2), _nk(w3), a1, b1, a2, b2, a3, b3,
+                                  lo1, lo2, shift, zp2_stored, id_k, id_c)
+
+
+def fused_bottleneck_ds(x_q, w1, w2, w3, wd, a1, b1, a2, b2, a3, b3, ad, bd,
+                        stride, lo1, lo2, shift, zp2_stored, ds_fine=0.0) -> torch.Tensor:
+    """JAX-layout entry: w1 (C, Cm), w2 HWIO, w3 (Cm, Cout), wd (C, Cout)."""
+    return fused_bottleneck_ds_ck(x_q, _nk(w1), pack_conv_weight(w2), _nk(w3), _nk(wd),
+                                  a1, b1, a2, b2, a3, b3, ad, bd, stride, lo1, lo2, shift,
+                                  zp2_stored, ds_fine)

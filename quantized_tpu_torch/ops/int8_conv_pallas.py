@@ -13,8 +13,9 @@ of 4). A Cin that the chosen form cannot take raises on the GPU. The kernels tak
 build time; :func:`int8_conv_direct` keeps the JAX signature (HWIO).
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
-tensors it launches the kernel or raises. The fused-residual variant is not
-ported yet.
+tensors it launches the kernel or raises. The fused-residual variant
+(``_conv_residual_kernel``) and ``int8_conv_flat`` are not ported yet; the
+whole-block kernels are in ``ops/fused_block.py``.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ has only PyTorch:
 
 int8 outputs must be equal (both sides accumulate exactly and round the
 epilogue in the same order, without contracting it into an FMA); f32
-outputs agree within F32_ATOL.
+outputs agree within F32_ATOL. That holds for the fused bottleneck kernels
+too, whose outputs are int8.
 """
 
 import numpy as np
@@ -72,6 +73,77 @@ def test_gemm_kernel_matches_plain(cuda_device, gen, m, k, n):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, ops.int8_matmul_plain(a, w, alpha, beta, True), atol=F32_ATOL, rtol=0)
     assert torch.equal(q, ops.int8_matmul_requant_plain(a, w, alpha, beta, 0.05, 113, True))
+
+
+def _fused_case(gen, device, n, h, c, cm, cout, ds):
+    """x, K-major weights and epilogue vectors, scaled so the requants land
+    inside the int8 range rather than on a clip."""
+    def mat(rows, k):
+        return _dev(gen.integers(-127, 128, (rows, k)).astype(np.int8), device)
+
+    def vec(k, length, spread):
+        a = (gen.uniform(0.5, 1.5, length) * spread / np.sqrt(k)).astype(np.float32)
+        return _dev(a, device), _dev(gen.uniform(-8, 8, length).astype(np.float32), device)
+
+    x = _dev(gen.integers(-128, 128, (n, h, h, c)).astype(np.int8), device)
+    w = [mat(cm, c), mat(cm, 9 * cm), mat(cout, cm)] + ([mat(cout, c)] if ds else [])
+    v = [*vec(c, cm, 4e-3), *vec(9 * cm, cm, 6e-3), *vec(cm, cout, 6e-3)]
+    if ds:
+        v += [*vec(c, cout, 6e-3)]
+    return x, w, v
+
+
+FUSED_SCALARS = dict(lo1=-21.0, lo2=-9.0, shift=-3.0, zp2_stored=-21)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c,cm", [
+    # ResNet-50's identity blocks (layer1, layer3, layer4), and widths that
+    # are not multiples of the 64-wide tile over an image the bands split unevenly
+    (2, 56, 256, 64), (2, 14, 1024, 256), (2, 7, 2048, 512), (3, 9, 80, 48), (2, 11, 32, 16),
+])
+def test_fused_s1_kernel_matches_plain(cuda_device, gen, n, h, c, cm):
+    x, w, v = _fused_case(gen, cuda_device, n, h, c, cm, c, ds=False)
+    args = (*w, *v)
+    kw = dict(FUSED_SCALARS, id_k=0.8137192, id_c=2.71828)
+    before = ops.KERNELS["fused_bottleneck_s1"].launches
+    got = ops.fused_bottleneck_s1_ck(x, *args, **kw)
+    assert ops.KERNELS["fused_bottleneck_s1"].launches == before + 1
+    want = ops.fused_bottleneck_s1_plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c,cm,cout,stride,fine", [
+    # ResNet-50's downsample blocks: layer1.0 (stride 1), layer2.0, layer4.0
+    (2, 56, 64, 64, 256, 1, 32.0), (2, 56, 256, 128, 512, 2, 32.0), (2, 14, 1024, 512, 2048, 2, 32.0),
+    (2, 56, 256, 128, 512, 2, 0.0),
+    # ragged widths and bands
+    (3, 10, 48, 32, 80, 2, 32.0), (2, 9, 32, 16, 40, 1, 0.0),
+])
+def test_fused_ds_kernel_matches_plain(cuda_device, gen, n, h, c, cm, cout, stride, fine):
+    x, w, v = _fused_case(gen, cuda_device, n, h, c, cm, cout, ds=True)
+    args = (*w, *v, stride)
+    kw = dict(FUSED_SCALARS, ds_fine=fine)
+    before = ops.KERNELS["fused_bottleneck_ds"].launches
+    got = ops.fused_bottleneck_ds_ck(x, *args, **kw)
+    assert ops.KERNELS["fused_bottleneck_ds"].launches == before + 1
+    want = ops.fused_bottleneck_ds_plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_raise_on_shapes_the_kernel_refuses(cuda_device, gen):
+    x, w, v = _fused_case(gen, cuda_device, 1, 8, 24, 16, 32, ds=True)  # C = 24: not a multiple of 16
+    with pytest.raises(ValueError):
+        ops.fused_bottleneck_ds_ck(x, *w, *v, 1, **FUSED_SCALARS)
+    x, w, v = _fused_case(gen, cuda_device, 1, 8, 32, 16, 32, ds=True)
+    with pytest.raises(ValueError):  # stride 2 over an odd image
+        ops.fused_bottleneck_ds_ck(x[:, :7, :7].contiguous(), *w, *v, 2, **FUSED_SCALARS)
+    with pytest.raises(ValueError):  # a CPU vector mixed into a CUDA call
+        ops.fused_bottleneck_ds_ck(x, *w, v[0].cpu(), *v[1:], 1, **FUSED_SCALARS)
 
 
 @pytest.mark.cuda
