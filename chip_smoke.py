@@ -12,47 +12,54 @@ and a non-zero exit:
 1. device: the GPU's name, and its name and power limit from nvidia-smi;
 2. build: one nvcc per CUDA source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the same GPU
-   tensors, at the shapes the serving path gives it (batch 32, 224x224):
-   int8 outputs must be equal, f32 outputs within F32_ATOL; then each one's
+   tensors, at the shapes the serving paths give it (batch 32): int8
+   outputs must be equal, f32 outputs within F32_ATOL; then each one's
    device time (CUDA events, the L2 flushed and the host's launch hidden
    behind a sleep kernel), its time between CUDA events with the host's
-   launch time in it (``event_ms``), its plain version's
-   device time, the device time of one PyTorch call computing the same
-   integer product where there is one (``torch._int_mm`` for K1 and for
-   K2's 1x1 stride-1 case, a yardstick only; the port never calls it) and
-   the least time the card could take (the bytes the function must move
-   over 3.35 TB/s or its int8 operations over 1979 TOP/s, whichever is
-   larger). The fused bottleneck kernels (B3) run at five of ResNet-50's
-   block shapes; no PyTorch call computes a fused block;
-4. serve, the main path: a ResNet-50 (ImageNet geometry, 224x224, layers
-   [3, 4, 6, 3], 1000 classes) from a seeded generator, calibrated with the
-   port's ``_calibrated_model``, built by ``build_int8_resident(...,
-   backend="pallas")`` and served through ``IntExecutor(..., ingest="u8")``:
-   3 requests of 32 uint8 images. The launch counts are set to 0 just before
-   and read just after: each forward must launch the direct conv 53 times
-   (1 stem in its gather-K form, 48 block convs, 4 downsamples) and the GEMM
-   once (the fc). One batch of 2 images is then held against the same engine
-   built on the CPU (plain versions): int8 stages equal, logits within
-   F32_ATOL of their magnitude;
-5. gemm path: the same model with ``backend="gemm"`` (im2col + the GEMM,
-   requant epilogue on 33 convs per forward), counted the same way and held
-   against the main path (int8 blocks within 1 step, logits within
-   LOGIT_ATOL);
-6. fused path: the main path's engine turned into its fused form by
-   ``fuse_resident_blocks`` (15 blocks) and served the same 3 requests;
-   each forward must launch the fused identity kernel 11 times, the fused
-   downsample kernel 4 times, the direct conv 3 times (the last block) plus
-   once in gather-K form (the stem) and the GEMM once. It is held against
-   the fused engine built on the CPU (int8 stages equal, logits within
-   F32_ATOL of their magnitude) and, block by block on shared inputs,
-   against the unfused GPU engine (int8 within 1 step, logits within
-   LOGIT_ATOL: the fused downsample blocks carry the int16 shortcut leg);
-7. throughput: batch-128 uint8 forwards of the unfused and the fused engine
-   timed with CUDA events in turns (unfused, fused, fused, unfused), and a
-   profile of where the device time goes in each;
-8. the kernels line: one JSON object with each kernel's numbers; ``launches``
-   is the count from the path that runs the kernel (``path``);
-9. last line: ``{"ok": true, "device": {...}}``.
+   launch time in it (``event_ms``), its plain version's device time, the
+   device time of one PyTorch call computing the same integer product where
+   there is one (``torch._int_mm`` for K1 and for K2's 1x1 stride-1 case, a
+   yardstick only; the port never calls it) and the least time the card
+   could take (the bytes the function must move over 3.35 TB/s or its int8
+   operations over 1979 TOP/s, whichever is larger). The fused bottleneck
+   kernels (B3) run at five of ResNet-50's block shapes, the fused
+   BasicBlock kernels (B4) at ResNet-18's and CIFAR ResNet-20's; no PyTorch
+   call computes a fused block;
+4. the serving paths, each through the entry points a user calls
+   (``_calibrated_model`` from a seeded generator, ``build_int8_resident(...,
+   backend="pallas")``, ``IntExecutor(..., ingest="u8")``, then
+   ``fuse_resident_blocks``), each answering 3 requests of 32 uint8 images
+   with the launch counts set to 0 just before and read just after; every
+   kernel must launch exactly the stated number of times per forward:
+   - ResNet-50 (ImageNet geometry, 224x224, layers [3, 4, 6, 3], 1000
+     classes): unfused, 52 K2 per-tap (48 block convs, 4 downsamples), 1 K2
+     gather-K (the space-to-depth stem) and 1 K1 (the fc); the "gemm"
+     backend, 33 K1 requant and 21 K1 f32 on 2 images; fused (15 blocks), 11
+     ``fused_bottleneck_s1``, 4 ``fused_bottleneck_ds``, 3 K2 per-tap (the
+     last block), 1 K2 gather-K and 1 K1;
+   - ResNet-18 (ImageNet geometry, 224x224, layers [2, 2, 2, 2], 1000
+     classes): unfused, 19 K2 per-tap (16 block convs, 3 downsamples), 1 K2
+     gather-K and 1 K1; fused (7 blocks), 4 ``fused_basicblock_s1``, 3
+     ``fused_basicblock_ds``, 2 K2 per-tap, 1 K2 gather-K and 1 K1;
+   - CIFAR ResNet-20 (32x32, 16/32/64 channels, 10 classes): unfused, 14 K2
+     gather-K (the stem over Cin = 3 and the 13 block convs over Cin 16 or
+     32) and 7 K2 per-tap (5 block convs over Cin 64, 2 downsamples) and 1
+     K1; fused (8 blocks), 6 ``fused_basicblock_s1``, 2
+     ``fused_basicblock_ds``, 2 K2 per-tap, 1 K2 gather-K and 1 K1.
+   Each engine is held on 2 of the images against the same engine built on
+   the CPU (plain versions): int8 stages equal, logits within F32_ATOL of
+   their magnitude. The gemm and fused engines are also held, block by
+   block on shared inputs, against the unfused GPU engine: int8 within 1
+   step on under 1% of a block, logits within LOGIT_ATOL (the fused
+   downsample blocks carry the int16 shortcut leg);
+5. throughput: batch-128 uint8 224x224 forwards of ResNet-50 and of
+   ResNet-18, unfused and fused, timed with CUDA events in turns (unfused,
+   fused, fused, unfused) per model, and a profile of where the device time
+   goes in each;
+6. the kernels line: one JSON object with each kernel's numbers; ``launches``
+   is the count per forward times 3 from the path that runs the kernel
+   (``path``);
+7. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -68,6 +75,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 SERVE_BATCH = 32
 SERVE_REQUESTS = 3
@@ -78,6 +86,27 @@ F32_ATOL = 1e-3  # f32 outputs against their plain versions, and GPU logits agai
 LOGIT_ATOL = 0.25  # gemm or fused against pallas: they round their requant in another order
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
+# name: (dataset config, image side, classes)
+MODELS = {
+    "resnet50": (dict(dataset="imagenet", depth=50), 224, 1000),
+    "resnet18": (dict(dataset="imagenet", depth=18), 224, 1000),
+    "cifar20": (dict(dataset="cifar10", depth=20), 32, 10),
+}
+# launches per forward of each path (every kernel not named: 0), and the
+# blocks that fuse_resident_blocks fuses
+PLANS = {
+    "resnet50": ({"int8_conv_direct": 52, "int8_conv_direct_gatherk": 1, "int8_matmul": 1},
+                 {"fused_bottleneck_s1": 11, "fused_bottleneck_ds": 4, "int8_conv_direct": 3,
+                  "int8_conv_direct_gatherk": 1, "int8_matmul": 1}, 15),
+    "resnet18": ({"int8_conv_direct": 19, "int8_conv_direct_gatherk": 1, "int8_matmul": 1},
+                 {"fused_basicblock_s1": 4, "fused_basicblock_ds": 3, "int8_conv_direct": 2,
+                  "int8_conv_direct_gatherk": 1, "int8_matmul": 1}, 7),
+    "cifar20": ({"int8_conv_direct": 7, "int8_conv_direct_gatherk": 14, "int8_matmul": 1},
+                {"fused_basicblock_s1": 6, "fused_basicblock_ds": 2, "int8_conv_direct": 2,
+                 "int8_conv_direct_gatherk": 1, "int8_matmul": 1}, 8),
+}
+GEMM_PLAN = {"int8_matmul_requant": 33, "int8_matmul": 21}  # ResNet-50 on the "gemm" backend
+
 KERNEL_INFO = {
     "int8_matmul": ("quantized_tpu_torch/csrc/int8_gemm.cu", "quantized_tpu/ops/int8_matmul.py:56"),
     "int8_matmul_requant": ("quantized_tpu_torch/csrc/int8_gemm.cu", "quantized_tpu/ops/int8_matmul.py:76"),
@@ -86,9 +115,15 @@ KERNEL_INFO = {
                                  "quantized_tpu/ops/int8_conv_pallas.py:106"),
     "fused_bottleneck_s1": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:54"),
     "fused_bottleneck_ds": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:368"),
+    "fused_basicblock_s1": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:198"),
+    "fused_basicblock_ds": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:537"),
 }
-KERNEL_PATH = {"int8_matmul_requant": "gemm", "fused_bottleneck_s1": "fused", "fused_bottleneck_ds": "fused"}
-OUR_KERNELS = ("int8_conv_kernel", "int8_matmul_kernel", "fused_bottleneck_kernel")  # device kernel names
+# the path whose launch counts the kernels line reports (default: resnet50 unfused)
+KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
+               "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
+               "fused_basicblock_ds": "resnet18 fused"}
+OUR_KERNELS = ("int8_conv_kernel", "int8_matmul_kernel", "fused_bottleneck_kernel",
+               "fused_basicblock_kernel")  # device kernel names
 
 
 def log(msg: str) -> None:
@@ -286,6 +321,7 @@ def phase_kernels(timer):
         ("int8_conv_direct", "layer2 3x3 s2 128->128 s8", (56, 128, 128, 3, 2, 1, (0.05, 113)), False),
         ("int8_conv_direct", "layer2 1x1 s2 256->512 f32", (56, 256, 512, 1, 2, 0, None), False),
         ("int8_conv_direct_gatherk", "stem s2d 4x4 s1 12->64 s8", (115, 12, 64, 4, 1, 0, (0.05, 113)), True),
+        ("int8_conv_direct_gatherk", "cifar stem 3x3 s1 3->16 s8", (32, 3, 16, 3, 1, 1, (0.05, 113)), False),
     ]
     for name, label, (h, cin, cout, kk, s, p, req), rep in conv_cases:
         x = _rand_int8(gen, (b, h, h, cin))
@@ -336,19 +372,59 @@ def phase_kernels(timer):
                lambda x=x, args=args, kernel=kernel: kernel(x, *args),
                lambda x=x, args=args, plain=plain: plain(x, *args),
                None, nbytes, nops, rep, plain_iters=3)
+
+    # B4: the fused BasicBlocks at ResNet-18's and CIFAR ResNet-20's shapes,
+    # conv1's stored zero point unlike conv2's, the int16 shortcut leg on
+    basic_cases = [
+        # name, label, (h, c, cm, stride), representative
+        ("fused_basicblock_s1", "resnet18 layer1.1 56x56 64", (56, 64, 64, 1), True),
+        ("fused_basicblock_s1", "resnet18 layer3.1 14x14 256", (14, 256, 256, 1), False),
+        ("fused_basicblock_s1", "cifar20 layer1.1 32x32 16", (32, 16, 16, 1), False),
+        ("fused_basicblock_ds", "resnet18 layer2.0 s2 56->28 64->128", (56, 64, 128, 2), True),
+        ("fused_basicblock_ds", "resnet18 layer4.0 s2 14->7 256->512", (14, 256, 512, 2), False),
+        ("fused_basicblock_ds", "cifar20 layer2.0 s2 32->16 16->32", (32, 16, 32, 2), False),
+    ]
+    for name, label, (h, c, cm, s), rep in basic_cases:
+        ds = name == "fused_basicblock_ds"
+        x = _rand_int8(gen, (b, h, h, c))
+        ws = [_rand_int8(gen, shape, low=-127) for shape in
+              [(cm, 9 * c), (cm, 9 * cm)] + ([(cm, c)] if ds else [])]
+        vecs = []
+        for k in [9 * c, 9 * cm] + ([c] if ds else []):
+            vecs += [((torch.rand(cm, generator=gen) + 0.5) * (6e-3 / k ** 0.5)).to(dev),
+                     ((torch.rand(cm, generator=gen) - 0.5) * 16).to(dev)]
+        if ds:
+            args = (*ws, *vecs, s, -21.0, -3.0, -17, -40, 32.0)
+            kernel, plain = ops.fused_basicblock_ds_ck, ops.fused_basicblock_ds_plain
+        else:
+            args = (*ws, *vecs, -21.0, -3.0, -17, -40, 0.8137192, 2.71828)
+            kernel, plain = ops.fused_basicblock_s1_ck, ops.fused_basicblock_s1_plain
+        ho = h // s
+        nbytes = x.numel() + b * ho * ho * cm + sum(w.numel() for w in ws) + 4 * sum(v.numel() for v in vecs)
+        nops = 2 * b * ho * ho * (9 * c * cm + 9 * cm * cm + (c * cm if ds else 0))
+        record(name, f"{label} batch {b}",
+               lambda x=x, args=args, kernel=kernel: kernel(x, *args),
+               lambda x=x, args=args, plain=plain: plain(x, *args),
+               None, nbytes, nops, rep, plain_iters=3)
     return results
 
 
+def _first_block_input(engine, x_q):
+    """The stem's output, pooled in the ImageNet geometry."""
+    from quantized_tpu_torch.engine.int8_resident import maxpool_3x3_s2_int8
+
+    h = engine.stem.run_q(x_q, relu=True, out_requant=engine.stem_out_grid)
+    return (maxpool_3x3_s2_int8(h) if engine.imagenet_pool else h), h
+
+
 def _stage_outputs(engine, u8):
-    """Stored-int8 output of the stem, the pool and each stage, and the logits."""
-    from quantized_tpu_torch.engine.int8_resident import maxpool_3x3_s2_int8, u8_to_stored
+    """Stored-int8 output of the stem and each stage, and the logits."""
+    from quantized_tpu_torch.engine.int8_resident import u8_to_stored
 
     with torch.inference_mode():
-        x = engine.stem.run_q(u8_to_stored(u8, engine.stem.grid), relu=True,
-                              out_requant=engine.stem_out_grid)
-        outs = {"stem": x}
-        h = maxpool_3x3_s2_int8(x)
-        for i in range(1, 5):
+        h, stem = _first_block_input(engine, u8_to_stored(u8, engine.stem.grid))
+        outs = {"stem": stem}
+        for i in range(1, engine.num_stages + 1):
             h = getattr(engine, f"layer{i}")(h)
             outs[f"layer{i}"] = h
         outs["logits"] = engine.fc(h.mean(dim=(1, 2)))
@@ -393,16 +469,14 @@ def _compare_blocks(ref, other, u8, what):
     """Every int8 block of ``other`` fed ``ref``'s input to that block:
     within 1 step, on under 1% of the elements (the two backends round their
     requant in a different order); then the logits end to end."""
-    from quantized_tpu_torch.engine.int8_resident import maxpool_3x3_s2_int8, u8_to_stored
+    from quantized_tpu_torch.engine.int8_resident import u8_to_stored
 
     worst = (0, 0.0)
     with torch.inference_mode():
         x = u8_to_stored(u8, ref.stem.grid)
-        h = ref.stem.run_q(x, relu=True, out_requant=ref.stem_out_grid)
-        worst = max(worst, _check_int8(other.stem.run_q(x, relu=True, out_requant=other.stem_out_grid),
-                                       h, f"{what} stem", exact=False))
-        h = maxpool_3x3_s2_int8(h)
-        for i in range(1, 5):
+        h, stem = _first_block_input(ref, x)
+        worst = max(worst, _check_int8(_first_block_input(other, x)[1], stem, f"{what} stem", exact=False))
+        for i in range(1, ref.num_stages + 1):
             ref_stage, other_stage = getattr(ref, f"layer{i}"), getattr(other, f"layer{i}")
             for k in range(ref_stage.num_blocks):
                 nxt = getattr(ref_stage, str(k))(h)
@@ -415,34 +489,30 @@ def _compare_blocks(ref, other, u8, what):
         _check_logits(other.run_u8(u8), ref.run_u8(u8), what)
 
 
-def _build(backend: str, device: str):
+def _build(key: str, backend: str, device: str):
     from quantized_tpu_torch.engine import build_int8_resident
     from quantized_tpu_torch.entry import _calibrated_model
 
+    cfg = MODELS[key][0]
     model = _calibrated_model("resnet_quantized_float_bn", device="cpu",
-                              generator=torch.Generator().manual_seed(0), dataset="imagenet", depth=50)
+                              generator=torch.Generator().manual_seed(0), **cfg)
     return build_int8_resident(model, backend=backend, device=device)
 
 
-def _check_launches(counts, expected, what):
+def _check_launches(counts, per_forward, forwards, what):
+    """Every kernel launched exactly ``per_forward`` times per forward (0 for
+    a kernel not named)."""
     log(f"[{what}] launches {json.dumps(counts)}")
-    for name, n in expected.items():
-        if counts.get(name, 0) != n:
-            raise AssertionError(f"{what}: {name} launched {counts.get(name, 0)} times, expected {n}")
+    for name, n in counts.items():
+        want = per_forward.get(name, 0) * forwards
+        if n != want:
+            raise AssertionError(f"{what}: {name} launched {n} times, expected {want}")
 
 
-def phase_serve():
+def _serve(what, executor, requests, per_forward, classes):
+    """Answer the requests with the launch counts set to 0 just before and
+    read just after; returns the counts."""
     from quantized_tpu_torch import ops
-    from quantized_tpu_torch.engine import IntExecutor
-
-    t0 = time.perf_counter()
-    engine = _build("pallas", "cuda")
-    executor = IntExecutor(engine, ingest="u8", device="cuda")
-    log(f"[serve] ResNet-50 int8-resident engine built on the GPU in {time.perf_counter() - t0:.1f} s")
-    gen = torch.Generator().manual_seed(7)
-    requests = [torch.randint(0, 256, (SERVE_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8)
-                for _ in range(SERVE_REQUESTS)]
-    executor.warmup(requests[0][:2])
 
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -452,32 +522,25 @@ def phase_serve():
         logits = executor(req)
         torch.cuda.synchronize()
         answers.append(logits)
-        log(f"[serve] request {i}: {tuple(logits.shape)} in {(time.perf_counter() - t) * 1e3:.1f} ms")
+        log(f"[{what}] request {i}: {tuple(logits.shape)} in {(time.perf_counter() - t) * 1e3:.1f} ms")
     counts = ops.launch_counts()
-    n = SERVE_REQUESTS
-    _check_launches(counts, {"int8_conv_direct": 52 * n, "int8_conv_direct_gatherk": 1 * n,
-                             "int8_matmul": 1 * n, "int8_matmul_requant": 0}, "serve")
+    _check_launches(counts, per_forward, len(requests), what)
     for logits in answers:
-        if tuple(logits.shape) != (SERVE_BATCH, 1000) or not torch.isfinite(logits).all():
-            raise AssertionError(f"bad logits: shape {tuple(logits.shape)}")
-    log(f"[serve] {n} requests of {SERVE_BATCH} images answered: shape ({SERVE_BATCH}, 1000), finite; "
-        f"K2 launches per forward {(counts['int8_conv_direct'] + counts['int8_conv_direct_gatherk']) // n}, "
-        f"K1 launches per forward {counts['int8_matmul'] // n}")
-
-    # the same engine on the CPU, from the same seed, on 2 of the images
-    sample = requests[0][:2]
-    cpu_engine = _build("pallas", "cpu")
-    outs_gpu = _stage_outputs(engine, sample.cuda())
-    outs_cpu = _stage_outputs(cpu_engine, sample)
-    _compare_stages(outs_gpu, outs_cpu, "gpu vs cpu")
-    return engine, executor, counts, sample, requests, cpu_engine
+        if tuple(logits.shape) != (requests[0].shape[0], classes) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{what}: bad logits, shape {tuple(logits.shape)}")
+    log(f"[{what}] {len(requests)} requests of {requests[0].shape[0]} images answered: shape "
+        f"({requests[0].shape[0]}, {classes}), finite; launches per forward "
+        f"{json.dumps({k: v // len(requests) for k, v in counts.items() if v})}")
+    return counts
 
 
 def phase_gemm(pallas_engine, sample):
+    """ResNet-50 on the "gemm" backend (im2col + K1), held against the main
+    path block by block."""
     from quantized_tpu_torch import ops
     from quantized_tpu_torch.engine import IntExecutor
 
-    engine = _build("gemm", "cuda")
+    engine = _build("resnet50", "gemm", "cuda")
     executor = IntExecutor(engine, ingest="u8", device="cuda")
     executor.warmup(sample)
     torch.cuda.synchronize()
@@ -485,55 +548,54 @@ def phase_gemm(pallas_engine, sample):
     logits = executor(sample)
     torch.cuda.synchronize()
     counts = ops.launch_counts()
-    _check_launches(counts, {"int8_matmul_requant": 33, "int8_matmul": 21, "int8_conv_direct": 0,
-                             "int8_conv_direct_gatherk": 0}, "gemm")
+    _check_launches(counts, GEMM_PLAN, 1, "resnet50 gemm")
     if tuple(logits.shape) != (sample.shape[0], 1000) or not torch.isfinite(logits).all():
         raise AssertionError("gemm path: bad logits")
-    _compare_blocks(pallas_engine, engine, sample.cuda(), "gemm vs pallas")
+    _compare_blocks(pallas_engine, engine, sample.cuda(), "resnet50 gemm vs pallas")
     return counts
 
 
-def phase_fused(unfused_engine, cpu_engine, requests, sample):
-    """The fused path: 15 blocks on the fused kernels, served the main
-    path's requests, held against the fused CPU engine and the unfused GPU
-    engine."""
-    from quantized_tpu_torch import ops
+def phase_model(key):
+    """One model's serving paths: unfused, then fused by
+    ``fuse_resident_blocks``, each served the same requests and held
+    against its CPU twin; the fused engine also against the unfused one.
+    ResNet-50 also runs the "gemm" backend. Returns the executors and the
+    counts of each path."""
     from quantized_tpu_torch.engine import IntExecutor, fuse_resident_blocks
 
-    engine = copy.deepcopy(unfused_engine)
-    n_fused = fuse_resident_blocks(engine)
-    if n_fused != 15:
-        raise AssertionError(f"fuse_resident_blocks fused {n_fused} blocks, expected 15")
+    _, side, classes = MODELS[key]
+    plan, fused_plan, n_blocks = PLANS[key]
+    t0 = time.perf_counter()
+    engine = _build(key, "pallas", "cuda")
     executor = IntExecutor(engine, ingest="u8", device="cuda")
-    executor.warmup(requests[0][:2])
-    torch.cuda.synchronize()
-    ops.reset_launches()
-    answers = []
-    for i, req in enumerate(requests):
-        t = time.perf_counter()
-        logits = executor(req)
-        torch.cuda.synchronize()
-        answers.append(logits)
-        log(f"[fused] request {i}: {tuple(logits.shape)} in {(time.perf_counter() - t) * 1e3:.1f} ms")
-    counts = ops.launch_counts()
-    n = len(requests)
-    _check_launches(counts, {"fused_bottleneck_s1": 11 * n, "fused_bottleneck_ds": 4 * n,
-                             "int8_conv_direct": 3 * n, "int8_conv_direct_gatherk": 1 * n,
-                             "int8_matmul": 1 * n, "int8_matmul_requant": 0}, "fused")
-    for logits in answers:
-        if tuple(logits.shape) != (SERVE_BATCH, 1000) or not torch.isfinite(logits).all():
-            raise AssertionError(f"fused path: bad logits, shape {tuple(logits.shape)}")
-    log(f"[fused] {n} requests of {SERVE_BATCH} images answered: shape ({SERVE_BATCH}, 1000), finite; "
-        f"per forward {counts['fused_bottleneck_s1'] // n} fused s1, {counts['fused_bottleneck_ds'] // n} "
-        f"fused ds, {counts['int8_conv_direct'] // n} + {counts['int8_conv_direct_gatherk'] // n} K2, "
-        f"{counts['int8_matmul'] // n} K1")
+    log(f"[{key}] int8-resident engine built on the GPU in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator().manual_seed(7)
+    requests = [torch.randint(0, 256, (SERVE_BATCH, side, side, 3), generator=gen, dtype=torch.uint8)
+                for _ in range(SERVE_REQUESTS)]
+    sample = requests[0][:2]
+    executor.warmup(sample)
+    counts = {f"{key} serve": _serve(f"{key} serve", executor, requests, plan, classes)}
 
+    # the same engine on the CPU, from the same seed, on 2 of the images
+    cpu_engine = _build(key, "pallas", "cpu")
+    _compare_stages(_stage_outputs(engine, sample.cuda()), _stage_outputs(cpu_engine, sample),
+                    f"{key} gpu vs cpu")
+    if key == "resnet50":
+        counts["resnet50 gemm"] = phase_gemm(engine, sample)
+
+    fused = copy.deepcopy(engine)
+    n_fused = fuse_resident_blocks(fused)
+    if n_fused != n_blocks:
+        raise AssertionError(f"{key}: fuse_resident_blocks fused {n_fused} blocks, expected {n_blocks}")
+    fused_executor = IntExecutor(fused, ingest="u8", device="cuda")
+    fused_executor.warmup(sample)
+    counts[f"{key} fused"] = _serve(f"{key} fused", fused_executor, requests, fused_plan, classes)
     cpu_fused = copy.deepcopy(cpu_engine)
     fuse_resident_blocks(cpu_fused)
-    _compare_stages(_stage_outputs(engine, sample.cuda()), _stage_outputs(cpu_fused, sample),
-                    "fused gpu vs fused cpu")
-    _compare_blocks(unfused_engine, engine, sample.cuda(), "fused vs unfused")
-    return engine, executor, counts
+    _compare_stages(_stage_outputs(fused, sample.cuda()), _stage_outputs(cpu_fused, sample),
+                    f"{key} fused gpu vs fused cpu")
+    _compare_blocks(engine, fused, sample.cuda(), f"{key} fused vs unfused")
+    return {"unfused": executor, "fused": fused_executor}, counts
 
 
 def _time_forward(executor, dev_batch, iters=10):
@@ -570,8 +632,8 @@ def _profile(executor, dev_batch, ms, what, n_prof=3):
         log(f"[profile] {what} {us / 1e3:9.3f} ms {count:4d}x {key[:100]}")
 
 
-def phase_throughput(executors, card):
-    """Batch-128 forwards of each engine, timed in turns (a b b a ...)."""
+def phase_throughput(key, executors, card):
+    """Batch-128 forwards of each engine of one model, timed in turns (a b b a ...)."""
     gen = torch.Generator().manual_seed(11)
     host = torch.randint(0, 256, (THROUGHPUT_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8)
     dev = host.cuda()
@@ -593,12 +655,12 @@ def phase_throughput(executors, card):
         ex(dev)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**20
-        log(f"[throughput] {name}: batch {THROUGHPUT_BATCH} uint8 224x224, input on the device: "
+        log(f"[throughput] {key} {name}: batch {THROUGHPUT_BATCH} uint8 224x224, input on the device: "
             f"{ms:.3f} ms/batch ({', '.join(f'{v:.3f}' for v in times[name])}), "
             f"{THROUGHPUT_BATCH / ms * 1e3:.1f} img/s; from host memory (pageable, host clock): "
             f"{host_ms:.3f} ms/batch, {THROUGHPUT_BATCH / host_ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB; "
             f"card {card}")
-        _profile(ex, dev, ms, name)
+        _profile(ex, dev, ms, f"{key} {name}")
 
 
 def main() -> int:
@@ -611,19 +673,20 @@ def main() -> int:
     phase_build()
     timer = Timer("cuda")
     kernel_numbers = phase_kernels(timer)
-    pallas_engine, executor, serve_counts, sample, requests, cpu_engine = phase_serve()
-    gemm_counts = phase_gemm(pallas_engine, sample)
-    _, fused_executor, fused_counts = phase_fused(pallas_engine, cpu_engine, requests, sample)
-    phase_throughput({"unfused": executor, "fused": fused_executor}, card)
+    executors, path_counts = {}, {}
+    for key in MODELS:
+        executors[key], counts = phase_model(key)
+        path_counts.update(counts)
+    for key in ("resnet50", "resnet18"):
+        phase_throughput(key, executors[key], card)
 
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
         numbers = kernel_numbers[kname]
-        path = KERNEL_PATH.get(kname, "main")
-        counts = {"main": serve_counts, "gemm": gemm_counts, "fused": fused_counts}[path]
+        path = KERNEL_PATH.get(kname, "resnet50 serve")
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[kname], "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],
+            "launches": path_counts[path][kname], "max_abs_err": numbers["max_abs_err"], "ms": numbers["ms"],
             "plain_ms": numbers["plain_ms"], "bound_ms": numbers["bound_ms"],
             "bound_by": numbers["bound_by"], "library_ms": numbers["library_ms"],
             "event_ms": numbers["event_ms"], "path": path, "case": numbers["case"],
@@ -632,6 +695,8 @@ def main() -> int:
             raise AssertionError(f"{kname} was not launched on its path")
     if set(ops.KERNELS) != set(KERNEL_INFO):
         raise AssertionError(f"kernels {sorted(ops.KERNELS)} are not the ones this script reports")
+    log(f"[done] whole run {time.perf_counter() - T_START:.1f} s after the imports")
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,6 @@
-// B3: a whole int8 ResNet bottleneck in one kernel.
+// B3 and B4: a whole int8 ResNet block in one kernel.
+//
+// ---- B3, the bottleneck (1x1 -> 3x3/S -> 1x1) ----
 //
 // Replaces the Pallas kernels _fused_bottleneck_kernel and
 // _fused_bottleneck_ds_kernel (quantized_tpu/ops/fused_block.py:54 and :368,
@@ -38,8 +40,40 @@
 // later work. Small late stages give few blocks (layer4 at batch 32: 64 and
 // 32 blocks on 132 SMs).
 //
+// ---- B4, the BasicBlock (3x3/S -> 3x3), ResNet-18/34 and the CIFAR nets ----
+//
+// Replaces the Pallas kernels _fused_basicblock_kernel and
+// _fused_basicblock_ds_kernel (quantized_tpu/ops/fused_block.py:198 and
+// :537, behind fused_basicblock_s1 :274 and fused_basicblock_ds :623).
+//
+//   x: NHWC s8, not padded; w1 (Cm, 9*C), w2 (Cm, 9*Cm), wd (Cm, C), K-major s8.
+//   h1  = clip(rint(acc1*a1 + b1), lo1, 127)   conv1 3x3/S over x; taps outside
+//                                               the image read zp1
+//   y   = acc2*a2 + b2                          conv2 3x3/1 over h1; h1's border = zp2
+//   idq, out: as in B3 (identity needs C == Cm)
+//
+// What bounds it on the H100: 2*(9*C*Cm + 9*Cm*Cm [+ C*Cm]) int8 operations
+// per output pixel against the block's input and output bytes: ResNet-18's
+// identity block in layer1 at batch 32 does 14.8 G operations (0.0075 ms at
+// 1979 TOP/s) and moves 12.9 MB (0.0039 ms): ResNet-18's shapes are bound by
+// their operations, the narrow CIFAR shapes (C of 16 to 64) by their bytes.
+//
+// Design: a block owns one image and a band of R output rows. Only h1 lives
+// in shared memory: R + 2 rows of Wo + 2 pixels at a pitch of Cm + 16, filled
+// with zp2, then overwritten by conv1 on the rows r0-1 ... r0+R that lie
+// inside the image (the two halo rows are also computed by the neighbouring
+// bands: a recompute share of (R + 2) / R, so B4's bands are taller than
+// B3's). conv1 gathers its A tile straight from x in device memory, 16 bytes
+// at a time, tap by tap (C % 16 == 0). conv2 reads h1 with K = 9*Cm; its
+// accumulators go straight into the final epilogue with the shortcut's (the
+// 1x1/S conv on x[S*i, S*j], or the identity), with no h2 buffer. Every GEMM
+// is the 64x64 tile of int8_mma.cuh; a width below 64 (the CIFAR nets' 16 and
+// 32) fills part of the tile, and the epilogues guard n < Cm. No load/compute
+// overlap and no wgmma/TMA: later work. ResNet-18's layer3 and layer4 give one
+// band per image (32 blocks at batch 32 on 132 SMs).
+//
 // Epilogues use __fmul_rn/__fadd_rn and rintf (the build passes
-// -fmad=false): the kernel rounds exactly as its plain PyTorch version.
+// -fmad=false): the kernels round exactly as their plain PyTorch versions.
 
 #include "int8_mma.cuh"
 
@@ -62,9 +96,32 @@ __device__ __forceinline__ uint4 ld16(const int8_t* p) { return *reinterpret_cas
 
 __device__ __forceinline__ uint4 zero16() { return make_uint4(0u, 0u, 0u, 0u); }
 
+// 16 bytes of a stored zero point
+__device__ __forceinline__ uint4 fill16(int stored) {
+  const uint32_t z = 0x01010101u * static_cast<uint8_t>(stored);
+  return make_uint4(z, z, z, z);
+}
+
 __device__ __forceinline__ int8_t requant(int acc, float a, float b, float lo) {
   float q = rintf(__fadd_rn(__fmul_rn(static_cast<float>(acc), a), b));
   q = fminf(fmaxf(q, lo), 127.0f);
+  return static_cast<int8_t>(static_cast<int>(q));
+}
+
+// The shortcut conv's prescaled output, through the int16 leg when fine != 0.
+__device__ __forceinline__ float shortcut_leg(int acc, float a, float b, float fine, float inv_fine) {
+  float idq = __fadd_rn(__fmul_rn(static_cast<float>(acc), a), b);
+  if (fine != 0.0f) {
+    const float f = fminf(fmaxf(rintf(__fmul_rn(idq, fine)), -32767.0f), 32767.0f);
+    idq = __fmul_rn(f, inv_fine);
+  }
+  return idq;
+}
+
+// The residual sum requantized onto the out grid (ReLU in the clip floor).
+__device__ __forceinline__ int8_t residual_out(float y, float idq, float shift) {
+  float q = rintf(__fadd_rn(y, idq));
+  q = fminf(fmaxf(q, shift), 127.0f);
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
@@ -110,8 +167,7 @@ __global__ void __launch_bounds__(qt::THREADS)
 
   // h1's border and out-of-image rows hold conv2's stored zero point
   {
-    const uint32_t z = 0x01010101u * static_cast<uint8_t>(e.zp2);
-    const uint4 fill = make_uint4(z, z, z, z);
+    const uint4 fill = fill16(e.zp2);
     const int n16 = s.HR * (s.W + 2) * s.P / 16;
     for (int i = threadIdx.x; i < n16; i += qt::THREADS) reinterpret_cast<uint4*>(h1)[i] = fill;
   }
@@ -185,19 +241,117 @@ __global__ void __launch_bounds__(qt::THREADS)
         const float y = __fadd_rn(__fmul_rn(static_cast<float>(a3), e.a3[n]), e.b3[n]);
         float idq;
         if constexpr (DS) {
-          idq = __fadd_rn(__fmul_rn(static_cast<float>(ad), e.ad[n]), e.bd[n]);
-          if (e.fine != 0.0f) {
-            const float f = fminf(fmaxf(rintf(__fmul_rn(idq, e.fine)), -32767.0f), 32767.0f);
-            idq = __fmul_rn(f, e.inv_fine);
-          }
+          idq = shortcut_leg(ad, e.ad[n], e.bd[n], e.fine, e.inv_fine);
         } else {
           const float xv = static_cast<float>(x[(static_cast<size_t>(r0 + i) * s.W + j) * s.C + n]);
           idq = __fadd_rn(__fmul_rn(xv, e.id_k), e.id_c);
         }
-        float q = rintf(__fadd_rn(y, idq));
-        q = fminf(fmaxf(q, e.shift), 127.0f);
         out[((static_cast<size_t>(img) * s.Ho + r0 + i) * s.Wo + j) * s.Cout + n] =
-            static_cast<int8_t>(static_cast<int>(q));
+            residual_out(y, idq, e.shift);
+      });
+    }
+  }
+}
+
+struct BasicShape {
+  int N, H, W, C, Cm, Ho, Wo, R, P;  // P: h1 pixel pitch
+};
+
+struct BasicEpilogue {
+  const float *a1, *b1, *a2, *b2, *ad, *bd;
+  float lo1, shift, id_k, id_c, fine, inv_fine;
+  int zp1, zp2;
+};
+
+__host__ __device__ inline size_t basic_smem_bytes(const BasicShape& s) {
+  return static_cast<size_t>(qt::BM + qt::BN) * qt::LDS + static_cast<size_t>(s.R + 2) * (s.Wo + 2) * s.P;
+}
+
+template <int S, bool DS>
+__global__ void __launch_bounds__(qt::THREADS)
+    fused_basicblock_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W1,
+                            const int8_t* __restrict__ W2, const int8_t* __restrict__ WD,
+                            int8_t* __restrict__ out, BasicShape s, BasicEpilogue e) {
+  extern __shared__ __align__(16) int8_t smem[];
+  int8_t* As = smem;
+  int8_t* Ws = As + qt::BM * qt::LDS;
+  int8_t* h1 = Ws + qt::BN * qt::LDS;  // R+2 rows x (Wo+2) pixels
+
+  const int img = blockIdx.y;
+  const int r0 = blockIdx.x * s.R;     // first output row of the band
+  const int rb = min(s.R, s.Ho - r0);  // its output rows
+  const int pw = s.Wo + 2;             // h1 pixels per row
+  const int8_t* x = X + static_cast<size_t>(img) * s.H * s.W * s.C;
+
+  // h1's border and out-of-image rows hold conv2's stored zero point
+  {
+    const uint4 fill = fill16(e.zp2);
+    const int n16 = (s.R + 2) * pw * s.P / 16;
+    for (int i = threadIdx.x; i < n16; i += qt::THREADS) reinterpret_cast<uint4*>(h1)[i] = fill;
+  }
+  __syncthreads();
+
+  // conv1 (3x3, stride S) on output-grid rows r0-1 ... r0+rb that lie inside
+  // the image; h1 local row = grid row - r0 + 1, local column = column + 1
+  const uint4 pad1 = fill16(e.zp1);
+  const int i_lo = max(0, r0 - 1), i_hi = min(s.Ho, r0 + rb + 1);
+  const int m1 = (i_hi - i_lo) * s.Wo;
+  for (int m0 = 0; m0 < m1; m0 += qt::BM) {
+    for (int n0 = 0; n0 < s.Cm; n0 += qt::BN) {
+      qt::Acc acc = {};
+      gemm_tile(As, Ws, W1, s.Cm, 9 * s.C, n0, [&](int r, int k) {
+        const int m = m0 + r;
+        if (m >= m1) return zero16();
+        const int i = i_lo + m / s.Wo, j = m % s.Wo;
+        const int tap = k / s.C, ch = k - tap * s.C;
+        const int hi = i * S - 1 + tap / 3, wi = j * S - 1 + tap % 3;
+        if (hi < 0 || hi >= s.H || wi < 0 || wi >= s.W) return pad1;
+        return ld16(x + (static_cast<size_t>(hi) * s.W + wi) * s.C + ch);
+      }, acc);
+      qt::for_each_acc(acc, [&](int r, int c, int a) {
+        const int m = m0 + r, n = n0 + c;
+        if (m >= m1 || n >= s.Cm) return;
+        const int i = i_lo + m / s.Wo, j = m % s.Wo;
+        h1[(static_cast<size_t>(i - r0 + 1) * pw + j + 1) * s.P + n] = requant(a, e.a1[n], e.b1[n], e.lo1);
+      });
+    }
+  }
+  __syncthreads();
+
+  // conv2 (3x3, stride 1): local output (i, j), tap (dy, dx) reads h1 local
+  // pixel (i + dy, j + dx); then the shortcut and the final epilogue
+  const int m2 = rb * s.Wo;
+  for (int m0 = 0; m0 < m2; m0 += qt::BM) {
+    for (int n0 = 0; n0 < s.Cm; n0 += qt::BN) {
+      qt::Acc acc = {}, accd = {};
+      gemm_tile(As, Ws, W2, s.Cm, 9 * s.Cm, n0, [&](int r, int k) {
+        const int m = m0 + r;
+        if (m >= m2) return zero16();
+        const int i = m / s.Wo, j = m % s.Wo;
+        const int tap = k / s.Cm, ch = k - tap * s.Cm;
+        return ld16(h1 + (static_cast<size_t>(i + tap / 3) * pw + j + tap % 3) * s.P + ch);
+      }, acc);
+      if constexpr (DS) {
+        gemm_tile(As, Ws, WD, s.Cm, s.C, n0, [&](int r, int k) {
+          const int m = m0 + r;
+          if (m >= m2) return zero16();
+          const int i = m / s.Wo, j = m % s.Wo;
+          return ld16(x + (static_cast<size_t>((r0 + i) * S) * s.W + j * S) * s.C + k);
+        }, accd);
+      }
+      qt::for_each_acc_pair(acc, accd, [&](int r, int c, int a2, int ad) {
+        const int m = m0 + r, n = n0 + c;
+        if (m >= m2 || n >= s.Cm) return;
+        const int i = m / s.Wo, j = m % s.Wo;
+        const float y = __fadd_rn(__fmul_rn(static_cast<float>(a2), e.a2[n]), e.b2[n]);
+        float idq;
+        if constexpr (DS) {
+          idq = shortcut_leg(ad, e.ad[n], e.bd[n], e.fine, e.inv_fine);
+        } else {
+          const float xv = static_cast<float>(x[(static_cast<size_t>(r0 + i) * s.W + j) * s.C + n]);
+          idq = __fadd_rn(__fmul_rn(xv, e.id_k), e.id_c);
+        }
+        out[((static_cast<size_t>(img) * s.Ho + r0 + i) * s.Wo + j) * s.Cm + n] = residual_out(y, idq, e.shift);
       });
     }
   }
@@ -205,9 +359,20 @@ __global__ void __launch_bounds__(qt::THREADS)
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
 
+// Launch with `smem` bytes of dynamic shared memory; 0 or the CUDA error.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, qt::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int S, bool DS>
-int launch(const void* x, const void* w1, const void* w2, const void* w3, const void* wd, void* out,
-           BlockShape s, const Epilogue& e, void* stream) {
+int launch_bottleneck(const void* x, const void* w1, const void* w2, const void* w3, const void* wd,
+                      void* out, BlockShape s, const Epilogue& e, void* stream) {
   if (s.N < 1 || s.R < 1 || s.C % 16 || s.Cm % 16 || s.H % S || s.W % S || !aligned16(x) ||
       !aligned16(w1) || !aligned16(w2) || !aligned16(w3) || (DS && !aligned16(wd)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -215,17 +380,25 @@ int launch(const void* x, const void* w1, const void* w2, const void* w3, const 
   s.Wo = s.W / S;
   s.HR = (s.R - 1) * S + 3;
   s.P = s.Cm + 16;
-  const size_t smem = smem_bytes(s);
-  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = fused_bottleneck_kernel<S, DS>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((s.Ho + s.R - 1) / s.R, s.N);
-  kernel<<<grid, qt::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1), static_cast<const int8_t*>(w2),
-      static_cast<const int8_t*>(w3), static_cast<const int8_t*>(wd), static_cast<int8_t*>(out), s, e);
-  return static_cast<int>(cudaGetLastError());
+  return launch(fused_bottleneck_kernel<S, DS>, dim3((s.Ho + s.R - 1) / s.R, s.N), smem_bytes(s), stream,
+                static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1),
+                static_cast<const int8_t*>(w2), static_cast<const int8_t*>(w3),
+                static_cast<const int8_t*>(wd), static_cast<int8_t*>(out), s, e);
+}
+
+template <int S, bool DS>
+int launch_basic(const void* x, const void* w1, const void* w2, const void* wd, void* out, BasicShape s,
+                 const BasicEpilogue& e, void* stream) {
+  if (s.N < 1 || s.R < 1 || s.C % 16 || s.Cm % 16 || s.H % S || s.W % S || (!DS && s.C != s.Cm) ||
+      !aligned16(x) || !aligned16(w1) || !aligned16(w2) || (DS && !aligned16(wd)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  s.Ho = s.H / S;
+  s.Wo = s.W / S;
+  s.P = s.Cm + 16;
+  return launch(fused_basicblock_kernel<S, DS>, dim3((s.Ho + s.R - 1) / s.R, s.N), basic_smem_bytes(s),
+                stream, static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1),
+                static_cast<const int8_t*>(w2), static_cast<const int8_t*>(wd), static_cast<int8_t*>(out),
+                s, e);
 }
 
 }  // namespace
@@ -241,7 +414,7 @@ extern "C" int qt_fused_bottleneck_s1(const void* x, const void* w1, const void*
                    static_cast<const float*>(a2), static_cast<const float*>(b2),
                    static_cast<const float*>(a3), static_cast<const float*>(b3),
                    nullptr, nullptr, lo1, lo2, shift, id_k, id_c, 0.0f, 0.0f, zp2};
-  return launch<1, false>(x, w1, w2, w3, nullptr, out, s, e, stream);
+  return launch_bottleneck<1, false>(x, w1, w2, w3, nullptr, out, s, e, stream);
 }
 
 // Downsample block: stride 1 or 2, the 1x1/stride shortcut conv on x[::S, ::S].
@@ -257,7 +430,35 @@ extern "C" int qt_fused_bottleneck_ds(const void* x, const void* w1, const void*
                    static_cast<const float*>(a3), static_cast<const float*>(b3),
                    static_cast<const float*>(ad), static_cast<const float*>(bd),
                    lo1, lo2, shift, 0.0f, 0.0f, fine, inv_fine, zp2};
-  if (stride == 1) return launch<1, true>(x, w1, w2, w3, wd, out, s, e, stream);
-  if (stride == 2) return launch<2, true>(x, w1, w2, w3, wd, out, s, e, stream);
+  if (stride == 1) return launch_bottleneck<1, true>(x, w1, w2, w3, wd, out, s, e, stream);
+  if (stride == 2) return launch_bottleneck<2, true>(x, w1, w2, w3, wd, out, s, e, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Identity BasicBlock: C == Cm, stride 1, idq = x*id_k + id_c.
+extern "C" int qt_fused_basicblock_s1(const void* x, const void* w1, const void* w2, const void* a1,
+                                      const void* b1, const void* a2, const void* b2, void* out, int N,
+                                      int H, int W, int C, int Cm, int R, int zp1, int zp2, float lo1,
+                                      float shift, float id_k, float id_c, void* stream) {
+  const BasicShape s{N, H, W, C, Cm, 0, 0, R, 0};
+  const BasicEpilogue e{static_cast<const float*>(a1), static_cast<const float*>(b1),
+                        static_cast<const float*>(a2), static_cast<const float*>(b2),
+                        nullptr, nullptr, lo1, shift, id_k, id_c, 0.0f, 0.0f, zp1, zp2};
+  return launch_basic<1, false>(x, w1, w2, nullptr, out, s, e, stream);
+}
+
+// Downsample BasicBlock: stride 1 or 2, the 1x1/stride shortcut conv on x[::S, ::S].
+extern "C" int qt_fused_basicblock_ds(const void* x, const void* w1, const void* w2, const void* wd,
+                                      const void* a1, const void* b1, const void* a2, const void* b2,
+                                      const void* ad, const void* bd, void* out, int N, int H, int W,
+                                      int C, int Cm, int stride, int R, int zp1, int zp2, float lo1,
+                                      float shift, float fine, float inv_fine, void* stream) {
+  const BasicShape s{N, H, W, C, Cm, 0, 0, R, 0};
+  const BasicEpilogue e{static_cast<const float*>(a1), static_cast<const float*>(b1),
+                        static_cast<const float*>(a2), static_cast<const float*>(b2),
+                        static_cast<const float*>(ad), static_cast<const float*>(bd),
+                        lo1, shift, 0.0f, 0.0f, fine, inv_fine, zp1, zp2};
+  if (stride == 1) return launch_basic<1, true>(x, w1, w2, wd, out, s, e, stream);
+  if (stride == 2) return launch_basic<2, true>(x, w1, w2, wd, out, s, e, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

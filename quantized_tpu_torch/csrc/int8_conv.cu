@@ -23,7 +23,8 @@
 // unpadded input by index arithmetic, 64 K bytes at a time. A 16-byte chunk
 // of the per-tap form never straddles a tap (Cin % 16 == 0). The gather-K
 // form (small Cin, e.g. the space-to-depth stem with Cin = 12 and K = 192)
-// lets a K step straddle taps and gathers 4-byte chunks (Cin % 4 == 0). The
+// lets a K step straddle taps and gathers 4-byte chunks where Cin % 4 == 0,
+// else single bytes (the CIFAR stem, Cin = 3 and K = 27). The
 // product is mma.sync m16n8k32 on the int8 tensor cores
 // (int8_mma.cuh). No load/compute overlap, no wgmma/TMA yet: later work.
 //
@@ -46,6 +47,10 @@ template <> struct Chunk<16> {
 template <> struct Chunk<4> {
   using T = uint32_t;
   static __device__ __forceinline__ T fill(uint32_t p) { return p; }
+};
+template <> struct Chunk<1> {
+  using T = uint8_t;
+  static __device__ __forceinline__ T fill(uint32_t p) { return static_cast<uint8_t>(p); }
 };
 
 // CH: bytes per gathered A chunk; Cin % CH == 0, so a chunk stays inside a tap.
@@ -155,9 +160,11 @@ extern "C" int qt_int8_conv_tap(QT_CONV_ARGS) {
   return launch<16>(x, w, alpha, beta, out, s, stored_zp, relu, out_int8, inv, zps, stream);
 }
 
-// Gather-K form: Cin % 4 == 0 and x 4-byte aligned.
+// Gather-K form, any Cin: 4-byte chunks where Cin % 4 == 0 and x is 4-byte
+// aligned, else 1-byte chunks.
 extern "C" int qt_int8_conv_gatherk(QT_CONV_ARGS) {
   const ConvShape s{N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo};
-  if (Cin % 4 != 0 || !aligned(x, 4)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<4>(x, w, alpha, beta, out, s, stored_zp, relu, out_int8, inv, zps, stream);
+  if (Cin % 4 == 0 && aligned(x, 4))
+    return launch<4>(x, w, alpha, beta, out, s, stored_zp, relu, out_int8, inv, zps, stream);
+  return launch<1>(x, w, alpha, beta, out, s, stored_zp, relu, out_int8, inv, zps, stream);
 }

@@ -1,14 +1,21 @@
 """Integer engine of the port: the int layers, the conversion from a
-calibrated fake-quant model, the int8-resident ResNet, its fused-bottleneck
-form and its executor."""
+calibrated fake-quant model, the int8-resident ResNet, its fused-block form
+and its executor."""
 
 from quantized_tpu_torch.engine.executor import IntExecutor
 from quantized_tpu_torch.engine.fused import (
+    FusedInt8BasicBlock,
+    FusedInt8BasicBlockDS,
     FusedInt8Bottleneck,
     FusedInt8BottleneckDS,
     fusable,
     fuse_block,
     fuse_resident_blocks,
 )
-from quantized_tpu_torch.engine.int8_resident import Int8ResNet, build_int8_resident
+from quantized_tpu_torch.engine.int8_resident import (
+    Int8BasicBlock,
+    Int8Bottleneck,
+    Int8ResNet,
+    build_int8_resident,
+)
 from quantized_tpu_torch.engine.int_layers import IntConv2d, IntLinear

@@ -1,11 +1,12 @@
 """Fused-block execution for the int8-resident engine (counterpart of the
-bottleneck part of ``quantized_tpu/engine/fused.py``).
+ResNet part of ``quantized_tpu/engine/fused.py``).
 
-``fuse_resident_blocks`` replaces every eligible bottleneck of a built
+``fuse_resident_blocks`` replaces every eligible block of a built
 :class:`~quantized_tpu_torch.engine.int8_resident.Int8ResNet` with a twin that
-runs the whole block in one kernel (``ops/fused_block.py``): identity blocks
-on ``fused_bottleneck_s1``, downsample blocks on ``fused_bottleneck_ds``. The
-last block emits f32 for the pool and stays unfused. The epilogue constants
+runs the whole block in one kernel (``ops/fused_block.py``): bottlenecks on
+``fused_bottleneck_s1`` / ``fused_bottleneck_ds`` (kernel B3), BasicBlocks on
+``fused_basicblock_s1`` / ``fused_basicblock_ds`` (kernel B4). The last block
+emits f32 for the pool and stays unfused. The epilogue constants
 are derived here exactly as the JAX package derives them (``alpha / f32(s)``,
 a division, where the unfused ``run_q`` multiplies by ``f32(1/s)``), so the
 port's fused blocks equal the JAX package's fused blocks; against the
@@ -13,8 +14,8 @@ unfused blocks they agree within 1 int step. The fused downsample blocks
 carry the int16 shortcut leg (``S16_FINE``), which the unfused "pallas"
 blocks do not.
 
-The BasicBlock twins, the MobileNet stages and the autotuner's
-fused-vs-unfused race are not ported yet.
+The MobileNet stages and the autotuner's fused-vs-unfused race are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,9 +24,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from quantized_tpu_torch.engine.int8_resident import Int8Bottleneck, Int8ResNet
+from quantized_tpu_torch.engine.int8_resident import Int8BasicBlock, Int8Bottleneck, Int8ResNet
 from quantized_tpu_torch.engine.int_layers import S16_FINE, IntConv2d
-from quantized_tpu_torch.ops.fused_block import fused_bottleneck_ds_ck, fused_bottleneck_s1_ck
+from quantized_tpu_torch.ops.fused_block import (
+    fused_basicblock_ds_ck,
+    fused_basicblock_s1_ck,
+    fused_bottleneck_ds_ck,
+    fused_bottleneck_s1_ck,
+)
 
 
 def _is_1x1_s1(conv: IntConv2d) -> bool:
@@ -122,22 +128,89 @@ class FusedInt8BottleneckDS(_FusedBottleneckBase):
             self.zp2_stored, ds_fine=S16_FINE)  # the int16 shortcut leg
 
 
+class _FusedBasicBlockBase(nn.Module):
+    """Buffers and scalars that both fused BasicBlocks share: the convs' own
+    K-major weights, conv1 (Cm, 9*C) and conv2 (Cm, 9*Cm); conv1 requantized
+    onto conv2's grid, conv2 prescaled by the out grid."""
+
+    def __init__(self, blk: Int8BasicBlock):
+        super().__init__()
+        c1, c2 = blk.conv1, blk.conv2
+        s2, zp2 = c2.grid
+        s_out, zp_out = blk.out_grid
+        shift = zp_out - 128
+        self.register_buffer("w1", c1.w_ck)
+        self.register_buffer("w2", c2.w_ck)
+        self.register_buffer("a1", _folded(c1.alpha, s2))
+        self.register_buffer("b1", _folded(c1.beta, s2, zp2 - 128))
+        self.register_buffer("a2", _folded(c2.alpha, s_out))
+        self.register_buffer("b2", _folded(c2.beta, s_out, shift))
+        self.lo1 = float(zp2 - 128)
+        self.shift = float(shift)
+        self.zp1_stored = int(c1.act_zero_point - 128)
+        self.zp2_stored = int(zp2 - 128)
+        self.in_grid = c1.grid
+        self.out_grid = blk.out_grid
+
+
+class FusedInt8BasicBlock(_FusedBasicBlockBase):
+    """Identity 3x3 -> 3x3 block in one kernel launch (``fused_basicblock_s1``)."""
+
+    def __init__(self, blk: Int8BasicBlock):
+        super().__init__(blk)
+        s1, zp1 = blk.conv1.grid
+        s_out = blk.out_grid[0]
+        self.id_k = float(s1 / s_out)
+        self.id_c = float((128 - zp1) * (s1 / s_out))
+
+    def forward(self, x_q: torch.Tensor) -> torch.Tensor:
+        return fused_basicblock_s1_ck(
+            x_q, self.w1, self.w2, self.a1, self.b1, self.a2, self.b2, self.lo1, self.shift,
+            self.zp1_stored, self.zp2_stored, self.id_k, self.id_c)
+
+
+class FusedInt8BasicBlockDS(_FusedBasicBlockBase):
+    """Downsample BasicBlock (3x3/s -> 3x3, 1x1/s shortcut conv) in one kernel
+    launch (``fused_basicblock_ds``), with the int16 shortcut leg."""
+
+    def __init__(self, blk: Int8BasicBlock):
+        super().__init__(blk)
+        d = blk.downsample
+        s_out = blk.out_grid[0]
+        self.register_buffer("wd", d.w_ck)  # (Cm, C)
+        self.register_buffer("ad", _folded(d.alpha, s_out))
+        self.register_buffer("bd", _folded(d.beta, s_out))
+        self.stride = int(blk.conv1.stride[0])
+
+    def forward(self, x_q: torch.Tensor) -> torch.Tensor:
+        return fused_basicblock_ds_ck(
+            x_q, self.w1, self.w2, self.wd, self.a1, self.b1, self.a2, self.b2, self.ad, self.bd,
+            self.stride, self.lo1, self.shift, self.zp1_stored, self.zp2_stored,
+            ds_fine=S16_FINE)  # the int16 shortcut leg
+
+
 def fusable(blk) -> bool:
-    if not isinstance(blk, Int8Bottleneck):
+    if not isinstance(blk, (Int8Bottleneck, Int8BasicBlock)) or blk.out_grid is None:
         return False
-    if blk.out_grid is None or not _is_1x1_s1(blk.conv1) or not _is_1x1_s1(blk.conv3):
-        return False
+    if isinstance(blk, Int8Bottleneck):
+        if not _is_1x1_s1(blk.conv1) or not _is_1x1_s1(blk.conv3):
+            return False
+        strided = blk.conv2
+    else:
+        if not _is_3x3_s1(blk.conv2):
+            return False
+        strided = blk.conv1
     if blk.downsample is None:
-        return _is_3x3_s1(blk.conv2)
-    s = blk.conv2.stride[0]
-    return s in (1, 2) and _is_3x3_s(blk.conv2, s) and _is_1x1_s(blk.downsample, s)
+        return _is_3x3_s1(strided)
+    s = strided.stride[0]
+    return s in (1, 2) and _is_3x3_s(strided, s) and _is_1x1_s(blk.downsample, s)
 
 
-def fuse_block(blk: Int8Bottleneck) -> nn.Module:
+def fuse_block(blk) -> nn.Module:
     """Fused twin of an eligible block (``fusable(blk)`` must hold)."""
-    if blk.downsample is not None:
-        return FusedInt8BottleneckDS(blk)
-    return FusedInt8Bottleneck(blk)
+    if isinstance(blk, Int8Bottleneck):
+        return FusedInt8BottleneckDS(blk) if blk.downsample is not None else FusedInt8Bottleneck(blk)
+    return FusedInt8BasicBlockDS(blk) if blk.downsample is not None else FusedInt8BasicBlock(blk)
 
 
 def fuse_resident_blocks(model: Int8ResNet) -> int:

@@ -9,19 +9,22 @@ affine map), and a block's residual add is one elementwise pass. A block's
 downsample conv consumes the conv1-quantized tensor directly, its epilogue
 built on conv1's grid.
 
+Both geometries: the ImageNet nets (Bottleneck depths 50/101/152 and
+BasicBlock depths 18/34) and the CIFAR nets (BasicBlock, no maxpool).
 Every conv runs on kernel K2 (backend ``"pallas"``, the default here) or on
-im2col + K1 (``"gemm"``); the fc head runs on K1. The stem is the
-space-to-depth form, a 4x4 stride-1 conv over Cin = 12, which K2 runs in its
-gather-K form. ``engine/fused.fuse_resident_blocks`` turns a built engine
-into its fused form: 15 of ResNet-50's 16 blocks each run as one fused
-bottleneck kernel (kernel B3), with the int16 shortcut leg in the
-downsample ones. The BasicBlock geometry, the RangeBN flavor and the int16
-residual leg of the unfused blocks are not ported yet.
+im2col + K1 (``"gemm"``); the fc head runs on K1. A 7x7/s2 ImageNet stem
+runs in the space-to-depth form, a 4x4 stride-1 conv over Cin = 12, and the
+CIFAR stem as a plain 3x3 conv over Cin = 3; K2 runs both in its gather-K
+form. ``engine/fused.fuse_resident_blocks`` turns a built engine into its
+fused form: every block but the last runs as one fused kernel (B3 for a
+bottleneck, B4 for a BasicBlock), with the int16 shortcut leg in the
+downsample ones. The RangeBN flavor and the int16 residual leg of the
+unfused blocks are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -36,7 +39,7 @@ from quantized_tpu_torch.engine.int_layers import (
     quantize_input_stored,
 )
 from quantized_tpu_torch.models.layers import QConv2d, QLinear
-from quantized_tpu_torch.models.resnet_common import ResNetImageNet
+from quantized_tpu_torch.models.resnet_common import ResNetCifar, ResNetImageNet
 from quantized_tpu_torch.ops.int8_conv import pad_stored_zp
 from quantized_tpu_torch.ops.int8_matmul import f32
 
@@ -59,6 +62,27 @@ def _residual_requant_prescaled(acc_ps: torch.Tensor, identity_ps: torch.Tensor,
     return torch.clamp(q, float(shift), 127.0).to(torch.int8)
 
 
+def _residual_tail(block, last: IntConv2d, h: torch.Tensor, x_q: torch.Tensor) -> torch.Tensor:
+    """A block's last conv over ``h``, its shortcut over the block input
+    ``x_q`` and the residual add: int8 on ``block.out_grid``, or f32 after
+    the ReLU for the final block (avgpool/fc)."""
+    if block.out_grid is not None:
+        s_out, zp_out = block.out_grid
+        shift = zp_out - 128
+        acc = last.run_q(h, relu=False, out_prescale=(s_out, float(shift)))
+        if block.downsample is not None:
+            idq = block.downsample.run_q(x_q, relu=False, out_prescale=(s_out, 0.0))
+        else:
+            idq = _prescaled_identity(x_q, block.conv1.grid, s_out)
+        return _residual_requant_prescaled(acc, idq, shift)
+    acc = last.run_q(h, relu=False)
+    if block.downsample is not None:
+        idq = block.downsample.run_q(x_q, relu=False)
+    else:
+        idq = dequantize_stored(x_q, *block.conv1.grid)
+    return torch.clamp_min(acc + idq, 0.0)
+
+
 class Int8Bottleneck(nn.Module):
     """1x1 -> 3x3 -> 1x1 with int8-resident plumbing. Input int8 on
     ``conv1.grid``; output int8 on ``out_grid`` (or f32 when None)."""
@@ -75,22 +99,24 @@ class Int8Bottleneck(nn.Module):
     def forward(self, x_q: torch.Tensor) -> torch.Tensor:
         h = self.conv1.run_q(x_q, relu=True, out_requant=self.conv2.grid)
         h = self.conv2.run_q(h, relu=True, out_requant=self.conv3.grid)
-        if self.out_grid is not None:
-            s_out, zp_out = self.out_grid
-            shift = zp_out - 128
-            acc = self.conv3.run_q(h, relu=False, out_prescale=(s_out, float(shift)))
-            if self.downsample is not None:
-                idq = self.downsample.run_q(x_q, relu=False, out_prescale=(s_out, 0.0))
-            else:
-                idq = _prescaled_identity(x_q, self.conv1.grid, s_out)
-            return _residual_requant_prescaled(acc, idq, shift)
-        # final block: f32 out for avgpool/fc
-        acc = self.conv3.run_q(h, relu=False)
-        if self.downsample is not None:
-            idq = self.downsample.run_q(x_q, relu=False)
-        else:
-            idq = dequantize_stored(x_q, *self.conv1.grid)
-        return torch.clamp_min(acc + idq, 0.0)
+        return _residual_tail(self, self.conv3, h, x_q)
+
+
+class Int8BasicBlock(nn.Module):
+    """3x3 -> 3x3 variant (ResNet-18/34 and the CIFAR geometry), the same
+    int8-resident plumbing as :class:`Int8Bottleneck`."""
+
+    def __init__(self, conv1: IntConv2d, conv2: IntConv2d, downsample: Optional[IntConv2d],
+                 out_grid: Optional[Grid]):
+        super().__init__()
+        self.conv1 = conv1
+        self.conv2 = conv2
+        self.downsample = downsample
+        self.out_grid = out_grid
+
+    def forward(self, x_q: torch.Tensor) -> torch.Tensor:
+        h = self.conv1.run_q(x_q, relu=True, out_requant=self.conv2.grid)
+        return _residual_tail(self, self.conv2, h, x_q)
 
 
 class _Int8Stage(nn.Module):
@@ -185,11 +211,13 @@ def u8_to_stored(u8: torch.Tensor, grid: Grid, mean=None, std=None) -> torch.Ten
 
 
 class Int8ResNet(nn.Module):
-    """Int8-resident ResNet-50/101/152. ``forward`` takes f32 NHWC images and
-    :meth:`run_u8` raw uint8 NHWC images; both return f32 logits."""
+    """Int8-resident ResNet, either geometry. ``forward`` takes f32 NHWC
+    images and :meth:`run_u8` raw uint8 NHWC images; both return f32 logits.
+    ``imagenet_pool`` runs the int8 maxpool after the stem (the ImageNet
+    geometry; the CIFAR geometry has none)."""
 
-    def __init__(self, stem: Int8SpaceToDepthStem, stem_out_grid: Grid, stages: List[_Int8Stage],
-                 fc: IntLinear):
+    def __init__(self, stem: Union[Int8SpaceToDepthStem, IntConv2d], stem_out_grid: Grid,
+                 stages: List[_Int8Stage], fc: IntLinear, imagenet_pool: bool):
         super().__init__()
         self.stem = stem
         self.stem_out_grid = stem_out_grid
@@ -197,6 +225,7 @@ class Int8ResNet(nn.Module):
             self.add_module(f"layer{i + 1}", s)
         self.num_stages = len(stages)
         self.fc = fc
+        self.imagenet_pool = imagenet_pool
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._forward_q(quantize_input_stored(x, *self.stem.grid))
@@ -206,31 +235,39 @@ class Int8ResNet(nn.Module):
         return self._forward_q(u8_to_stored(u8, self.stem.grid, mean, std))
 
     def _forward_q(self, x_q: torch.Tensor) -> torch.Tensor:
-        x_q = self.stem.run_q(x_q, relu=True, out_requant=self.stem_out_grid)
-        # max commutes with the monotone uint8 affine map: pool on int8
-        h = maxpool_3x3_s2_int8(x_q)
+        h = self.stem.run_q(x_q, relu=True, out_requant=self.stem_out_grid)
+        if self.imagenet_pool:
+            # max commutes with the monotone uint8 affine map: pool on int8
+            h = maxpool_3x3_s2_int8(h)
         for i in range(self.num_stages):
             h = getattr(self, f"layer{i + 1}")(h)
         return self.fc(h.mean(dim=(1, 2)))  # f32 from the last block
 
 
-_BOTTLENECK_CONVS = (("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3"))
 WEIGHT_BITS = 8  # int4 weights are not ported yet
+
+
+def _block_convs(block) -> Sequence[Tuple[str, str]]:
+    if hasattr(block, "conv3"):
+        return [("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3")]
+    return [("conv1", "bn1"), ("conv2", "bn2")]
 
 
 def build_int8_resident(model: nn.Module, backend: str = "pallas",
                         device: DeviceLike = "cuda") -> Int8ResNet:
-    """Convert a calibrated fake-quant ResNet (float-BN flavor, ImageNet
-    geometry) into an :class:`Int8ResNet` on ``device``, its stem in the
-    space-to-depth form.
+    """Convert a calibrated fake-quant ResNet (float-BN flavor, either
+    geometry) into an :class:`Int8ResNet` on ``device``. A 7x7/s2 ImageNet
+    stem runs in the space-to-depth form; the block kind follows the
+    block's conv count.
 
     ``backend`` is ``"pallas"`` (every conv on the direct conv kernel) or
     ``"gemm"`` (im2col + the int8 GEMM); the JAX package's default ``"xla"``
     has no counterpart here."""
     dev = resolve_device(device)
-    if not isinstance(model, ResNetImageNet):
-        raise TypeError(f"the port builds ImageNet-geometry ResNets, got {type(model).__name__}")
-    stage_names = ("layer1", "layer2", "layer3", "layer4")
+    if not isinstance(model, (ResNetImageNet, ResNetCifar)):
+        raise TypeError(f"the port builds ImageNet- and CIFAR-geometry ResNets, got {type(model).__name__}")
+    is_imagenet = isinstance(model, ResNetImageNet)
+    stage_names = [n for n in ("layer1", "layer2", "layer3", "layer4") if hasattr(model, n)]
 
     def conv_of(m, conv_name, bn_name, act_grid=None) -> IntConv2d:
         conv = getattr(m, conv_name)
@@ -245,12 +282,15 @@ def build_int8_resident(model: nn.Module, backend: str = "pallas",
 
     int_blocks: List[nn.Module] = []
     for bi, blk in enumerate(blocks_src):
-        convs = [conv_of(blk, cn, bn) for cn, bn in _BOTTLENECK_CONVS]
+        convs = [conv_of(blk, cn, bn) for cn, bn in _block_convs(blk)]
         ds = None
         if blk.downsample is not None:
             ds = conv_of(blk.downsample, "conv", "bn", act_grid=observer_grid(blk.conv1))
         out_grid = observer_grid(blocks_src[bi + 1].conv1) if bi + 1 < len(blocks_src) else None
-        int_blocks.append(Int8Bottleneck(convs[0], convs[1], convs[2], ds, out_grid))
+        if len(convs) == 3:
+            int_blocks.append(Int8Bottleneck(convs[0], convs[1], convs[2], ds, out_grid))
+        else:
+            int_blocks.append(Int8BasicBlock(convs[0], convs[1], ds, out_grid))
 
     stages: List[_Int8Stage] = []
     idx = 0
@@ -259,8 +299,13 @@ def build_int8_resident(model: nn.Module, backend: str = "pallas",
         stages.append(_Int8Stage(int_blocks[idx: idx + n]))
         idx += n
 
-    stem = Int8SpaceToDepthStem(conv_of(model, "conv1", "bn1"))
+    stem = conv_of(model, "conv1", "bn1")
+    if is_imagenet and stem.kernel_size == (7, 7) and stem.stride == (2, 2):
+        stem = Int8SpaceToDepthStem(stem)
     if not isinstance(model.fc, QLinear):
         raise TypeError("model.fc must be QLinear")
     fc = _convert_linear(model.fc, None, WEIGHT_BITS)
-    return Int8ResNet(stem, observer_grid(blocks_src[0].conv1), stages, fc).to(dev)
+    eng = Int8ResNet(stem, observer_grid(blocks_src[0].conv1), stages, fc, imagenet_pool=is_imagenet)
+    # serving reads the geometry: a CIFAR engine must not default to 224
+    eng.input_size = getattr(model, "input_size", 224)
+    return eng.to(dev)

@@ -1,9 +1,13 @@
 """ResNet skeleton of the port (counterpart of ``quantized_tpu/models/resnet_common.py``).
 
-The ImageNet geometry with Bottleneck blocks (depths 50/101/152): 7x7/64 s2
-stem, 3x3/s2 maxpool, four stages, global average pool, fc. Layout NHWC,
-kernels HWIO; submodule names match the JAX model (``layer1.0.conv1``, ...).
-BasicBlock and the CIFAR geometry wait for a later slice.
+Geometries:
+- ImageNet: 7x7/64 s2 stem, 3x3/s2 maxpool, four stages, global average
+  pool, fc. Depths 18/34 (BasicBlock) and 50/101/152 (Bottleneck).
+- CIFAR-10/100: 3x3/16 stem, three stages of n = (depth - 2) / 6
+  BasicBlocks at 16/32/64 channels, global average pool, fc.
+
+Layout NHWC, kernels HWIO; submodule names match the JAX model
+(``layer1.0.conv1``, ``layer2.0.downsample.conv``, ...).
 """
 
 from __future__ import annotations
@@ -27,6 +31,10 @@ class LayerKit:
     linear: Callable[..., nn.Module]
 
 
+def _conv3x3(kit: LayerKit, cin: int, cout: int, stride: int, generator) -> nn.Module:
+    return kit.conv(cin, cout, 3, stride=stride, padding=1, use_bias=False, generator=generator)
+
+
 class Downsample(nn.Module):
     """1x1 strided conv + BN on the shortcut path."""
 
@@ -39,6 +47,25 @@ class Downsample(nn.Module):
         return self.bn(self.conv(x))
 
 
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, kit: LayerKit, inplanes: int, planes: int, stride: int = 1,
+                 downsample: Optional[Downsample] = None, *, generator):
+        super().__init__()
+        self.conv1 = _conv3x3(kit, inplanes, planes, stride, generator)
+        self.bn1 = kit.bn(planes)
+        self.conv2 = _conv3x3(kit, planes, planes, 1, generator)
+        self.bn2 = kit.bn(planes)
+        self.downsample = downsample
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        residual = x if self.downsample is None else self.downsample(x)
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return F.relu(out + residual)
+
+
 class Bottleneck(nn.Module):
     expansion = 4
 
@@ -48,7 +75,7 @@ class Bottleneck(nn.Module):
         g = generator
         self.conv1 = kit.conv(inplanes, planes, 1, stride=1, padding=0, use_bias=False, generator=g)
         self.bn1 = kit.bn(planes)
-        self.conv2 = kit.conv(planes, planes, 3, stride=stride, padding=1, use_bias=False, generator=g)
+        self.conv2 = _conv3x3(kit, planes, planes, stride, g)
         self.bn2 = kit.bn(planes)
         self.conv3 = kit.conv(planes, planes * 4, 1, stride=1, padding=0, use_bias=False, generator=g)
         self.bn3 = kit.bn(planes * 4)
@@ -118,24 +145,55 @@ class ResNetImageNet(nn.Module):
         return self.fc(x.mean(dim=(1, 2)))
 
 
+class ResNetCifar(nn.Module):
+    """CIFAR geometry (JAX ``ResNetCifar``): n = (depth - 2) // 6 BasicBlocks
+    per stage."""
+
+    def __init__(self, kit: LayerKit, depth: int = 18, num_classes: int = 10, *, generator):
+        super().__init__()
+        g = generator
+        n = (depth - 2) // 6
+        self.conv1 = kit.conv(3, 16, 3, stride=1, padding=1, use_bias=False, generator=g)
+        self.bn1 = kit.bn(16)
+        inplanes = 16
+        self.layer1, inplanes = _make_stage(kit, BasicBlock, inplanes, 16, n, 1, g)
+        self.layer2, inplanes = _make_stage(kit, BasicBlock, inplanes, 32, n, 2, g)
+        self.layer3, inplanes = _make_stage(kit, BasicBlock, inplanes, 64, n, 2, g)
+        self.fc = kit.linear(64, num_classes, generator=g)
+        self.num_features = 64
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = self.layer3(self.layer2(self.layer1(x)))
+        return self.fc(x.mean(dim=(1, 2)))
+
+
 IMAGENET_DEPTH_CONFIGS = {
+    18: (BasicBlock, [2, 2, 2, 2]),
+    34: (BasicBlock, [3, 4, 6, 3]),
     50: (Bottleneck, [3, 4, 6, 3]),
     101: (Bottleneck, [3, 4, 23, 3]),
     152: (Bottleneck, [3, 8, 36, 3]),
 }
 
 
-def build_resnet(kit: LayerKit, dataset: str = "imagenet", depth: int = 50,
+def build_resnet(kit: LayerKit, dataset: str = "imagenet", depth: int = 18,
                  num_classes: Optional[int] = None, generator: Optional[torch.Generator] = None
                  ) -> nn.Module:
     """Dataset/depth dispatch. Parameters are drawn on the CPU from
     ``generator`` (default: seed 0); the caller moves the model."""
-    if dataset != "imagenet" or depth not in IMAGENET_DEPTH_CONFIGS:
-        raise ValueError(f"the port builds ImageNet depths {sorted(IMAGENET_DEPTH_CONFIGS)}; "
-                         f"got dataset={dataset!r} depth={depth}")
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
-    block_cls, layers = IMAGENET_DEPTH_CONFIGS[depth]
-    model = ResNetImageNet(kit, block_cls, layers, num_classes or 1000, generator=generator)
-    model.input_size = 224
-    model.input_transform = "imagenet"
+    if dataset == "imagenet":
+        if depth not in IMAGENET_DEPTH_CONFIGS:
+            raise ValueError(f"ImageNet depths are {sorted(IMAGENET_DEPTH_CONFIGS)}, got {depth}")
+        block_cls, layers = IMAGENET_DEPTH_CONFIGS[depth]
+        model = ResNetImageNet(kit, block_cls, layers, num_classes or 1000, generator=generator)
+        model.input_size = 224
+    elif dataset in ("cifar10", "cifar100"):
+        default_classes = 10 if dataset == "cifar10" else 100
+        model = ResNetCifar(kit, depth, num_classes or default_classes, generator=generator)
+        model.input_size = 32
+    else:
+        raise ValueError(f"unknown dataset {dataset!r}")
+    model.input_transform = dataset
     return model

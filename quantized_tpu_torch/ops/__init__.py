@@ -1,9 +1,15 @@
 """Integer ops of the port: the hand-written CUDA kernels (K1, K2, the fused
-bottlenecks B3), their plain PyTorch versions, and the tensor plumbing
-around them."""
+bottlenecks B3 and BasicBlocks B4), their plain PyTorch versions, and the
+tensor plumbing around them."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches
 from quantized_tpu_torch.ops.fused_block import (
+    fused_basicblock_ds,
+    fused_basicblock_ds_ck,
+    fused_basicblock_ds_plain,
+    fused_basicblock_s1,
+    fused_basicblock_s1_ck,
+    fused_basicblock_s1_plain,
     fused_bottleneck_ds,
     fused_bottleneck_ds_ck,
     fused_bottleneck_ds_plain,

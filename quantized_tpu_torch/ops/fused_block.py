@@ -1,10 +1,10 @@
-"""Fused int8 bottleneck blocks (kernel B3): a whole ResNet bottleneck in one
-launch, its interior activations kept out of device memory.
+"""Fused int8 residual blocks: a whole ResNet block in one launch, its
+interior activations kept out of device memory.
 
-Counterparts of the JAX package's ``fused_bottleneck_s1`` (identity block)
-and ``fused_bottleneck_ds`` (downsample block, 1x1/s shortcut conv). Per
-output element, in the Pallas kernels' order, one float32 rounding per
-operation:
+Kernel B3, the bottleneck: counterparts of the JAX package's
+``fused_bottleneck_s1`` (identity block) and ``fused_bottleneck_ds``
+(downsample block, 1x1/s shortcut conv). Per output element, in the Pallas
+kernels' order, one float32 rounding per operation:
 
     h1  = clip(round(acc1 * a1 + b1), lo1, 127)      conv1 1x1, onto conv2's grid
     h2  = clip(round(acc2 * a2 + b2), lo2, 127)      conv2 3x3/s over h1, halo = zp2_stored
@@ -14,20 +14,26 @@ operation:
         -> clip(round(idq * ds_fine), +-32767) * f32(1/ds_fine)
     out = clip(round(y + idq), shift, 127)
 
-h1's border is the stored zero point of conv2's input grid (it dequantizes
-to exactly 0), not conv1 applied to padded x.
+Kernel B4, the BasicBlock (ResNet-18/34 and the CIFAR nets): counterparts
+of ``fused_basicblock_s1`` and ``fused_basicblock_ds``:
 
-One CUDA kernel serves both (``csrc/fused_block.cu``). It takes the weights
-K-major: ``w1`` (Cm, C), ``w2`` (Cm, 9*Cm) in (kh, kw, c) order, ``w3``
-(Cout, Cm), ``wd`` (Cout, C), which is how
-:class:`~quantized_tpu_torch.engine.int_layers.IntConv2d` already stores a
-conv's weights; the ``*_ck`` wrappers take that form, and
-:func:`fused_bottleneck_s1` / :func:`fused_bottleneck_ds` keep the JAX
-signatures ((C, Cm), HWIO, (Cm, Cout), (C, Cout)).
+    h1  = clip(round(acc1 * a1 + b1), lo1, 127)      conv1 3x3/s over x, halo = zp1_stored
+    y   = acc2 * a2 + b2                             conv2 3x3 over h1, halo = zp2_stored
+    idq, out                                         as above
 
-A block of the kernel owns one image and a band of ``R`` output rows
-(:func:`band_rows`); it recomputes conv1 on the halo rows that the
-neighbouring band also needs, so h1 and h2 live in its shared memory.
+A border is the stored zero point of the padded tensor's grid (it
+dequantizes to exactly 0), never 0 and never a conv of padded input.
+
+The CUDA kernels (``csrc/fused_block.cu``) take the weights K-major: a 1x1
+conv (Cout, Cin), a 3x3 conv (Cout, 9*Cin) in (kh, kw, c) order, which is
+how :class:`~quantized_tpu_torch.engine.int_layers.IntConv2d` already
+stores a conv's weights; the ``*_ck`` wrappers take that form, and the
+wrappers without the suffix keep the JAX signatures (HWIO and (Cin, Cout)).
+
+A block of a kernel owns one image and a band of ``R`` output rows
+(:func:`band_rows`, :func:`basicblock_band_rows`); it recomputes conv1 on
+the halo rows that the neighbouring band also needs, so the interior
+activations live in its shared memory.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernel or raises.
@@ -45,6 +51,10 @@ FUSED_S1 = _cuda.CudaKernel("fused_bottleneck_s1", "fused_block.cu", "qt_fused_b
                             ["ptr"] * 11 + ["int"] * 7 + ["float"] * 5)
 FUSED_DS = _cuda.CudaKernel("fused_bottleneck_ds", "fused_block.cu", "qt_fused_bottleneck_ds",
                             ["ptr"] * 14 + ["int"] * 9 + ["float"] * 5)
+BASIC_S1 = _cuda.CudaKernel("fused_basicblock_s1", "fused_block.cu", "qt_fused_basicblock_s1",
+                            ["ptr"] * 8 + ["int"] * 8 + ["float"] * 4)
+BASIC_DS = _cuda.CudaKernel("fused_basicblock_ds", "fused_block.cu", "qt_fused_basicblock_ds",
+                            ["ptr"] * 11 + ["int"] * 9 + ["float"] * 4)
 
 # Shared-memory plan of a kernel block (csrc/fused_block.cu keeps the same
 # layout): the A and W staging tiles (64 rows at an 80-byte pitch each), h1
@@ -75,6 +85,32 @@ def band_rows(ho: int, w: int, cm: int, stride: int) -> int:
     return r
 
 
+# B4 keeps only h1 in shared memory: R + 2 rows of Wo + 2 pixels at a pitch
+# of Cm + 16 bytes, beside the same staging tiles. A band recomputes conv1
+# on 2 halo rows, a share of (R + 2) / R, so its bands are taller than
+# B3's: at least MIN_BASIC_ROWS rows and TARGET_ROWS output pixels.
+MIN_BASIC_ROWS = 8
+
+
+def basicblock_smem_bytes(r: int, wo: int, cm: int) -> int:
+    return STAGE_BYTES + (r + 2) * (wo + 2) * (cm + 16)
+
+
+def basicblock_band_rows(ho: int, wo: int, cm: int) -> int:
+    """Output rows per kernel block of B4: at least MIN_BASIC_ROWS rows and
+    TARGET_ROWS output pixels, bands of equal height, fewer rows until two
+    blocks fit on an SM."""
+    r = min(ho, max(MIN_BASIC_ROWS, -(-TARGET_ROWS // wo)))
+    nb = -(-ho // r)
+    r = -(-ho // nb)
+    while r > 1 and basicblock_smem_bytes(r, wo, cm) > SMEM_TWO_PER_SM:
+        nb += 1
+        r = -(-ho // nb)
+    if basicblock_smem_bytes(r, wo, cm) > SMEM_PER_BLOCK:
+        raise ValueError(f"a fused BasicBlock over Wo={wo}, Cm={cm} does not fit in shared memory")
+    return r
+
+
 # ----------------------------------------------------------------- plain versions
 
 
@@ -96,6 +132,16 @@ def _final(y: torch.Tensor, idq: torch.Tensor, shift: float) -> torch.Tensor:
     return torch.clamp(torch.round(y + idq), f32(shift), 127.0).to(torch.int8)
 
 
+def _shortcut(x_q, wd_nk, ad, bd, stride, ds_fine) -> torch.Tensor:
+    """The 1x1/s shortcut conv on x[::s, ::s], prescaled, with the int16 leg
+    when ``ds_fine`` is set: (N*Ho*Wo, Cout) f32."""
+    xs = x_q[:, ::stride, ::stride, :].reshape(-1, x_q.shape[-1])
+    idq = exact_int_matmul(xs, wd_nk).to(torch.float32) * ad + bd
+    if ds_fine:
+        idq = torch.clamp(torch.round(idq * f32(ds_fine)), -32767.0, 32767.0) * f32(1.0 / ds_fine)
+    return idq
+
+
 def fused_bottleneck_s1_plain(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3,
                               lo1, lo2, shift, zp2_stored, id_k, id_c) -> torch.Tensor:
     """Plain version of the identity block: exact int32 accumulators, then
@@ -110,16 +156,41 @@ def fused_bottleneck_s1_plain(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3,
 def fused_bottleneck_ds_plain(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3, ad, bd,
                               stride, lo1, lo2, shift, zp2_stored, ds_fine=0.0) -> torch.Tensor:
     """Plain version of the downsample block; the shortcut reads x[::s, ::s]."""
-    n, h, w, c = x_q.shape
+    n, h, w, _ = x_q.shape
     s = int(stride)
     cout = w3_nk.shape[0]
     h2 = _h2(x_q, w1_nk, w2_ck, a1, b1, a2, b2, s, lo1, lo2, zp2_stored)
     y = exact_int_matmul(h2, w3_nk).to(torch.float32) * a3 + b3
-    xs = x_q[:, ::s, ::s, :].reshape(-1, c)
-    idq = exact_int_matmul(xs, wd_nk).to(torch.float32) * ad + bd
-    if ds_fine:
-        idq = torch.clamp(torch.round(idq * f32(ds_fine)), -32767.0, 32767.0) * f32(1.0 / ds_fine)
+    idq = _shortcut(x_q, wd_nk, ad, bd, s, ds_fine)
     return _final(y, idq, shift).reshape(n, h // s, w // s, cout)
+
+
+def _basic_y(x_q, w1_ck, w2_ck, a1, b1, a2, b2, stride, lo1, zp1_stored, zp2_stored) -> torch.Tensor:
+    """conv1 3x3/s with its requant, then conv2 3x3 prescaled: y, (N*Ho*Wo, Cm) f32."""
+    h1 = _requant(int8_conv_acc(x_q, w1_ck, (3, 3), stride, 1, int(zp1_stored)), a1, b1, lo1)
+    acc2 = int8_conv_acc(h1, w2_ck, (3, 3), 1, 1, int(zp2_stored))
+    return acc2.reshape(-1, w2_ck.shape[0]).to(torch.float32) * a2 + b2
+
+
+def fused_basicblock_s1_plain(x_q, w1_ck, w2_ck, a1, b1, a2, b2, lo1, shift, zp1_stored, zp2_stored,
+                              id_k, id_c) -> torch.Tensor:
+    """Plain version of the identity BasicBlock: exact int32 accumulators,
+    then the epilogues in the Pallas kernel's order."""
+    n, h, w, c = x_q.shape
+    y = _basic_y(x_q, w1_ck, w2_ck, a1, b1, a2, b2, 1, lo1, zp1_stored, zp2_stored)
+    idq = x_q.reshape(-1, c).to(torch.float32) * f32(id_k) + f32(id_c)
+    return _final(y, idq, shift).reshape(n, h, w, c)
+
+
+def fused_basicblock_ds_plain(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd, stride, lo1, shift,
+                              zp1_stored, zp2_stored, ds_fine=0.0) -> torch.Tensor:
+    """Plain version of the downsample BasicBlock; the shortcut reads x[::s, ::s]."""
+    n, h, w, _ = x_q.shape
+    s = int(stride)
+    cm = w1_ck.shape[0]
+    y = _basic_y(x_q, w1_ck, w2_ck, a1, b1, a2, b2, s, lo1, zp1_stored, zp2_stored)
+    idq = _shortcut(x_q, wd_nk, ad, bd, s, ds_fine)
+    return _final(y, idq, shift).reshape(n, h // s, w // s, cm)
 
 
 # ----------------------------------------------------------------- wrappers
@@ -177,9 +248,7 @@ def fused_bottleneck_ds_ck(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, 
                  (wd_nk, (cout, c), "wd")],
            [(a1, cm, "a1"), (b1, cm, "b1"), (a2, cm, "a2"), (b2, cm, "b2"), (a3, cout, "a3"),
             (b3, cout, "b3"), (ad, cout, "ad"), (bd, cout, "bd")])
-    if s not in (1, 2) or h % s or w % s:
-        raise ValueError(f"stride {s} over {h}x{w}: the fused block takes stride 1 or 2 over an "
-                         f"image it divides")
+    _check_stride(s, h, w)
     args = (s, lo1, lo2, shift, zp2_stored, ds_fine)
     if x_q.device.type == "cpu":
         return fused_bottleneck_ds_plain(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3,
@@ -194,6 +263,56 @@ def fused_bottleneck_ds_ck(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, 
              a3.data_ptr(), b3.data_ptr(), ad.data_ptr(), bd.data_ptr(), out.data_ptr(),
              n, h, w, c, cm, cout, s, r, int(zp2_stored),
              f32(lo1), f32(lo2), f32(shift), f32(ds_fine), inv_fine)
+    return out
+
+
+def _check_stride(s: int, h: int, w: int):
+    if s not in (1, 2) or h % s or w % s:
+        raise ValueError(f"stride {s} over {h}x{w}: the fused block takes stride 1 or 2 over an "
+                         f"image it divides")
+
+
+def fused_basicblock_s1_ck(x_q, w1_ck, w2_ck, a1, b1, a2, b2, lo1, shift, zp1_stored, zp2_stored,
+                           id_k, id_c) -> torch.Tensor:
+    """Identity BasicBlock on K-major weights: w1 and w2 (C, 9*C)."""
+    n, h, w, c = x_q.shape
+    _check(x_q, [(w1_ck, (c, 9 * c), "w1"), (w2_ck, (c, 9 * c), "w2")],
+           [(a1, c, "a1"), (b1, c, "b1"), (a2, c, "a2"), (b2, c, "b2")])
+    args = (lo1, shift, zp1_stored, zp2_stored, id_k, id_c)
+    if x_q.device.type == "cpu":
+        return fused_basicblock_s1_plain(x_q, w1_ck, w2_ck, a1, b1, a2, b2, *args)
+    dev = _cuda.require_cuda_tensors(x_q, w1_ck, w2_ck, a1, b1, a2, b2)
+    _check_widths(c, c)
+    r = basicblock_band_rows(h, w, c)
+    out = torch.empty_like(x_q)
+    BASIC_S1(dev, x_q.data_ptr(), w1_ck.data_ptr(), w2_ck.data_ptr(), a1.data_ptr(), b1.data_ptr(),
+             a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, w, c, c, r, int(zp1_stored),
+             int(zp2_stored), f32(lo1), f32(shift), f32(id_k), f32(id_c))
+    return out
+
+
+def fused_basicblock_ds_ck(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd, stride, lo1, shift,
+                           zp1_stored, zp2_stored, ds_fine=0.0) -> torch.Tensor:
+    """Downsample BasicBlock on K-major weights: w1 (Cm, 9*C), w2 (Cm, 9*Cm),
+    wd (Cm, C). Returns (N, H/s, W/s, Cm)."""
+    n, h, w, c = x_q.shape
+    cm, s = w1_ck.shape[0], int(stride)
+    _check(x_q, [(w1_ck, (cm, 9 * c), "w1"), (w2_ck, (cm, 9 * cm), "w2"), (wd_nk, (cm, c), "wd")],
+           [(a1, cm, "a1"), (b1, cm, "b1"), (a2, cm, "a2"), (b2, cm, "b2"), (ad, cm, "ad"),
+            (bd, cm, "bd")])
+    _check_stride(s, h, w)
+    args = (s, lo1, shift, zp1_stored, zp2_stored, ds_fine)
+    if x_q.device.type == "cpu":
+        return fused_basicblock_ds_plain(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd, *args)
+    dev = _cuda.require_cuda_tensors(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd)
+    _check_widths(c, cm)
+    r = basicblock_band_rows(h // s, w // s, cm)
+    out = torch.empty((n, h // s, w // s, cm), dtype=torch.int8, device=dev)
+    inv_fine = f32(1.0 / ds_fine) if ds_fine else 0.0
+    BASIC_DS(dev, x_q.data_ptr(), w1_ck.data_ptr(), w2_ck.data_ptr(), wd_nk.data_ptr(), a1.data_ptr(),
+             b1.data_ptr(), a2.data_ptr(), b2.data_ptr(), ad.data_ptr(), bd.data_ptr(), out.data_ptr(),
+             n, h, w, c, cm, s, r, int(zp1_stored), int(zp2_stored),
+             f32(lo1), f32(shift), f32(ds_fine), inv_fine)
     return out
 
 
@@ -214,3 +333,18 @@ def fused_bottleneck_ds(x_q, w1, w2, w3, wd, a1, b1, a2, b2, a3, b3, ad, bd,
     return fused_bottleneck_ds_ck(x_q, _nk(w1), pack_conv_weight(w2), _nk(w3), _nk(wd),
                                   a1, b1, a2, b2, a3, b3, ad, bd, stride, lo1, lo2, shift,
                                   zp2_stored, ds_fine)
+
+
+def fused_basicblock_s1(x_q, w1, w2, a1, b1, a2, b2, lo1, shift, zp1_stored, zp2_stored,
+                        id_k, id_c) -> torch.Tensor:
+    """JAX-layout entry: w1 and w2 (3, 3, C, C) HWIO."""
+    return fused_basicblock_s1_ck(x_q, pack_conv_weight(w1), pack_conv_weight(w2), a1, b1, a2, b2,
+                                  lo1, shift, zp1_stored, zp2_stored, id_k, id_c)
+
+
+def fused_basicblock_ds(x_q, w1, w2, wd, a1, b1, a2, b2, ad, bd, stride, lo1, shift, zp1_stored,
+                        zp2_stored, ds_fine=0.0) -> torch.Tensor:
+    """JAX-layout entry: w1 (3, 3, C, Cm) and w2 (3, 3, Cm, Cm) HWIO, wd (C, Cm)."""
+    return fused_basicblock_ds_ck(x_q, pack_conv_weight(w1), pack_conv_weight(w2), _nk(wd),
+                                  a1, b1, a2, b2, ad, bd, stride, lo1, shift, zp1_stored, zp2_stored,
+                                  ds_fine)

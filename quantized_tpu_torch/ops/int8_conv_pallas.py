@@ -7,8 +7,11 @@ f32(1/s) + (zp - 128)), -128, 127)`` onto the consumer's grid.
 
 Two forms of one CUDA kernel (``csrc/int8_conv.cu``), chosen like the Pallas
 ones: per-tap (Cin a multiple of 16), and gather-K for small Cin (``cin <=
-32`` with more than one tap, where a K step straddles taps; Cin a multiple
-of 4). A Cin that the chosen form cannot take raises on the GPU. The kernels take the weights packed (Cout, Kh*Kw*Cin), which
+32`` with more than one tap, where a K step straddles taps; any Cin, in
+4-byte chunks where Cin is a multiple of 4 and in single bytes otherwise,
+as for the CIFAR stem's Cin = 3). A per-tap conv over a Cin that is not a
+multiple of 16 raises on the GPU. The kernels take the weights packed
+(Cout, Kh*Kw*Cin), which
 :class:`~quantized_tpu_torch.engine.int_layers.IntConv2d` stores once at
 build time; :func:`int8_conv_direct` keeps the JAX signature (HWIO).
 
@@ -107,9 +110,9 @@ def int8_conv_direct_ck(
     else:
         out = torch.empty((n, ho, wo, cout), dtype=torch.int8, device=dev)
         inv, zps = f32(1.0 / out_requant[0]), f32(out_requant[1] - 128)
-    kernel, chunk = (CONV_GATHERK, 4) if use_gather_k(cin, (kh, kw)) else (CONV_TAP, 16)
-    if cin % chunk:
-        raise ValueError(f"{kernel.name} gathers {chunk}-byte chunks and needs Cin % {chunk} == 0, got Cin={cin}")
+    kernel = CONV_GATHERK if use_gather_k(cin, (kh, kw)) else CONV_TAP
+    if kernel is CONV_TAP and cin % 16:
+        raise ValueError(f"{kernel.name} gathers 16-byte chunks and needs Cin % 16 == 0, got Cin={cin}")
     kernel(dev, x_q.data_ptr(), w_ck.data_ptr(), alpha.data_ptr(), beta.data_ptr(), out.data_ptr(),
            n, h, w, cin, cout, kh, kw, sh, sw, ph, pw, ho, wo,
            int(stored_zp), int(relu), int(out_requant is not None), inv, zps)

@@ -8,8 +8,8 @@ has only PyTorch:
 
 int8 outputs must be equal (both sides accumulate exactly and round the
 epilogue in the same order, without contracting it into an FMA); f32
-outputs agree within F32_ATOL. That holds for the fused bottleneck kernels
-too, whose outputs are int8.
+outputs agree within F32_ATOL. That holds for the fused bottleneck (B3) and
+BasicBlock (B4) kernels too, whose outputs are int8.
 """
 
 import numpy as np
@@ -23,7 +23,8 @@ F32_ATOL = 1e-3
 
 CONV_CASES = [
     # n, h, cin, cout, k, stride, pad, out_requant: ResNet-50's shapes, the
-    # stem's gather-K form, and ragged / odd cases
+    # stem's gather-K form, the CIFAR stem's Cin = 3 (gather-K in single
+    # bytes), and ragged / odd cases
     (2, 56, 64, 256, 1, 1, 0, None),
     (2, 56, 64, 64, 3, 1, 1, (0.07, 113)),
     (2, 56, 128, 128, 3, 2, 1, (0.05, 120)),
@@ -32,6 +33,8 @@ CONV_CASES = [
     (3, 9, 12, 16, 3, 2, 1, None),
     (2, 9, 8, 70, 3, 1, 1, (0.04, 99)),
     (1, 7, 2048, 40, 1, 1, 0, (0.03, 128)),
+    (2, 32, 3, 16, 3, 1, 1, (0.05, 113)),
+    (2, 9, 5, 24, 3, 2, 1, None),
 ]
 
 
@@ -156,8 +159,74 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):  # not contiguous
         a = torch.zeros((16, 32), dtype=torch.int8, device=cuda_device).T
         ops.int8_matmul_nk(a, w, ab, ab)
-    for cin, k in [(5, 3), (8, 1)]:  # a Cin that the gather-K / per-tap form cannot take
+    for cin, k in [(24, 1), (8, 1)]:  # a Cin that the per-tap form cannot take
         x = torch.zeros((1, 4, 4, cin), dtype=torch.int8, device=cuda_device)
         w = torch.zeros((8, k * k * cin), dtype=torch.int8, device=cuda_device)
         with pytest.raises(ValueError):
             ops.int8_conv_direct_ck(x, w, (k, k), ab, ab)
+
+
+def _basic_case(gen, device, n, h, c, cm, ds):
+    """x, K-major weights (w1 (Cm, 9*C), w2 (Cm, 9*Cm), wd (Cm, C)) and
+    epilogue vectors, scaled so the requants land inside the int8 range."""
+    def mat(rows, k):
+        return _dev(gen.integers(-127, 128, (rows, k)).astype(np.int8), device)
+
+    def vec(k, spread):
+        a = (gen.uniform(0.5, 1.5, cm) * spread / np.sqrt(k)).astype(np.float32)
+        return _dev(a, device), _dev(gen.uniform(-8, 8, cm).astype(np.float32), device)
+
+    x = _dev(gen.integers(-128, 128, (n, h, h, c)).astype(np.int8), device)
+    w = [mat(cm, 9 * c), mat(cm, 9 * cm)] + ([mat(cm, c)] if ds else [])
+    v = [*vec(9 * c, 4e-3), *vec(9 * cm, 6e-3)] + ([*vec(c, 6e-3)] if ds else [])
+    return x, w, v
+
+
+BASIC_SCALARS = dict(lo1=-21.0, shift=-3.0, zp1_stored=-17, zp2_stored=-40)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c", [
+    # ResNet-18's layer1 and layer3 identity blocks, CIFAR's layer1 (C = 16),
+    # and bands that do not divide the image (19 rows in bands of 10)
+    (2, 56, 64), (2, 14, 256), (2, 32, 16), (3, 19, 16), (2, 11, 32),
+])
+def test_fused_basicblock_s1_kernel_matches_plain(cuda_device, gen, n, h, c):
+    x, w, v = _basic_case(gen, cuda_device, n, h, c, c, ds=False)
+    kw = dict(BASIC_SCALARS, id_k=0.8137192, id_c=2.71828)
+    before = ops.KERNELS["fused_basicblock_s1"].launches
+    got = ops.fused_basicblock_s1_ck(x, *w, *v, **kw)
+    assert ops.KERNELS["fused_basicblock_s1"].launches == before + 1
+    want = ops.fused_basicblock_s1_plain(x, *w, *v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c,cm,stride,fine", [
+    # ResNet-18's layer2.0 and layer4.0, CIFAR's layer2.0 with and without the
+    # int16 leg, uneven bands (19 output rows), and a stride-1 downsample
+    (2, 56, 64, 128, 2, 32.0), (2, 14, 256, 512, 2, 32.0), (2, 32, 16, 32, 2, 32.0),
+    (2, 32, 16, 32, 2, 0.0), (3, 38, 16, 32, 2, 32.0), (2, 9, 32, 48, 1, 0.0),
+])
+def test_fused_basicblock_ds_kernel_matches_plain(cuda_device, gen, n, h, c, cm, stride, fine):
+    x, w, v = _basic_case(gen, cuda_device, n, h, c, cm, ds=True)
+    kw = dict(BASIC_SCALARS, ds_fine=fine)
+    before = ops.KERNELS["fused_basicblock_ds"].launches
+    got = ops.fused_basicblock_ds_ck(x, *w, *v, stride, **kw)
+    assert ops.KERNELS["fused_basicblock_ds"].launches == before + 1
+    want = ops.fused_basicblock_ds_plain(x, *w, *v, stride, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_fused_basicblock_wrappers_raise_on_shapes_the_kernel_refuses(cuda_device, gen):
+    x, w, v = _basic_case(gen, cuda_device, 1, 8, 24, 16, ds=True)  # C = 24: not a multiple of 16
+    with pytest.raises(ValueError):
+        ops.fused_basicblock_ds_ck(x, *w, *v, 1, **BASIC_SCALARS)
+    x, w, v = _basic_case(gen, cuda_device, 1, 8, 32, 16, ds=True)
+    with pytest.raises(ValueError):  # stride 2 over an odd image
+        ops.fused_basicblock_ds_ck(x[:, :7, :7].contiguous(), *w, *v, 2, **BASIC_SCALARS)
+    with pytest.raises(ValueError):  # a CPU vector mixed into a CUDA call
+        ops.fused_basicblock_ds_ck(x, *w, v[0].cpu(), *v[1:], 1, **BASIC_SCALARS)

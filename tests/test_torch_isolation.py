@@ -27,3 +27,27 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["imported"] >= 20, result
     assert result["bad"] == [], result
+
+
+_SMOKE_PROBE = r"""
+import importlib.util, json, sys
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+from quantized_tpu_torch import ops
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "quantized_tpu"))
+print(json.dumps({"bad": bad, "kernels": sorted(ops.KERNELS), "reported": sorted(smoke.KERNEL_INFO)}))
+"""
+
+
+def test_chip_smoke_imports_no_jax_and_reports_every_kernel():
+    """``chip_smoke.py`` (imported, not run) loads no JAX either, and its
+    kernels line names every kernel the port registers, the fused
+    BasicBlock kernels included."""
+    out = subprocess.run([sys.executable, "-c", _SMOKE_PROBE], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert result["bad"] == [], result
+    assert result["kernels"] == result["reported"], result
+    assert {"fused_basicblock_s1", "fused_basicblock_ds"} <= set(result["kernels"]), result
