@@ -23,12 +23,16 @@ and a non-zero exit:
    could take (the bytes the function must move over 3.35 TB/s or its int8
    operations over 1979 TOP/s, whichever is larger). The fused bottleneck
    kernels (B3) run at five of ResNet-50's block shapes, the fused
-   BasicBlock kernels (B4) at ResNet-18's and CIFAR ResNet-20's; no PyTorch
-   call computes a fused block;
+   BasicBlock kernels (B4) at ResNet-18's and CIFAR ResNet-20's, the fused
+   depthwise-separable kernel (B5) at MobileNet-v1's pairs 0, 1, 6 and 11
+   (each with its band height R and grid), K2's gather-K form also at
+   MobileNet's stem (3x3/s2 over Cin = 3); no PyTorch call computes a fused
+   block or pair;
 4. the serving paths, each through the entry points a user calls
    (``_calibrated_model`` from a seeded generator, ``build_int8_resident(...,
-   backend="pallas")``, ``IntExecutor(..., ingest="u8")``, then
-   ``fuse_resident_blocks``), each answering 3 requests of 32 uint8 images
+   backend="pallas")`` or ``build_int8_mobilenet``, ``IntExecutor(...,
+   ingest="u8")``, then ``fuse_resident_blocks`` or
+   ``fuse_mobilenet_blocks``), each answering 3 requests of 32 uint8 images
    with the launch counts set to 0 just before and read just after; every
    kernel must launch exactly the stated number of times per forward:
    - ResNet-50 (ImageNet geometry, 224x224, layers [3, 4, 6, 3], 1000
@@ -45,17 +49,25 @@ and a non-zero exit:
      gather-K (the stem over Cin = 3 and the 13 block convs over Cin 16 or
      32) and 7 K2 per-tap (5 block convs over Cin 64, 2 downsamples) and 1
      K1; fused (8 blocks), 6 ``fused_basicblock_s1``, 2
-     ``fused_basicblock_ds``, 2 K2 per-tap, 1 K2 gather-K and 1 K1.
+     ``fused_basicblock_ds``, 2 K2 per-tap, 1 K2 gather-K and 1 K1;
+   - MobileNet-v1 (224x224, width 1.0, 1000 classes; its observers set by
+     two observer-update passes on seeded images, since a random-init
+     MobileNet's activations vanish within four convs of frozen [-4, 4]
+     grids): unfused, 13 K2 per-tap (the pointwise convs), 1 K2 gather-K
+     (the stem) and 1 K1, the 13 depthwise convs on the plain grouped path;
+     fused (12 pairs), 12 ``fused_dw_pw``, 1 K2 per-tap (the last pointwise
+     conv, f32 out), 1 K2 gather-K and 1 K1.
    Each engine is held on 2 of the images against the same engine built on
    the CPU (plain versions): int8 stages equal, logits within F32_ATOL of
    their magnitude. The gemm and fused engines are also held, block by
-   block on shared inputs, against the unfused GPU engine: int8 within 1
-   step on under 1% of a block, logits within LOGIT_ATOL (the fused
-   downsample blocks carry the int16 shortcut leg);
-5. throughput: batch-128 uint8 224x224 forwards of ResNet-50 and of
-   ResNet-18, unfused and fused, timed with CUDA events in turns (unfused,
-   fused, fused, unfused) per model, and a profile of where the device time
-   goes in each;
+   block (or pair by pair) on shared inputs, against the unfused GPU
+   engine: int8 within 1 step on under 1% of a block, logits within
+   LOGIT_ATOL (the fused downsample blocks carry the int16 shortcut leg);
+5. throughput: batch-128 uint8 224x224 forwards of ResNet-50, ResNet-18
+   and MobileNet-v1, unfused and fused, timed with CUDA events in turns
+   (unfused, fused, fused, unfused) per model, a profile of where the
+   device time goes in each, and the device time of unfused MobileNet's 13
+   plain depthwise convs;
 6. the kernels line: one JSON object with each kernel's numbers; ``launches``
    is the count per forward times 3 from the path that runs the kernel
    (``path``);
@@ -86,14 +98,15 @@ F32_ATOL = 1e-3  # f32 outputs against their plain versions, and GPU logits agai
 LOGIT_ATOL = 0.25  # gemm or fused against pallas: they round their requant in another order
 L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
-# name: (dataset config, image side, classes)
+# name: (registered model, its config, image side, classes)
 MODELS = {
-    "resnet50": (dict(dataset="imagenet", depth=50), 224, 1000),
-    "resnet18": (dict(dataset="imagenet", depth=18), 224, 1000),
-    "cifar20": (dict(dataset="cifar10", depth=20), 32, 10),
+    "resnet50": ("resnet_quantized_float_bn", dict(dataset="imagenet", depth=50), 224, 1000),
+    "resnet18": ("resnet_quantized_float_bn", dict(dataset="imagenet", depth=18), 224, 1000),
+    "cifar20": ("resnet_quantized_float_bn", dict(dataset="cifar10", depth=20), 32, 10),
+    "mobilenet": ("mobilenet_quantized", dict(num_classes=1000, width_mult=1.0), 224, 1000),
 }
 # launches per forward of each path (every kernel not named: 0), and the
-# blocks that fuse_resident_blocks fuses
+# blocks (or MobileNet pairs) that fusing fuses
 PLANS = {
     "resnet50": ({"int8_conv_direct": 52, "int8_conv_direct_gatherk": 1, "int8_matmul": 1},
                  {"fused_bottleneck_s1": 11, "fused_bottleneck_ds": 4, "int8_conv_direct": 3,
@@ -104,6 +117,9 @@ PLANS = {
     "cifar20": ({"int8_conv_direct": 7, "int8_conv_direct_gatherk": 14, "int8_matmul": 1},
                 {"fused_basicblock_s1": 6, "fused_basicblock_ds": 2, "int8_conv_direct": 2,
                  "int8_conv_direct_gatherk": 1, "int8_matmul": 1}, 8),
+    "mobilenet": ({"int8_conv_direct": 13, "int8_conv_direct_gatherk": 1, "int8_matmul": 1},
+                  {"fused_dw_pw": 12, "int8_conv_direct": 1, "int8_conv_direct_gatherk": 1,
+                   "int8_matmul": 1}, 12),
 }
 GEMM_PLAN = {"int8_matmul_requant": 33, "int8_matmul": 21}  # ResNet-50 on the "gemm" backend
 
@@ -117,13 +133,14 @@ KERNEL_INFO = {
     "fused_bottleneck_ds": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:368"),
     "fused_basicblock_s1": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:198"),
     "fused_basicblock_ds": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:537"),
+    "fused_dw_pw": ("quantized_tpu_torch/csrc/fused_dw_pw.cu", "quantized_tpu/ops/fused_block.py:701"),
 }
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
-               "fused_basicblock_ds": "resnet18 fused"}
+               "fused_basicblock_ds": "resnet18 fused", "fused_dw_pw": "mobilenet fused"}
 OUR_KERNELS = ("int8_conv_kernel", "int8_matmul_kernel", "fused_bottleneck_kernel",
-               "fused_basicblock_kernel")  # device kernel names
+               "fused_basicblock_kernel", "fused_dw_pw_kernel")  # device kernel names
 
 
 def log(msg: str) -> None:
@@ -258,6 +275,7 @@ def phase_kernels(timer):
     """Each kernel against its plain version at serving shapes; returns
     {kernel name: numbers} for the kernels line."""
     from quantized_tpu_torch import ops
+    from quantized_tpu_torch.ops import fused_block
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1234)
@@ -322,6 +340,8 @@ def phase_kernels(timer):
         ("int8_conv_direct", "layer2 1x1 s2 256->512 f32", (56, 256, 512, 1, 2, 0, None), False),
         ("int8_conv_direct_gatherk", "stem s2d 4x4 s1 12->64 s8", (115, 12, 64, 4, 1, 0, (0.05, 113)), True),
         ("int8_conv_direct_gatherk", "cifar stem 3x3 s1 3->16 s8", (32, 3, 16, 3, 1, 1, (0.05, 113)), False),
+        ("int8_conv_direct_gatherk", "mobilenet stem 3x3 s2 3->32 s8", (224, 3, 32, 3, 2, 1, (0.05, 113)),
+         False),
     ]
     for name, label, (h, cin, cout, kk, s, p, req), rep in conv_cases:
         x = _rand_int8(gen, (b, h, h, cin))
@@ -406,6 +426,31 @@ def phase_kernels(timer):
                lambda x=x, args=args, kernel=kernel: kernel(x, *args),
                lambda x=x, args=args, plain=plain: plain(x, *args),
                None, nbytes, nops, rep, plain_iters=3)
+
+    # B5: MobileNet-v1's fused depthwise-separable pairs, the depthwise
+    # conv's stored zero point unlike either clip floor
+    dw_pw_cases = [
+        # label, (input side, C, Cout, stride), representative
+        ("pair 0 112x112 32->64", (112, 32, 64, 1), True),
+        ("pair 1 s2 112->56 64->128", (112, 64, 128, 2), False),
+        ("pair 6 14x14 512->512", (14, 512, 512, 1), False),
+        ("pair 11 s2 14->7 512->1024", (14, 512, 1024, 2), False),
+    ]
+    for label, (h, c, cout, s), rep in dw_pw_cases:
+        x = _rand_int8(gen, (b, h, h, c))
+        wdw, wpw = _rand_int8(gen, (c, 9), low=-127), _rand_int8(gen, (cout, c), low=-127)
+        vecs = [((torch.rand(c, generator=gen) + 0.5) * (4e-2 / 3)).to(dev),
+                ((torch.rand(c, generator=gen) - 0.5) * 16).to(dev),
+                ((torch.rand(cout, generator=gen) + 0.5) * (6e-3 / c ** 0.5)).to(dev),
+                ((torch.rand(cout, generator=gen) - 0.5) * 16).to(dev)]
+        args = (wdw, wpw, *vecs, s, -21.0, -9.0, -17)
+        ho = h // s
+        r = fused_block.dw_pw_band_rows(b, ho, h, c, cout, s)
+        nbytes = x.numel() + b * ho * ho * cout + wdw.numel() + wpw.numel() + 4 * sum(v.numel() for v in vecs)
+        record("fused_dw_pw", f"{label} batch {b} (R {r}, grid {-(-ho // r)}x{b})",
+               lambda x=x, args=args: ops.fused_dw_pw_ck(x, *args),
+               lambda x=x, args=args: ops.fused_dw_pw_plain(x, *args),
+               None, nbytes, 2 * b * ho * ho * (9 * c + c * cout), rep, plain_iters=3)
     return results
 
 
@@ -417,16 +462,32 @@ def _first_block_input(engine, x_q):
     return (maxpool_3x3_s2_int8(h) if engine.imagenet_pool else h), h
 
 
+def _mobilenet_steps(engine):
+    """(name, callable) of each step of an Int8MobileNet's chain: its convs,
+    or its stages once fused."""
+    if engine.fused_stages:
+        return [(f"stage{j}", getattr(engine, f"stage{j}")) for j in range(engine.num_fused_stages)]
+    return [(f"conv{i}", lambda h, conv=getattr(engine, f"conv{i}"), grid=grid:
+             conv.run_q(h, relu=True, out_requant=grid)) for i, grid in enumerate(engine.requant_grids)]
+
+
 def _stage_outputs(engine, u8):
-    """Stored-int8 output of the stem and each stage, and the logits."""
+    """Output of the stem and each stage (each MobileNet conv or fused
+    stage), and the logits."""
+    from quantized_tpu_torch.engine import Int8MobileNet
     from quantized_tpu_torch.engine.int8_resident import u8_to_stored
 
     with torch.inference_mode():
-        h, stem = _first_block_input(engine, u8_to_stored(u8, engine.stem.grid))
-        outs = {"stem": stem}
-        for i in range(1, engine.num_stages + 1):
-            h = getattr(engine, f"layer{i}")(h)
-            outs[f"layer{i}"] = h
+        if isinstance(engine, Int8MobileNet):
+            h, outs = u8_to_stored(u8, engine.input_grid), {}
+            for name, step in _mobilenet_steps(engine):
+                h = outs[name] = step(h)
+        else:
+            h, stem = _first_block_input(engine, u8_to_stored(u8, engine.stem.grid))
+            outs = {"stem": stem}
+            for i in range(1, engine.num_stages + 1):
+                h = getattr(engine, f"layer{i}")(h)
+                outs[f"layer{i}"] = h
         outs["logits"] = engine.fc(h.mean(dim=(1, 2)))
     return outs
 
@@ -489,13 +550,50 @@ def _compare_blocks(ref, other, u8, what):
         _check_logits(other.run_u8(u8), ref.run_u8(u8), what)
 
 
+def _compare_pairs(ref, other, u8, what):
+    """MobileNet: every fused pair of ``other`` fed ``ref``'s input to it,
+    against ``ref``'s two convs: within 1 step on under 1% of the elements;
+    then the logits end to end."""
+    from quantized_tpu_torch.engine import FusedInt8DwPw
+    from quantized_tpu_torch.engine.int8_resident import u8_to_stored
+
+    worst, convs, i = (0, 0.0), _mobilenet_steps(ref), 0
+    with torch.inference_mode():
+        h = u8_to_stored(u8, ref.input_grid)
+        for name, stage in _mobilenet_steps(other):
+            span = 2 if isinstance(stage, FusedInt8DwPw) else 1
+            nxt = h
+            for _, conv in convs[i:i + span]:
+                nxt = conv(nxt)
+            if nxt.dtype == torch.int8:
+                worst = max(worst, _check_int8(stage(h), nxt, f"{what} {name}", exact=False))
+            h, i = nxt, i + span
+        log(f"[compare] {what} int8 stages on shared inputs: worst {worst[0]} step(s), "
+            f"largest differing share {worst[1]:.6f}")
+        _check_logits(other.run_u8(u8), ref.run_u8(u8), what)
+
+
+def _observe(model, side: int):
+    """Two observer-update passes on seeded images (as the JAX package's
+    MobileNet tests calibrate): a random-init MobileNet's activations shrink
+    at every depthwise conv, and on grids frozen at [-4, 4] every conv past
+    the fourth would emit only its clip floor."""
+    gen = torch.Generator().manual_seed(5)
+    model.train()
+    with torch.no_grad():
+        for _ in range(2):
+            model(torch.randn((2, side, side, 3), generator=gen))
+    return model.eval()
+
+
 def _build(key: str, backend: str, device: str):
-    from quantized_tpu_torch.engine import build_int8_resident
+    from quantized_tpu_torch.engine import build_int8_mobilenet, build_int8_resident
     from quantized_tpu_torch.entry import _calibrated_model
 
-    cfg = MODELS[key][0]
-    model = _calibrated_model("resnet_quantized_float_bn", device="cpu",
-                              generator=torch.Generator().manual_seed(0), **cfg)
+    name, cfg, side, _ = MODELS[key]
+    model = _calibrated_model(name, device="cpu", generator=torch.Generator().manual_seed(0), **cfg)
+    if name == "mobilenet_quantized":
+        return build_int8_mobilenet(_observe(model, side), backend=backend, device=device)
     return build_int8_resident(model, backend=backend, device=device)
 
 
@@ -557,13 +655,15 @@ def phase_gemm(pallas_engine, sample):
 
 def phase_model(key):
     """One model's serving paths: unfused, then fused by
-    ``fuse_resident_blocks``, each served the same requests and held
-    against its CPU twin; the fused engine also against the unfused one.
-    ResNet-50 also runs the "gemm" backend. Returns the executors and the
-    counts of each path."""
-    from quantized_tpu_torch.engine import IntExecutor, fuse_resident_blocks
+    ``fuse_resident_blocks`` (``fuse_mobilenet_blocks`` for MobileNet),
+    each served the same requests and held against its CPU twin; the fused
+    engine also against the unfused one. ResNet-50 also runs the "gemm"
+    backend. Returns the executors and the counts of each path."""
+    from quantized_tpu_torch.engine import IntExecutor, fuse_mobilenet_blocks, fuse_resident_blocks
 
-    _, side, classes = MODELS[key]
+    _, _, side, classes = MODELS[key]
+    fuse, compare = ((fuse_mobilenet_blocks, _compare_pairs) if key == "mobilenet"
+                     else (fuse_resident_blocks, _compare_blocks))
     plan, fused_plan, n_blocks = PLANS[key]
     t0 = time.perf_counter()
     engine = _build(key, "pallas", "cuda")
@@ -584,17 +684,17 @@ def phase_model(key):
         counts["resnet50 gemm"] = phase_gemm(engine, sample)
 
     fused = copy.deepcopy(engine)
-    n_fused = fuse_resident_blocks(fused)
+    n_fused = fuse(fused)
     if n_fused != n_blocks:
-        raise AssertionError(f"{key}: fuse_resident_blocks fused {n_fused} blocks, expected {n_blocks}")
+        raise AssertionError(f"{key}: {fuse.__name__} fused {n_fused}, expected {n_blocks}")
     fused_executor = IntExecutor(fused, ingest="u8", device="cuda")
     fused_executor.warmup(sample)
     counts[f"{key} fused"] = _serve(f"{key} fused", fused_executor, requests, fused_plan, classes)
     cpu_fused = copy.deepcopy(cpu_engine)
-    fuse_resident_blocks(cpu_fused)
+    fuse(cpu_fused)
     _compare_stages(_stage_outputs(fused, sample.cuda()), _stage_outputs(cpu_fused, sample),
                     f"{key} fused gpu vs fused cpu")
-    _compare_blocks(engine, fused, sample.cuda(), f"{key} fused vs unfused")
+    compare(engine, fused, sample.cuda(), f"{key} fused vs unfused")
     return {"unfused": executor, "fused": fused_executor}, counts
 
 
@@ -632,7 +732,29 @@ def _profile(executor, dev_batch, ms, what, n_prof=3):
         log(f"[profile] {what} {us / 1e3:9.3f} ms {count:4d}x {key[:100]}")
 
 
-def phase_throughput(key, executors, card):
+def _depthwise_ms(engine, dev_batch, timer):
+    """Device time of the unfused MobileNet's depthwise convs (the plain
+    grouped path) on their inputs of one batch-128 forward."""
+    from quantized_tpu_torch.engine.int8_resident import u8_to_stored
+
+    with torch.inference_mode():
+        h, calls = u8_to_stored(dev_batch, engine.input_grid), []
+        for i, grid in enumerate(engine.requant_grids):
+            conv = getattr(engine, f"conv{i}")
+            if conv.groups > 1:
+                calls.append((conv, h, grid))
+            h = conv.run_q(h, relu=True, out_requant=grid)
+
+        def run():
+            for conv, x, grid in calls:
+                conv.run_q(x, relu=True, out_requant=grid)
+
+        ms = timer.ms(run, iters=5, warmup=1)
+    log(f"[throughput] mobilenet unfused: its {len(calls)} plain depthwise convs take {ms:.3f} ms of device "
+        f"time per batch-{THROUGHPUT_BATCH} forward")
+
+
+def phase_throughput(key, executors, card, timer):
     """Batch-128 forwards of each engine of one model, timed in turns (a b b a ...)."""
     gen = torch.Generator().manual_seed(11)
     host = torch.randint(0, 256, (THROUGHPUT_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8)
@@ -661,6 +783,8 @@ def phase_throughput(key, executors, card):
             f"{host_ms:.3f} ms/batch, {THROUGHPUT_BATCH / host_ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB; "
             f"card {card}")
         _profile(ex, dev, ms, f"{key} {name}")
+    if key == "mobilenet":
+        _depthwise_ms(executors["unfused"].model, dev, timer)
 
 
 def main() -> int:
@@ -677,8 +801,8 @@ def main() -> int:
     for key in MODELS:
         executors[key], counts = phase_model(key)
         path_counts.update(counts)
-    for key in ("resnet50", "resnet18"):
-        phase_throughput(key, executors[key], card)
+    for key in ("resnet50", "resnet18", "mobilenet"):
+        phase_throughput(key, executors[key], card, timer)
 
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():

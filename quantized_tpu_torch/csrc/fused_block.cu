@@ -79,8 +79,13 @@
 
 namespace {
 
-constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory of one block on the H100
-constexpr int CPR = qt::BK / 16;     // 16-byte chunks per staged row
+using qt::fill16;
+using qt::launch;
+using qt::ld16;
+using qt::requant;
+using qt::zero16;
+
+constexpr int CPR = qt::BK / 16;  // 16-byte chunks per staged row
 
 struct BlockShape {
   int N, H, W, C, Cm, Cout, Ho, Wo, R, HR, P;  // HR: h1 rows; P: h1/h2 pixel pitch
@@ -91,22 +96,6 @@ struct Epilogue {
   float lo1, lo2, shift, id_k, id_c, fine, inv_fine;
   int zp2;
 };
-
-__device__ __forceinline__ uint4 ld16(const int8_t* p) { return *reinterpret_cast<const uint4*>(p); }
-
-__device__ __forceinline__ uint4 zero16() { return make_uint4(0u, 0u, 0u, 0u); }
-
-// 16 bytes of a stored zero point
-__device__ __forceinline__ uint4 fill16(int stored) {
-  const uint32_t z = 0x01010101u * static_cast<uint8_t>(stored);
-  return make_uint4(z, z, z, z);
-}
-
-__device__ __forceinline__ int8_t requant(int acc, float a, float b, float lo) {
-  float q = rintf(__fadd_rn(__fmul_rn(static_cast<float>(acc), a), b));
-  q = fminf(fmaxf(q, lo), 127.0f);
-  return static_cast<int8_t>(static_cast<int>(q));
-}
 
 // The shortcut conv's prescaled output, through the int16 leg when fine != 0.
 __device__ __forceinline__ float shortcut_leg(int acc, float a, float b, float fine, float inv_fine) {
@@ -357,24 +346,11 @@ __global__ void __launch_bounds__(qt::THREADS)
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
-// Launch with `smem` bytes of dynamic shared memory; 0 or the CUDA error.
-template <typename Kernel, typename... Args>
-int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
-  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, qt::THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args...);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <int S, bool DS>
 int launch_bottleneck(const void* x, const void* w1, const void* w2, const void* w3, const void* wd,
                       void* out, BlockShape s, const Epilogue& e, void* stream) {
-  if (s.N < 1 || s.R < 1 || s.C % 16 || s.Cm % 16 || s.H % S || s.W % S || !aligned16(x) ||
-      !aligned16(w1) || !aligned16(w2) || !aligned16(w3) || (DS && !aligned16(wd)))
+  if (s.N < 1 || s.R < 1 || s.C % 16 || s.Cm % 16 || s.H % S || s.W % S || !qt::aligned16(x) ||
+      !qt::aligned16(w1) || !qt::aligned16(w2) || !qt::aligned16(w3) || (DS && !qt::aligned16(wd)))
     return static_cast<int>(cudaErrorInvalidValue);
   s.Ho = s.H / S;
   s.Wo = s.W / S;
@@ -390,7 +366,7 @@ template <int S, bool DS>
 int launch_basic(const void* x, const void* w1, const void* w2, const void* wd, void* out, BasicShape s,
                  const BasicEpilogue& e, void* stream) {
   if (s.N < 1 || s.R < 1 || s.C % 16 || s.Cm % 16 || s.H % S || s.W % S || (!DS && s.C != s.Cm) ||
-      !aligned16(x) || !aligned16(w1) || !aligned16(w2) || (DS && !aligned16(wd)))
+      !qt::aligned16(x) || !qt::aligned16(w1) || !qt::aligned16(w2) || (DS && !qt::aligned16(wd)))
     return static_cast<int>(cudaErrorInvalidValue);
   s.Ho = s.H / S;
   s.Wo = s.W / S;

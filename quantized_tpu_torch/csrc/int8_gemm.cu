@@ -64,12 +64,10 @@ __global__ void __launch_bounds__(qt::THREADS)
   });
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 template <bool REQUANT>
 int launch(const void* a, const void* w, const void* alpha, const void* beta, void* out, int M,
            int N, int K, int relu, float inv, float zps, float lo, void* stream) {
-  const bool vec = (K % 16 == 0) && aligned16(a) && aligned16(w);
+  const bool vec = (K % 16 == 0) && qt::aligned16(a) && qt::aligned16(w);
   const dim3 grid((M + qt::BM - 1) / qt::BM, (N + qt::BN - 1) / qt::BN);
   int8_matmul_kernel<REQUANT><<<grid, qt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),

@@ -1,5 +1,5 @@
 // Shared block-tile machinery of the int8 kernels (int8_gemm.cu, int8_conv.cu,
-// fused_block.cu).
+// fused_block.cu, fused_dw_pw.cu).
 //
 // A block computes a 64x64 tile of C = A (M,K) x W (N,K)^T with int32
 // accumulation. Both operands are K-major int8, which is exactly the operand
@@ -108,6 +108,40 @@ __device__ __forceinline__ void for_each_acc_pair(const Acc& a, const Acc& b, F&
 template <typename F>
 __device__ __forceinline__ void for_each_acc(const Acc& acc, F&& f) {
   for_each_acc_pair(acc, acc, [&](int row, int col, int v, int) { f(row, col, v); });
+}
+
+// ---- helpers of the fused kernels (fused_block.cu, fused_dw_pw.cu)
+
+constexpr int SMEM_LIMIT = 232448;  // opt-in shared memory of one block on the H100
+
+__device__ __forceinline__ uint4 ld16(const int8_t* p) { return *reinterpret_cast<const uint4*>(p); }
+
+__device__ __forceinline__ uint4 zero16() { return make_uint4(0u, 0u, 0u, 0u); }
+
+// 16 bytes of a stored zero point
+__device__ __forceinline__ uint4 fill16(int stored) {
+  const uint32_t z = 0x01010101u * static_cast<uint8_t>(stored);
+  return make_uint4(z, z, z, z);
+}
+
+// clip(rint(acc*a + b), lo, 127) -> s8, one float32 rounding per operation
+__device__ __forceinline__ int8_t requant(int acc, float a, float b, float lo) {
+  float q = rintf(__fadd_rn(__fmul_rn(static_cast<float>(acc), a), b));
+  q = fminf(fmaxf(q, lo), 127.0f);
+  return static_cast<int8_t>(static_cast<int>(q));
+}
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+// Launch with `smem` bytes of dynamic shared memory; 0 or the CUDA error.
+template <typename Kernel, typename... Args>
+int launch(Kernel kernel, dim3 grid, size_t smem, void* stream, Args... args) {
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace qt

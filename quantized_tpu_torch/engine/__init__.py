@@ -1,6 +1,6 @@
 """Integer engine of the port: the int layers, the conversion from a
-calibrated fake-quant model, the int8-resident ResNet, its fused-block form
-and its executor."""
+calibrated fake-quant model, the int8-resident ResNet and MobileNet-v1,
+their fused forms and the executor."""
 
 from quantized_tpu_torch.engine.executor import IntExecutor
 from quantized_tpu_torch.engine.fused import (
@@ -8,10 +8,13 @@ from quantized_tpu_torch.engine.fused import (
     FusedInt8BasicBlockDS,
     FusedInt8Bottleneck,
     FusedInt8BottleneckDS,
+    FusedInt8DwPw,
     fusable,
     fuse_block,
+    fuse_mobilenet_blocks,
     fuse_resident_blocks,
 )
+from quantized_tpu_torch.engine.int8_mobilenet import Int8MobileNet, build_int8_mobilenet
 from quantized_tpu_torch.engine.int8_resident import (
     Int8BasicBlock,
     Int8Bottleneck,

@@ -1,5 +1,5 @@
-"""Fused-block execution for the int8-resident engine (counterpart of the
-ResNet part of ``quantized_tpu/engine/fused.py``).
+"""Fused-block execution for the int8-resident engines (counterpart of
+``quantized_tpu/engine/fused.py``).
 
 ``fuse_resident_blocks`` replaces every eligible block of a built
 :class:`~quantized_tpu_torch.engine.int8_resident.Int8ResNet` with a twin that
@@ -14,7 +14,14 @@ unfused blocks they agree within 1 int step. The fused downsample blocks
 carry the int16 shortcut leg (``S16_FINE``), which the unfused "pallas"
 blocks do not.
 
-The MobileNet stages and the autotuner's fused-vs-unfused race are not
+``fuse_mobilenet_blocks`` rebuilds a built
+:class:`~quantized_tpu_torch.engine.int8_mobilenet.Int8MobileNet` as
+stages: every depthwise -> pointwise pair whose two output grids are frozen
+runs as one kernel (``fused_dw_pw``, kernel B5); the last pair, whose
+pointwise conv emits f32 for the pool, stays as two convs. Its constants are
+derived the same way, so the port's fused pairs equal the JAX package's.
+
+The autotuner's fused-vs-unfused race (which passes ``decide``) is not
 ported yet.
 """
 
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from quantized_tpu_torch.engine.int8_mobilenet import Int8MobileNet
 from quantized_tpu_torch.engine.int8_resident import Int8BasicBlock, Int8Bottleneck, Int8ResNet
 from quantized_tpu_torch.engine.int_layers import S16_FINE, IntConv2d
 from quantized_tpu_torch.ops.fused_block import (
@@ -31,6 +39,7 @@ from quantized_tpu_torch.ops.fused_block import (
     fused_basicblock_s1_ck,
     fused_bottleneck_ds_ck,
     fused_bottleneck_s1_ck,
+    fused_dw_pw_ck,
 )
 
 
@@ -223,4 +232,90 @@ def fuse_resident_blocks(model: Int8ResNet) -> int:
             if fusable(blk):
                 stage.add_module(str(j), fuse_block(blk))
                 fused += 1
+    return fused
+
+
+# ----------------------------------------------------------------- mobilenet
+
+
+class _ConvStage(nn.Module):
+    """Unfused stage of a fused-plan MobileNet: one conv and its output grid."""
+
+    def __init__(self, conv: IntConv2d, out_grid):
+        super().__init__()
+        self.conv = conv
+        self.stage_out_grid = out_grid
+
+    def forward(self, x_q: torch.Tensor) -> torch.Tensor:
+        return self.conv.run_q(x_q, relu=True, out_requant=self.stage_out_grid)
+
+
+class FusedInt8DwPw(nn.Module):
+    """Depthwise-separable pair (3x3 dw / stride s -> 1x1 pw) in one kernel
+    launch (``fused_dw_pw``); the two chained ``run_q(relu=True,
+    out_requant=...)`` calls of the unfused chain, each requant folded into
+    its conv's epilogue. The weights are the convs' own K-major tensors:
+    depthwise (C, 9), pointwise (Cout, C)."""
+
+    def __init__(self, dw: IntConv2d, pw: IntConv2d, dw_out_grid, pw_out_grid):
+        super().__init__()
+        s_pw, zp_pw = dw_out_grid  # the pw conv's input grid
+        s_nx, zp_nx = pw_out_grid  # the next conv's input grid
+        self.register_buffer("wdw", dw.w_ck)
+        self.register_buffer("wpw", pw.w_ck)
+        self.register_buffer("a1", _folded(dw.alpha, s_pw))
+        self.register_buffer("b1", _folded(dw.beta, s_pw, zp_pw - 128))
+        self.register_buffer("a2", _folded(pw.alpha, s_nx))
+        self.register_buffer("b2", _folded(pw.beta, s_nx, zp_nx - 128))
+        self.stride = int(dw.stride[0])
+        self.lo1 = float(zp_pw - 128)
+        self.lo2 = float(zp_nx - 128)
+        self.zp1_stored = int(dw.act_zero_point - 128)
+        self.in_grid = dw.grid
+        self.stage_out_grid = pw_out_grid
+
+    def forward(self, x_q: torch.Tensor) -> torch.Tensor:
+        return fused_dw_pw_ck(x_q, self.wdw, self.wpw, self.a1, self.b1, self.a2, self.b2,
+                              self.stride, self.lo1, self.lo2, self.zp1_stored)
+
+
+def _is_dw3x3(conv: IntConv2d) -> bool:
+    return (conv.groups == conv.w_ck.shape[0] and conv.kernel_size == (3, 3) and conv.w_ck.shape[1] == 9
+            and conv.stride in ((1, 1), (2, 2)) and conv.padding == (1, 1))
+
+
+def pair_fusable(dw, pw, dw_grid, pw_grid) -> bool:
+    return (isinstance(dw, IntConv2d) and isinstance(pw, IntConv2d) and dw_grid is not None
+            and pw_grid is not None and _is_dw3x3(dw) and _is_1x1_s1(pw))
+
+
+def fuse_mobilenet_blocks(model: Int8MobileNet, decide=None) -> int:
+    """Rebuild an Int8MobileNet's conv chain as stages in place, fusing every
+    depthwise -> pointwise pair whose intermediate and output grids are both
+    frozen (and, when ``decide(dw, pw)`` is given, only the pairs it
+    approves). Returns how many pairs were fused; on a model already fused
+    it does nothing and returns 0."""
+    if not isinstance(model, Int8MobileNet) or model.fused_stages:
+        return 0
+    convs = [getattr(model, f"conv{i}") for i in range(model.num_convs)]
+    grids = model.requant_grids
+    stages = []
+    i = fused = 0
+    while i < model.num_convs:
+        if (i + 1 < model.num_convs and pair_fusable(convs[i], convs[i + 1], grids[i], grids[i + 1])
+                and (decide is None or decide(convs[i], convs[i + 1]))):
+            stages.append(FusedInt8DwPw(convs[i], convs[i + 1], grids[i], grids[i + 1]))
+            fused += 1
+            i += 2
+        else:
+            stages.append(_ConvStage(convs[i], grids[i]))
+            i += 1
+    for j, st in enumerate(stages):
+        model.add_module(f"stage{j}", st)
+    # every conv now lives in a _ConvStage (the same module) or as a fused
+    # pair's buffers: drop the flat conv{i} so no weight is held twice
+    for i in range(model.num_convs):
+        delattr(model, f"conv{i}")
+    model.num_fused_stages = len(stages)
+    model.fused_stages = True
     return fused

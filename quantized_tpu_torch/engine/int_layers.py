@@ -11,10 +11,12 @@ JAX package's layouts (HWIO and (K, N)).
 
 Backends of :class:`IntConv2d`: ``"pallas"`` runs the direct conv (kernel
 K2, ``ops/int8_conv_pallas.py``), ``"gemm"`` runs im2col + the int8 GEMM
-(kernel K1). :class:`IntLinear` runs K1. The XLA and bf16 forms of the JAX
-package, int4, ``y_clip`` and the int16 residual leg of the unfused blocks
-(``prescale_s16``) are not ported yet; the fused downsample block
-(``engine/fused.py``) carries that leg in its kernel.
+(kernel K1). A grouped (depthwise) conv takes the exact grouped path of
+``int8_conv_xla`` on every backend, as in the JAX package, which routes
+only ``groups == 1`` to Pallas or gemm. :class:`IntLinear` runs K1. The XLA
+and bf16 forms of the JAX package, int4, ``y_clip`` and the int16 residual
+leg of the unfused blocks (``prescale_s16``) are not ported yet; the fused
+downsample block (``engine/fused.py``) carries that leg in its kernel.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from quantized_tpu_torch.ops.int8_conv import int8_conv_gemm_ck, pack_conv_weight
+from quantized_tpu_torch.ops.int8_conv import int8_conv_gemm_ck, int8_conv_xla_ck, pack_conv_weight
 from quantized_tpu_torch.ops.int8_conv_pallas import int8_conv_direct_ck
 from quantized_tpu_torch.ops.int8_matmul import f32, int8_matmul_nk
 
@@ -58,7 +60,7 @@ class IntConv2d(nn.Module):
 
     def __init__(
         self,
-        w_q: torch.Tensor,  # (Kh, Kw, Cin, Cout) int8
+        w_q: torch.Tensor,  # (Kh, Kw, Cin/groups, Cout) int8
         alpha: torch.Tensor,  # (Cout,) f32
         beta: torch.Tensor,  # (Cout,) f32
         act_scale: float,
@@ -70,8 +72,9 @@ class IntConv2d(nn.Module):
         backend: str = "pallas",
     ):
         super().__init__()
-        if groups != 1:
-            raise ValueError("grouped int8 convs are not ported yet")
+        if groups != 1 and tuple(w_q.shape[2:]) != (1, groups):
+            raise ValueError(f"only depthwise grouped convs are ported (one input and one output channel "
+                             f"per group), got groups={groups} over a {tuple(w_q.shape)} kernel")
         if backend not in CONV_BACKENDS:
             raise ValueError(f"backend {backend!r} is not one of {CONV_BACKENDS}")
         self.kernel_size = tuple(w_q.shape[:2])
@@ -87,7 +90,7 @@ class IntConv2d(nn.Module):
         self.backend = backend
 
     def weights(self) -> torch.Tensor:
-        """The int8 kernel in HWIO."""
+        """The int8 kernel in HWIO: (Kh, Kw, Cin/groups, Cout)."""
         kh, kw = self.kernel_size
         cout = self.w_ck.shape[0]
         return self.w_ck.reshape(cout, kh, kw, -1).permute(1, 2, 3, 0)
@@ -128,6 +131,9 @@ class IntConv2d(nn.Module):
             inv = f32(1.0 / scale)
             alpha = alpha * inv
             beta = beta * inv + f32(shift)
+        if self.groups != 1:
+            return int8_conv_xla_ck(x_q, self.w_ck, self.kernel_size, alpha, beta, self.stride,
+                                    self.padding, self.stored_zp, relu, out_requant, self.groups)
         conv = int8_conv_direct_ck if self.backend == "pallas" else int8_conv_gemm_ck
         return conv(x_q, self.w_ck, self.kernel_size, alpha, beta, stride=self.stride,
                     padding=self.padding, stored_zp=self.stored_zp, relu=relu,

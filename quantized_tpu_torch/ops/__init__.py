@@ -1,6 +1,6 @@
 """Integer ops of the port: the hand-written CUDA kernels (K1, K2, the fused
-bottlenecks B3 and BasicBlocks B4), their plain PyTorch versions, and the
-tensor plumbing around them."""
+bottlenecks B3, BasicBlocks B4 and depthwise-separable pairs B5), their
+plain PyTorch versions, and the tensor plumbing around them."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches
 from quantized_tpu_torch.ops.fused_block import (
@@ -16,8 +16,12 @@ from quantized_tpu_torch.ops.fused_block import (
     fused_bottleneck_s1,
     fused_bottleneck_s1_ck,
     fused_bottleneck_s1_plain,
+    fused_dw_pw,
+    fused_dw_pw_ck,
+    fused_dw_pw_plain,
 )
 from quantized_tpu_torch.ops.int8_conv import (
+    grouped_conv_acc,
     im2col_int8,
     int8_conv_gemm,
     int8_conv_gemm_ck,

@@ -1,5 +1,6 @@
-"""Fused int8 residual blocks: a whole ResNet block in one launch, its
-interior activations kept out of device memory.
+"""Fused int8 blocks: a whole ResNet block, or a MobileNet
+depthwise-separable pair, in one launch, its interior activations kept out
+of device memory.
 
 Kernel B3, the bottleneck: counterparts of the JAX package's
 ``fused_bottleneck_s1`` (identity block) and ``fused_bottleneck_ds``
@@ -21,6 +22,12 @@ of ``fused_basicblock_s1`` and ``fused_basicblock_ds``:
     y   = acc2 * a2 + b2                             conv2 3x3 over h1, halo = zp2_stored
     idq, out                                         as above
 
+Kernel B5, the depthwise-separable pair (MobileNet-v1): counterpart of
+``fused_dw_pw``:
+
+    h1  = clip(round(acc1 * a1 + b1), lo1, 127)      depthwise 3x3/s over x, pad = zp1_stored
+    out = clip(round(acc2 * a2 + b2), lo2, 127)      pointwise 1x1 over h1
+
 A border is the stored zero point of the padded tensor's grid (it
 dequantizes to exactly 0), never 0 and never a conv of padded input.
 
@@ -31,9 +38,10 @@ stores a conv's weights; the ``*_ck`` wrappers take that form, and the
 wrappers without the suffix keep the JAX signatures (HWIO and (Cin, Cout)).
 
 A block of a kernel owns one image and a band of ``R`` output rows
-(:func:`band_rows`, :func:`basicblock_band_rows`); it recomputes conv1 on
-the halo rows that the neighbouring band also needs, so the interior
-activations live in its shared memory.
+(:func:`band_rows`, :func:`basicblock_band_rows`, :func:`dw_pw_band_rows`).
+B3 and B4 recompute conv1 on the halo rows that the neighbouring band also
+needs, so the interior activations live in its shared memory; B5 only
+re-reads its input halo, since a depthwise output row belongs to one band.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernel or raises.
@@ -44,7 +52,7 @@ from __future__ import annotations
 import torch
 
 from quantized_tpu_torch.ops import _cuda
-from quantized_tpu_torch.ops.int8_conv import int8_conv_acc, pack_conv_weight
+from quantized_tpu_torch.ops.int8_conv import grouped_conv_acc, int8_conv_acc, pack_conv_weight
 from quantized_tpu_torch.ops.int8_matmul import exact_int_matmul, f32
 
 FUSED_S1 = _cuda.CudaKernel("fused_bottleneck_s1", "fused_block.cu", "qt_fused_bottleneck_s1",
@@ -55,6 +63,8 @@ BASIC_S1 = _cuda.CudaKernel("fused_basicblock_s1", "fused_block.cu", "qt_fused_b
                             ["ptr"] * 8 + ["int"] * 8 + ["float"] * 4)
 BASIC_DS = _cuda.CudaKernel("fused_basicblock_ds", "fused_block.cu", "qt_fused_basicblock_ds",
                             ["ptr"] * 11 + ["int"] * 9 + ["float"] * 4)
+DW_PW = _cuda.CudaKernel("fused_dw_pw", "fused_dw_pw.cu", "qt_fused_dw_pw",
+                         ["ptr"] * 8 + ["int"] * 8 + ["float"] * 2)
 
 # Shared-memory plan of a kernel block (csrc/fused_block.cu keeps the same
 # layout): the A and W staging tiles (64 rows at an 80-byte pitch each), h1
@@ -109,6 +119,39 @@ def basicblock_band_rows(ho: int, wo: int, cm: int) -> int:
     if basicblock_smem_bytes(r, wo, cm) > SMEM_PER_BLOCK:
         raise ValueError(f"a fused BasicBlock over Wo={wo}, Cm={cm} does not fit in shared memory")
     return r
+
+
+# B5's shared memory (csrc/fused_dw_pw.cu keeps the same layout): the W
+# staging tile; h1, R*Wo GEMM rows padded to a multiple of 64, stored as
+# ceil(C/64) K chunks of 64-row tiles at the 80-byte pitch, so that each
+# chunk is an A tile of the int8_mma.cuh product as it stands; the input
+# band, (R-1)*S + 3 rows of W + 2 pixels of C bytes; the depthwise weights,
+# 9*C bytes tap-major.
+NUM_SMS = 132  # the H100 SXM's streaming multiprocessors
+
+
+def dw_pw_smem_bytes(r: int, w: int, c: int, stride: int) -> int:
+    rows = -(-r * (w // stride) // 64) * 64
+    return 64 * 80 + -(-c // 64) * rows * 80 + ((r - 1) * stride + 3) * (w + 2) * c + 9 * c
+
+
+def dw_pw_band_rows(n: int, ho: int, w: int, c: int, cout: int, stride: int) -> int:
+    """Output rows per kernel block of B5, from a count of 64x64x64 tile
+    steps: bands of equal height; of the heights whose blocks let two share
+    an SM, the one that gives the busiest SM the fewest steps (blocks per
+    SM, rounded up, times the pointwise GEMM's tile steps per block), the
+    shorter on a tie. Short bands cost no recompute, only a re-read of the
+    2-row input halo, so a small batch gets short bands and more blocks."""
+    wo = w // stride
+    plans = []  # (tile steps of the busiest SM, R)
+    for nb in range(1, ho + 1):
+        r = -(-ho // nb)
+        if -(-ho // r) == nb and dw_pw_smem_bytes(r, w, c, stride) <= SMEM_TWO_PER_SM:
+            steps = -(-r * wo // 64) * -(-cout // 64) * -(-c // 64)
+            plans.append((-(-n * nb // NUM_SMS) * steps, r))
+    if not plans:
+        raise ValueError(f"a fused dw/pw pair over W={w}, C={c} does not fit in shared memory")
+    return min(plans)[1]
 
 
 # ----------------------------------------------------------------- plain versions
@@ -191,6 +234,18 @@ def fused_basicblock_ds_plain(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd, 
     y = _basic_y(x_q, w1_ck, w2_ck, a1, b1, a2, b2, s, lo1, zp1_stored, zp2_stored)
     idq = _shortcut(x_q, wd_nk, ad, bd, s, ds_fine)
     return _final(y, idq, shift).reshape(n, h // s, w // s, cm)
+
+
+def fused_dw_pw_plain(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp1_stored) -> torch.Tensor:
+    """Plain version of the depthwise-separable pair: the exact int32
+    depthwise accumulator over x padded with ``zp1_stored``, its requant,
+    then the pointwise product and its requant, in ``_fused_dw_pw_kernel``'s
+    order. Returns (N, H/s, W/s, Cout)."""
+    n, _, _, c = x_q.shape
+    acc1 = grouped_conv_acc(x_q, wdw_ck, (3, 3), int(stride), 1, int(zp1_stored), c)
+    _, ho, wo, _ = acc1.shape
+    h1 = _requant(acc1, a1, b1, lo1).reshape(-1, c)
+    return _requant(exact_int_matmul(h1, wpw_nk), a2, b2, lo2).reshape(n, ho, wo, wpw_nk.shape[0])
 
 
 # ----------------------------------------------------------------- wrappers
@@ -316,6 +371,28 @@ def fused_basicblock_ds_ck(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd, str
     return out
 
 
+def fused_dw_pw_ck(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp1_stored) -> torch.Tensor:
+    """Depthwise-separable pair on K-major weights: depthwise (C, 9) in
+    (kh, kw) order, pointwise (Cout, C). Returns (N, H/s, W/s, Cout)."""
+    n, h, w, c = x_q.shape
+    cout, s = wpw_nk.shape[0], int(stride)
+    _check(x_q, [(wdw_ck, (c, 9), "wdw"), (wpw_nk, (cout, c), "wpw")],
+           [(a1, c, "a1"), (b1, c, "b1"), (a2, cout, "a2"), (b2, cout, "b2")])
+    _check_stride(s, h, w)
+    args = (s, lo1, lo2, zp1_stored)
+    if x_q.device.type == "cpu":
+        return fused_dw_pw_plain(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, *args)
+    dev = _cuda.require_cuda_tensors(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2)
+    if c % 16:
+        raise ValueError(f"the fused dw/pw kernel stages 16-byte chunks and needs C % 16 == 0, got C={c}")
+    r = dw_pw_band_rows(n, h // s, w, c, cout, s)
+    out = torch.empty((n, h // s, w // s, cout), dtype=torch.int8, device=dev)
+    DW_PW(dev, x_q.data_ptr(), wdw_ck.data_ptr(), wpw_nk.data_ptr(), a1.data_ptr(), b1.data_ptr(),
+          a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, w, c, cout, s, r, int(zp1_stored),
+          f32(lo1), f32(lo2))
+    return out
+
+
 def _nk(w_kn: torch.Tensor) -> torch.Tensor:
     return w_kn.T.contiguous()
 
@@ -348,3 +425,9 @@ def fused_basicblock_ds(x_q, w1, w2, wd, a1, b1, a2, b2, ad, bd, stride, lo1, sh
     return fused_basicblock_ds_ck(x_q, pack_conv_weight(w1), pack_conv_weight(w2), _nk(wd),
                                   a1, b1, a2, b2, ad, bd, stride, lo1, shift, zp1_stored, zp2_stored,
                                   ds_fine)
+
+
+def fused_dw_pw(x_q, wdw, wpw, a1, b1, a2, b2, stride, lo1, lo2, zp1_stored) -> torch.Tensor:
+    """JAX-layout entry: wdw (3, 3, C), wpw (C, Cout)."""
+    return fused_dw_pw_ck(x_q, wdw.reshape(9, -1).T.contiguous(), _nk(wpw), a1, b1, a2, b2, stride,
+                          lo1, lo2, zp1_stored)

@@ -1,5 +1,7 @@
 """Int8 convolution helpers: zero-point padding, im2col, the im2col + K1
-GEMM path (``int8_conv_gemm``) and the plain reference ``int8_conv_xla``.
+GEMM path (``int8_conv_gemm``) and the plain reference ``int8_conv_xla``,
+which also runs the grouped (depthwise) convs that the JAX package leaves
+to XLA.
 
 Layouts are the JAX package's: NHWC int8 activations (stored u - 128), HWIO
 int8 kernels. Padded taps hold the *stored zero-point* so they contribute
@@ -109,17 +111,53 @@ def int8_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, stri
     return acc.permute(0, 2, 3, 1).contiguous()
 
 
-def int8_conv_xla(x_q, w_q, alpha, beta, stride: Ints = 1, padding: Ints = 0,
-                  stored_zp: int = -128, relu: bool = False,
-                  out_requant: Optional[Tuple[float, int]] = None) -> torch.Tensor:
-    """Plain reference with ``int8_conv_xla``'s epilogue (the fused-requant
-    form folds 1/s into alpha/beta and ReLU into the clip floor). ``groups``,
-    ``round_s16`` and ``y_clip`` are not ported yet."""
-    kh, kw = w_q.shape[:2]
-    acc = int8_conv_acc(x_q, pack_conv_weight(w_q), (kh, kw), stride, padding, stored_zp)
+def grouped_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, stride: Ints,
+                     padding: Ints, stored_zp: int, groups: int) -> torch.Tensor:
+    """Exact int32 NHWC accumulator of a depthwise conv (``groups`` = C =
+    Cout, one input channel per group) on packed weights (C, Kh*Kw), tap by
+    tap in int32 over the zero-point-padded input. The same integer ops run
+    on the CPU and on a GPU: no float conv, which a GPU library may run in
+    TF32 or through a transform that rounds."""
+    kh, kw = _pair(kernel_size)
+    sh, sw = _pair(stride)
+    c = x_q.shape[-1]
+    if groups != c or tuple(w_ck.shape) != (c, kh * kw):
+        raise ValueError(f"only depthwise grouped convs are supported: groups={groups} over C={c}, "
+                         f"packed weight {tuple(w_ck.shape)} for a {kh}x{kw} kernel")
+    xp = pad_stored_zp(x_q, padding, stored_zp)
+    n, hp, wp, _ = xp.shape
+    ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
+    w = w_ck.to(torch.int32)
+    acc = torch.zeros((n, ho, wo, c), dtype=torch.int32, device=x_q.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            tap = xp[:, dy: dy + (ho - 1) * sh + 1: sh, dx: dx + (wo - 1) * sw + 1: sw]
+            acc += tap.to(torch.int32) * w[:, dy * kw + dx]
+    return acc
+
+
+def int8_conv_xla_ck(x_q, w_ck, kernel_size, alpha, beta, stride: Ints = 1, padding: Ints = 0,
+                     stored_zp: int = -128, relu: bool = False,
+                     out_requant: Optional[Tuple[float, int]] = None, groups: int = 1) -> torch.Tensor:
+    """``int8_conv_xla`` on packed (Cout, Kh*Kw*Cin/groups) weights."""
+    if groups == 1:
+        acc = int8_conv_acc(x_q, w_ck, kernel_size, stride, padding, stored_zp)
+    else:
+        acc = grouped_conv_acc(x_q, w_ck, kernel_size, stride, padding, stored_zp, groups)
     if out_requant is not None:
         inv, zps, lo = requant_scalars(out_requant[0], out_requant[1], relu)
         q = torch.round(acc.to(torch.float32) * (alpha * inv) + (beta * inv + zps))
         return torch.clamp(q, lo, 127.0).to(torch.int8)
     y = acc.to(torch.float32) * alpha + beta
     return torch.clamp_min(y, 0.0) if relu else y
+
+
+def int8_conv_xla(x_q, w_q, alpha, beta, stride: Ints = 1, padding: Ints = 0,
+                  stored_zp: int = -128, relu: bool = False,
+                  out_requant: Optional[Tuple[float, int]] = None, groups: int = 1) -> torch.Tensor:
+    """Plain reference with ``int8_conv_xla``'s epilogue (the fused-requant
+    form folds 1/s into alpha/beta and ReLU into the clip floor). ``groups``
+    takes depthwise convs (:func:`grouped_conv_acc`); ``round_s16`` and
+    ``y_clip`` are not ported yet."""
+    return int8_conv_xla_ck(x_q, pack_conv_weight(w_q), tuple(w_q.shape[:2]), alpha, beta, stride,
+                            padding, stored_zp, relu, out_requant, groups)

@@ -8,8 +8,9 @@ has only PyTorch:
 
 int8 outputs must be equal (both sides accumulate exactly and round the
 epilogue in the same order, without contracting it into an FMA); f32
-outputs agree within F32_ATOL. That holds for the fused bottleneck (B3) and
-BasicBlock (B4) kernels too, whose outputs are int8.
+outputs agree within F32_ATOL. That holds for the fused bottleneck (B3),
+BasicBlock (B4) and depthwise-separable (B5) kernels too, whose outputs are
+int8.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from torch_markers import cuda_device  # noqa: F401  (fixture)
 
 from quantized_tpu_torch import ops
+from quantized_tpu_torch.ops.fused_block import dw_pw_band_rows
 
 F32_ATOL = 1e-3
 
@@ -230,3 +232,52 @@ def test_fused_basicblock_wrappers_raise_on_shapes_the_kernel_refuses(cuda_devic
         ops.fused_basicblock_ds_ck(x[:, :7, :7].contiguous(), *w, *v, 2, **BASIC_SCALARS)
     with pytest.raises(ValueError):  # a CPU vector mixed into a CUDA call
         ops.fused_basicblock_ds_ck(x, *w, v[0].cpu(), *v[1:], 1, **BASIC_SCALARS)
+
+
+def _dw_pw_case(gen, device, n, h, c, cout):
+    """x, K-major weights (depthwise (C, 9), pointwise (Cout, C)) and
+    epilogue vectors, scaled so both requants land inside the int8 range."""
+    x = _dev(gen.integers(-128, 128, (n, h, h, c)).astype(np.int8), device)
+    wdw = _dev(gen.integers(-127, 128, (c, 9)).astype(np.int8), device)
+    wpw = _dev(gen.integers(-127, 128, (cout, c)).astype(np.int8), device)
+    v = [(gen.uniform(0.5, 1.5, c) * 4e-2 / 3), gen.uniform(-8, 8, c),
+         (gen.uniform(0.5, 1.5, cout) * 6e-3 / np.sqrt(c)), gen.uniform(-8, 8, cout)]
+    return x, wdw, wpw, [_dev(a.astype(np.float32), device) for a in v]
+
+
+DW_PW_SCALARS = dict(lo1=-21.0, lo2=-9.0, zp1_stored=-17)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c,cout,stride", [
+    # MobileNet-v1's pairs 0, 1, 6 and 11 at 224x224 (two images)
+    (2, 112, 32, 64, 1), (2, 112, 64, 128, 2), (2, 14, 512, 512, 1), (2, 14, 512, 1024, 2),
+    # C = 32 (half a K step) at stride 2 and stride 1, and C = 48 with Cout = 40
+    # and Cout = 200 (not multiples of the 64-wide tile), in bands that do not
+    # divide Ho (3 rows over 11 and 20, 4 over 13)
+    (32, 22, 32, 64, 2), (32, 20, 32, 64, 1), (32, 26, 48, 40, 2), (4, 14, 128, 200, 1),
+])
+def test_fused_dw_pw_kernel_matches_plain(cuda_device, gen, n, h, c, cout, stride):
+    x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, n, h, c, cout)
+    ho = h // stride
+    if n == 32:
+        assert ho % dw_pw_band_rows(n, ho, h, c, cout, stride), "the case should have a ragged last band"
+    before = ops.KERNELS["fused_dw_pw"].launches
+    got = ops.fused_dw_pw_ck(x, wdw, wpw, *v, stride, **DW_PW_SCALARS)
+    assert ops.KERNELS["fused_dw_pw"].launches == before + 1
+    want = ops.fused_dw_pw_plain(x, wdw, wpw, *v, stride, **DW_PW_SCALARS)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert len(torch.unique(want)) > 100
+
+
+@pytest.mark.cuda
+def test_fused_dw_pw_wrapper_raises_on_shapes_the_kernel_refuses(cuda_device, gen):
+    x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, 1, 8, 24, 16)  # C = 24: not a multiple of 16
+    with pytest.raises(ValueError):
+        ops.fused_dw_pw_ck(x, wdw, wpw, *v, 1, **DW_PW_SCALARS)
+    x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, 1, 8, 32, 16)
+    with pytest.raises(ValueError):  # stride 2 over an odd image
+        ops.fused_dw_pw_ck(x[:, :7, :7].contiguous(), wdw, wpw, *v, 2, **DW_PW_SCALARS)
+    with pytest.raises(ValueError):  # a CPU vector mixed into a CUDA call
+        ops.fused_dw_pw_ck(x, wdw, wpw, v[0].cpu(), *v[1:], 1, **DW_PW_SCALARS)
