@@ -26,8 +26,12 @@ and a non-zero exit:
    BasicBlock kernels (B4) at ResNet-18's and CIFAR ResNet-20's, the fused
    depthwise-separable kernel (B5) at MobileNet-v1's pairs 0, 1, 6 and 11
    (each with its band height R and grid), K2's gather-K form also at
-   MobileNet's stem (3x3/s2 over Cin = 3); no PyTorch call computes a fused
-   block or pair;
+   MobileNet's stem (3x3/s2 over Cin = 3) and AlexNet's conv1 (11x11/s4
+   over Cin = 3); no PyTorch call computes a fused block or pair. The int4
+   GEMM (B6) runs at AlexNet's fc1 (batch 8 and 32), fc2 and fc3 (batch
+   32), f32 and requant forms; its yardstick is ``torch._int_mm`` on the
+   unpacked int8 weights, and K1's time on the same unpacked product is
+   printed beside it (``int8_matmul_ms``);
 4. the serving paths, each through the entry points a user calls
    (``_calibrated_model`` from a seeded generator, ``build_int8_resident(...,
    backend="pallas")`` or ``build_int8_mobilenet``, ``IntExecutor(...,
@@ -56,18 +60,30 @@ and a non-zero exit:
      grids): unfused, 13 K2 per-tap (the pointwise convs), 1 K2 gather-K
      (the stem) and 1 K1, the 13 depthwise convs on the plain grouped path;
      fused (12 pairs), 12 ``fused_dw_pw``, 1 K2 per-tap (the last pointwise
-     conv, f32 out), 1 K2 gather-K and 1 K1.
+     conv, f32 out), 1 K2 gather-K and 1 K1;
+   - AlexNet-OWT-BN (224x224, 1000 classes, observers frozen at [-4, 4];
+     every 7th BN scale of bn1, bn2 and bn5 negated, so the min-pool dual
+     runs): int8 (``build_int8_alexnet``), 4 K2 per-tap (conv2-5), 1 K2
+     gather-K (conv1, 11x11/s4 over Cin = 3) and 3 K1 (fc1-3); int4
+     weight-only (``weight_bits=4``), the same convs (conv2-5 unpacking
+     their packed bytes on each call) and 3 ``int4_matmul`` (fc1-3), no K1;
+     each layer's count of distinct output values is printed, and none may
+     be constant;
+   - ResNet-50 int4 weight-only (``build_int8_resident(...,
+     weight_bits=4)``): 52 K2 per-tap, 1 K2 gather-K, 1 K1 (the fc stays
+     int8 storage); ``fuse_resident_blocks`` fuses 0 blocks of it.
    Each engine is held on 2 of the images against the same engine built on
    the CPU (plain versions): int8 stages equal, logits within F32_ATOL of
    their magnitude. The gemm and fused engines are also held, block by
    block (or pair by pair) on shared inputs, against the unfused GPU
    engine: int8 within 1 step on under 1% of a block, logits within
    LOGIT_ATOL (the fused downsample blocks carry the int16 shortcut leg);
-5. throughput: batch-128 uint8 224x224 forwards of ResNet-50, ResNet-18
-   and MobileNet-v1, unfused and fused, timed with CUDA events in turns
-   (unfused, fused, fused, unfused) per model, a profile of where the
-   device time goes in each, and the device time of unfused MobileNet's 13
-   plain depthwise convs;
+5. throughput: batch-128 uint8 224x224 forwards of ResNet-50 (unfused,
+   fused and int4), ResNet-18 and MobileNet-v1 (unfused and fused), and
+   AlexNet int8 and int4 at batches 1, 8 and 128, timed with CUDA events in
+   turns (a, b, b, a) per model and batch, a profile of where the device
+   time goes and the peak memory of each, and the device time of unfused
+   MobileNet's 13 plain depthwise convs;
 6. the kernels line: one JSON object with each kernel's numbers; ``launches``
    is the count per forward times 3 from the path that runs the kernel
    (``path``);
@@ -104,6 +120,7 @@ MODELS = {
     "resnet18": ("resnet_quantized_float_bn", dict(dataset="imagenet", depth=18), 224, 1000),
     "cifar20": ("resnet_quantized_float_bn", dict(dataset="cifar10", depth=20), 32, 10),
     "mobilenet": ("mobilenet_quantized", dict(num_classes=1000, width_mult=1.0), 224, 1000),
+    "alexnet": ("alexnet_quantized", dict(num_classes=1000), 224, 1000),
 }
 # launches per forward of each path (every kernel not named: 0), and the
 # blocks (or MobileNet pairs) that fusing fuses
@@ -122,6 +139,11 @@ PLANS = {
                    "int8_matmul": 1}, 12),
 }
 GEMM_PLAN = {"int8_matmul_requant": 33, "int8_matmul": 21}  # ResNet-50 on the "gemm" backend
+# AlexNet (int8 and int4 weights) and the int4 ResNet-50, launches per forward
+ALEXNET_PLANS = {8: {"int8_conv_direct": 4, "int8_conv_direct_gatherk": 1, "int8_matmul": 3},
+                 4: {"int8_conv_direct": 4, "int8_conv_direct_gatherk": 1, "int4_matmul": 3}}
+RESNET50_INT4_PLAN = {"int8_conv_direct": 52, "int8_conv_direct_gatherk": 1, "int8_matmul": 1}
+ALEXNET_BATCHES = (1, 8, 128)  # the JAX package's small-batch int4 regime, and the throughput batch
 
 KERNEL_INFO = {
     "int8_matmul": ("quantized_tpu_torch/csrc/int8_gemm.cu", "quantized_tpu/ops/int8_matmul.py:56"),
@@ -134,13 +156,15 @@ KERNEL_INFO = {
     "fused_basicblock_s1": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:198"),
     "fused_basicblock_ds": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:537"),
     "fused_dw_pw": ("quantized_tpu_torch/csrc/fused_dw_pw.cu", "quantized_tpu/ops/fused_block.py:701"),
+    "int4_matmul": ("quantized_tpu_torch/csrc/int4_gemm.cu", "quantized_tpu/ops/int4.py:180"),
 }
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
-               "fused_basicblock_ds": "resnet18 fused", "fused_dw_pw": "mobilenet fused"}
+               "fused_basicblock_ds": "resnet18 fused", "fused_dw_pw": "mobilenet fused",
+               "int4_matmul": "alexnet int4 serve"}
 OUR_KERNELS = ("int8_conv_kernel", "int8_matmul_kernel", "fused_bottleneck_kernel",
-               "fused_basicblock_kernel", "fused_dw_pw_kernel")  # device kernel names
+               "fused_basicblock_kernel", "fused_dw_pw_kernel", "int4_matmul_kernel")  # device kernel names
 
 
 def log(msg: str) -> None:
@@ -342,6 +366,8 @@ def phase_kernels(timer):
         ("int8_conv_direct_gatherk", "cifar stem 3x3 s1 3->16 s8", (32, 3, 16, 3, 1, 1, (0.05, 113)), False),
         ("int8_conv_direct_gatherk", "mobilenet stem 3x3 s2 3->32 s8", (224, 3, 32, 3, 2, 1, (0.05, 113)),
          False),
+        ("int8_conv_direct_gatherk", "alexnet conv1 11x11 s4 3->64 s8", (224, 3, 64, 11, 4, 2, (0.05, 113)),
+         False),
     ]
     for name, label, (h, cin, cout, kk, s, p, req), rep in conv_cases:
         x = _rand_int8(gen, (b, h, h, cin))
@@ -451,6 +477,38 @@ def phase_kernels(timer):
                lambda x=x, args=args: ops.fused_dw_pw_ck(x, *args),
                lambda x=x, args=args: ops.fused_dw_pw_plain(x, *args),
                None, nbytes, 2 * b * ho * ho * (9 * c + c * cout), rep, plain_iters=3)
+
+    # B6: AlexNet's fc head on split-half packed int4 weights, f32 and
+    # requant forms; torch._int_mm (the yardstick) and K1 take the unpacked
+    # int8 weights of the same product
+    b6_cases = [
+        # label, (m, k, n), representative (the f32 form of fc1 at the serving batch)
+        ("fc1", (8, 9216, 4096), False),
+        ("fc1", (SERVE_BATCH, 9216, 4096), True),
+        ("fc2", (SERVE_BATCH, 4096, 4096), False),
+        ("fc3", (SERVE_BATCH, 4096, 1000), False),
+    ]
+    for label, (m, k, n), rep in b6_cases:
+        a = _rand_int8(gen, (m, k))
+        w_kn = torch.randint(-7, 8, (k, n), generator=gen, dtype=torch.int8)
+        w_packed = ops.pack_int4(w_kn).T.contiguous().to(dev)  # (N, K/2)
+        w_nk = w_kn.T.contiguous().to(dev)
+        alpha, beta = _epilogue_params(gen, n, dev)
+        for form, req in (("f32", None), ("s8", (0.05, 113))):
+            kw = {} if req is None else dict(out_scale=req[0], out_zp=req[1])
+            record("int4_matmul", f"{label} {m}x{k}x{n} {form}",
+                   lambda a=a, w=w_packed, kw=kw: ops.int4_matmul_nk(a, w, alpha, beta, relu=True, **kw),
+                   lambda a=a, w=w_packed, kw=kw: ops.int4_matmul_plain(a, w, alpha, beta, relu=True, **kw),
+                   lambda a=a, w=w_nk: torch._int_mm(a, w.T),
+                   m * k + n * k // 2 + 8 * n + m * n * (4 if req is None else 1), 2 * m * k * n,
+                   rep and req is None, plain_iters=3)
+            if req is None:
+                k1_ms = timer.ms(lambda a=a, w=w_nk: ops.int8_matmul_nk(a, w, alpha, beta, relu=True))
+                k1_bound, k1_by = bound(m * k + n * k + 8 * n + 4 * m * n, 2 * m * k * n)
+                log(f"[kernels] int8_matmul (K1) on the same product, unpacked: ms {k1_ms:.4f} "
+                    f"bound_ms {k1_bound:.4f} ({k1_by})")
+                if rep:
+                    results["int4_matmul"]["int8_matmul_ms"] = k1_ms
     return results
 
 
@@ -471,13 +529,38 @@ def _mobilenet_steps(engine):
              conv.run_q(h, relu=True, out_requant=grid)) for i, grid in enumerate(engine.requant_grids)]
 
 
+def _alexnet_steps(engine):
+    """(name, callable) of each layer of an Int8AlexNet: each conv with its
+    pool (the max/min dual), each dense layer; fc3 emits the logits."""
+    from quantized_tpu_torch.engine.int8_alexnet import _pool_dual
+
+    g = engine.requant_grids
+
+    def conv(i, mask):
+        def step(h):
+            h = getattr(engine, f"conv{i}").run_q(h, relu=True, out_requant=g[i - 1])
+            return h if mask is None else _pool_dual(h, getattr(engine, mask))
+        return step
+
+    return [("conv1", conv(1, "neg1")), ("conv2", conv(2, "neg2")), ("conv3", conv(3, None)),
+            ("conv4", conv(4, None)), ("conv5", conv(5, "neg5")),
+            ("fc1", lambda h: engine.fc1.run_q(h.reshape(h.shape[0], -1), relu=True, out_requant=g[5])),
+            ("fc2", lambda h: engine.fc2.run_q(h, relu=True, out_requant=g[6])),
+            ("logits", lambda h: engine.fc3.run_q(h))]
+
+
 def _stage_outputs(engine, u8):
     """Output of the stem and each stage (each MobileNet conv or fused
-    stage), and the logits."""
-    from quantized_tpu_torch.engine import Int8MobileNet
+    stage, each AlexNet layer), and the logits."""
+    from quantized_tpu_torch.engine import Int8AlexNet, Int8MobileNet
     from quantized_tpu_torch.engine.int8_resident import u8_to_stored
 
     with torch.inference_mode():
+        if isinstance(engine, Int8AlexNet):
+            h, outs = u8_to_stored(u8, engine.conv1.grid), {}
+            for name, step in _alexnet_steps(engine):
+                h = outs[name] = step(h)
+            return outs
         if isinstance(engine, Int8MobileNet):
             h, outs = u8_to_stored(u8, engine.input_grid), {}
             for name, step in _mobilenet_steps(engine):
@@ -586,15 +669,28 @@ def _observe(model, side: int):
     return model.eval()
 
 
-def _build(key: str, backend: str, device: str):
-    from quantized_tpu_torch.engine import build_int8_mobilenet, build_int8_resident
+def _flip_gamma(model):
+    """Negate every 7th BN scale of bn1, bn2 and bn5 (as the JAX package's
+    AlexNet test does): those channels' folded BN factor turns negative, so
+    the engine pools them with the min-pool dual."""
+    with torch.no_grad():
+        for bn in (model.bn1, model.bn2, model.bn5):
+            bn.scale[::7] *= -1.0
+    return model
+
+
+def _build(key: str, backend: str, device: str, weight_bits: int = 8):
+    from quantized_tpu_torch.engine import build_int8_alexnet, build_int8_mobilenet, build_int8_resident
     from quantized_tpu_torch.entry import _calibrated_model
 
     name, cfg, side, _ = MODELS[key]
     model = _calibrated_model(name, device="cpu", generator=torch.Generator().manual_seed(0), **cfg)
     if name == "mobilenet_quantized":
-        return build_int8_mobilenet(_observe(model, side), backend=backend, device=device)
-    return build_int8_resident(model, backend=backend, device=device)
+        return build_int8_mobilenet(_observe(model, side), weight_bits=weight_bits, backend=backend,
+                                    device=device)
+    if name == "alexnet_quantized":
+        return build_int8_alexnet(_flip_gamma(model), weight_bits=weight_bits, backend=backend, device=device)
+    return build_int8_resident(model, weight_bits=weight_bits, backend=backend, device=device)
 
 
 def _check_launches(counts, per_forward, forwards, what):
@@ -669,9 +765,7 @@ def phase_model(key):
     engine = _build(key, "pallas", "cuda")
     executor = IntExecutor(engine, ingest="u8", device="cuda")
     log(f"[{key}] int8-resident engine built on the GPU in {time.perf_counter() - t0:.1f} s")
-    gen = torch.Generator().manual_seed(7)
-    requests = [torch.randint(0, 256, (SERVE_BATCH, side, side, 3), generator=gen, dtype=torch.uint8)
-                for _ in range(SERVE_REQUESTS)]
+    requests = _requests(side)
     sample = requests[0][:2]
     executor.warmup(sample)
     counts = {f"{key} serve": _serve(f"{key} serve", executor, requests, plan, classes)}
@@ -698,6 +792,67 @@ def phase_model(key):
     return {"unfused": executor, "fused": fused_executor}, counts
 
 
+def _requests(side):
+    gen = torch.Generator().manual_seed(7)
+    return [torch.randint(0, 256, (SERVE_BATCH, side, side, 3), generator=gen, dtype=torch.uint8)
+            for _ in range(SERVE_REQUESTS)]
+
+
+def phase_alexnet():
+    """AlexNet's two serving paths, int8 and int4 weights, each built on the
+    GPU, served the same requests, held against its CPU twin stage by stage,
+    with every layer's count of distinct values printed (none may be
+    constant). Returns the executors and the counts of each path."""
+    from quantized_tpu_torch.engine import IntExecutor
+
+    requests = _requests(224)
+    sample = requests[0][:2]
+    executors, counts = {}, {}
+    for bits, what in ((8, "alexnet serve"), (4, "alexnet int4 serve")):
+        t0 = time.perf_counter()
+        engine = _build("alexnet", "pallas", "cuda", weight_bits=bits)
+        masks = {m: int(getattr(engine, m).sum()) for m in ("neg1", "neg2", "neg5")}
+        log(f"[{what}] engine built on the GPU in {time.perf_counter() - t0:.1f} s; min-pool channels "
+            f"(negative BN factor) {json.dumps(masks)}")
+        if not all(masks.values()):
+            raise AssertionError(f"{what}: the min-pool dual is not engaged")
+        executor = IntExecutor(engine, ingest="u8", device="cuda")
+        executor.warmup(sample)
+        counts[what] = _serve(what, executor, requests, ALEXNET_PLANS[bits], 1000)
+        outs = _stage_outputs(engine, sample.cuda())
+        distinct = {k: len(torch.unique(v)) for k, v in outs.items()}
+        log(f"[{what}] distinct values per layer on 2 images: {json.dumps(distinct)}")
+        if min(distinct.values()) < 2:
+            raise AssertionError(f"{what}: a layer's output is constant")
+        _compare_stages(outs, _stage_outputs(_build("alexnet", "pallas", "cpu", weight_bits=bits), sample),
+                        f"{what} gpu vs cpu")
+        executors["int8" if bits == 8 else "int4"] = executor
+    return executors, counts
+
+
+def phase_resnet50_int4():
+    """ResNet-50 with int4 weights: built on the GPU (fusing it fuses
+    nothing), served the same requests as the int8 paths, held against its
+    CPU twin stage by stage. Returns the executor and its path's counts."""
+    from quantized_tpu_torch.engine import IntExecutor, fuse_resident_blocks
+
+    what = "resnet50 int4 serve"
+    t0 = time.perf_counter()
+    engine = _build("resnet50", "pallas", "cuda", weight_bits=4)
+    log(f"[{what}] engine built on the GPU in {time.perf_counter() - t0:.1f} s")
+    n_fused = fuse_resident_blocks(copy.deepcopy(engine))
+    if n_fused != 0:
+        raise AssertionError(f"{what}: fuse_resident_blocks fused {n_fused} int4 blocks")
+    executor = IntExecutor(engine, ingest="u8", device="cuda")
+    requests = _requests(224)
+    sample = requests[0][:2]
+    executor.warmup(sample)
+    counts = {what: _serve(what, executor, requests, RESNET50_INT4_PLAN, 1000)}
+    _compare_stages(_stage_outputs(engine, sample.cuda()),
+                    _stage_outputs(_build("resnet50", "pallas", "cpu", weight_bits=4), sample), f"{what} gpu vs cpu")
+    return executor, counts
+
+
 def _time_forward(executor, dev_batch, iters=10):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -710,6 +865,7 @@ def _time_forward(executor, dev_batch, iters=10):
 
 
 def _profile(executor, dev_batch, ms, what, n_prof=3):
+    batch = dev_batch.shape[0]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
             executor(dev_batch)
@@ -724,7 +880,7 @@ def _profile(executor, dev_batch, ms, what, n_prof=3):
     total = sum(r[0] for r in rows) / 1e3
     ours = [r for r in rows if any(k in r[2] for k in OUR_KERNELS)]
     ours_ms = sum(r[0] for r in ours) / 1e3
-    log(f"[profile] {what}, per batch-{THROUGHPUT_BATCH} forward: kernels {total:.3f} ms of {ms:.3f} ms "
+    log(f"[profile] {what}, per batch-{batch} forward: kernels {total:.3f} ms of {ms:.3f} ms "
         f"(idle share {max(0.0, 1 - total / ms):.3f}); hand-written kernels {ours_ms:.3f} ms in "
         f"{sum(r[1] for r in ours)} launches, other kernels (glue) {total - ours_ms:.3f} ms in "
         f"{sum(r[1] for r in rows) - sum(r[1] for r in ours)} launches")
@@ -754,10 +910,11 @@ def _depthwise_ms(engine, dev_batch, timer):
         f"time per batch-{THROUGHPUT_BATCH} forward")
 
 
-def phase_throughput(key, executors, card, timer):
-    """Batch-128 forwards of each engine of one model, timed in turns (a b b a ...)."""
+def phase_throughput(key, executors, card, timer, batch=THROUGHPUT_BATCH):
+    """Uint8 224x224 forwards of each engine of one model at one batch, timed
+    in turns (a b b a ...)."""
     gen = torch.Generator().manual_seed(11)
-    host = torch.randint(0, 256, (THROUGHPUT_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8)
+    host = torch.randint(0, 256, (batch, 224, 224, 3), generator=gen, dtype=torch.uint8)
     dev = host.cuda()
     for ex in executors.values():
         ex.warmup(dev)
@@ -777,12 +934,12 @@ def phase_throughput(key, executors, card, timer):
         ex(dev)
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**20
-        log(f"[throughput] {key} {name}: batch {THROUGHPUT_BATCH} uint8 224x224, input on the device: "
+        log(f"[throughput] {key} {name}: batch {batch} uint8 224x224, input on the device: "
             f"{ms:.3f} ms/batch ({', '.join(f'{v:.3f}' for v in times[name])}), "
-            f"{THROUGHPUT_BATCH / ms * 1e3:.1f} img/s; from host memory (pageable, host clock): "
-            f"{host_ms:.3f} ms/batch, {THROUGHPUT_BATCH / host_ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB; "
+            f"{batch / ms * 1e3:.1f} img/s; from host memory (pageable, host clock): "
+            f"{host_ms:.3f} ms/batch, {batch / host_ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB; "
             f"card {card}")
-        _profile(ex, dev, ms, f"{key} {name}")
+        _profile(ex, dev, ms, f"{key} {name} batch {batch}")
     if key == "mobilenet":
         _depthwise_ms(executors["unfused"].model, dev, timer)
 
@@ -798,11 +955,17 @@ def main() -> int:
     timer = Timer("cuda")
     kernel_numbers = phase_kernels(timer)
     executors, path_counts = {}, {}
-    for key in MODELS:
+    for key in ("resnet50", "resnet18", "cifar20", "mobilenet"):
         executors[key], counts = phase_model(key)
         path_counts.update(counts)
+    executors["alexnet"], counts = phase_alexnet()
+    path_counts.update(counts)
+    executors["resnet50"]["int4"], counts = phase_resnet50_int4()
+    path_counts.update(counts)
     for key in ("resnet50", "resnet18", "mobilenet"):
         phase_throughput(key, executors[key], card, timer)
+    for batch in ALEXNET_BATCHES:
+        phase_throughput("alexnet", executors["alexnet"], card, timer, batch=batch)
 
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
@@ -815,6 +978,8 @@ def main() -> int:
             "bound_by": numbers["bound_by"], "library_ms": numbers["library_ms"],
             "event_ms": numbers["event_ms"], "path": path, "case": numbers["case"],
         })
+        if "int8_matmul_ms" in numbers:  # B6: K1 on the same product, unpacked
+            kernels[-1]["int8_matmul_ms"] = numbers["int8_matmul_ms"]
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
     if set(ops.KERNELS) != set(KERNEL_INFO):

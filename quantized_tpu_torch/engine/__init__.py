@@ -1,6 +1,6 @@
 """Integer engine of the port: the int layers, the conversion from a
-calibrated fake-quant model, the int8-resident ResNet and MobileNet-v1,
-their fused forms and the executor."""
+calibrated fake-quant model, the int8-resident ResNet, MobileNet-v1 and
+AlexNet (int8 or int4 weights), the fused forms and the executor."""
 
 from quantized_tpu_torch.engine.executor import IntExecutor
 from quantized_tpu_torch.engine.fused import (
@@ -14,6 +14,7 @@ from quantized_tpu_torch.engine.fused import (
     fuse_mobilenet_blocks,
     fuse_resident_blocks,
 )
+from quantized_tpu_torch.engine.int8_alexnet import Int8AlexNet, build_int8_alexnet
 from quantized_tpu_torch.engine.int8_mobilenet import Int8MobileNet, build_int8_mobilenet
 from quantized_tpu_torch.engine.int8_resident import (
     Int8BasicBlock,

@@ -4,10 +4,13 @@ uses).
 
 For a (QConv2d/QLinear, following float BN) pair: fold the BN into the
 weights, derive the activation grid from the frozen observer and
-per-channel symmetric int8 weight scales, and precompute the fused epilogue
-(alpha, beta). The arithmetic is float32 numpy in the JAX module's order, so
-the int8 weights and alpha/beta come out equal. The module-surgery
-``convert_to_int``, RangeBN folding and int4 packing are not ported yet.
+per-channel symmetric int8 (or int4) weight scales, and precompute the
+fused epilogue (alpha, beta). The arithmetic is float32 numpy in the JAX
+module's order, so the int8 weights and alpha/beta come out equal. At
+``weight_bits=4`` with ``int4_pack`` a conv packs its weights channel-split
+(where its Cin per group is even) and a dense layer split-half, the JAX
+package's bytes. The module-surgery ``convert_to_int`` and RangeBN folding
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from quantized_tpu_torch.engine.int_layers import IntConv2d, IntLinear
 from quantized_tpu_torch.ingest.bn_fold import fold_bn_into_conv
 from quantized_tpu_torch.ingest.calibrate import ActQParams, activation_qparams_from_observer
 from quantized_tpu_torch.models.layers import BatchNorm, QConv2d, QLinear
+from quantized_tpu_torch.ops.int4 import pack_int4, pack_int4_conv_channels
 from quantized_tpu_torch.ops.int8_matmul import matmul_epilogue_params
 
 
@@ -38,6 +42,13 @@ def observer_grid(q_module) -> Tuple[float, int]:
     frozen observer."""
     qp = _observer_qparams(q_module)
     return (qp.scale, qp.zero_point)
+
+
+def bn_factor(bn: BatchNorm) -> np.ndarray:
+    """Per-channel folded BN factor ``gamma / sqrt(var + eps)``. Its sign
+    decides max- against min-pool where a model pools between a conv and its
+    BN (AlexNet, ``build_int8_alexnet``)."""
+    return _np(bn.scale) / np.sqrt(_np(bn.var) + float(bn.epsilon))
 
 
 def _fold(conv_or_lin, bn: Optional[BatchNorm]) -> Tuple[np.ndarray, np.ndarray]:
@@ -67,16 +78,13 @@ def _weight_scales(w: np.ndarray, cout_axis_last: bool, num_bits: int) -> np.nda
     return np.maximum(absmax / qmax, 1e-12).astype(np.float32)
 
 
-def _check_bits(weight_bits: int) -> None:
-    if weight_bits != 8:
-        raise ValueError("the port converts int8 weights only so far (int4 is not ported yet)")
-
-
 def _convert_conv(conv: QConv2d, bn: Optional[BatchNorm], weight_bits: int, backend: str,
-                  act_grid: Optional[Tuple[float, int]] = None) -> IntConv2d:
+                  int4_pack: bool = False, act_grid: Optional[Tuple[float, int]] = None) -> IntConv2d:
     """``act_grid=(scale, zero_point)`` overrides the conv's own observer
-    grid: the epilogue is exact for whatever grid the input arrives on."""
-    _check_bits(weight_bits)
+    grid: the epilogue is exact for whatever grid the input arrives on.
+    ``int4_pack`` at ``weight_bits=4`` stores the weights channel-split
+    packed where the Cin per group is even; otherwise (the stem's Cin = 3, a
+    depthwise conv) they stay int8 storage on the int4 grid."""
     if act_grid is not None:
         qp = ActQParams(scale=float(act_grid[0]), zero_point=int(act_grid[1]))
     else:
@@ -89,13 +97,20 @@ def _convert_conv(conv: QConv2d, bn: Optional[BatchNorm], weight_bits: int, back
     alpha, beta = matmul_epilogue_params(
         qp.scale, qp.zero_point, torch.from_numpy(s_w), torch.from_numpy(colsum), torch.from_numpy(b_f)
     )
-    return IntConv2d(torch.from_numpy(w_q), alpha, beta, qp.scale, qp.zero_point,
+    int4_shape = None
+    w_store = torch.from_numpy(w_q)
+    if int4_pack and weight_bits == 4 and w_q.shape[2] % 2 == 0:
+        int4_shape = w_q.shape
+        w_store = pack_int4_conv_channels(w_store)
+    return IntConv2d(w_store, alpha, beta, qp.scale, qp.zero_point,
                      stride=conv.stride, padding=conv.padding, groups=conv.groups, relu=False,
-                     backend=backend)
+                     backend=backend, int4_shape=int4_shape)
 
 
-def _convert_linear(lin: QLinear, bn: Optional[BatchNorm], weight_bits: int) -> IntLinear:
-    _check_bits(weight_bits)
+def _convert_linear(lin: QLinear, bn: Optional[BatchNorm], weight_bits: int,
+                    int4_pack: bool = False) -> IntLinear:
+    """``int4_pack`` at ``weight_bits=4`` stores the weights split-half
+    packed, (K/2, N), odd K padded with a zero weight first."""
     qp = _observer_qparams(lin)
     w_f, b_f = _fold(lin, bn)  # (out, in)
     s_w = _weight_scales(w_f, False, weight_bits)
@@ -106,4 +121,10 @@ def _convert_linear(lin: QLinear, bn: Optional[BatchNorm], weight_bits: int) -> 
     alpha, beta = matmul_epilogue_params(
         qp.scale, qp.zero_point, torch.from_numpy(s_w), torch.from_numpy(colsum), torch.from_numpy(b_f)
     )
-    return IntLinear(torch.from_numpy(w_q_kn), alpha, beta, qp.scale, qp.zero_point, relu=False)
+    use_int4 = int4_pack and weight_bits == 4
+    w_store = torch.from_numpy(w_q_kn)
+    if use_int4:
+        if w_q_kn.shape[0] % 2:
+            w_store = torch.from_numpy(np.pad(w_q_kn, ((0, 1), (0, 0))))
+        w_store = pack_int4(w_store)
+    return IntLinear(w_store, alpha, beta, qp.scale, qp.zero_point, relu=False, int4=use_int4)

@@ -51,14 +51,19 @@ def _is_3x3_s1(conv: IntConv2d) -> bool:
     return _is_3x3_s(conv, 1)
 
 
+# Every eligibility test refuses a conv with packed int4 weights first, as
+# the JAX package's do: the fused kernels take int8 weights, so an int4
+# engine fuses nothing.
+
+
 def _is_3x3_s(conv: IntConv2d, s: int) -> bool:
-    return (conv.groups == 1 and conv.stride == (s, s) and conv.padding == (1, 1)
-            and conv.kernel_size == (3, 3))
+    return (conv.int4_shape is None and conv.groups == 1 and conv.stride == (s, s)
+            and conv.padding == (1, 1) and conv.kernel_size == (3, 3))
 
 
 def _is_1x1_s(conv: IntConv2d, s: int) -> bool:
-    return (conv.groups == 1 and conv.stride == (s, s) and conv.padding == (0, 0)
-            and conv.kernel_size == (1, 1))
+    return (conv.int4_shape is None and conv.groups == 1 and conv.stride == (s, s)
+            and conv.padding == (0, 0) and conv.kernel_size == (1, 1))
 
 
 def _folded(v: torch.Tensor, scale: float, shift: float = 0.0) -> torch.Tensor:
@@ -280,8 +285,8 @@ class FusedInt8DwPw(nn.Module):
 
 
 def _is_dw3x3(conv: IntConv2d) -> bool:
-    return (conv.groups == conv.w_ck.shape[0] and conv.kernel_size == (3, 3) and conv.w_ck.shape[1] == 9
-            and conv.stride in ((1, 1), (2, 2)) and conv.padding == (1, 1))
+    return (conv.int4_shape is None and conv.groups == conv.w_ck.shape[0] and conv.kernel_size == (3, 3)
+            and conv.w_ck.shape[1] == 9 and conv.stride in ((1, 1), (2, 2)) and conv.padding == (1, 1))
 
 
 def pair_fusable(dw, pw, dw_grid, pw_grid) -> bool:

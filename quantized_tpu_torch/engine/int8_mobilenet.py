@@ -13,7 +13,10 @@ gather-K form, the 13 pointwise convs on K2's per-tap form, the 13
 depthwise convs (``groups = C``) on the exact grouped path of
 ``int8_conv_xla`` (plain PyTorch, as the JAX package leaves them to XLA)
 and the fc on K1. ``engine/fused.fuse_mobilenet_blocks`` rebuilds the chain
-as stages, 12 of the 13 depthwise -> pointwise pairs on kernel B5.
+as stages, 12 of the 13 depthwise -> pointwise pairs on kernel B5. With
+``weight_bits=4`` the pointwise convs keep packed int4 weights (the stem and
+the depthwise convs have an odd Cin per group and stay int8 storage), and
+no pair fuses.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from torch import nn
 
 from quantized_tpu_torch._device import DeviceLike, resolve_device
 from quantized_tpu_torch.engine.convert import _convert_conv, _convert_linear, observer_grid
-from quantized_tpu_torch.engine.int8_resident import WEIGHT_BITS, u8_to_stored
+from quantized_tpu_torch.engine.int8_resident import u8_to_stored
 from quantized_tpu_torch.engine.int_layers import IntConv2d, IntLinear, quantize_input_stored
 from quantized_tpu_torch.models.layers import QConv2d, QLinear
 
@@ -69,12 +72,13 @@ class Int8MobileNet(nn.Module):
         return self.fc(h.mean(dim=(1, 2)))  # f32 from the last conv
 
 
-def build_int8_mobilenet(model: nn.Module, backend: str = "pallas",
+def build_int8_mobilenet(model: nn.Module, weight_bits: int = 8, backend: str = "pallas",
                          device: DeviceLike = "cuda") -> Int8MobileNet:
     """Convert a calibrated ``mobilenet_quantized`` (frozen observers) into
-    an :class:`Int8MobileNet` on ``device``, with int8 weights (int4 is not
-    ported yet). ``backend`` is ``"pallas"`` or ``"gemm"`` for the stem and
-    the pointwise convs (the depthwise convs take the grouped path on
+    an :class:`Int8MobileNet` on ``device``, with int8 weights or, at
+    ``weight_bits=4``, int4 (packed where the Cin per group is even; the fc
+    stays unpacked). ``backend`` is ``"pallas"`` or ``"gemm"`` for the stem
+    and the pointwise convs (the depthwise convs take the grouped path on
     either); the JAX package's default ``"xla"`` has no counterpart here."""
     dev = resolve_device(device)
     seq = [(model.conv1, model.bn1)]
@@ -87,13 +91,13 @@ def build_int8_mobilenet(model: nn.Module, backend: str = "pallas",
         if not isinstance(conv, QConv2d):
             raise TypeError(f"{type(conv).__name__}: build_int8_mobilenet needs the quantized flavor "
                             "(mobilenet_quantized)")
-        convs.append(_convert_conv(conv, bn, WEIGHT_BITS, backend))
+        convs.append(_convert_conv(conv, bn, weight_bits, backend, int4_pack=weight_bits == 4))
     # conv i requantizes onto conv i+1's observer grid; the last conv emits f32
     grids: List[Optional[Grid]] = [observer_grid(c) for c, _ in seq[1:]] + [None]
 
     if not isinstance(model.fc, QLinear):
         raise TypeError("model.fc must be QLinear")
-    fc = _convert_linear(model.fc, None, WEIGHT_BITS)
+    fc = _convert_linear(model.fc, None, weight_bits, int4_pack=False)
     eng = Int8MobileNet(convs, grids, fc)
     eng.input_size = getattr(model, "input_size", 224)
     return eng.to(dev)

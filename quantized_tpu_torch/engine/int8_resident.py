@@ -18,8 +18,10 @@ CIFAR stem as a plain 3x3 conv over Cin = 3; K2 runs both in its gather-K
 form. ``engine/fused.fuse_resident_blocks`` turns a built engine into its
 fused form: every block but the last runs as one fused kernel (B3 for a
 bottleneck, B4 for a BasicBlock), with the int16 shortcut leg in the
-downsample ones. The RangeBN flavor and the int16 residual leg of the
-unfused blocks are not ported yet.
+downsample ones. ``weight_bits=4`` builds the int4 weight-only engine: every
+conv with an even Cin keeps packed int4 weights, unpacked for K2 on each
+call; the stem (Cin = 3) and the fc head stay int8 storage. The RangeBN
+flavor and the int16 residual leg of the unfused blocks are not ported yet.
 """
 
 from __future__ import annotations
@@ -244,25 +246,23 @@ class Int8ResNet(nn.Module):
         return self.fc(h.mean(dim=(1, 2)))  # f32 from the last block
 
 
-WEIGHT_BITS = 8  # int4 weights are not ported yet
-
-
 def _block_convs(block) -> Sequence[Tuple[str, str]]:
     if hasattr(block, "conv3"):
         return [("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3")]
     return [("conv1", "bn1"), ("conv2", "bn2")]
 
 
-def build_int8_resident(model: nn.Module, backend: str = "pallas",
+def build_int8_resident(model: nn.Module, weight_bits: int = 8, backend: str = "pallas",
                         device: DeviceLike = "cuda") -> Int8ResNet:
     """Convert a calibrated fake-quant ResNet (float-BN flavor, either
     geometry) into an :class:`Int8ResNet` on ``device``. A 7x7/s2 ImageNet
     stem runs in the space-to-depth form; the block kind follows the
     block's conv count.
 
-    ``backend`` is ``"pallas"`` (every conv on the direct conv kernel) or
-    ``"gemm"`` (im2col + the int8 GEMM); the JAX package's default ``"xla"``
-    has no counterpart here."""
+    ``weight_bits`` is 8, or 4 for int4 weight-only (the convs packed where
+    Cin is even; the fc head stays unpacked). ``backend`` is ``"pallas"``
+    (every conv on the direct conv kernel) or ``"gemm"`` (im2col + the int8
+    GEMM); the JAX package's default ``"xla"`` has no counterpart here."""
     dev = resolve_device(device)
     if not isinstance(model, (ResNetImageNet, ResNetCifar)):
         raise TypeError(f"the port builds ImageNet- and CIFAR-geometry ResNets, got {type(model).__name__}")
@@ -273,7 +273,8 @@ def build_int8_resident(model: nn.Module, backend: str = "pallas",
         conv = getattr(m, conv_name)
         if not isinstance(conv, QConv2d):
             raise TypeError(f"{conv_name} is {type(conv).__name__}, expected QConv2d")
-        return _convert_conv(conv, getattr(m, bn_name), WEIGHT_BITS, backend, act_grid=act_grid)
+        return _convert_conv(conv, getattr(m, bn_name), weight_bits, backend, int4_pack=weight_bits == 4,
+                             act_grid=act_grid)
 
     blocks_src = []
     for sn in stage_names:
@@ -304,7 +305,7 @@ def build_int8_resident(model: nn.Module, backend: str = "pallas",
         stem = Int8SpaceToDepthStem(stem)
     if not isinstance(model.fc, QLinear):
         raise TypeError("model.fc must be QLinear")
-    fc = _convert_linear(model.fc, None, WEIGHT_BITS)
+    fc = _convert_linear(model.fc, None, weight_bits, int4_pack=False)
     eng = Int8ResNet(stem, observer_grid(blocks_src[0].conv1), stages, fc, imagenet_pool=is_imagenet)
     # serving reads the geometry: a CIFAR engine must not default to 224
     eng.input_size = getattr(model, "input_size", 224)

@@ -9,14 +9,22 @@ layer is built: a conv holds (Cout, Kh*Kw*Cin) and a dense layer (N, K).
 :meth:`IntConv2d.weights` and :attr:`IntLinear.w_q` give them back in the
 JAX package's layouts (HWIO and (K, N)).
 
+Int4 weights (``int4_shape`` / ``int4=True``) keep their packed bytes, half
+the int8 size (``ops/int4.py``): a conv holds (Cout, Kh*Kw, Cin/2)
+channel-split bytes and unpacks them on every call into the (Cout,
+Kh*Kw*Cin) int8 operand, as the JAX package's ``weights()`` does (no int8
+copy is kept); a dense layer holds (N, K/2) split-half bytes and runs them
+on kernel B6.
+
 Backends of :class:`IntConv2d`: ``"pallas"`` runs the direct conv (kernel
 K2, ``ops/int8_conv_pallas.py``), ``"gemm"`` runs im2col + the int8 GEMM
 (kernel K1). A grouped (depthwise) conv takes the exact grouped path of
 ``int8_conv_xla`` on every backend, as in the JAX package, which routes
-only ``groups == 1`` to Pallas or gemm. :class:`IntLinear` runs K1. The XLA
-and bf16 forms of the JAX package, int4, ``y_clip`` and the int16 residual
-leg of the unfused blocks (``prescale_s16``) are not ported yet; the fused
-downsample block (``engine/fused.py``) carries that leg in its kernel.
+only ``groups == 1`` to Pallas or gemm. :class:`IntLinear` runs K1, or B6
+on int4 weights. The XLA, bf16 and native-S4 forms of the JAX package,
+``y_clip`` and the int16 residual leg of the unfused blocks
+(``prescale_s16``) are not ported yet; the fused downsample block
+(``engine/fused.py``) carries that leg in its kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from quantized_tpu_torch.ops.int4 import int4_matmul_nk, unpack_int4_conv_channels
 from quantized_tpu_torch.ops.int8_conv import int8_conv_gemm_ck, int8_conv_xla_ck, pack_conv_weight
 from quantized_tpu_torch.ops.int8_conv_pallas import int8_conv_direct_ck
 from quantized_tpu_torch.ops.int8_matmul import f32, int8_matmul_nk
@@ -60,7 +69,7 @@ class IntConv2d(nn.Module):
 
     def __init__(
         self,
-        w_q: torch.Tensor,  # (Kh, Kw, Cin/groups, Cout) int8
+        w_q: torch.Tensor,  # (Kh, Kw, Cin/groups, Cout) int8, or (Kh, Kw, Cin/2, Cout) packed int4
         alpha: torch.Tensor,  # (Cout,) f32
         beta: torch.Tensor,  # (Cout,) f32
         act_scale: float,
@@ -70,15 +79,24 @@ class IntConv2d(nn.Module):
         groups: int = 1,
         relu: bool = False,
         backend: str = "pallas",
+        int4_shape: Optional[Tuple[int, int, int, int]] = None,
     ):
         super().__init__()
-        if groups != 1 and tuple(w_q.shape[2:]) != (1, groups):
+        if groups != 1 and (int4_shape is not None or tuple(w_q.shape[2:]) != (1, groups)):
             raise ValueError(f"only depthwise grouped convs are ported (one input and one output channel "
-                             f"per group), got groups={groups} over a {tuple(w_q.shape)} kernel")
+                             f"per group, int8 weights), got groups={groups} over a {tuple(w_q.shape)} kernel")
         if backend not in CONV_BACKENDS:
             raise ValueError(f"backend {backend!r} is not one of {CONV_BACKENDS}")
         self.kernel_size = tuple(w_q.shape[:2])
-        self.register_buffer("w_ck", pack_conv_weight(w_q))
+        # int4 weight-only: the channel-split packed bytes, (Cout, Kh*Kw, Cin/2)
+        self.int4_shape = None if int4_shape is None else tuple(int(d) for d in int4_shape)
+        if self.int4_shape is None:
+            self.register_buffer("w_ck", pack_conv_weight(w_q))
+        else:
+            kh, kw, cin, cout = self.int4_shape
+            if tuple(w_q.shape) != (kh, kw, cin // 2, cout) or cin % 2:
+                raise ValueError(f"packed int4 kernel {tuple(w_q.shape)} does not hold shape {self.int4_shape}")
+            self.register_buffer("w_int4", w_q.permute(3, 0, 1, 2).reshape(cout, kh * kw, cin // 2).contiguous())
         self.register_buffer("alpha", alpha.to(torch.float32).contiguous())
         self.register_buffer("beta", beta.to(torch.float32).contiguous())
         self.act_scale = float(act_scale)
@@ -89,11 +107,18 @@ class IntConv2d(nn.Module):
         self.relu = relu
         self.backend = backend
 
+    def weights_ck(self) -> torch.Tensor:
+        """The int8 kernel as the kernels take it, (Cout, Kh*Kw*Cin/groups);
+        int4 weights are unpacked on each call."""
+        if self.int4_shape is None:
+            return self.w_ck
+        return unpack_int4_conv_channels(self.w_int4, dim=-1).reshape(self.w_int4.shape[0], -1)
+
     def weights(self) -> torch.Tensor:
         """The int8 kernel in HWIO: (Kh, Kw, Cin/groups, Cout)."""
         kh, kw = self.kernel_size
-        cout = self.w_ck.shape[0]
-        return self.w_ck.reshape(cout, kh, kw, -1).permute(1, 2, 3, 0)
+        w_ck = self.weights_ck()
+        return w_ck.reshape(w_ck.shape[0], kh, kw, -1).permute(1, 2, 3, 0)
 
     @property
     def stored_zp(self) -> int:
@@ -135,14 +160,15 @@ class IntConv2d(nn.Module):
             return int8_conv_xla_ck(x_q, self.w_ck, self.kernel_size, alpha, beta, self.stride,
                                     self.padding, self.stored_zp, relu, out_requant, self.groups)
         conv = int8_conv_direct_ck if self.backend == "pallas" else int8_conv_gemm_ck
-        return conv(x_q, self.w_ck, self.kernel_size, alpha, beta, stride=self.stride,
+        return conv(x_q, self.weights_ck(), self.kernel_size, alpha, beta, stride=self.stride,
                     padding=self.padding, stored_zp=self.stored_zp, relu=relu,
                     out_requant=out_requant)
 
 
 class IntLinear(nn.Module):
-    """Integer dense layer on kernel K1; weights (K, N) = (in, out) int8,
-    held K-major as (N, K)."""
+    """Integer dense layer; weights (K, N) = (in, out) int8 on kernel K1, or
+    (K/2, N) split-half packed int4 on kernel B6 when ``int4=True``; held
+    K-major as (N, K) or (N, K/2)."""
 
     def __init__(
         self,
@@ -152,6 +178,7 @@ class IntLinear(nn.Module):
         act_scale: float,
         act_zero_point: int,
         relu: bool = False,
+        int4: bool = False,
     ):
         super().__init__()
         self.register_buffer("w_nk", w_q_kn.T.contiguous())
@@ -160,10 +187,11 @@ class IntLinear(nn.Module):
         self.act_scale = float(act_scale)
         self.act_zero_point = int(act_zero_point)
         self.relu = relu
+        self.int4 = int4
 
     @property
     def w_q(self) -> torch.Tensor:
-        """The int8 weights as (K, N)."""
+        """The weights in the JAX layout: (K, N) int8, or (K/2, N) packed int4."""
         return self.w_nk.T
 
     @property
@@ -176,9 +204,10 @@ class IntLinear(nn.Module):
     def run_q(self, x_q: torch.Tensor, relu: Optional[bool] = None,
               out_requant: Optional[Grid] = None) -> torch.Tensor:
         """Quantized-input entry: f32 out, or int8 on ``out_requant``'s grid
-        (a separate quantize pass, as in the JAX package)."""
+        (a separate quantize pass, as in the JAX package, on int4 weights too)."""
         relu = self.relu if relu is None else relu
-        y = int8_matmul_nk(x_q, self.w_nk, self.alpha, self.beta, relu=relu)
+        matmul = int4_matmul_nk if self.int4 else int8_matmul_nk
+        y = matmul(x_q, self.w_nk, self.alpha, self.beta, relu=relu)
         if out_requant is not None:
             return quantize_input_stored(y, *out_requant)
         return y

@@ -1,9 +1,11 @@
 """Model registry of the port: ``get_model(name)(**config)``."""
 
+from quantized_tpu_torch.models.alexnet_quantized import alexnet_quantized
 from quantized_tpu_torch.models.mobilenet import mobilenet_quantized
 from quantized_tpu_torch.models.resnet_quantized_float_bn import resnet_quantized_float_bn
 
 MODEL_REGISTRY = {
+    "alexnet_quantized": alexnet_quantized,
     "mobilenet_quantized": mobilenet_quantized,
     "resnet_quantized_float_bn": resnet_quantized_float_bn,
 }

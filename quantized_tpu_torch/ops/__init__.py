@@ -1,6 +1,7 @@
 """Integer ops of the port: the hand-written CUDA kernels (K1, K2, the fused
-bottlenecks B3, BasicBlocks B4 and depthwise-separable pairs B5), their
-plain PyTorch versions, and the tensor plumbing around them."""
+bottlenecks B3, BasicBlocks B4 and depthwise-separable pairs B5, the int4
+GEMM B6), their plain PyTorch versions, the int4 packing, and the tensor
+plumbing around them."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches
 from quantized_tpu_torch.ops.fused_block import (
@@ -19,6 +20,18 @@ from quantized_tpu_torch.ops.fused_block import (
     fused_dw_pw,
     fused_dw_pw_ck,
     fused_dw_pw_plain,
+)
+from quantized_tpu_torch.ops.int4 import (
+    int4_matmul,
+    int4_matmul_nk,
+    int4_matmul_plain,
+    pack_int4,
+    pack_int4_conv,
+    pack_int4_conv_channels,
+    unpack_int4,
+    unpack_int4_conv,
+    unpack_int4_conv_channels,
+    unpack_int4_nk,
 )
 from quantized_tpu_torch.ops.int8_conv import (
     grouped_conv_acc,

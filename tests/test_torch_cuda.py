@@ -10,7 +10,7 @@ int8 outputs must be equal (both sides accumulate exactly and round the
 epilogue in the same order, without contracting it into an FMA); f32
 outputs agree within F32_ATOL. That holds for the fused bottleneck (B3),
 BasicBlock (B4) and depthwise-separable (B5) kernels too, whose outputs are
-int8.
+int8, and for the int4 GEMM (B6) in both its forms.
 """
 
 import numpy as np
@@ -37,6 +37,9 @@ CONV_CASES = [
     (1, 7, 2048, 40, 1, 1, 0, (0.03, 128)),
     (2, 32, 3, 16, 3, 1, 1, (0.05, 113)),
     (2, 9, 5, 24, 3, 2, 1, None),
+    # AlexNet's conv1: 11x11/s4/p2 over Cin = 3 (gather-K in single bytes, K = 363)
+    (2, 224, 3, 64, 11, 4, 2, (0.05, 113)),
+    (2, 63, 3, 64, 11, 4, 2, None),
 ]
 
 
@@ -78,6 +81,78 @@ def test_gemm_kernel_matches_plain(cuda_device, gen, m, k, n):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, ops.int8_matmul_plain(a, w, alpha, beta, True), atol=F32_ATOL, rtol=0)
     assert torch.equal(q, ops.int8_matmul_requant_plain(a, w, alpha, beta, 0.05, 113, True))
+
+
+def _int4_case(gen, device, m, k, n, a_offset=0):
+    """A (M, K) s8 (starting ``a_offset`` bytes into its buffer), int4
+    weights (K, N) on [-7, 7] (odd K: a zero row appended, as the
+    conversion pads) packed K-major as (N, K/2), and epilogue vectors."""
+    kh = (k + 1) // 2
+    q = gen.integers(-7, 8, (2 * kh, n)).astype(np.int8)
+    q[k:] = 0
+    w = ops.pack_int4(torch.from_numpy(q)).T.contiguous().to(device)
+    buf = torch.empty(m * k + a_offset, dtype=torch.int8, device=device)
+    a = buf[a_offset:].view(m, k)
+    a.copy_(_dev(gen.integers(-128, 128, (m, k)).astype(np.int8), device))
+    alpha = _dev((gen.uniform(0.5, 1.5, n) * 1.2e-3 / np.sqrt(k)).astype(np.float32), device)
+    beta = _dev(gen.uniform(-0.5, 0.5, n).astype(np.float32), device)
+    return a, w, alpha, beta
+
+
+B6_CASES = [
+    # m, k, n: AlexNet's fc1 and fc3 at batches 1 and 8, fc2 at 33, and a
+    # batch-128 fc1; odd K; K/2 % 16 != 0 (the scalar staging path)
+    (1, 9216, 4096), (8, 4096, 1000), (33, 4096, 4096), (128, 9216, 4096), (8, 301, 70), (33, 200, 1000),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", B6_CASES)
+@pytest.mark.parametrize("relu", [False, True])
+def test_int4_gemm_kernel_matches_plain(cuda_device, gen, m, k, n, relu):
+    a, w, alpha, beta = _int4_case(gen, cuda_device, m, k, n)
+    before = ops.KERNELS["int4_matmul"].launches
+    y = ops.int4_matmul_nk(a, w, alpha, beta, relu=relu)
+    q = ops.int4_matmul_nk(a, w, alpha, beta, relu=relu, out_scale=0.05, out_zp=113)
+    assert ops.KERNELS["int4_matmul"].launches == before + 2
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ops.int4_matmul_plain(a, w, alpha, beta, relu), atol=F32_ATOL, rtol=0)
+    assert torch.equal(q, ops.int4_matmul_plain(a, w, alpha, beta, relu, out_scale=0.05, out_zp=113))
+
+
+@pytest.mark.cuda
+def test_int4_gemm_scalar_path_on_an_unaligned_pointer(cuda_device, gen):
+    a, w, alpha, beta = _int4_case(gen, cuda_device, 5, 256, 130, a_offset=1)
+    assert a.data_ptr() % 16 != 0 and a.is_contiguous()
+    y = ops.int4_matmul_nk(a, w, alpha, beta, relu=True)
+    q = ops.int4_matmul_nk(a, w, alpha, beta, out_scale=0.05, out_zp=113)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, ops.int4_matmul_plain(a, w, alpha, beta, True), atol=F32_ATOL, rtol=0)
+    assert torch.equal(q, ops.int4_matmul_plain(a, w, alpha, beta, out_scale=0.05, out_zp=113))
+
+
+@pytest.mark.cuda
+def test_int4_linear_on_the_gpu_equals_its_cpu_result(cuda_device, gen):
+    """``IntLinear(int4=True)``: B6's f32 form and the quantize pass on the
+    GPU against the plain version on the CPU."""
+    from quantized_tpu_torch.engine.int_layers import IntLinear
+
+    k, n = 4095, 1000
+    q = gen.integers(-7, 8, (k + 1, n)).astype(np.int8)
+    q[k:] = 0
+    packed = ops.pack_int4(torch.from_numpy(q))
+    alpha = torch.from_numpy((gen.uniform(0.5, 1.5, n) * 1.2e-3 / np.sqrt(k)).astype(np.float32))
+    beta = torch.from_numpy(gen.uniform(-0.5, 0.5, n).astype(np.float32))
+    cpu = IntLinear(packed, alpha, beta, 0.02, 7, int4=True)
+    gpu = IntLinear(packed, alpha, beta, 0.02, 7, int4=True).to(cuda_device)
+    x = torch.from_numpy(gen.integers(-128, 128, (32, k)).astype(np.int8))
+    before = ops.KERNELS["int4_matmul"].launches
+    y = gpu.run_q(x.to(cuda_device), relu=True)
+    h = gpu.run_q(x.to(cuda_device), relu=True, out_requant=(0.05, 120))
+    assert ops.KERNELS["int4_matmul"].launches == before + 2
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.cpu(), cpu.run_q(x, relu=True), atol=F32_ATOL, rtol=0)
+    assert torch.equal(h.cpu(), cpu.run_q(x, relu=True, out_requant=(0.05, 120)))
 
 
 def _fused_case(gen, device, n, h, c, cm, cout, ds):
