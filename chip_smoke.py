@@ -25,14 +25,29 @@ and a non-zero exit:
    kernels (B3) run at five of ResNet-50's block shapes, the fused
    BasicBlock kernels (B4) at ResNet-18's and CIFAR ResNet-20's, the fused
    depthwise-separable kernel (B5) at MobileNet-v1's pairs 0, 1, 6 and 11
-   (each with its band height R and grid), K2's gather-K form also at
-   MobileNet's stem (3x3/s2 over Cin = 3) and AlexNet's conv1 (11x11/s4
-   over Cin = 3); no PyTorch call computes a fused block or pair. The int4
-   GEMM (B6) runs at AlexNet's fc1 (batch 8 and 32), fc2 and fc3 (batch
-   32), f32 and requant forms; its yardstick is ``torch._int_mm`` on the
-   unpacked int8 weights, and K1's time on the same unpacked product is
-   printed beside it (``int8_matmul_ms``);
-4. the serving paths, each through the entry points a user calls
+   and at width 0.75's and 0.25's pair 0 (C = 24 and 8; each with its band
+   height R and grid), K2's gather-K form also at MobileNet's stem (3x3/s2
+   over Cin = 3) and AlexNet's conv1 (11x11/s4 over Cin = 3), its per-tap
+   form also at 1x1 convs over Cin 24 and 9; no PyTorch call computes a
+   fused block or pair. The int4 GEMM (B6) runs at AlexNet's fc1 (batch 8
+   and 32), fc2 and fc3 (batch 32), f32 and requant forms; its yardstick is
+   ``torch._int_mm`` on the unpacked int8 weights, and K1's time on the
+   same unpacked product is printed beside it (``int8_matmul_ms``). The
+   flat-row conv (B7) runs at ResNet-50's four stride-1 3x3 shapes and a
+   1x1 (``torch._int_mm`` its yardstick), K2's time on the same inputs
+   beside it (``int8_conv_direct_ms``; the bound counts K2's work, not B7's
+   junk columns); K2's residual form (B8) at ResNet-18's conv2 + identity
+   (layer1 and layer3), f32 and s8 out; the copy kernels (B9) on the
+   (32, 56, 56, 256) layer1 activation, ``Tensor.copy_`` their yardstick
+   and 2 x its bytes their bound;
+4. the op paths, each with the launch counts set to 0 just before and read
+   just after: "conv sweep", the per-shape sweep of ``probes/sweep_conv``
+   over ResNet-50's 24 conv shapes at batch 32 on K2, B7 and im2col + K1
+   (B7 refuses exactly the 7 stride-2 shapes); "conv ops", B8 through
+   ``int8_conv_direct(..., residual=, res_grid=)`` (2 launches, equal to
+   its plain version); "copy probe", every variant of ``probes/dma_ring``
+   checked exact, then timed;
+5. the serving paths, each through the entry points a user calls
    (``_calibrated_model`` from a seeded generator, ``build_int8_resident(...,
    backend="pallas")`` or ``build_int8_mobilenet``, ``IntExecutor(...,
    ingest="u8")``, then ``fuse_resident_blocks`` or
@@ -60,7 +75,8 @@ and a non-zero exit:
      grids): unfused, 13 K2 per-tap (the pointwise convs), 1 K2 gather-K
      (the stem) and 1 K1, the 13 depthwise convs on the plain grouped path;
      fused (12 pairs), 12 ``fused_dw_pw``, 1 K2 per-tap (the last pointwise
-     conv, f32 out), 1 K2 gather-K and 1 K1;
+     conv, f32 out), 1 K2 gather-K and 1 K1; the same plans at width 0.75,
+     whose stem, first depthwise conv and first pair run over C = 24;
    - AlexNet-OWT-BN (224x224, 1000 classes, observers frozen at [-4, 4];
      every 7th BN scale of bn1, bn2 and bn5 negated, so the min-pool dual
      runs): int8 (``build_int8_alexnet``), 4 K2 per-tap (conv2-5), 1 K2
@@ -78,22 +94,24 @@ and a non-zero exit:
    block (or pair by pair) on shared inputs, against the unfused GPU
    engine: int8 within 1 step on under 1% of a block, logits within
    LOGIT_ATOL (the fused downsample blocks carry the int16 shortcut leg);
-5. throughput: batch-128 uint8 224x224 forwards of ResNet-50 (unfused,
-   fused and int4), ResNet-18 and MobileNet-v1 (unfused and fused), and
+6. throughput: batch-128 uint8 224x224 forwards of ResNet-50 (unfused,
+   fused and int4), ResNet-18 and MobileNet-v1 at widths 1.0 and 0.75
+   (unfused and fused), and
    AlexNet int8 and int4 at batches 1, 8 and 128, timed with CUDA events in
    turns (a, b, b, a) per model and batch, a profile of where the device
-   time goes and the peak memory of each, and the device time of unfused
-   MobileNet's 13 plain depthwise convs;
-6. the kernels line: one JSON object with each kernel's numbers; ``launches``
-   is the count per forward times 3 from the path that runs the kernel
-   (``path``);
-7. last line: ``{"ok": true, "device": {...}}``.
+   time goes and the peak memory of each, and the device time of each
+   unfused MobileNet's 13 plain depthwise convs;
+7. the card's nvidia-smi line, then the kernels line: one JSON object with
+   each kernel's numbers; ``launches`` is the count on the path that runs
+   the kernel (``path``: a serving path's 3 forwards, or an op path);
+8. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import copy
 import json
+import math
 import subprocess
 import sys
 import time
@@ -120,6 +138,8 @@ MODELS = {
     "resnet18": ("resnet_quantized_float_bn", dict(dataset="imagenet", depth=18), 224, 1000),
     "cifar20": ("resnet_quantized_float_bn", dict(dataset="cifar10", depth=20), 32, 10),
     "mobilenet": ("mobilenet_quantized", dict(num_classes=1000, width_mult=1.0), 224, 1000),
+    # C = 24 at the first pair: K2's per-tap form and B5 in 4-byte chunks
+    "mobilenet w0.75": ("mobilenet_quantized", dict(num_classes=1000, width_mult=0.75), 224, 1000),
     "alexnet": ("alexnet_quantized", dict(num_classes=1000), 224, 1000),
 }
 # launches per forward of each path (every kernel not named: 0), and the
@@ -138,6 +158,7 @@ PLANS = {
                   {"fused_dw_pw": 12, "int8_conv_direct": 1, "int8_conv_direct_gatherk": 1,
                    "int8_matmul": 1}, 12),
 }
+PLANS["mobilenet w0.75"] = PLANS["mobilenet"]
 GEMM_PLAN = {"int8_matmul_requant": 33, "int8_matmul": 21}  # ResNet-50 on the "gemm" backend
 # AlexNet (int8 and int4 weights) and the int4 ResNet-50, launches per forward
 ALEXNET_PLANS = {8: {"int8_conv_direct": 4, "int8_conv_direct_gatherk": 1, "int8_matmul": 3},
@@ -157,14 +178,28 @@ KERNEL_INFO = {
     "fused_basicblock_ds": ("quantized_tpu_torch/csrc/fused_block.cu", "quantized_tpu/ops/fused_block.py:537"),
     "fused_dw_pw": ("quantized_tpu_torch/csrc/fused_dw_pw.cu", "quantized_tpu/ops/fused_block.py:701"),
     "int4_matmul": ("quantized_tpu_torch/csrc/int4_gemm.cu", "quantized_tpu/ops/int4.py:180"),
+    "int8_conv_flat": ("quantized_tpu_torch/csrc/int8_conv_flat.cu", "quantized_tpu/ops/int8_conv_pallas.py:189"),
+    "int8_conv_direct_residual": ("quantized_tpu_torch/csrc/int8_conv.cu",
+                                  "quantized_tpu/ops/int8_conv_pallas.py:147"),
+    "grid_copy": ("quantized_tpu_torch/csrc/copy_probe.cu",
+                  "bench/fused_probe.py:45, bench/dma_ring_probe.py:132, bench/dma_ring_probe3.py:89"),
+    "ring_copy": ("quantized_tpu_torch/csrc/copy_probe.cu",
+                  "bench/dma_ring_probe.py:103, bench/dma_ring_probe2.py:90, bench/dma_ring_probe3.py:164"),
+    "bulk_copy": ("quantized_tpu_torch/csrc/copy_probe.cu", "bench/dma_ring_probe2.py:47, bench/dma_ring_probe3.py:185"),
 }
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
                "fused_basicblock_ds": "resnet18 fused", "fused_dw_pw": "mobilenet fused",
-               "int4_matmul": "alexnet int4 serve"}
+               "int4_matmul": "alexnet int4 serve", "int8_conv_flat": "conv sweep",
+               "int8_conv_direct_residual": "conv ops", "grid_copy": "copy probe", "ring_copy": "copy probe",
+               "bulk_copy": "copy probe"}
 OUR_KERNELS = ("int8_conv_kernel", "int8_matmul_kernel", "fused_bottleneck_kernel",
-               "fused_basicblock_kernel", "fused_dw_pw_kernel", "int4_matmul_kernel")  # device kernel names
+               "fused_basicblock_kernel", "fused_dw_pw_kernel", "int4_matmul_kernel", "int8_conv_flat_kernel",
+               "grid_copy_kernel", "ring_copy_kernel", "bulk_copy_kernel")  # device kernel names
+SWEEP_MODES = ("direct", "flat", "gemm")  # the conv sweep path: K2, B7 and im2col + K1
+SWEEP_TARGET_SECS = 0.02  # per timed loop of the sweep; the probe's own default is 1 s
+COPY_TARGET_SECS = 0.05
 
 
 def log(msg: str) -> None:
@@ -368,6 +403,10 @@ def phase_kernels(timer):
          False),
         ("int8_conv_direct_gatherk", "alexnet conv1 11x11 s4 3->64 s8", (224, 3, 64, 11, 4, 2, (0.05, 113)),
          False),
+        # the per-tap form over Cin % 16 != 0: MobileNet-v1 at width 0.75's first
+        # pointwise conv (4-byte chunks) and Cin 9 (single bytes)
+        ("int8_conv_direct", "mobilenet w0.75 pw 1x1 s1 24->48 s8", (112, 24, 48, 1, 1, 0, (0.05, 113)), False),
+        ("int8_conv_direct", "1x1 s1 9->40 f32", (56, 9, 40, 1, 1, 0, None), False),
     ]
     for name, label, (h, cin, cout, kk, s, p, req), rep in conv_cases:
         x = _rand_int8(gen, (b, h, h, cin))
@@ -384,6 +423,64 @@ def phase_kernels(timer):
                lambda x=x, wc=wc, args=args: ops.int8_conv_direct_plain(x, wc, *args),
                lib, in_bytes + wc.numel() + 8 * cout + out_bytes,
                2 * b * ho * ho * kk * kk * cin * cout, rep, plain_iters=3)
+
+    # B7: the flat-row conv at ResNet-50's stride-1 shapes, K2's time on the
+    # same inputs beside it; the bound counts K2's bytes and operations (the
+    # junk columns are B7's own overhead, not the function's work)
+    flat_cases = [
+        # label, (h, cin, cout, k, requant), representative
+        ("l1_3x3 56x56 64->64 s8", (56, 64, 64, 3, (0.05, 113)), True),
+        ("l2_3x3 28x28 128->128 s8", (28, 128, 128, 3, (0.05, 113)), False),
+        ("l3_3x3 14x14 256->256 s8", (14, 256, 256, 3, (0.05, 113)), False),
+        ("l4_3x3 7x7 512->512 s8", (7, 512, 512, 3, (0.05, 113)), False),
+        ("l1_1x1b 56x56 64->256 f32", (56, 64, 256, 1, None), False),
+    ]
+    for label, (h, cin, cout, kk, req), rep in flat_cases:
+        x = _rand_int8(gen, (b, h, h, cin))
+        wc = _rand_int8(gen, (cout, kk * kk * cin), low=-127)
+        ac, bc = _epilogue_params(gen, cout, dev)
+        args = ((kk, kk), ac, bc, 1, kk // 2, -5, True, req)
+        lib = (lambda x=x, wc=wc: torch._int_mm(x.reshape(-1, x.shape[-1]), wc.T)) if kk == 1 else None
+        record("int8_conv_flat", f"{label} batch {b}",
+               lambda x=x, wc=wc, args=args: ops.int8_conv_flat_ck(x, wc, *args),
+               lambda x=x, wc=wc, args=args: ops.int8_conv_flat_plain(x, wc, *args),
+               lib, x.numel() + wc.numel() + 8 * cout + b * h * h * cout * (1 if req else 4),
+               2 * b * h * h * kk * kk * cin * cout, rep, plain_iters=3)
+        k2_ms = timer.ms(lambda x=x, wc=wc, args=args: ops.int8_conv_direct_ck(x, wc, *args))
+        log(f"[kernels] int8_conv_direct (K2) on the same inputs: ms {k2_ms:.4f}")
+        if rep:
+            results["int8_conv_flat"]["int8_conv_direct_ms"] = k2_ms
+
+    # B8: K2 with the fused int8 residual, at ResNet-18's conv2 + identity
+    # (layer1 and layer3), f32 and s8 out
+    residual_cases = [
+        # label, (h, c), requant, representative
+        ("layer1 56x56 64 s8", (56, 64), (0.06, 105), True),
+        ("layer1 56x56 64 f32", (56, 64), None, False),
+        ("layer3 14x14 256 s8", (14, 256), (0.06, 105), False),
+        ("layer3 14x14 256 f32", (14, 256), None, False),
+    ]
+    for label, (h, c), req, rep in residual_cases:
+        x, r = _rand_int8(gen, (b, h, h, c)), _rand_int8(gen, (b, h, h, c))
+        wc = _rand_int8(gen, (c, 9 * c), low=-127)
+        ac, bc = _epilogue_params(gen, c, dev)
+        args = ((3, 3), ac, bc, 1, 1, -5, True, req)
+        kw = dict(residual=r, res_grid=(0.03, 117))
+        record("int8_conv_direct_residual", f"{label} batch {b}",
+               lambda x=x, wc=wc, args=args, kw=kw: ops.int8_conv_direct_ck(x, wc, *args, **kw),
+               lambda x=x, wc=wc, args=args, kw=kw: ops.int8_conv_direct_plain(x, wc, *args, **kw),
+               None, 2 * x.numel() + wc.numel() + 8 * c + x.numel() * (1 if req else 4),
+               2 * b * h * h * 9 * c * c, rep, plain_iters=3)
+
+    # B9: the copy kernels on the layer1 activation; the yardstick is
+    # Tensor.copy_ into a preallocated tensor, the bound 2 x its bytes
+    xa = _rand_int8(gen, (b, 56, 56, 256))
+    dst = torch.empty_like(xa)
+    for name, kernel in (("grid_copy", lambda: ops.grid_copy(xa, 1)),
+                         ("ring_copy", lambda: ops.ring_copy(xa, 4, 2, 1)),
+                         ("bulk_copy", lambda: ops.bulk_copy(xa, 1))):
+        record(name, f"({b}, 56, 56, 256) s8", kernel, lambda: ops.copy_plain(xa), lambda: dst.copy_(xa),
+               2 * xa.numel(), 0, True)
 
     # B3: the fused bottlenecks at ResNet-50's block shapes, with the int16
     # shortcut leg (ds_fine = 32) as the engine passes it
@@ -461,6 +558,9 @@ def phase_kernels(timer):
         ("pair 1 s2 112->56 64->128", (112, 64, 128, 2), False),
         ("pair 6 14x14 512->512", (14, 512, 512, 1), False),
         ("pair 11 s2 14->7 512->1024", (14, 512, 1024, 2), False),
+        # C % 16 != 0: width 0.75's pair 0 (4-byte chunks) and width 0.25's (C = 8)
+        ("w0.75 pair 0 112x112 24->48", (112, 24, 48, 1), False),
+        ("w0.25 pair 0 112x112 8->16", (112, 8, 16, 1), False),
     ]
     for label, (h, c, cout, s), rep in dw_pw_cases:
         x = _rand_int8(gen, (b, h, h, c))
@@ -758,7 +858,7 @@ def phase_model(key):
     from quantized_tpu_torch.engine import IntExecutor, fuse_mobilenet_blocks, fuse_resident_blocks
 
     _, _, side, classes = MODELS[key]
-    fuse, compare = ((fuse_mobilenet_blocks, _compare_pairs) if key == "mobilenet"
+    fuse, compare = ((fuse_mobilenet_blocks, _compare_pairs) if key.startswith("mobilenet")
                      else (fuse_resident_blocks, _compare_blocks))
     plan, fused_plan, n_blocks = PLANS[key]
     t0 = time.perf_counter()
@@ -853,6 +953,84 @@ def phase_resnet50_int4():
     return executor, counts
 
 
+def _path_counts(what, run):
+    """Launch counts of ``run()``, set to 0 just before and read just after."""
+    from quantized_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    result = run()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"[{what}] launches {json.dumps({k: v for k, v in counts.items() if v})}")
+    return counts, result
+
+
+def _require_launched(counts, names, what):
+    for name in names:
+        if counts[name] <= 0:
+            raise AssertionError(f"{what}: {name} was not launched")
+
+
+def phase_conv_sweep():
+    """The port's per-shape conv sweep (``probes/sweep_conv``) over ResNet-50's
+    24 conv shapes at batch 32 on K2, B7 and im2col + K1: B7 refuses exactly
+    the stride-2 shapes, every other cell is timed."""
+    from quantized_tpu_torch.probes import sweep_conv
+
+    counts, times = _path_counts("conv sweep", lambda: sweep_conv.run_sweep(
+        SERVE_BATCH, SWEEP_MODES, target_secs=SWEEP_TARGET_SECS, reps=2, probe_loops=4,
+        out=lambda line: log(f"[conv sweep] {line}")))
+    for name, _, _, _, _, stride, _ in sweep_conv.SHAPES:
+        for mode in SWEEP_MODES:
+            if math.isnan(times[mode][name]) != (mode == "flat" and stride != 1):
+                raise AssertionError(f"conv sweep: {mode} at {name} took {times[mode][name]}")
+    _require_launched(counts, ("int8_conv_flat", "int8_conv_direct", "int8_conv_direct_gatherk",
+                               "int8_matmul_requant"), "conv sweep")
+    return counts, times
+
+
+def phase_conv_ops():
+    """B8 through the JAX-signature op entry, ``int8_conv_direct(...,
+    residual=, res_grid=)`` on HWIO weights, at ResNet-18's layer1 conv2 +
+    identity (batch 32), s8 and f32 out: 2 launches, equal to the plain
+    version."""
+    from quantized_tpu_torch import ops
+
+    gen = torch.Generator().manual_seed(4321)
+    dev = torch.device("cuda")
+    x, r = _rand_int8(gen, (SERVE_BATCH, 56, 56, 64)), _rand_int8(gen, (SERVE_BATCH, 56, 56, 64))
+    w = _rand_int8(gen, (3, 3, 64, 64), low=-127)
+    alpha, beta = _epilogue_params(gen, 64, dev)
+    kw = dict(residual=r, res_grid=(0.03, 117))
+
+    def run():
+        return [ops.int8_conv_direct(x, w, alpha, beta, 1, 1, -5, True, req, **kw) for req in ((0.06, 105), None)]
+
+    counts, outs = _path_counts("conv ops", run)
+    _check_launches(counts, {"int8_conv_direct_residual": 2}, 1, "conv ops")
+    w_ck = ops.pack_conv_weight(w)
+    for got, req in zip(outs, ((0.06, 105), None)):
+        want = ops.int8_conv_direct_plain(x, w_ck, (3, 3), alpha, beta, 1, 1, -5, True, req, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        if err > (0 if req else F32_ATOL):
+            raise AssertionError(f"conv ops: the residual conv differs from its plain version by {err}")
+    log("[conv ops] int8_conv_direct(residual=, res_grid=) equals its plain version, s8 and f32")
+    return counts
+
+
+def phase_copy_probe():
+    """The copy probe (``probes/dma_ring``): every variant of the TPU DMA
+    studies exact against its plain version, then timed as a chain, on the
+    (32, 56, 56, 256) layer1 activation."""
+    from quantized_tpu_torch.probes import dma_ring
+
+    counts, times = _path_counts("copy probe", lambda: dma_ring.run_probe(
+        SERVE_BATCH, target_secs=COPY_TARGET_SECS, reps=2, out=lambda line: log(f"[copy probe] {line}")))
+    _require_launched(counts, ("grid_copy", "ring_copy", "bulk_copy"), "copy probe")
+    return counts, times
+
+
 def _time_forward(executor, dev_batch, iters=10):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -888,7 +1066,7 @@ def _profile(executor, dev_batch, ms, what, n_prof=3):
         log(f"[profile] {what} {us / 1e3:9.3f} ms {count:4d}x {key[:100]}")
 
 
-def _depthwise_ms(engine, dev_batch, timer):
+def _depthwise_ms(key, engine, dev_batch, timer):
     """Device time of the unfused MobileNet's depthwise convs (the plain
     grouped path) on their inputs of one batch-128 forward."""
     from quantized_tpu_torch.engine.int8_resident import u8_to_stored
@@ -906,7 +1084,7 @@ def _depthwise_ms(engine, dev_batch, timer):
                 conv.run_q(x, relu=True, out_requant=grid)
 
         ms = timer.ms(run, iters=5, warmup=1)
-    log(f"[throughput] mobilenet unfused: its {len(calls)} plain depthwise convs take {ms:.3f} ms of device "
+    log(f"[throughput] {key} unfused: its {len(calls)} plain depthwise convs take {ms:.3f} ms of device "
         f"time per batch-{THROUGHPUT_BATCH} forward")
 
 
@@ -940,8 +1118,8 @@ def phase_throughput(key, executors, card, timer, batch=THROUGHPUT_BATCH):
             f"{host_ms:.3f} ms/batch, {batch / host_ms * 1e3:.1f} img/s; peak memory {peak:.0f} MiB; "
             f"card {card}")
         _profile(ex, dev, ms, f"{key} {name} batch {batch}")
-    if key == "mobilenet":
-        _depthwise_ms(executors["unfused"].model, dev, timer)
+    if key.startswith("mobilenet"):
+        _depthwise_ms(key, executors["unfused"].model, dev, timer)
 
 
 def main() -> int:
@@ -955,14 +1133,17 @@ def main() -> int:
     timer = Timer("cuda")
     kernel_numbers = phase_kernels(timer)
     executors, path_counts = {}, {}
-    for key in ("resnet50", "resnet18", "cifar20", "mobilenet"):
+    path_counts["conv sweep"], _ = phase_conv_sweep()
+    path_counts["conv ops"] = phase_conv_ops()
+    path_counts["copy probe"], _ = phase_copy_probe()
+    for key in ("resnet50", "resnet18", "cifar20", "mobilenet", "mobilenet w0.75"):
         executors[key], counts = phase_model(key)
         path_counts.update(counts)
     executors["alexnet"], counts = phase_alexnet()
     path_counts.update(counts)
     executors["resnet50"]["int4"], counts = phase_resnet50_int4()
     path_counts.update(counts)
-    for key in ("resnet50", "resnet18", "mobilenet"):
+    for key in ("resnet50", "resnet18", "mobilenet", "mobilenet w0.75"):
         phase_throughput(key, executors[key], card, timer)
     for batch in ALEXNET_BATCHES:
         phase_throughput("alexnet", executors["alexnet"], card, timer, batch=batch)
@@ -978,8 +1159,9 @@ def main() -> int:
             "bound_by": numbers["bound_by"], "library_ms": numbers["library_ms"],
             "event_ms": numbers["event_ms"], "path": path, "case": numbers["case"],
         })
-        if "int8_matmul_ms" in numbers:  # B6: K1 on the same product, unpacked
-            kernels[-1]["int8_matmul_ms"] = numbers["int8_matmul_ms"]
+        for extra in ("int8_matmul_ms", "int8_conv_direct_ms"):  # B6: K1 unpacked; B7: K2, same inputs
+            if extra in numbers:
+                kernels[-1][extra] = numbers[extra]
         if kernels[-1]["launches"] <= 0:
             raise AssertionError(f"{kname} was not launched on its path")
     if set(ops.KERNELS) != set(KERNEL_INFO):

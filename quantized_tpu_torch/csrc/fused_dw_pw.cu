@@ -22,18 +22,23 @@
 // block has at most 227 KB of shared memory. So a block of 128 threads owns
 // one image and a band of R output rows, and walks all Cout itself:
 //  1. it stages the band's input rows and their halo, (R-1)*S + 3 rows of
-//     W + 2 pixels, into shared memory, 16 bytes at a time; a pixel outside
-//     the image holds zp1 (the depthwise conv's stored zero point, never 0);
+//     W + 2 pixels, into shared memory, 16 bytes at a time where C % 16 == 0,
+//     else 4 where C % 4 == 0 (width 0.75: C = 24), else 1 (C = 9); a pixel
+//     outside the image holds zp1 (the depthwise conv's stored zero point,
+//     never 0);
 //  2. the depthwise 3x3 runs on the CUDA cores in int32, a thread taking 4
-//     channels of one output pixel (one 32-bit word per tap); output (i, j),
-//     tap (dy, dx) reads staged pixel (i*S + dy, j*S + dx), so stride 2 needs
-//     no parity reshapes; epilogue 1 writes h1 to shared memory as ceil(C/64)
-//     K chunks of 64-row tiles at the 80-byte pitch of int8_mma.cuh;
+//     channels of one output pixel (one 32-bit word per tap) where C % 4 ==
+//     0, else one; output (i, j), tap (dy, dx) reads staged pixel
+//     (i*S + dy, j*S + dx), so stride 2 needs no parity reshapes; epilogue 1
+//     writes h1 to shared memory as ceil(C/64) K chunks of 64-row tiles at
+//     the 80-byte pitch of int8_mma.cuh;
 //  3. the pointwise GEMM h1 x wpw^T runs 64x64 output tiles on the tensor
 //     cores (mma.sync m16n8k32), each K chunk of h1 read in place as the A
-//     tile, the weights staged from device memory (L2 keeps them); epilogue 2
-//     stores s8. A K chunk past C (C = 32) meets weight bytes staged as 0,
-//     and h1 rows past the band's pixels are never stored, so neither needs
+//     tile, the weights staged from device memory (L2 keeps them; 16-byte
+//     loads where C % 16 == 0); epilogue 2 stores s8. The bytes of a K chunk
+//     past C (any C that is not a multiple of 64) meet weight bytes staged
+//     as 0, which zero their products exactly whatever they hold, and h1
+//     rows past the band's pixels are never stored, so neither needs
 //     clearing.
 // A depthwise output row belongs to one band: shorter bands re-read 2 input
 // halo rows from L2 and recompute nothing, so the wrapper shortens them
@@ -67,11 +72,14 @@ __host__ __device__ inline size_t dw_pw_smem_bytes(const DwPwShape& s) {
 // byte q of a 32-bit word, sign-extended
 __device__ __forceinline__ int sbyte(uint32_t v, int q) { return static_cast<int8_t>(v >> (8 * q)); }
 
-template <int S>
+// CH: bytes per staged input chunk (16, 4 or 1; C % CH == 0); the depthwise
+// pass takes 4 channels per thread step where CH >= 4, else one.
+template <int S, int CH>
 __global__ void __launch_bounds__(qt::THREADS)
     fused_dw_pw_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ WDW,
                        const int8_t* __restrict__ WPW, int8_t* __restrict__ out, DwPwShape s,
-                       DwPwEpilogue e) {
+                       DwPwEpilogue e, bool wvec) {
+  using T = typename qt::Chunk<CH>::T;
   extern __shared__ __align__(16) int8_t smem[];
   int8_t* Ws = smem;                                                // 64 x LDS
   int8_t* h1 = Ws + qt::BN * qt::LDS;                               // KC x MP x LDS
@@ -85,19 +93,20 @@ __global__ void __launch_bounds__(qt::THREADS)
   const int pitch = s.W + 2;           // staged pixels per row
   const int8_t* x = X + static_cast<size_t>(img) * s.H * s.W * s.C;
 
-  // 1. the input band and its halo (zp1 outside the image); the depthwise
-  // weights transposed to tap-major, wd[t*C + c] = WDW[c*9 + t]
+  // 1. the input band and its halo (zp1 outside the image), chunk i at byte
+  // i*CH of xs; the depthwise weights transposed to tap-major,
+  // wd[t*C + c] = WDW[c*9 + t]
   {
-    const uint4 pad = qt::fill16(e.zp1);
-    const int c16 = s.C / 16;
-    const int n16 = s.HR * pitch * c16;
-    for (int i = threadIdx.x; i < n16; i += qt::THREADS) {
-      const int px = i / c16, ch = (i - px * c16) * 16;
+    const T pad = qt::Chunk<CH>::fill(qt::zp_bytes(e.zp1));
+    const int cpp = s.C / CH;  // chunks per pixel
+    const int nch = s.HR * pitch * cpp;
+    for (int i = threadIdx.x; i < nch; i += qt::THREADS) {
+      const int px = i / cpp, ch = (i - px * cpp) * CH;
       const int lr = px / pitch, wi = px - lr * pitch - 1, hi = hb + lr;
-      uint4 v = pad;
+      T v = pad;
       if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W)
-        v = qt::ld16(x + (static_cast<size_t>(hi) * s.W + wi) * s.C + ch);
-      reinterpret_cast<uint4*>(xs)[i] = v;
+        v = *reinterpret_cast<const T*>(x + (static_cast<size_t>(hi) * s.W + wi) * s.C + ch);
+      reinterpret_cast<T*>(xs)[i] = v;
     }
     for (int i = threadIdx.x; i < 9 * s.C; i += qt::THREADS) {
       const int t = i / s.C, c = i - t * s.C;
@@ -108,26 +117,39 @@ __global__ void __launch_bounds__(qt::THREADS)
 
   // 2. depthwise 3x3/S and epilogue 1 into h1: chunk c/64, row m, byte c%64
   const int M = rb * s.Wo;
-  const int cw = s.C / 4;
-  for (int idx = threadIdx.x; idx < M * cw; idx += qt::THREADS) {
-    const int m = idx / cw, c = (idx - m * cw) * 4;
-    const int i = m / s.Wo, j = m - i * s.Wo;
-    int acc[4] = {0, 0, 0, 0};
+  if constexpr (CH >= 4) {
+    const int cw = s.C / 4;
+    for (int idx = threadIdx.x; idx < M * cw; idx += qt::THREADS) {
+      const int m = idx / cw, c = (idx - m * cw) * 4;
+      const int i = m / s.Wo, j = m - i * s.Wo;
+      int acc[4] = {0, 0, 0, 0};
 #pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const int8_t* px = xs + (static_cast<size_t>(i * S + t / 3) * pitch + j * S + t % 3) * s.C;
-      const uint32_t xv = *reinterpret_cast<const uint32_t*>(px + c);
-      const uint32_t wv = *reinterpret_cast<const uint32_t*>(wd + t * s.C + c);
+      for (int t = 0; t < 9; ++t) {
+        const int8_t* px = xs + (static_cast<size_t>(i * S + t / 3) * pitch + j * S + t % 3) * s.C;
+        const uint32_t xv = *reinterpret_cast<const uint32_t*>(px + c);
+        const uint32_t wv = *reinterpret_cast<const uint32_t*>(wd + t * s.C + c);
 #pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] += sbyte(xv, q) * sbyte(wv, q);
+        for (int q = 0; q < 4; ++q) acc[q] += sbyte(xv, q) * sbyte(wv, q);
+      }
+      uint32_t packed = 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int8_t v = qt::requant(acc[q], e.a1[c + q], e.b1[c + q], e.lo1);
+        packed |= static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * q);
+      }
+      *reinterpret_cast<uint32_t*>(h1 + (static_cast<size_t>(c >> 6) * s.MP + m) * qt::LDS + (c & 63)) = packed;
     }
-    uint32_t packed = 0;
+  } else {
+    for (int idx = threadIdx.x; idx < M * s.C; idx += qt::THREADS) {
+      const int m = idx / s.C, c = idx - m * s.C;
+      const int i = m / s.Wo, j = m - i * s.Wo;
+      int acc = 0;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int8_t v = qt::requant(acc[q], e.a1[c + q], e.b1[c + q], e.lo1);
-      packed |= static_cast<uint32_t>(static_cast<uint8_t>(v)) << (8 * q);
+      for (int t = 0; t < 9; ++t)
+        acc += static_cast<int>(xs[(static_cast<size_t>(i * S + t / 3) * pitch + j * S + t % 3) * s.C + c]) *
+               static_cast<int>(wd[t * s.C + c]);
+      h1[(static_cast<size_t>(c >> 6) * s.MP + m) * qt::LDS + (c & 63)] = qt::requant(acc, e.a1[c], e.b1[c], e.lo1);
     }
-    *reinterpret_cast<uint32_t*>(h1 + (static_cast<size_t>(c >> 6) * s.MP + m) * qt::LDS + (c & 63)) = packed;
   }
   __syncthreads();
 
@@ -137,7 +159,7 @@ __global__ void __launch_bounds__(qt::THREADS)
     for (int n0 = 0; n0 < s.Cout; n0 += qt::BN) {
       qt::Acc acc = {};
       for (int kc = 0; kc < s.KC; ++kc) {
-        qt::stage_rows(Ws, WPW, s.Cout, s.C, n0, kc * qt::BK, true);
+        qt::stage_rows(Ws, WPW, s.Cout, s.C, n0, kc * qt::BK, wvec);
         __syncthreads();
         qt::mma_tile(h1 + (static_cast<size_t>(kc) * s.MP + m0) * qt::LDS, Ws, acc);
         __syncthreads();
@@ -151,25 +173,35 @@ __global__ void __launch_bounds__(qt::THREADS)
   }
 }
 
+template <int S, int CH>
+int launch_dw_pw_ch(const void* x, const void* wdw, const void* wpw, void* out, const DwPwShape& s,
+                    const DwPwEpilogue& e, void* stream) {
+  const bool wvec = s.C % 16 == 0 && qt::aligned16(wpw);
+  return qt::launch(fused_dw_pw_kernel<S, CH>, dim3((s.Ho + s.R - 1) / s.R, s.N), dw_pw_smem_bytes(s),
+                    stream, static_cast<const int8_t*>(x), static_cast<const int8_t*>(wdw),
+                    static_cast<const int8_t*>(wpw), static_cast<int8_t*>(out), s, e, wvec);
+}
+
 template <int S>
 int launch_dw_pw(const void* x, const void* wdw, const void* wpw, void* out, DwPwShape s,
                  const DwPwEpilogue& e, void* stream) {
-  if (s.N < 1 || s.R < 1 || s.C < 16 || s.C % 16 || s.Cout < 1 || s.H % S || s.W % S ||
-      !qt::aligned16(x) || !qt::aligned16(wpw))
+  if (s.N < 1 || s.R < 1 || s.C < 1 || s.Cout < 1 || s.H % S || s.W % S)
     return static_cast<int>(cudaErrorInvalidValue);
   s.Ho = s.H / S;
   s.Wo = s.W / S;
   s.HR = (s.R - 1) * S + 3;
   s.MP = (s.R * s.Wo + qt::BM - 1) / qt::BM * qt::BM;
   s.KC = (s.C + qt::BK - 1) / qt::BK;
-  return qt::launch(fused_dw_pw_kernel<S>, dim3((s.Ho + s.R - 1) / s.R, s.N), dw_pw_smem_bytes(s), stream,
-                    static_cast<const int8_t*>(x), static_cast<const int8_t*>(wdw),
-                    static_cast<const int8_t*>(wpw), static_cast<int8_t*>(out), s, e);
+  switch (qt::chunk_bytes(s.C, x)) {
+    case 16: return launch_dw_pw_ch<S, 16>(x, wdw, wpw, out, s, e, stream);
+    case 4: return launch_dw_pw_ch<S, 4>(x, wdw, wpw, out, s, e, stream);
+    default: return launch_dw_pw_ch<S, 1>(x, wdw, wpw, out, s, e, stream);
+  }
 }
 
 }  // namespace
 
-// Stride 1 or 2 over an image it divides; C % 16 == 0; R output rows per block.
+// Stride 1 or 2 over an image it divides; any C; R output rows per block.
 extern "C" int qt_fused_dw_pw(const void* x, const void* wdw, const void* wpw, const void* a1,
                               const void* b1, const void* a2, const void* b2, void* out, int N, int H,
                               int W, int C, int Cout, int stride, int R, int zp1, float lo1, float lo2,

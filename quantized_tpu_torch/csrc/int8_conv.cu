@@ -1,12 +1,16 @@
-// K2: direct int8 convolution as an implicit GEMM, with the fused epilogue.
+// K2: direct int8 convolution as an implicit GEMM, with the fused epilogue;
+// and B8, the same conv with a fused int8 residual in its epilogue.
 //
-// Replaces the Pallas kernels _conv_kernel (per-tap dots) and
-// _conv_gatherk_kernel (small Cin, one dot over all taps) behind
-// int8_conv_direct (quantized_tpu/ops/int8_conv_pallas.py:57, :106, :383).
+// Replaces the Pallas kernels _conv_kernel (per-tap dots),
+// _conv_gatherk_kernel (small Cin, one dot over all taps) and
+// _conv_residual_kernel (per-tap dots + residual) behind int8_conv_direct
+// (quantized_tpu/ops/int8_conv_pallas.py:57, :106, :147, :383).
 //
 //   x: NHWC s8 (stored u - 128), not padded;  w: (Cout, Kh*Kw*Cin) s8, K in
 //   (kh, kw, c) order;  GEMM rows m = (n, ho, wo), columns = Cout.
-//   y = acc * alpha + beta; ReLU if asked; then either f32 out, or
+//   y = acc * alpha + beta; with a residual r (s8, same shape as the output,
+//   on the grid (r_scale, r_zp)): y = y + (r + (128 - r_zp)) * r_scale;
+//   ReLU if asked; then either f32 out, or
 //   q = clip(rint(y * inv + zps), -128, 127) -> s8 (int8_conv_direct's order).
 //
 // Padding: a tap that falls outside the image reads the stored zero point
@@ -20,13 +24,16 @@
 // kept a whole padded image group (about 2 MB) resident in VMEM; a Hopper
 // block has at most 227 KB, so this kernel tiles instead: a block owns 64
 // output pixels x 64 output channels and gathers its A tile straight from the
-// unpadded input by index arithmetic, 64 K bytes at a time. A 16-byte chunk
-// of the per-tap form never straddles a tap (Cin % 16 == 0). The gather-K
-// form (small Cin, e.g. the space-to-depth stem with Cin = 12 and K = 192)
-// lets a K step straddle taps and gathers 4-byte chunks where Cin % 4 == 0,
-// else single bytes (the CIFAR stem, Cin = 3 and K = 27). The
-// product is mma.sync m16n8k32 on the int8 tensor cores
-// (int8_mma.cuh). No load/compute overlap, no wgmma/TMA yet: later work.
+// unpadded input by index arithmetic, 64 K bytes at a time. A K step may
+// straddle taps; a gathered chunk never does: it is 16 bytes where Cin % 16
+// == 0, 4 where Cin % 4 == 0 (the space-to-depth stem, Cin = 12, K = 192;
+// MobileNet-v1 at width 0.75, Cin = 24), else 1 (the CIFAR stem, Cin = 3).
+// The per-tap and gather-K forms differ only in which Pallas body they stand
+// for and which launch count they add to: on the card both are this one
+// kernel behind one entry, qt_int8_conv; the residual form is its RES
+// instance, so the residual's loads and registers stay out of the others. The
+// product is mma.sync m16n8k32 on the int8 tensor cores (int8_mma.cuh). No
+// load/compute overlap, no wgmma/TMA yet: later work.
 //
 // The epilogue uses __fmul_rn/__fadd_rn (and the build passes -fmad=false),
 // so it rounds exactly as the plain PyTorch version does.
@@ -39,28 +46,23 @@ struct ConvShape {
   int N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo;
 };
 
-template <int CH> struct Chunk;
-template <> struct Chunk<16> {
-  using T = uint4;
-  static __device__ __forceinline__ T fill(uint32_t p) { return make_uint4(p, p, p, p); }
-};
-template <> struct Chunk<4> {
-  using T = uint32_t;
-  static __device__ __forceinline__ T fill(uint32_t p) { return p; }
-};
-template <> struct Chunk<1> {
-  using T = uint8_t;
-  static __device__ __forceinline__ T fill(uint32_t p) { return static_cast<uint8_t>(p); }
+// the epilogue's scalars; its vectors and the residual are __restrict__
+// kernel parameters, so their loads need not wait for the output's stores
+struct ConvEpilogue {
+  float r_off, r_scale;  // f32(128 - r_zp), f32(r_scale) of the residual
+  int relu, out_int8;
+  float inv, zps;
 };
 
 // CH: bytes per gathered A chunk; Cin % CH == 0, so a chunk stays inside a tap.
-template <int CH>
+// RES: add the residual in the epilogue (B8).
+template <int CH, bool RES>
 __global__ void __launch_bounds__(qt::THREADS)
     int8_conv_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
                      const float* __restrict__ alpha, const float* __restrict__ beta,
-                     void* __restrict__ out, ConvShape s, int stored_zp, int relu, int out_int8,
-                     float inv, float zps, bool wvec) {
-  using T = typename Chunk<CH>::T;
+                     const int8_t* __restrict__ residual, void* __restrict__ out, ConvShape s, int stored_zp,
+                     ConvEpilogue e, bool wvec) {
+  using T = typename qt::Chunk<CH>::T;
   __shared__ __align__(16) int8_t As[qt::BM * qt::LDS];
   __shared__ __align__(16) int8_t Ws[qt::BN * qt::LDS];
   __shared__ long long row_base[qt::BM];  // offset of the row's image in X; -1 past M
@@ -86,8 +88,8 @@ __global__ void __launch_bounds__(qt::THREADS)
   }
   __syncthreads();
 
-  const T pad = Chunk<CH>::fill(0x01010101u * static_cast<uint8_t>(stored_zp));
-  const T zero = Chunk<CH>::fill(0u);
+  const T pad = qt::Chunk<CH>::fill(qt::zp_bytes(stored_zp));
+  const T zero = qt::Chunk<CH>::fill(0u);
   constexpr int CPR = qt::BK / CH;  // chunks per staged row
 
   qt::Acc acc = {};
@@ -116,55 +118,59 @@ __global__ void __launch_bounds__(qt::THREADS)
   qt::for_each_acc(acc, [&](int r, int c, int a) {
     const int m = m0 + r, n = n0 + c;
     if (m >= M || n >= s.Cout) return;
+    const size_t o = static_cast<size_t>(m) * s.Cout + n;
     float y = __fadd_rn(__fmul_rn(static_cast<float>(a), alpha[n]), beta[n]);
-    if (relu) y = fmaxf(y, 0.0f);
-    if (out_int8) {
-      float q = rintf(__fadd_rn(__fmul_rn(y, inv), zps));
+    if constexpr (RES)
+      y = __fadd_rn(y, __fmul_rn(__fadd_rn(static_cast<float>(residual[o]), e.r_off), e.r_scale));
+    if (e.relu) y = fmaxf(y, 0.0f);
+    if (e.out_int8) {
+      float q = rintf(__fadd_rn(__fmul_rn(y, e.inv), e.zps));
       q = fminf(fmaxf(q, -128.0f), 127.0f);
-      static_cast<int8_t*>(out)[(size_t)m * s.Cout + n] = static_cast<int8_t>(static_cast<int>(q));
+      static_cast<int8_t*>(out)[o] = static_cast<int8_t>(static_cast<int>(q));
     } else {
-      static_cast<float*>(out)[(size_t)m * s.Cout + n] = y;
+      static_cast<float*>(out)[o] = y;
     }
   });
 }
 
-bool aligned(const void* p, unsigned bytes) {
-  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1u)) == 0;
+struct ConvArgs {
+  const void *x, *w, *alpha, *beta, *residual;
+  void* out;
+};
+
+template <int CH, bool RES>
+int launch(const ConvArgs& a, const ConvShape& s, int stored_zp, const ConvEpilogue& e, void* stream) {
+  const int M = s.N * s.Ho * s.Wo, K = s.KH * s.KW * s.Cin;
+  const bool wvec = (K % 16 == 0) && qt::aligned16(a.w);
+  const dim3 grid((M + qt::BM - 1) / qt::BM, (s.Cout + qt::BN - 1) / qt::BN);
+  int8_conv_kernel<CH, RES><<<grid, qt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(a.x), static_cast<const int8_t*>(a.w), static_cast<const float*>(a.alpha),
+      static_cast<const float*>(a.beta), static_cast<const int8_t*>(a.residual), a.out, s, stored_zp, e, wvec);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <int CH>
-int launch(const void* x, const void* w, const void* alpha, const void* beta, void* out,
-           const ConvShape& s, int stored_zp, int relu, int out_int8, float inv, float zps,
-           void* stream) {
-  const int M = s.N * s.Ho * s.Wo, K = s.KH * s.KW * s.Cin;
-  const bool wvec = (K % 16 == 0) && aligned(w, 16);
-  const dim3 grid((M + qt::BM - 1) / qt::BM, (s.Cout + qt::BN - 1) / qt::BN);
-  int8_conv_kernel<CH><<<grid, qt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(alpha), static_cast<const float*>(beta), out, s, stored_zp, relu,
-      out_int8, inv, zps, wvec);
-  return static_cast<int>(cudaGetLastError());
+// the widest chunk that divides Cin and keeps x's loads aligned
+template <bool RES>
+int launch_any_cin(const ConvArgs& a, const ConvShape& s, int stored_zp, const ConvEpilogue& e, void* stream) {
+  switch (qt::chunk_bytes(s.Cin, a.x)) {
+    case 16: return launch<16, RES>(a, s, stored_zp, e, stream);
+    case 4: return launch<4, RES>(a, s, stored_zp, e, stream);
+    default: return launch<1, RES>(a, s, stored_zp, e, stream);
+  }
 }
 
 }  // namespace
 
-#define QT_CONV_ARGS                                                                             \
-  const void *x, const void *w, const void *alpha, const void *beta, void *out, int N, int H,   \
-      int W, int Cin, int Cout, int KH, int KW, int SH, int SW, int PH, int PW, int Ho, int Wo, \
-      int stored_zp, int relu, int out_int8, float inv, float zps, void *stream
-
-// Per-tap form: Cin % 16 == 0 and x 16-byte aligned.
-extern "C" int qt_int8_conv_tap(QT_CONV_ARGS) {
+// K2 in all its forms (per-tap, gather-K, and B8 where residual is not
+// null: (N, Ho, Wo, Cout) s8, r_off = f32(128 - r_zp), r_scale =
+// f32(r_scale)), any Cin.
+extern "C" int qt_int8_conv(const void* x, const void* w, const void* alpha, const void* beta,
+                            const void* residual, void* out, int N, int H, int W, int Cin, int Cout, int KH,
+                            int KW, int SH, int SW, int PH, int PW, int Ho, int Wo, int stored_zp, int relu,
+                            int out_int8, float inv, float zps, float r_off, float r_scale, void* stream) {
+  const ConvArgs a{x, w, alpha, beta, residual, out};
   const ConvShape s{N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo};
-  if (Cin % 16 != 0 || !aligned(x, 16)) return static_cast<int>(cudaErrorInvalidValue);
-  return launch<16>(x, w, alpha, beta, out, s, stored_zp, relu, out_int8, inv, zps, stream);
-}
-
-// Gather-K form, any Cin: 4-byte chunks where Cin % 4 == 0 and x is 4-byte
-// aligned, else 1-byte chunks.
-extern "C" int qt_int8_conv_gatherk(QT_CONV_ARGS) {
-  const ConvShape s{N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo};
-  if (Cin % 4 == 0 && aligned(x, 4))
-    return launch<4>(x, w, alpha, beta, out, s, stored_zp, relu, out_int8, inv, zps, stream);
-  return launch<1>(x, w, alpha, beta, out, s, stored_zp, relu, out_int8, inv, zps, stream);
+  const ConvEpilogue e{r_off, r_scale, relu, out_int8, inv, zps};
+  if (residual != nullptr) return launch_any_cin<true>(a, s, stored_zp, e, stream);
+  return launch_any_cin<false>(a, s, stored_zp, e, stream);
 }

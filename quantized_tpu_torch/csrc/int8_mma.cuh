@@ -1,5 +1,5 @@
 // Shared block-tile machinery of the int8 kernels (int8_gemm.cu, int8_conv.cu,
-// fused_block.cu, fused_dw_pw.cu).
+// int8_conv_flat.cu, fused_block.cu, fused_dw_pw.cu).
 //
 // A block computes a 64x64 tile of C = A (M,K) x W (N,K)^T with int32
 // accumulation. Both operands are K-major int8, which is exactly the operand
@@ -64,27 +64,55 @@ __device__ __forceinline__ void mma_tile(const int8_t* As, const int8_t* Ws, Acc
   }
 }
 
-// Stage rows [r0, r0+64) x bytes [k0, k0+BK) of a K-major (R, K) int8 matrix;
-// zero outside it (zero weight bytes add nothing to the accumulator).
-// vec: K % 16 == 0 and the base is 16-byte aligned, so 16-byte loads apply.
-__device__ __forceinline__ void stage_rows(int8_t* S, const int8_t* X, int R, int K, int r0,
-                                           int k0, bool vec) {
+// Stage rows [r0, r0+64) x bytes [k0, k0+BK) of a K-major int8 matrix of R
+// rows at a pitch of ld bytes; zero at and past byte klim of a row and past
+// row R (zero weight bytes add nothing to the accumulator).
+// vec: ld and klim are multiples of 16 and the base is 16-byte aligned, so
+// 16-byte loads apply.
+__device__ __forceinline__ void stage_cols(int8_t* S, const int8_t* X, int R, size_t ld, int r0,
+                                           int k0, int klim, bool vec) {
   if (vec) {
     for (int i = threadIdx.x; i < 64 * (BK / 16); i += THREADS) {
       const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
       const int row = r0 + r, k = k0 + c;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (row < R && k < K) v = *reinterpret_cast<const uint4*>(X + (size_t)row * K + k);
+      if (row < R && k < klim) v = *reinterpret_cast<const uint4*>(X + (size_t)row * ld + k);
       *reinterpret_cast<uint4*>(S + r * LDS + c) = v;
     }
   } else {
     for (int i = threadIdx.x; i < 64 * BK; i += THREADS) {
       const int r = i / BK, c = i % BK;
       const int row = r0 + r, k = k0 + c;
-      S[r * LDS + c] = (row < R && k < K) ? X[(size_t)row * K + k] : int8_t(0);
+      S[r * LDS + c] = (row < R && k < klim) ? X[(size_t)row * ld + k] : int8_t(0);
     }
   }
 }
+
+// Stage rows [r0, r0+64) x bytes [k0, k0+BK) of a K-major (R, K) int8 matrix;
+// zero outside it. vec: K % 16 == 0 and the base is 16-byte aligned.
+__device__ __forceinline__ void stage_rows(int8_t* S, const int8_t* X, int R, int K, int r0,
+                                           int k0, bool vec) {
+  stage_cols(S, X, R, static_cast<size_t>(K), r0, k0, K, vec);
+}
+
+// A gathered chunk of CH bytes (16, 4 or 1) as one load, and a chunk of a
+// repeated byte pattern
+template <int CH> struct Chunk;
+template <> struct Chunk<16> {
+  using T = uint4;
+  static __device__ __forceinline__ T fill(uint32_t p) { return make_uint4(p, p, p, p); }
+};
+template <> struct Chunk<4> {
+  using T = uint32_t;
+  static __device__ __forceinline__ T fill(uint32_t p) { return p; }
+};
+template <> struct Chunk<1> {
+  using T = uint8_t;
+  static __device__ __forceinline__ T fill(uint32_t p) { return static_cast<uint8_t>(p); }
+};
+
+// the four bytes of a stored zero point, for Chunk<CH>::fill
+__device__ __forceinline__ uint32_t zp_bytes(int stored) { return 0x01010101u * static_cast<uint8_t>(stored); }
 
 // Visit every accumulator element of this thread with its tile-local
 // (row, col), together with the element at the same place in a second
@@ -119,10 +147,7 @@ __device__ __forceinline__ uint4 ld16(const int8_t* p) { return *reinterpret_cas
 __device__ __forceinline__ uint4 zero16() { return make_uint4(0u, 0u, 0u, 0u); }
 
 // 16 bytes of a stored zero point
-__device__ __forceinline__ uint4 fill16(int stored) {
-  const uint32_t z = 0x01010101u * static_cast<uint8_t>(stored);
-  return make_uint4(z, z, z, z);
-}
+__device__ __forceinline__ uint4 fill16(int stored) { return Chunk<16>::fill(zp_bytes(stored)); }
 
 // clip(rint(acc*a + b), lo, 127) -> s8, one float32 rounding per operation
 __device__ __forceinline__ int8_t requant(int acc, float a, float b, float lo) {
@@ -131,7 +156,19 @@ __device__ __forceinline__ int8_t requant(int acc, float a, float b, float lo) {
   return static_cast<int8_t>(static_cast<int>(q));
 }
 
-inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+inline bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1u)) == 0;
+}
+
+inline bool aligned16(const void* p) { return aligned(p, 16); }
+
+// The widest chunk (16, 4 or 1 bytes) that divides a row of c bytes and
+// keeps the loads from base aligned
+inline int chunk_bytes(int c, const void* base) {
+  if (c % 16 == 0 && aligned(base, 16)) return 16;
+  if (c % 4 == 0 && aligned(base, 4)) return 4;
+  return 1;
+}
 
 // Launch with `smem` bytes of dynamic shared memory; 0 or the CUDA error.
 template <typename Kernel, typename... Args>

@@ -1,9 +1,11 @@
-"""Integer ops of the port: the hand-written CUDA kernels (K1, K2, the fused
-bottlenecks B3, BasicBlocks B4 and depthwise-separable pairs B5, the int4
-GEMM B6), their plain PyTorch versions, the int4 packing, and the tensor
-plumbing around them."""
+"""Integer ops of the port: the hand-written CUDA kernels (K1, K2 and its
+fused-residual form B8, the fused bottlenecks B3, BasicBlocks B4 and
+depthwise-separable pairs B5, the int4 GEMM B6, the flat-row conv B7, the
+copy probes B9), their plain PyTorch versions, the int4 packing, and the
+tensor plumbing around them."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches
+from quantized_tpu_torch.ops.copy_probe import bulk_copy, copy_plain, grid_copy, ring_copy
 from quantized_tpu_torch.ops.fused_block import (
     fused_basicblock_ds,
     fused_basicblock_ds_ck,
@@ -46,6 +48,9 @@ from quantized_tpu_torch.ops.int8_conv_pallas import (
     int8_conv_direct,
     int8_conv_direct_ck,
     int8_conv_direct_plain,
+    int8_conv_flat,
+    int8_conv_flat_ck,
+    int8_conv_flat_plain,
 )
 from quantized_tpu_torch.ops.int8_matmul import (
     int8_matmul,

@@ -104,8 +104,8 @@ def load_library(source: str) -> ctypes.CDLL:
         return lib
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-ARG_TYPES = {"ptr": _P, "int": _I, "float": _F}
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+ARG_TYPES = {"ptr": _P, "int": _I, "long": _L, "float": _F}
 
 
 class CudaKernel:

@@ -383,8 +383,6 @@ def fused_dw_pw_ck(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp1_st
     if x_q.device.type == "cpu":
         return fused_dw_pw_plain(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, *args)
     dev = _cuda.require_cuda_tensors(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2)
-    if c % 16:
-        raise ValueError(f"the fused dw/pw kernel stages 16-byte chunks and needs C % 16 == 0, got C={c}")
     r = dw_pw_band_rows(n, h // s, w, c, cout, s)
     out = torch.empty((n, h // s, w // s, cout), dtype=torch.int8, device=dev)
     DW_PW(dev, x_q.data_ptr(), wdw_ck.data_ptr(), wpw_nk.data_ptr(), a1.data_ptr(), b1.data_ptr(),

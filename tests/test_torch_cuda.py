@@ -10,7 +10,8 @@ int8 outputs must be equal (both sides accumulate exactly and round the
 epilogue in the same order, without contracting it into an FMA); f32
 outputs agree within F32_ATOL. That holds for the fused bottleneck (B3),
 BasicBlock (B4) and depthwise-separable (B5) kernels too, whose outputs are
-int8, and for the int4 GEMM (B6) in both its forms.
+int8, for the int4 GEMM (B6) in both its forms, for the flat-row conv (B7)
+and K2's fused-residual form (B8); the copy kernels (B9) are exact.
 """
 
 import numpy as np
@@ -40,6 +41,9 @@ CONV_CASES = [
     # AlexNet's conv1: 11x11/s4/p2 over Cin = 3 (gather-K in single bytes, K = 363)
     (2, 224, 3, 64, 11, 4, 2, (0.05, 113)),
     (2, 63, 3, 64, 11, 4, 2, None),
+    # 1x1 convs (the per-tap form) over Cin % 16 != 0: 4-byte chunks (Cin 24,
+    # MobileNet-v1's first pointwise conv at width 0.75) and single bytes
+    (2, 112, 24, 48, 1, 1, 0, (0.05, 113)), (2, 14, 9, 40, 1, 1, 0, None), (2, 14, 3, 16, 1, 1, 0, (0.05, 113)),
 ]
 
 
@@ -236,11 +240,15 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError):  # not contiguous
         a = torch.zeros((16, 32), dtype=torch.int8, device=cuda_device).T
         ops.int8_matmul_nk(a, w, ab, ab)
-    for cin, k in [(24, 1), (8, 1)]:  # a Cin that the per-tap form cannot take
-        x = torch.zeros((1, 4, 4, cin), dtype=torch.int8, device=cuda_device)
-        w = torch.zeros((8, k * k * cin), dtype=torch.int8, device=cuda_device)
-        with pytest.raises(ValueError):
-            ops.int8_conv_direct_ck(x, w, (k, k), ab, ab)
+    gen = np.random.default_rng(1)
+    for cin, k in [(24, 1), (8, 1)]:  # a Cin % 16 != 0 that the per-tap form once refused: now computed
+        x = _dev(gen.integers(-128, 128, (1, 4, 4, cin)).astype(np.int8), cuda_device)
+        w = _dev(gen.integers(-127, 128, (8, k * k * cin)).astype(np.int8), cuda_device)
+        alpha = torch.full((8,), 1e-3, device=cuda_device)
+        before = ops.KERNELS["int8_conv_direct"].launches
+        got = ops.int8_conv_direct_ck(x, w, (k, k), alpha, ab)
+        assert ops.KERNELS["int8_conv_direct"].launches == before + 1
+        torch.testing.assert_close(got, ops.int8_conv_direct_plain(x, w, (k, k), alpha, ab), atol=F32_ATOL, rtol=0)
 
 
 def _basic_case(gen, device, n, h, c, cm, ds):
@@ -331,6 +339,9 @@ DW_PW_SCALARS = dict(lo1=-21.0, lo2=-9.0, zp1_stored=-17)
     # and Cout = 200 (not multiples of the 64-wide tile), in bands that do not
     # divide Ho (3 rows over 11 and 20, 4 over 13)
     (32, 22, 32, 64, 2), (32, 20, 32, 64, 1), (32, 26, 48, 40, 2), (4, 14, 128, 200, 1),
+    # C % 16 != 0: 4-byte chunks (C = 24, MobileNet-v1 at width 0.75; C = 8
+    # at width 0.25) and single bytes (C = 9)
+    (2, 112, 24, 48, 1), (2, 28, 24, 48, 2), (2, 56, 8, 16, 1), (2, 30, 9, 20, 2),
 ])
 def test_fused_dw_pw_kernel_matches_plain(cuda_device, gen, n, h, c, cout, stride):
     x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, n, h, c, cout)
@@ -348,11 +359,196 @@ def test_fused_dw_pw_kernel_matches_plain(cuda_device, gen, n, h, c, cout, strid
 
 @pytest.mark.cuda
 def test_fused_dw_pw_wrapper_raises_on_shapes_the_kernel_refuses(cuda_device, gen):
-    x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, 1, 8, 24, 16)  # C = 24: not a multiple of 16
-    with pytest.raises(ValueError):
-        ops.fused_dw_pw_ck(x, wdw, wpw, *v, 1, **DW_PW_SCALARS)
+    x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, 1, 8, 24, 16)  # C = 24, once refused: now computed
+    got = ops.fused_dw_pw_ck(x, wdw, wpw, *v, 1, **DW_PW_SCALARS)
+    assert torch.equal(got, ops.fused_dw_pw_plain(x, wdw, wpw, *v, 1, **DW_PW_SCALARS))
     x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, 1, 8, 32, 16)
     with pytest.raises(ValueError):  # stride 2 over an odd image
         ops.fused_dw_pw_ck(x[:, :7, :7].contiguous(), wdw, wpw, *v, 2, **DW_PW_SCALARS)
     with pytest.raises(ValueError):  # a CPU vector mixed into a CUDA call
         ops.fused_dw_pw_ck(x, wdw, wpw, v[0].cpu(), *v[1:], 1, **DW_PW_SCALARS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,offset", [(24, 1), (16, 4), (9, 3)])
+def test_conv_kernel_on_an_unaligned_input(cuda_device, gen, cin, offset):
+    """x starting ``offset`` bytes into its buffer: the kernel falls back to
+    narrower chunks (1 byte for Cin 24 at offset 1, 4 for Cin 16 at 4)."""
+    n, h, cout = 2, 9, 40
+    buf = torch.empty(n * h * h * cin + offset, dtype=torch.int8, device=cuda_device)
+    x = buf[offset:].view(n, h, h, cin)
+    x.copy_(_dev(gen.integers(-128, 128, (n, h, h, cin)).astype(np.int8), cuda_device))
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    w_ck = _dev(gen.integers(-127, 128, (cout, cin)).astype(np.int8), cuda_device)
+    alpha = _dev(gen.uniform(1e-4, 3e-4, cout).astype(np.float32), cuda_device)
+    beta = _dev(gen.uniform(-0.1, 0.1, cout).astype(np.float32), cuda_device)
+    args = ((1, 1), alpha, beta, 1, 0, -5, True, (0.05, 113))
+    got = ops.int8_conv_direct_ck(x, w_ck, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.int8_conv_direct_plain(x, w_ck, *args))
+
+
+def _conv_case(gen, device, n, h, cin, cout, k):
+    x = _dev(gen.integers(-128, 128, (n, h, h, cin)).astype(np.int8), device)
+    w_ck = _dev(gen.integers(-127, 128, (cout, k * k * cin)).astype(np.int8), device)
+    alpha = _dev(gen.uniform(1e-4, 3e-4, cout).astype(np.float32), device)
+    beta = _dev(gen.uniform(-0.1, 0.1, cout).astype(np.float32), device)
+    return x, w_ck, alpha, beta
+
+
+FLAT_CASES = [
+    # n, h, cin, cout, k, out_requant, gather_k: the JAX package's six cases
+    # (tests/test_pallas_conv.py), then Cin 3 (single bytes), Cin 24 (4-byte
+    # chunks) and a 5x5 over Cin 64 tap by tap
+    (4, 14, 64, 64, 3, (0.07, 113), None),
+    (2, 28, 128, 128, 3, (0.05, 120), None),
+    (4, 8, 64, 96, 1, (0.05, 128), None),
+    (2, 9, 512, 512, 3, None, False),
+    (2, 7, 64, 512, 3, (0.06, 77), None),
+    (2, 12, 32, 64, 5, (0.04, 99), True),
+    (2, 32, 3, 16, 3, (0.05, 113), None),
+    (2, 15, 24, 40, 3, None, None),
+    (2, 11, 64, 48, 5, (0.05, 113), False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout,k,req,gather_k", FLAT_CASES)
+def test_flat_conv_kernel_matches_plain(cuda_device, gen, n, h, cin, cout, k, req, gather_k):
+    x, w_ck, alpha, beta = _conv_case(gen, cuda_device, n, h, cin, cout, k)
+    args = ((k, k), alpha, beta, 1, k // 2, -5, True, req)
+    before = ops.KERNELS["int8_conv_flat"].launches
+    got = ops.int8_conv_flat_ck(x, w_ck, *args, gather_k=gather_k)
+    assert ops.KERNELS["int8_conv_flat"].launches == before + 1
+    want = ops.int8_conv_flat_plain(x, w_ck, *args)
+    torch.cuda.synchronize()
+    if req is None:
+        torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+    else:
+        assert torch.equal(got, want)
+    # the same function as K2 on the same inputs
+    direct = ops.int8_conv_direct_plain(x, w_ck, *args)
+    assert torch.equal(want, direct) if req is not None else torch.allclose(want, direct, atol=F32_ATOL, rtol=0)
+
+
+@pytest.mark.cuda
+def test_flat_conv_refuses_stride_2(cuda_device, gen):
+    x, w_ck, alpha, beta = _conv_case(gen, cuda_device, 1, 8, 16, 16, 3)
+    with pytest.raises(ValueError):
+        ops.int8_conv_flat_ck(x, w_ck, (3, 3), alpha, beta, 2, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout,req,relu", [
+    # ResNet-18's conv2 + identity at layer1 and layer3, f32 and s8 out,
+    # ReLU on and off, and Cin 24 (4-byte chunks)
+    (2, 56, 64, 64, (0.06, 105), True), (2, 14, 256, 256, None, True), (2, 14, 64, 64, None, False),
+    (2, 14, 256, 256, (0.06, 105), False), (2, 9, 24, 40, (0.06, 105), True), (2, 9, 24, 40, None, False),
+])
+def test_residual_conv_kernel_matches_plain(cuda_device, gen, n, h, cin, cout, req, relu):
+    x, w_ck, alpha, beta = _conv_case(gen, cuda_device, n, h, cin, cout, 3)
+    r = _dev(gen.integers(-128, 128, (n, h, h, cout)).astype(np.int8), cuda_device)
+    args = ((3, 3), alpha, beta, 1, 1, -5, relu, req)
+    kw = dict(residual=r, res_grid=(0.03, 117))
+    before = ops.KERNELS["int8_conv_direct_residual"].launches
+    got = ops.int8_conv_direct_ck(x, w_ck, *args, **kw)
+    assert ops.KERNELS["int8_conv_direct_residual"].launches == before + 1
+    want = ops.int8_conv_direct_plain(x, w_ck, *args, **kw)
+    torch.cuda.synchronize()
+    if req is None:
+        torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+    else:
+        assert torch.equal(got, want)
+        assert len(torch.unique(want)) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(32, 56, 56, 256), (5, 7, 9, 3), (3, 1001), (1, 15)])
+def test_copy_kernels_are_exact(cuda_device, gen, shape):
+    """Each copy kernel equals its plain version, at the layer1 activation
+    and at byte counts that are not multiples of 16, over the ring's S/D/bi
+    of the TPU study."""
+    x = _dev(gen.integers(-128, 128, shape).astype(np.int8), cuda_device)
+    x.view(-1)[0] = 127
+    plain, plus = ops.copy_plain(x), ops.copy_plain(x, add=True)
+    assert int(plus.view(-1)[0]) == -128  # the +1 wraps at 127
+    for bi in (1, 2, 16):
+        for add in (False, True):
+            assert torch.equal(ops.grid_copy(x, bi, add), plus if add else plain), (bi, add)
+    for slots, prefetch, bi in [(4, 2, 1), (8, 4, 1), (4, 2, 4), (8, 6, 1), (4, 4, 2)]:
+        for compute in ("none", "add", "sep"):
+            got = ops.ring_copy(x, slots, prefetch, bi, compute)
+            assert torch.equal(got, plus if compute == "add" else plain), (slots, prefetch, bi, compute)
+    for streams in (1, 2, 4, 6):
+        assert torch.equal(ops.bulk_copy(x, streams), plain), streams
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_copy_wrappers_refuse_what_the_kernels_cannot_take(cuda_device):
+    x = torch.zeros((2, 56, 56, 256), dtype=torch.int8, device=cuda_device)
+    with pytest.raises(ValueError):  # 16 slots of 4 images: more shared memory than a block has
+        ops.ring_copy(x, 16, 2, 4)
+    with pytest.raises(ValueError):  # a prefetch past the ring
+        ops.ring_copy(x, 2, 4, 1)
+    with pytest.raises(ValueError):
+        ops.bulk_copy(x, 7)
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        ops.grid_copy(x.view(-1)[1:33])
+
+
+def _observed_mobilenet(width: float, side: int):
+    """A random-init ``mobilenet_quantized`` at ``width`` after two
+    observer-update passes on seeded images."""
+    from quantized_tpu_torch.entry import _calibrated_model
+
+    model = _calibrated_model("mobilenet_quantized", device="cpu", generator=torch.Generator().manual_seed(0),
+                              num_classes=1000, width_mult=width)
+    g = torch.Generator().manual_seed(5)
+    model.train()
+    with torch.no_grad():
+        for _ in range(2):
+            model(torch.randn((2, side, side, 3), generator=g))
+    return model.eval()
+
+
+def _assert_logits_close(got, want):
+    """Within F32_ATOL of the logits' magnitude (the fc sums in another order)."""
+    tol = F32_ATOL * max(1.0, want.abs().max().item())
+    torch.testing.assert_close(got.cpu(), want, atol=tol, rtol=0)
+
+
+@pytest.mark.cuda
+def test_narrow_mobilenet_on_the_gpu_equals_its_cpu_twin(cuda_device):
+    """MobileNet-v1 at width 0.75 (C = 24 at the first pair), unfused and
+    fused, on the GPU: every conv or fused stage int8-equal to the same
+    engine on the CPU, and the fused pairs on B5 (12 of them)."""
+    import copy
+
+    from quantized_tpu_torch.engine import build_int8_mobilenet, fuse_mobilenet_blocks
+    from quantized_tpu_torch.engine.int8_resident import u8_to_stored
+
+    side = 64
+    model = _observed_mobilenet(0.75, side)
+    gpu = build_int8_mobilenet(model, backend="pallas", device=cuda_device)
+    cpu = build_int8_mobilenet(model, backend="pallas", device="cpu")
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, side, side, 3), dtype=np.uint8))
+    with torch.inference_mode():
+        hg, hc = u8_to_stored(u8.to(cuda_device), gpu.input_grid), u8_to_stored(u8, cpu.input_grid)
+        for i in range(gpu.num_convs):
+            hg = getattr(gpu, f"conv{i}").run_q(hg, relu=True, out_requant=gpu.requant_grids[i])
+            hc = getattr(cpu, f"conv{i}").run_q(hc, relu=True, out_requant=cpu.requant_grids[i])
+            if hc.dtype == torch.int8:
+                assert torch.equal(hg.cpu(), hc), f"conv{i}"
+                assert len(torch.unique(hc)) > 1, f"conv{i} is constant"
+        _assert_logits_close(gpu.run_u8(u8.to(cuda_device)), cpu.run_u8(u8))
+        fg, fc = copy.deepcopy(gpu), copy.deepcopy(cpu)
+        assert fuse_mobilenet_blocks(fg) == fuse_mobilenet_blocks(fc) == 12
+        hg, hc = u8_to_stored(u8.to(cuda_device), fg.input_grid), u8_to_stored(u8, fc.input_grid)
+        before = ops.KERNELS["fused_dw_pw"].launches
+        for j in range(fg.num_fused_stages):
+            hg, hc = getattr(fg, f"stage{j}")(hg), getattr(fc, f"stage{j}")(hc)
+            if hc.dtype == torch.int8:
+                assert torch.equal(hg.cpu(), hc), f"stage{j}"
+        assert ops.KERNELS["fused_dw_pw"].launches == before + 12
+        _assert_logits_close(fg.run_u8(u8.to(cuda_device)), fc.run_u8(u8))
