@@ -21,7 +21,8 @@ and a non-zero exit:
    there is one (``torch._int_mm`` for K1 and for K2's 1x1 stride-1 case, a
    yardstick only; the port never calls it) and the least time the card
    could take (the bytes the function must move over 3.35 TB/s or its int8
-   operations over 1979 TOP/s, whichever is larger). The fused bottleneck
+   operations over 1979 TOP/s, whichever is larger: ``bound_ms`` of
+   ``probes/gemm_sweep.py``). The fused bottleneck
    kernels (B3) run at five of ResNet-50's block shapes, the fused
    BasicBlock kernels (B4) at ResNet-18's and CIFAR ResNet-20's, the fused
    depthwise-separable kernel (B5) at MobileNet-v1's pairs 0, 1, 6 and 11
@@ -29,10 +30,16 @@ and a non-zero exit:
    height R and grid), K2's gather-K form also at MobileNet's stem (3x3/s2
    over Cin = 3) and AlexNet's conv1 (11x11/s4 over Cin = 3), its per-tap
    form also at 1x1 convs over Cin 24 and 9; no PyTorch call computes a
-   fused block or pair. The int4 GEMM (B6) runs at AlexNet's fc1 (batch 8
-   and 32), fc2 and fc3 (batch 32), f32 and requant forms; its yardstick is
-   ``torch._int_mm`` on the unpacked int8 weights, and K1's time on the
-   same unpacked product is printed beside it (``int8_matmul_ms``). The
+   fused block or pair. K1's f32 form also runs at AlexNet's fc1-3 at
+   batches 1, 8, 32 and 128, and the int4 GEMM (B6) there too, f32 and
+   requant forms; B6's yardstick is ``torch._int_mm`` on the unpacked int8
+   weights (which refuses M <= 16: ``library_ms`` is then None), and K1's
+   time on the same unpacked product at batch 32 is printed beside it
+   (``int8_matmul_ms``); these products and their bytes come from
+   ``probes/gemm_sweep.py``. Before each K1 and B6 row its launch plan
+   (``gemm_plan``: tile width, split and cluster, stages, shared memory,
+   blocks, TMA or general tile) is printed with its kernel instance's
+   ptxas line from this run's build. The
    flat-row conv (B7) runs at ResNet-50's four stride-1 3x3 shapes and a
    1x1 (``torch._int_mm`` its yardstick), K2's time on the same inputs
    beside it (``int8_conv_direct_ms``; the bound counts K2's work, not B7's
@@ -126,11 +133,8 @@ ROOT = Path(__file__).resolve().parent
 SERVE_BATCH = 32
 SERVE_REQUESTS = 3
 THROUGHPUT_BATCH = 128
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
-INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core peak, same source
 F32_ATOL = 1e-3  # f32 outputs against their plain versions, and GPU logits against CPU ones
 LOGIT_ATOL = 0.25  # gemm or fused against pallas: they round their requant in another order
-L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 # name: (registered model, its config, image side, classes)
 MODELS = {
@@ -194,7 +198,7 @@ KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "r
                "int4_matmul": "alexnet int4 serve", "int8_conv_flat": "conv sweep",
                "int8_conv_direct_residual": "conv ops", "grid_copy": "copy probe", "ring_copy": "copy probe",
                "bulk_copy": "copy probe"}
-OUR_KERNELS = ("int8_conv_kernel", "int8_matmul_kernel", "fused_bottleneck_kernel",
+OUR_KERNELS = ("int8_conv_kernel", "int8_matmul_kernel", "gemm_sm90_kernel", "fused_bottleneck_kernel",
                "fused_basicblock_kernel", "fused_dw_pw_kernel", "int4_matmul_kernel", "int8_conv_flat_kernel",
                "grid_copy_kernel", "ring_copy_kernel", "bulk_copy_kernel")  # device kernel names
 SWEEP_MODES = ("direct", "flat", "gemm")  # the conv sweep path: K2, B7 and im2col + K1
@@ -218,57 +222,6 @@ def require_environment():
 # ----------------------------------------------------------------- timing
 
 
-class Timer:
-    """Times of a callable between CUDA events, the L2 cache flushed before
-    each call, as a forward pass would find the weights cold.
-
-    ``ms`` is device time: before each call the device is held busy (a
-    sleep kernel) for twice as long as the host takes to launch the call, so
-    the host has enqueued the whole call before the start event fires and
-    no host time falls between the events. ``event_ms`` leaves the sleep
-    out, so it also counts the device waiting for the host to launch."""
-
-    def __init__(self, device):
-        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
-        cycles = 1 << 22
-        torch.cuda._sleep(cycles)  # first launch
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(cycles)
-        end.record()
-        torch.cuda.synchronize()
-        self.cycles_per_ms = cycles / start.elapsed_time(end)
-
-    def ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
-        return self._time(fn, iters, warmup, hold=True)
-
-    def event_ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
-        return self._time(fn, iters, warmup, hold=False)
-
-    def _time(self, fn, iters, warmup, hold):
-        for _ in range(warmup):
-            fn()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        self.flush.zero_()
-        fn()
-        host_ms = (time.perf_counter() - t) * 1e3
-        torch.cuda.synchronize()
-        sleep = int(self.cycles_per_ms * (2 * host_ms + 0.05))
-        pairs = []
-        for _ in range(iters):
-            if hold:
-                torch.cuda._sleep(sleep)
-            self.flush.zero_()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            pairs.append((start, end))
-        torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / iters
-
-
 def library_ms(timer, fn):
     """Time of the PyTorch yardstick, or None where this build refuses the
     call (the yardstick is not part of the port; its refusal is printed)."""
@@ -285,12 +238,6 @@ def window_extent(size: int, out: int, k: int, stride: int, pad: int) -> int:
     the windows cover the image, a share when a stride skips some (a 1x1
     stride-2 conv reads every other one)."""
     return len({o * stride - pad + t for o in range(out) for t in range(k)} & set(range(size)))
-
-
-def bound(bytes_moved: int, ops: int):
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT8_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 # ----------------------------------------------------------------- phases
@@ -330,11 +277,44 @@ def _epilogue_params(gen, n, device):
     return alpha, beta
 
 
+def _ptxas_lines(source):
+    """{kernel's mangled name: its ptxas register and shared-memory line}
+    from this run's build log of a source (empty where nothing was built)."""
+    from quantized_tpu_torch.ops import _cuda
+
+    lines, name = {}, None
+    for line in _cuda.BUILD_LOGS.get(source, "").splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "Used" in line and name is not None:
+            lines[name] = line.split(":", 1)[1].strip()
+    return lines
+
+
+def _log_gemm_plan(kernel, label, a, w, n, packed):
+    """The Hopper GEMM's plan of a product and its kernel instance's ptxas
+    line (the ring is dynamic shared memory, the plan's ``smem``). The C
+    entry takes TMA where the plan's shape does and both bases are 16-byte
+    aligned, else the general tile."""
+    from quantized_tpu_torch.ops import gemm_plan
+
+    m, k = a.shape
+    plan = gemm_plan(m, n, k, packed=packed)
+    tma = plan.tma_shape and a.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    source = "int4_gemm.cu" if packed else "int8_gemm.cu"
+    instance = f"gemm_sm90_kernelILi{plan.tile}ELb{int(packed)}E"
+    ptxas = next((v for key, v in _ptxas_lines(source).items() if instance in key), "not built in this run")
+    log(f"[kernels] {kernel} {label} {m}x{k}x{n} plan: tile {plan.tile}, split {plan.split} "
+        f"(cluster {plan.split}x1x1), steps {plan.steps}, stages {plan.stages}, dynamic smem {plan.smem} B, "
+        f"blocks {plan.blocks}, {'TMA' if tma else 'general tile'}; ptxas: {ptxas}")
+
+
 def phase_kernels(timer):
     """Each kernel against its plain version at serving shapes; returns
     {kernel name: numbers} for the kernels line."""
     from quantized_tpu_torch import ops
     from quantized_tpu_torch.ops import fused_block
+    from quantized_tpu_torch.probes.gemm_sweep import BATCHES, FC, IM2COL, INT4_FC, bound_ms, gemm_work
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(1234)
@@ -357,7 +337,7 @@ def phase_kernels(timer):
         ms, event_ms = timer.ms(kernel), timer.event_ms(kernel)
         plain_ms = timer.ms(plain, iters=plain_iters, warmup=1)
         lib_ms = None if lib is None else library_ms(timer, lib)
-        b_ms, b_by = bound(nbytes, nops)
+        b_ms, b_by = bound_ms(nbytes, nops)
         log(f"[kernels] {name} {case}: max_abs_err {err} ms {ms:.4f} event_ms {event_ms:.4f} "
             f"plain_ms {plain_ms:.4f} library_ms {lib_ms if lib_ms is None else round(lib_ms, 4)} "
             f"bound_ms {b_ms:.4f} ({b_by}, {nbytes} bytes) ops/s {nops / ms * 1e3:.3e}")
@@ -367,25 +347,30 @@ def phase_kernels(timer):
             entry.update(case=case, ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
 
-    # K1, f32 form: the fc head, (32, 2048) x (2048, 1000)
-    m, k, n = SERVE_BATCH, 2048, 1000
-    a, w = _rand_int8(gen, (m, k)), _rand_int8(gen, (n, k), low=-127)
-    alpha, beta = _epilogue_params(gen, n, dev)
-    record("int8_matmul", f"fc {m}x{k}x{n} f32",
-           lambda: ops.int8_matmul_nk(a, w, alpha, beta),
-           lambda: ops.int8_matmul_plain(a, w, alpha, beta),
-           lambda: torch._int_mm(a, w.T),
-           m * k + n * k + 8 * n + 4 * m * n, 2 * m * k * n, True)
+    # K1, f32 form: the fc head, (32, 2048) x (2048, 1000), then AlexNet's
+    # fc1-3 at batches 1, 8, 32 and 128 (torch._int_mm refuses M <= 16)
+    k1_cases = [("resnet fc", SERVE_BATCH, True)] + [(fc, b, False) for fc in INT4_FC for b in BATCHES]
+    for label, m, rep in k1_cases:
+        n, k = FC[label]
+        a, w = _rand_int8(gen, (m, k)), _rand_int8(gen, (n, k), low=-127)
+        alpha, beta = _epilogue_params(gen, n, dev)
+        _log_gemm_plan("int8_matmul", label, a, w, n, packed=False)
+        record("int8_matmul", f"{label} {m}x{k}x{n} f32",
+               lambda a=a, w=w, alpha=alpha, beta=beta: ops.int8_matmul_nk(a, w, alpha, beta),
+               lambda a=a, w=w, alpha=alpha, beta=beta: ops.int8_matmul_plain(a, w, alpha, beta),
+               lambda a=a, w=w: torch._int_mm(a, w.T),
+               *gemm_work(m, n, k), rep, plain_iters=3)
 
     # K1, requant form: layer1's 3x3 conv through im2col on the gemm path
-    m, k, n = SERVE_BATCH * 56 * 56, 9 * 64, 64
+    m, n, k = IM2COL
     a2, w2 = _rand_int8(gen, (m, k)), _rand_int8(gen, (n, k), low=-127)
     alpha2, beta2 = _epilogue_params(gen, n, dev)
+    _log_gemm_plan("int8_matmul_requant", "im2col", a2, w2, n, packed=False)
     record("int8_matmul_requant", f"im2col {m}x{k}x{n} s8",
            lambda: ops.int8_matmul_requant_nk(a2, w2, alpha2, beta2, 0.05, 113, True),
            lambda: ops.int8_matmul_requant_plain(a2, w2, alpha2, beta2, 0.05, 113, True),
            lambda: torch._int_mm(a2, w2.T),
-           m * k + n * k + 8 * n + m * n, 2 * m * k * n, True)
+           *gemm_work(m, n, k, s8_out=True), True)
 
     # K2: the four per-tap shapes of ResNet-50, then the stem in gather-K form
     b = SERVE_BATCH
@@ -581,34 +566,28 @@ def phase_kernels(timer):
     # B6: AlexNet's fc head on split-half packed int4 weights, f32 and
     # requant forms; torch._int_mm (the yardstick) and K1 take the unpacked
     # int8 weights of the same product
-    b6_cases = [
-        # label, (m, k, n), representative (the f32 form of fc1 at the serving batch)
-        ("fc1", (8, 9216, 4096), False),
-        ("fc1", (SERVE_BATCH, 9216, 4096), True),
-        ("fc2", (SERVE_BATCH, 4096, 4096), False),
-        ("fc3", (SERVE_BATCH, 4096, 1000), False),
-    ]
-    for label, (m, k, n), rep in b6_cases:
+    for label, m in [(fc, b) for fc in INT4_FC for b in BATCHES]:
+        n, k = FC[label]
+        rep = (label, m) == ("alexnet fc1", SERVE_BATCH)  # the f32 form of fc1 at the serving batch
         a = _rand_int8(gen, (m, k))
         w_kn = torch.randint(-7, 8, (k, n), generator=gen, dtype=torch.int8)
         w_packed = ops.pack_int4(w_kn).T.contiguous().to(dev)  # (N, K/2)
         w_nk = w_kn.T.contiguous().to(dev)
         alpha, beta = _epilogue_params(gen, n, dev)
+        _log_gemm_plan("int4_matmul", label, a, w_packed, n, packed=True)
         for form, req in (("f32", None), ("s8", (0.05, 113))):
             kw = {} if req is None else dict(out_scale=req[0], out_zp=req[1])
             record("int4_matmul", f"{label} {m}x{k}x{n} {form}",
                    lambda a=a, w=w_packed, kw=kw: ops.int4_matmul_nk(a, w, alpha, beta, relu=True, **kw),
                    lambda a=a, w=w_packed, kw=kw: ops.int4_matmul_plain(a, w, alpha, beta, relu=True, **kw),
                    lambda a=a, w=w_nk: torch._int_mm(a, w.T),
-                   m * k + n * k // 2 + 8 * n + m * n * (4 if req is None else 1), 2 * m * k * n,
-                   rep and req is None, plain_iters=3)
-            if req is None:
+                   *gemm_work(m, n, k, packed=True, s8_out=req is not None), rep and req is None, plain_iters=3)
+            if req is None and rep:
                 k1_ms = timer.ms(lambda a=a, w=w_nk: ops.int8_matmul_nk(a, w, alpha, beta, relu=True))
-                k1_bound, k1_by = bound(m * k + n * k + 8 * n + 4 * m * n, 2 * m * k * n)
+                k1_bound, k1_by = bound_ms(*gemm_work(m, n, k))
                 log(f"[kernels] int8_matmul (K1) on the same product, unpacked: ms {k1_ms:.4f} "
                     f"bound_ms {k1_bound:.4f} ({k1_by})")
-                if rep:
-                    results["int4_matmul"]["int8_matmul_ms"] = k1_ms
+                results["int4_matmul"]["int8_matmul_ms"] = k1_ms
     return results
 
 
@@ -1125,6 +1104,7 @@ def phase_throughput(key, executors, card, timer, batch=THROUGHPUT_BATCH):
 def main() -> int:
     require_environment()
     from quantized_tpu_torch import ops
+    from quantized_tpu_torch.utils.timing import Timer
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

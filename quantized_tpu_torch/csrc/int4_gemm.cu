@@ -15,78 +15,51 @@
 //
 // What bounds it on the H100: at serving batches (AlexNet's fc head, M = 1 to
 // 128) the packed weights are nearly all of the bytes (fc1: 18.9 MB), so the
-// bound is those bytes over 3.35 TB/s, half of the int8 GEMM's. This first
-// version is K1's simple, exact tile: a 64x64 block tile; per step, 64 packed
-// bytes of each of 64 weight rows are loaded (16 bytes a thread where the
-// shape allows), unpacked in registers with per-byte SIMD arithmetic into two
-// int8 tiles at int8_mma.cuh's pitch, and multiplied with the two matching A
-// tiles (columns j0.. and Kh + j0..) by two mma.sync tile products into one
-// int32 accumulator. No load/compute overlap, no split-K (fc1 at M <= 64 runs
-// 64 blocks on 132 SMs), no wgmma: later work.
+// bound is those bytes over 3.35 TB/s, half of the int8 GEMM's. The first
+// version was K1's mma.sync tile with an unpack step: 16-64 blocks on 132 SMs,
+// no load/compute overlap, and both unpacked tiles written back to shared
+// memory; it lost 3-6.6x to torch._int_mm on twice the bytes. It now runs
+// K1's Hopper GEMM (gemm_sm90.cuh) with PACKED set: the packed weight tile
+// arrives by TMA, each 32-bit word at a wgmma A-fragment position is read
+// from shared memory once and unpacked in registers into the fragments of
+// K columns j.. (low nibbles) and Kh + j.. (high nibbles), which multiply
+// the activation tiles at j0 and Kh + j0 as wgmma's register-sourced A
+// operand; the K split and the ring are K1's. Shapes TMA cannot take (Kh %
+// 16 != 0, odd K, an unaligned base) keep the first version's tile below.
 //
 // The epilogue uses __fmul_rn/__fadd_rn (and the build passes -fmad=false),
 // so it rounds exactly as the plain PyTorch version does; rintf rounds half
 // to even, as torch.round does.
 
-#include "int8_mma.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-// Sign-extended low / high nibbles of four packed bytes, four int8 results:
-// ((p & 0xF) ^ 8) - 8 and (((p >> 4) & 0xF) ^ 8) - 8 per byte (__vsub4
-// subtracts per byte, wrapping, with no borrow between bytes).
-__device__ __forceinline__ uint32_t lo_nibbles(uint32_t w) {
-  return __vsub4((w & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
-__device__ __forceinline__ uint32_t hi_nibbles(uint32_t w) {
-  return __vsub4(((w >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, 0x08080808u);
-}
+using qt90::hi_nibbles;
+using qt90::lo_nibbles;
 
-// Stage A[r0 + r, col0 + j] for j in [j0, j0 + BK), zero where r0 + r >= M
-// or j >= limit (limit: the half's width, clipped to A's row length).
+// The general path (the first version's tile, in single bytes). Stage
+// A[r0 + r, col0 + j] for j in [j0, j0 + BK), zero where r0 + r >= M or
+// j >= limit (limit: the half's width, clipped to A's row length).
 __device__ __forceinline__ void stage_a(int8_t* S, const int8_t* A, int M, int lda, int col0,
-                                        int limit, int r0, int j0, bool vec) {
-  if (vec) {
-    for (int i = threadIdx.x; i < qt::BM * (qt::BK / 16); i += qt::THREADS) {
-      const int r = i / (qt::BK / 16), c = (i % (qt::BK / 16)) * 16;
-      const int row = r0 + r, j = j0 + c;
-      uint4 v = qt::zero16();
-      if (row < M && j < limit) v = qt::ld16(A + (size_t)row * lda + col0 + j);
-      *reinterpret_cast<uint4*>(S + r * qt::LDS + c) = v;
-    }
-  } else {
-    for (int i = threadIdx.x; i < qt::BM * qt::BK; i += qt::THREADS) {
-      const int r = i / qt::BK, c = i % qt::BK;
-      const int row = r0 + r, j = j0 + c;
-      S[r * qt::LDS + c] = (row < M && j < limit) ? A[(size_t)row * lda + col0 + j] : int8_t(0);
-    }
+                                        int limit, int r0, int j0) {
+  for (int i = threadIdx.x; i < qt::BM * qt::BK; i += qt::THREADS) {
+    const int r = i / qt::BK, c = i % qt::BK;
+    const int row = r0 + r, j = j0 + c;
+    S[r * qt::LDS + c] = (row < M && j < limit) ? A[(size_t)row * lda + col0 + j] : int8_t(0);
   }
 }
 
 // Stage packed W[n0 + r, j0 .. j0 + BK) and unpack it into the low-nibble
 // tile Wlo and the high-nibble tile Whi; zero (both nibbles 0) outside W.
 __device__ __forceinline__ void stage_w(int8_t* Wlo, int8_t* Whi, const int8_t* W, int N, int Kh,
-                                        int n0, int j0, bool vec) {
-  if (vec) {
-    for (int i = threadIdx.x; i < qt::BN * (qt::BK / 16); i += qt::THREADS) {
-      const int r = i / (qt::BK / 16), c = (i % (qt::BK / 16)) * 16;
-      const int row = n0 + r, j = j0 + c;
-      uint4 p = qt::zero16();
-      if (row < N && j < Kh) p = qt::ld16(W + (size_t)row * Kh + j);
-      *reinterpret_cast<uint4*>(Wlo + r * qt::LDS + c) =
-          make_uint4(lo_nibbles(p.x), lo_nibbles(p.y), lo_nibbles(p.z), lo_nibbles(p.w));
-      *reinterpret_cast<uint4*>(Whi + r * qt::LDS + c) =
-          make_uint4(hi_nibbles(p.x), hi_nibbles(p.y), hi_nibbles(p.z), hi_nibbles(p.w));
-    }
-  } else {
-    for (int i = threadIdx.x; i < qt::BN * qt::BK; i += qt::THREADS) {
-      const int r = i / qt::BK, c = i % qt::BK;
-      const int row = n0 + r, j = j0 + c;
-      const uint32_t p =
-          (row < N && j < Kh) ? static_cast<uint8_t>(W[(size_t)row * Kh + j]) : 0u;
-      Wlo[r * qt::LDS + c] = static_cast<int8_t>(lo_nibbles(p) & 0xFFu);
-      Whi[r * qt::LDS + c] = static_cast<int8_t>(hi_nibbles(p) & 0xFFu);
-    }
+                                        int n0, int j0) {
+  for (int i = threadIdx.x; i < qt::BN * qt::BK; i += qt::THREADS) {
+    const int r = i / qt::BK, c = i % qt::BK;
+    const int row = n0 + r, j = j0 + c;
+    const uint32_t p = (row < N && j < Kh) ? static_cast<uint8_t>(W[(size_t)row * Kh + j]) : 0u;
+    Wlo[r * qt::LDS + c] = static_cast<int8_t>(lo_nibbles(p) & 0xFFu);
+    Whi[r * qt::LDS + c] = static_cast<int8_t>(hi_nibbles(p) & 0xFFu);
   }
 }
 
@@ -94,7 +67,7 @@ __global__ void __launch_bounds__(qt::THREADS)
     int4_matmul_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
                        const float* __restrict__ alpha, const float* __restrict__ beta,
                        void* __restrict__ out, int M, int N, int Kh, int Ka, int relu, int requant,
-                       float inv, float zps, float lo, bool vec) {
+                       float inv, float zps, float lo) {
   __shared__ __align__(16) int8_t Alo[qt::BM * qt::LDS];
   __shared__ __align__(16) int8_t Ahi[qt::BM * qt::LDS];
   __shared__ __align__(16) int8_t Wlo[qt::BN * qt::LDS];
@@ -104,9 +77,9 @@ __global__ void __launch_bounds__(qt::THREADS)
 
   qt::Acc acc = {};
   for (int j0 = 0; j0 < Kh; j0 += qt::BK) {
-    stage_a(Alo, A, M, Ka, 0, Kh, m0, j0, vec);
-    stage_a(Ahi, A, M, Ka, Kh, hi_limit, m0, j0, vec);
-    stage_w(Wlo, Whi, W, N, Kh, n0, j0, vec);
+    stage_a(Alo, A, M, Ka, 0, Kh, m0, j0);
+    stage_a(Ahi, A, M, Ka, Kh, hi_limit, m0, j0);
+    stage_w(Wlo, Whi, W, N, Kh, n0, j0);
     __syncthreads();
     qt::mma_tile(Alo, Wlo, acc);
     qt::mma_tile(Ahi, Whi, acc);
@@ -137,17 +110,21 @@ __global__ void __launch_bounds__(qt::THREADS)
 // requant = 0: out (M, N) f32, relu?(acc * alpha + beta).
 // requant = 1: out (M, N) s8 on the (1/inv, zps + 128) grid; lo = zps when
 // ReLU is folded, else -128 (relu is then unused).
+// (tile, split, steps, stages, smem): the plan of gemm_plan(..., packed=True).
 extern "C" int qt_int4_matmul(const void* a, const void* w, const void* alpha, const void* beta,
                               void* out, int M, int N, int Kh, int Ka, int relu, int requant,
-                              float inv, float zps, float lo, void* stream) {
+                              float inv, float zps, float lo, int tile, int split, int steps, int stages,
+                              int smem, void* stream) {
   if (Ka != 2 * Kh && Ka != 2 * Kh - 1) return static_cast<int>(cudaErrorInvalidValue);
-  // 16-byte loads: every 16-byte chunk of both A halves and of W lies inside
-  // its row and starts 16-byte aligned
-  const bool vec = (Kh % 16 == 0) && (Ka == 2 * Kh) && qt::aligned16(a) && qt::aligned16(w);
+  if (qt90::tma_ok(a, w, Kh, Ka, true)) {
+    const qt90::Epilogue ep{static_cast<const float*>(alpha), static_cast<const float*>(beta), out, relu,
+                            requant, inv, zps, lo};
+    return qt90::launch_gemm<true>(a, w, ep, M, N, Kh, Ka, tile, split, steps, stages, smem, stream);
+  }
   const dim3 grid((M + qt::BM - 1) / qt::BM, (N + qt::BN - 1) / qt::BN);
   int4_matmul_kernel<<<grid, qt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
       static_cast<const float*>(alpha), static_cast<const float*>(beta), out, M, N, Kh, Ka, relu,
-      requant, inv, zps, lo, vec);
+      requant, inv, zps, lo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -53,6 +53,7 @@ from quantized_tpu_torch.ops.int8_conv_pallas import (
     int8_conv_flat_plain,
 )
 from quantized_tpu_torch.ops.int8_matmul import (
+    gemm_plan,
     int8_matmul,
     int8_matmul_nk,
     int8_matmul_plain,

@@ -12,6 +12,7 @@ is rebuilt and a current one is reused. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -161,6 +162,12 @@ def require_cuda_tensors(*tensors: torch.Tensor) -> torch.device:
     if dev.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {dev}")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (132 on the H100 SXM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_dtype(t: torch.Tensor, dtype: torch.dtype, what: str) -> None:

@@ -17,7 +17,8 @@ column fewer than twice the packed width, and the missing column
 multiplies that zero weight.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
-tensors it launches the CUDA kernel (``csrc/int4_gemm.cu``) or raises. The
+tensors it launches the CUDA kernel (``csrc/int4_gemm.cu``, planned by
+``gemm_plan(..., packed=True)``) or raises. The
 XLA native-S4 forms of the JAX package (``int4_conv_s4``,
 ``int4_matmul_s4``, ``int4_matmul_unpacked_xla``) are not ported: they go
 with the XLA backends and the autotuner. :func:`int4_matmul_plain`
@@ -31,11 +32,17 @@ from typing import Optional, Tuple
 import torch
 
 from quantized_tpu_torch.ops import _cuda
-from quantized_tpu_torch.ops.int8_matmul import int8_matmul_plain, int8_matmul_requant_plain, requant_scalars
+from quantized_tpu_torch.ops.int8_matmul import (
+    GEMM_PLAN_ARGS,
+    gemm_plan,
+    int8_matmul_plain,
+    int8_matmul_requant_plain,
+    requant_scalars,
+)
 
 _INT4_MATMUL = _cuda.CudaKernel(
     "int4_matmul", "int4_gemm.cu", "qt_int4_matmul",
-    ["ptr"] * 5 + ["int"] * 6 + ["float"] * 3,
+    ["ptr"] * 5 + ["int"] * 6 + ["float"] * 3 + GEMM_PLAN_ARGS,
 )
 
 
@@ -165,8 +172,10 @@ def int4_matmul_nk(a, w_packed_nk, alpha, beta, relu: bool = False, out_scale: O
     else:
         out = torch.empty((m, n), dtype=torch.int8, device=dev)
         inv, zps, lo = requant_scalars(out_scale, out_zp, relu)
+    plan = gemm_plan(m, n, k, packed=True, sms=_cuda.sm_count(dev))
     _INT4_MATMUL(dev, a.data_ptr(), w_packed_nk.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-                 out.data_ptr(), m, n, khalf, k, int(relu), int(out_scale is not None), inv, zps, lo)
+                 out.data_ptr(), m, n, khalf, k, int(relu), int(out_scale is not None), inv, zps, lo,
+                 *plan.args())
     return out
 
 

@@ -14,26 +14,105 @@ weights K-major, (N, K); :class:`~quantized_tpu_torch.engine.int_layers.IntLinea
 stores that copy once, at build time, and calls the ``*_nk`` wrappers.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
-tensors it launches the CUDA kernel (``csrc/int8_gemm.cu``) or raises.
+tensors it launches the CUDA kernel (``csrc/int8_gemm.cu``) or raises, with
+the launch plan of :func:`gemm_plan`.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from quantized_tpu_torch.ops import _cuda
 
+GEMM_PLAN_ARGS = ["int"] * 5  # the C entries' trailing plan arguments: GemmPlan.args()
 _MATMUL = _cuda.CudaKernel(
     "int8_matmul", "int8_gemm.cu", "qt_int8_matmul",
-    ["ptr"] * 5 + ["int"] * 4,
+    ["ptr"] * 5 + ["int"] * 4 + GEMM_PLAN_ARGS,
 )
 _MATMUL_REQUANT = _cuda.CudaKernel(
     "int8_matmul_requant", "int8_gemm.cu", "qt_int8_matmul_requant",
-    ["ptr"] * 5 + ["int"] * 3 + ["float"] * 3,
+    ["ptr"] * 5 + ["int"] * 3 + ["float"] * 3 + GEMM_PLAN_ARGS,
 )
+
+# The launch plan of the Hopper GEMM (csrc/gemm_sm90.cuh), shared by K1 and
+# B6; the constants mirror the header's.
+GEMM_BK = 128  # K bytes per ring stage
+GEMM_WROWS = 64  # weight rows per block
+GEMM_TILES = (8, 16, 32, 64, 128)  # batch rows per block: wgmma's N
+GEMM_MAX_SPLIT = 8  # blocks of one cluster, the portable limit
+GEMM_MAX_STAGES = 8
+GEMM_RING_BUDGET = 110 * 1024  # ring bytes per block where two blocks share an SM
+GEMM_INFLIGHT_STAGES = 1024  # ring slots in flight across the card: 8 MB of weight tiles
+GEMM_OUT_PITCH = 80
+SMEM_LIMIT = 232448  # opt-in shared memory of one block on the H100
+H100_SMS = 132
+
+
+class GemmPlan(NamedTuple):
+    tile: int  # batch rows per block (wgmma's N), a multiple of 8
+    split: int  # blocks along K, one cluster
+    steps: int  # K stages of GEMM_BK bytes per split
+    stages: int  # ring slots in flight per block
+    smem: int  # dynamic shared memory per block, bytes
+    blocks: int  # the grid: split x ceil(N/64) x ceil(M/tile)
+    tma_shape: bool  # the shape suits TMA (16-byte row pitches); the C entry also needs
+    # 16-byte-aligned bases, and runs the general tile where either fails
+
+    def args(self) -> List[int]:
+        """The C entry's plan arguments."""
+        return [self.tile, self.split, self.steps, self.stages, self.smem]
+
+    def k_ranges(self, kspan: int) -> List[Tuple[int, int]]:
+        """The K bytes [begin, end) of each split (for B6: of the packed half)."""
+        step = self.steps * GEMM_BK
+        return [(s * step, min((s + 1) * step, kspan)) for s in range(self.split)]
+
+
+def gemm_smem_bytes(tile: int, packed: bool, split: int, stages: int) -> int:
+    """``smem_bytes`` of gemm_sm90.cuh: 1024 bytes of alignment slack, the
+    ring (reused for the split's partial sums and the staged s8 tile), and one
+    8-byte mbarrier per slot."""
+    stage = GEMM_WROWS * GEMM_BK + tile * GEMM_BK * (2 if packed else 1)
+    red = 128 * (tile // 2) * 4 if split > 1 else 0
+    return 1024 + max(stages * stage, red, tile * GEMM_OUT_PITCH) + 8 * stages
+
+
+@functools.lru_cache(maxsize=4096)  # a wrapper plans every call; the engines repeat a few shapes
+def gemm_plan(m: int, n: int, k: int, packed: bool = False, sms: int = H100_SMS) -> GemmPlan:
+    """The launch plan of an (m, k) x (n, k)^T product (``packed``: k is A's
+    width and the weights hold ceil(k/2) packed bytes a row).
+
+    - tile: the smallest of 8, 16, 32, 64, 128 that holds the batch rows
+      (128 past 64, over several row tiles);
+    - split: K cut into runs of whole 128-byte stages, none empty, as many
+      (up to 8) as it takes for the blocks to reach half the SMs: at the fc
+      heads that is 64 to 128 blocks of one wave;
+    - stages: up to 8 ring slots per block, at most GEMM_INFLIGHT_STAGES
+      across the blocks that run at once (past that, the ring slots in
+      flight slow the weight stream down), within the block's share of
+      shared memory (all of it where every block has an SM, else
+      GEMM_RING_BUDGET), at least 3 and at most the split's stages.
+
+    ``python -m quantized_tpu_torch.probes.gemm_sweep --plans`` times these
+    rules against every other plan at AlexNet's and the ResNet fc's products."""
+    kspan = (k + 1) // 2 if packed else k
+    tile = next((t for t in GEMM_TILES if t >= m), GEMM_TILES[-1])
+    nk = -(-kspan // GEMM_BK)
+    tiles = -(-n // GEMM_WROWS) * -(-m // tile)
+    split = max(1, min(GEMM_MAX_SPLIT, nk, -(-(sms // 2) // tiles)))
+    steps = -(-nk // split)
+    split = -(-nk // steps)
+    blocks = split * tiles
+    stage = GEMM_WROWS * GEMM_BK + tile * GEMM_BK * (2 if packed else 1)
+    ring = SMEM_LIMIT - 2048 if blocks <= sms else GEMM_RING_BUDGET  # 2048: alignment slack, mbarriers
+    fits = min(GEMM_INFLIGHT_STAGES // min(blocks, 2 * sms), ring // stage)
+    stages = min(steps, GEMM_MAX_STAGES, max(3, fits))
+    tma_shape = kspan % 16 == 0 and (not packed or k == 2 * kspan)
+    return GemmPlan(tile, split, steps, stages, gemm_smem_bytes(tile, packed, split, stages), blocks, tma_shape)
 
 
 def f32(v: float) -> float:
@@ -118,8 +197,9 @@ def int8_matmul_nk(a, w_nk, alpha, beta, relu: bool = False) -> torch.Tensor:
     dev = _cuda.require_cuda_tensors(a, w_nk, alpha, beta)
     (m, k), n = a.shape, w_nk.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    plan = gemm_plan(m, n, k, sms=_cuda.sm_count(dev))
     _MATMUL(dev, a.data_ptr(), w_nk.data_ptr(), alpha.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            m, n, k, int(relu))
+            m, n, k, int(relu), *plan.args())
     return out
 
 
@@ -133,8 +213,9 @@ def int8_matmul_requant_nk(a, w_nk, alpha, beta, out_scale: float, out_zp: int,
     (m, k), n = a.shape, w_nk.shape[0]
     inv, zps, lo = requant_scalars(out_scale, out_zp, relu)
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
+    plan = gemm_plan(m, n, k, sms=_cuda.sm_count(dev))
     _MATMUL_REQUANT(dev, a.data_ptr(), w_nk.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-                    out.data_ptr(), m, n, k, inv, zps, lo)
+                    out.data_ptr(), m, n, k, inv, zps, lo, *plan.args())
     return out
 
 

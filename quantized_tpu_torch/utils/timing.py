@@ -15,6 +15,9 @@ clock: PyTorch returns before the device has finished); on the CPU, with
 ``enable_compilation_cache`` (XLA's compile cache) belong to the JAX
 package's remote-TPU setup and have no counterpart here: PyTorch runs
 eagerly and a CUDA event pair has no round trip to subtract.
+
+:class:`Timer` times one kernel call as a forward pass meets it: device time
+between CUDA events, the L2 cache flushed before each call.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 PROBE_LOOPS = 64
 CHAIN_PROBE_LOOPS = 32
 MAX_LOOPS = 20000
+L2_FLUSH_BYTES = 64 << 20  # more than the H100's 50 MB L2
 
 
 def _device_of(*values) -> Optional[torch.device]:
@@ -90,3 +94,54 @@ def chain_time(fn: Callable, x, *consts, target_secs: float = 0.5, reps: int = 3
         return y
 
     return _adaptive(run, device, probe_loops, target_secs, reps)
+
+
+class Timer:
+    """Times of a callable between CUDA events, the L2 cache flushed before
+    each call, as a forward pass would find the weights cold.
+
+    ``ms`` is device time: before each call the device is held busy (a
+    sleep kernel) for twice as long as the host takes to launch the call, so
+    the host has enqueued the whole call before the start event fires and
+    no host time falls between the events. ``event_ms`` leaves the sleep
+    out, so it also counts the device waiting for the host to launch."""
+
+    def __init__(self, device):
+        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
+        cycles = 1 << 22
+        torch.cuda._sleep(cycles)  # first launch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        self.cycles_per_ms = cycles / start.elapsed_time(end)
+
+    def ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
+        return self._time(fn, iters, warmup, hold=True)
+
+    def event_ms(self, fn, iters: int = 10, warmup: int = 2) -> float:
+        return self._time(fn, iters, warmup, hold=False)
+
+    def _time(self, fn, iters, warmup, hold):
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        self.flush.zero_()
+        fn()
+        host_ms = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        sleep = int(self.cycles_per_ms * (2 * host_ms + 0.05))
+        pairs = []
+        for _ in range(iters):
+            if hold:
+                torch.cuda._sleep(sleep)
+            self.flush.zero_()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in pairs) / iters

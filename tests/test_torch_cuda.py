@@ -21,6 +21,8 @@ from torch_markers import cuda_device  # noqa: F401  (fixture)
 
 from quantized_tpu_torch import ops
 from quantized_tpu_torch.ops.fused_block import dw_pw_band_rows
+from quantized_tpu_torch.ops.int8_matmul import gemm_plan
+from torch_gemm_shapes import RAGGED_SPLIT, distinct_plans
 
 F32_ATOL = 1e-3
 
@@ -74,7 +76,12 @@ def test_conv_kernel_matches_plain(cuda_device, gen, n, h, cin, cout, k, s, pad,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(32, 2048, 1000), (37, 100, 70), (1000, 576, 64), (5, 16, 8)])
+@pytest.mark.parametrize("m,k,n", [
+    (32, 2048, 1000), (37, 100, 70), (1000, 576, 64), (5, 16, 8),
+    # K % 16 != 0, the general tile: the stems' im2col K (CIFAR and MobileNet
+    # 27, the 7x7 147, AlexNet's conv1 363) and an odd K
+    (300, 27, 16), (64, 147, 64), (40, 363, 64), (9, 301, 130),
+])
 def test_gemm_kernel_matches_plain(cuda_device, gen, m, k, n):
     a = _dev(gen.integers(-128, 128, (m, k)).astype(np.int8), cuda_device)
     w = _dev(gen.integers(-127, 128, (n, k)).astype(np.int8), cuda_device)
@@ -85,6 +92,82 @@ def test_gemm_kernel_matches_plain(cuda_device, gen, m, k, n):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, ops.int8_matmul_plain(a, w, alpha, beta, True), atol=F32_ATOL, rtol=0)
     assert torch.equal(q, ops.int8_matmul_requant_plain(a, w, alpha, beta, 0.05, 113, True))
+
+
+def _gemm_case(gen, device, m, k, n, a_offset=0):
+    """A (M, K) s8 (starting ``a_offset`` bytes into its buffer), W (N, K) s8
+    and epilogue vectors scaled so the requant lands inside the int8 range."""
+    buf = torch.empty(m * k + a_offset, dtype=torch.int8, device=device)
+    a = buf[a_offset:].view(m, k)
+    a.copy_(_dev(gen.integers(-128, 128, (m, k)).astype(np.int8), device))
+    w = _dev(gen.integers(-127, 128, (n, k)).astype(np.int8), device)
+    alpha = _dev((gen.uniform(0.5, 1.5, n) * 1e-4 / np.sqrt(k)).astype(np.float32), device)
+    beta = _dev(gen.uniform(-0.5, 0.5, n).astype(np.float32), device)
+    return a, w, alpha, beta
+
+
+def _check_k1(a, w, alpha, beta):
+    """K1 in both forms against its plain versions: s8 equal, f32 within
+    F32_ATOL (0 expected: int32 sums are exact and the epilogue rounds as the
+    plain version does); returns the f32 max_abs_err."""
+    before = (ops.KERNELS["int8_matmul"].launches, ops.KERNELS["int8_matmul_requant"].launches)
+    y = ops.int8_matmul_nk(a, w, alpha, beta, relu=True)
+    q = ops.int8_matmul_requant_nk(a, w, alpha, beta, 0.05, 113, relu=True)
+    assert (ops.KERNELS["int8_matmul"].launches, ops.KERNELS["int8_matmul_requant"].launches) == (
+        before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    err = (y - ops.int8_matmul_plain(a, w, alpha, beta, True)).abs().max().item()
+    assert err <= F32_ATOL
+    want = ops.int8_matmul_requant_plain(a, w, alpha, beta, 0.05, 113, True)
+    assert torch.equal(q, want)
+    assert len(torch.unique(q)) > 20  # spread over the int8 range, not stuck on a clip
+    return err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,m,n,k", distinct_plans(packed=False))
+def test_gemm_kernel_matches_plain_at_every_plan(cuda_device, gen, label, m, n, k):
+    """One product per distinct (tile, split, stages) of gemm_plan over the
+    engines' K1 products, f32 and s8."""
+    err = _check_k1(*_gemm_case(gen, cuda_device, m, k, n))
+    print(f"K1 {label} {m}x{k}x{n} {gemm_plan(m, n, k)}: f32 max_abs_err {err}")
+
+
+@pytest.mark.cuda
+def test_gemm_general_path_on_an_unaligned_pointer(cuda_device, gen):
+    """K % 16 == 0 but A starts off a 16-byte boundary: TMA cannot take it,
+    the general tile does."""
+    a, w, alpha, beta = _gemm_case(gen, cuda_device, 33, 2048, 1000, a_offset=3)
+    assert a.data_ptr() % 16 != 0 and a.is_contiguous()
+    _check_k1(a, w, alpha, beta)
+
+
+@pytest.mark.cuda
+def test_gemm_kernels_are_deterministic_and_take_the_current_stream(cuda_device, gen):
+    """Two calls on the same inputs give the same bytes (the K split adds
+    int32 sums, in any order the same), also on a non-default stream."""
+    m, k, n = 32, 9216, 4096  # AlexNet's fc1: a split of 3
+    assert gemm_plan(m, n, k).split > 1 and gemm_plan(m, n, k, packed=True).split > 1
+    a, w, alpha, beta = _gemm_case(gen, cuda_device, m, k, n)
+    a4, w4, alpha4, beta4 = _int4_case(gen, cuda_device, m, k, n)
+
+    def calls():
+        return [ops.int8_matmul_nk(a, w, alpha, beta, relu=True),
+                ops.int8_matmul_requant_nk(a, w, alpha, beta, 0.05, 113),
+                ops.int4_matmul_nk(a4, w4, alpha4, beta4, relu=True),
+                ops.int4_matmul_nk(a4, w4, alpha4, beta4, out_scale=0.05, out_zp=113)]
+
+    first = calls()
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        second = calls()
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x.view(torch.int8) if x.dtype == torch.int8 else x.view(torch.int32),
+                           y.view(torch.int8) if y.dtype == torch.int8 else y.view(torch.int32))
+    torch.testing.assert_close(second[0], ops.int8_matmul_plain(a, w, alpha, beta, True), atol=F32_ATOL, rtol=0)
+    assert torch.equal(second[3], ops.int4_matmul_plain(a4, w4, alpha4, beta4, out_scale=0.05, out_zp=113))
 
 
 def _int4_case(gen, device, m, k, n, a_offset=0):
@@ -122,6 +205,49 @@ def test_int4_gemm_kernel_matches_plain(cuda_device, gen, m, k, n, relu):
     torch.cuda.synchronize()
     torch.testing.assert_close(y, ops.int4_matmul_plain(a, w, alpha, beta, relu), atol=F32_ATOL, rtol=0)
     assert torch.equal(q, ops.int4_matmul_plain(a, w, alpha, beta, relu, out_scale=0.05, out_zp=113))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,m,n,k", distinct_plans(packed=True))
+def test_int4_gemm_kernel_matches_plain_at_every_plan(cuda_device, gen, label, m, n, k):
+    """One product per distinct (tile, split, stages) of gemm_plan(...,
+    packed=True) over AlexNet's int4 fc1-3, f32 and s8."""
+    a, w, alpha, beta = _int4_case(gen, cuda_device, m, k, n)
+    before = ops.KERNELS["int4_matmul"].launches
+    y = ops.int4_matmul_nk(a, w, alpha, beta, relu=True)
+    q = ops.int4_matmul_nk(a, w, alpha, beta, relu=True, out_scale=0.05, out_zp=113)
+    assert ops.KERNELS["int4_matmul"].launches == before + 2
+    torch.cuda.synchronize()
+    err = (y - ops.int4_matmul_plain(a, w, alpha, beta, True)).abs().max().item()
+    assert err <= F32_ATOL
+    want = ops.int4_matmul_plain(a, w, alpha, beta, True, out_scale=0.05, out_zp=113)
+    assert torch.equal(q, want) and len(torch.unique(q)) > 20
+    print(f"B6 {label} {m}x{k}x{n} {gemm_plan(m, n, k, packed=True)}: f32 max_abs_err {err}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,packed", RAGGED_SPLIT)
+def test_gemm_ragged_last_stage_under_a_split(cuda_device, gen, m, k, n, packed):
+    """A K split whose last 128-byte stage is partial, on the TMA path: TMA
+    zero-fills the weights past K (B6: past Kh, where the last low-half
+    activation box reads the high half's columns). f32 and s8 equal their
+    plain versions exactly."""
+    assert gemm_plan(m, n, k, packed=packed).split > 1
+    if packed:
+        a, w, alpha, beta = _int4_case(gen, cuda_device, m, k, n)
+        y = ops.int4_matmul_nk(a, w, alpha, beta, relu=True)
+        q = ops.int4_matmul_nk(a, w, alpha, beta, relu=True, out_scale=0.05, out_zp=113)
+        y_want = ops.int4_matmul_plain(a, w, alpha, beta, True)
+        q_want = ops.int4_matmul_plain(a, w, alpha, beta, True, out_scale=0.05, out_zp=113)
+    else:
+        a, w, alpha, beta = _gemm_case(gen, cuda_device, m, k, n)
+        y = ops.int8_matmul_nk(a, w, alpha, beta, relu=True)
+        q = ops.int8_matmul_requant_nk(a, w, alpha, beta, 0.05, 113, relu=True)
+        y_want = ops.int8_matmul_plain(a, w, alpha, beta, True)
+        q_want = ops.int8_matmul_requant_plain(a, w, alpha, beta, 0.05, 113, True)
+    torch.cuda.synchronize()
+    assert (y - y_want).abs().max().item() == 0
+    assert torch.equal(q, q_want) and len(torch.unique(q)) > 20
 
 
 @pytest.mark.cuda
