@@ -29,7 +29,10 @@ and a non-zero exit:
    and at width 0.75's and 0.25's pair 0 (C = 24 and 8; each with its band
    height R and grid), K2's gather-K form also at MobileNet's stem (3x3/s2
    over Cin = 3) and AlexNet's conv1 (11x11/s4 over Cin = 3), its per-tap
-   form also at 1x1 convs over Cin 24 and 9; no PyTorch call computes a
+   form also at AlexNet's conv2 (5x5/p2, 64->192) and at 1x1 convs over Cin
+   24 and 9, each case with its launch plan (``conv_plan``) and the route
+   it took: the Hopper mainloop ("sm90") for the per-tap form over Cin % 16
+   == 0, the general tile for the rest; no PyTorch call computes a
    fused block or pair. K1's f32 form also runs at AlexNet's fc1-3 at
    batches 1, 8, 32 and 128, and the int4 GEMM (B6) there too, f32 and
    requant forms; B6's yardstick is ``torch._int_mm`` on the unpacked int8
@@ -41,7 +44,7 @@ and a non-zero exit:
    blocks, TMA or general tile) is printed with its kernel instance's
    ptxas line from this run's build. The
    flat-row conv (B7) runs at ResNet-50's four stride-1 3x3 shapes and a
-   1x1 (``torch._int_mm`` its yardstick), K2's time on the same inputs
+   1x1 (``torch._int_mm`` its yardstick), each on the mainloop, K2's time on the same inputs
    beside it (``int8_conv_direct_ms``; the bound counts K2's work, not B7's
    junk columns); K2's residual form (B8) at ResNet-18's conv2 + identity
    (layer1 and layer3), f32 and s8 out; the copy kernels (B9) on the
@@ -50,7 +53,9 @@ and a non-zero exit:
 4. the op paths, each with the launch counts set to 0 just before and read
    just after: "conv sweep", the per-shape sweep of ``probes/sweep_conv``
    over ResNet-50's 24 conv shapes at batch 32 on K2, B7 and im2col + K1
-   (B7 refuses exactly the 7 stride-2 shapes); "conv ops", B8 through
+   (B7 refuses exactly the 7 stride-2 shapes; every K2 per-tap and B7
+   launch on the mainloop), then ``torch._int_mm`` on its 1x1 stride-1
+   shapes (a yardstick, no kernel of the port); "conv ops", B8 through
    ``int8_conv_direct(..., residual=, res_grid=)`` (2 launches, equal to
    its plain version); "copy probe", every variant of ``probes/dma_ring``
    checked exact, then timed;
@@ -60,7 +65,9 @@ and a non-zero exit:
    ingest="u8")``, then ``fuse_resident_blocks`` or
    ``fuse_mobilenet_blocks``), each answering 3 requests of 32 uint8 images
    with the launch counts set to 0 just before and read just after; every
-   kernel must launch exactly the stated number of times per forward:
+   kernel must launch exactly the stated number of times per forward, and
+   every K2 per-tap launch takes the mainloop but the one over Cin 24 of
+   MobileNet at width 0.75 (the general tile):
    - ResNet-50 (ImageNet geometry, 224x224, layers [3, 4, 6, 3], 1000
      classes): unfused, 52 K2 per-tap (48 block convs, 4 downsamples), 1 K2
      gather-K (the space-to-depth stem) and 1 K1 (the fc); the "gemm"
@@ -198,10 +205,13 @@ KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "r
                "int4_matmul": "alexnet int4 serve", "int8_conv_flat": "conv sweep",
                "int8_conv_direct_residual": "conv ops", "grid_copy": "copy probe", "ring_copy": "copy probe",
                "bulk_copy": "copy probe"}
-OUR_KERNELS = ("int8_conv_kernel", "int8_matmul_kernel", "gemm_sm90_kernel", "fused_bottleneck_kernel",
+OUR_KERNELS = ("int8_conv_kernel", "conv_sm90_kernel", "int8_matmul_kernel", "gemm_sm90_kernel", "fused_bottleneck_kernel",
                "fused_basicblock_kernel", "fused_dw_pw_kernel", "int4_matmul_kernel", "int8_conv_flat_kernel",
                "grid_copy_kernel", "ring_copy_kernel", "bulk_copy_kernel")  # device kernel names
 SWEEP_MODES = ("direct", "flat", "gemm")  # the conv sweep path: K2, B7 and im2col + K1
+# K2 per-tap launches per forward on the general tile (Cin % 16 != 0); every other one takes the mainloop
+SERVE_TILE_ROUTE = {"mobilenet w0.75 serve": 1}
+PATH_ROUTES = {}  # path: {kernel: {route: launches}} of the kernels with routes
 SWEEP_TARGET_SECS = 0.02  # per timed loop of the sweep; the probe's own default is 1 s
 COPY_TARGET_SECS = 0.05
 
@@ -309,6 +319,36 @@ def _log_gemm_plan(kernel, label, a, w, n, packed):
         f"blocks {plan.blocks}, {'TMA' if tma else 'general tile'}; ptxas: {ptxas}")
 
 
+def _log_conv_plan(kernel, label, x, wc, ks, stride, pad, form):
+    """The conv mainloop's plan of a call (``conv_plan``) and its instance's
+    ptxas line; the route is asserted by the caller from the counts."""
+    from quantized_tpu_torch.ops import conv_plan
+
+    n, h, w, cin = x.shape
+    plan = conv_plan(n, h, w, cin, wc.shape[0], ks, stride, pad, form)
+    if plan.route != "sm90":
+        log(f"[kernels] {kernel} {label} plan: general tile ({form}, Cin {cin})")
+        return plan
+    source = "int8_conv_flat.cu" if form == "flat" else "int8_conv.cu"
+    instance = f"conv_sm90_kernelILi{plan.kc}ELi{plan.bn}EE"
+    ptxas = next((v for key, v in _ptxas_lines(source).items() if instance in key), "not built in this run")
+    log(f"[kernels] {kernel} {label} plan: kc {plan.kc}, bn {plan.bn}, tile {plan.two}x{plan.tho}x{plan.nb}, "
+        f"stages {plan.stages}, dynamic smem {plan.smem} B, k stages {plan.k_stages}, tiles {plan.tiles}, "
+        f"blocks {plan.blocks}; ptxas: {ptxas}")
+    return plan
+
+
+def _route_of(name, before):
+    """The route of the one launch of ``name`` since ``before`` (its routes then)."""
+    from quantized_tpu_torch import ops
+
+    now = ops.KERNELS[name].routes
+    taken = [r for r in now if now[r] != before.get(r, 0)]
+    if len(taken) != 1:
+        raise AssertionError(f"{name}: routes {before} -> {now}")
+    return taken[0]
+
+
 def phase_kernels(timer):
     """Each kernel against its plain version at serving shapes; returns
     {kernel name: numbers} for the kernels line."""
@@ -388,6 +428,7 @@ def phase_kernels(timer):
          False),
         ("int8_conv_direct_gatherk", "alexnet conv1 11x11 s4 3->64 s8", (224, 3, 64, 11, 4, 2, (0.05, 113)),
          False),
+        ("int8_conv_direct", "alexnet conv2 5x5 s1 p2 64->192 s8", (27, 64, 192, 5, 1, 2, (0.05, 113)), False),
         # the per-tap form over Cin % 16 != 0: MobileNet-v1 at width 0.75's first
         # pointwise conv (4-byte chunks) and Cin 9 (single bytes)
         ("int8_conv_direct", "mobilenet w0.75 pw 1x1 s1 24->48 s8", (112, 24, 48, 1, 1, 0, (0.05, 113)), False),
@@ -403,11 +444,19 @@ def phase_kernels(timer):
         in_bytes = b * rows * rows * cin
         out_bytes = b * ho * ho * cout * (1 if req else 4)
         lib = (lambda x=x, wc=wc: torch._int_mm(x.reshape(-1, x.shape[-1]), wc.T)) if (kk, s) == (1, 1) else None
+        form = "gatherk" if name == "int8_conv_direct_gatherk" else "tap"
+        plan = _log_conv_plan(name, label, x, wc, (kk, kk), (s, s), (p, p), form)
+        before = dict(ops.KERNELS[name].routes)
+        bs = ops.conv_border_sums(wc, (kk, kk))  # computed once per weight, as the engines do
         record(name, f"{label} batch {b}",
-               lambda x=x, wc=wc, args=args: ops.int8_conv_direct_ck(x, wc, *args),
+               lambda x=x, wc=wc, args=args, bs=bs: ops.int8_conv_direct_ck(x, wc, *args, border_sums=bs),
                lambda x=x, wc=wc, args=args: ops.int8_conv_direct_plain(x, wc, *args),
                lib, in_bytes + wc.numel() + 8 * cout + out_bytes,
                2 * b * ho * ho * kk * kk * cin * cout, rep, plain_iters=3)
+        route = _route_of(name, before)
+        log(f"[kernels] {name} {label}: route {route}")
+        if route != plan.route:
+            raise AssertionError(f"{name} {label}: took {route}, planned {plan.route}")
 
     # B7: the flat-row conv at ResNet-50's stride-1 shapes, K2's time on the
     # same inputs beside it; the bound counts K2's bytes and operations (the
@@ -426,12 +475,17 @@ def phase_kernels(timer):
         ac, bc = _epilogue_params(gen, cout, dev)
         args = ((kk, kk), ac, bc, 1, kk // 2, -5, True, req)
         lib = (lambda x=x, wc=wc: torch._int_mm(x.reshape(-1, x.shape[-1]), wc.T)) if kk == 1 else None
+        _log_conv_plan("int8_conv_flat", label, x, wc, (kk, kk), (1, 1), (kk // 2, kk // 2), "flat")
+        before = dict(ops.KERNELS["int8_conv_flat"].routes)
         record("int8_conv_flat", f"{label} batch {b}",
                lambda x=x, wc=wc, args=args: ops.int8_conv_flat_ck(x, wc, *args),
                lambda x=x, wc=wc, args=args: ops.int8_conv_flat_plain(x, wc, *args),
                lib, x.numel() + wc.numel() + 8 * cout + b * h * h * cout * (1 if req else 4),
                2 * b * h * h * kk * kk * cin * cout, rep, plain_iters=3)
-        k2_ms = timer.ms(lambda x=x, wc=wc, args=args: ops.int8_conv_direct_ck(x, wc, *args))
+        if _route_of("int8_conv_flat", before) != "sm90":
+            raise AssertionError(f"int8_conv_flat {label}: not on the mainloop")
+        bs = ops.conv_border_sums(wc, (kk, kk))
+        k2_ms = timer.ms(lambda x=x, wc=wc, args=args, bs=bs: ops.int8_conv_direct_ck(x, wc, *args, border_sums=bs))
         log(f"[kernels] int8_conv_direct (K2) on the same inputs: ms {k2_ms:.4f}")
         if rep:
             results["int8_conv_flat"]["int8_conv_direct_ms"] = k2_ms
@@ -798,6 +852,11 @@ def _serve(what, executor, requests, per_forward, classes):
         log(f"[{what}] request {i}: {tuple(logits.shape)} in {(time.perf_counter() - t) * 1e3:.1f} ms")
     counts = ops.launch_counts()
     _check_launches(counts, per_forward, len(requests), what)
+    routes = PATH_ROUTES[what] = ops.route_counts()
+    log(f"[{what}] routes {json.dumps(routes)}")
+    tile = routes.get("int8_conv_direct", {}).get("tile", 0)
+    if tile != SERVE_TILE_ROUTE.get(what, 0) * len(requests):
+        raise AssertionError(f"{what}: {tile} K2 per-tap launches on the general tile")
     for logits in answers:
         if tuple(logits.shape) != (requests[0].shape[0], classes) or not torch.isfinite(logits).all():
             raise AssertionError(f"{what}: bad logits, shape {tuple(logits.shape)}")
@@ -955,6 +1014,7 @@ def phase_conv_sweep():
     """The port's per-shape conv sweep (``probes/sweep_conv``) over ResNet-50's
     24 conv shapes at batch 32 on K2, B7 and im2col + K1: B7 refuses exactly
     the stride-2 shapes, every other cell is timed."""
+    from quantized_tpu_torch import ops
     from quantized_tpu_torch.probes import sweep_conv
 
     counts, times = _path_counts("conv sweep", lambda: sweep_conv.run_sweep(
@@ -966,6 +1026,14 @@ def phase_conv_sweep():
                 raise AssertionError(f"conv sweep: {mode} at {name} took {times[mode][name]}")
     _require_launched(counts, ("int8_conv_flat", "int8_conv_direct", "int8_conv_direct_gatherk",
                                "int8_matmul_requant"), "conv sweep")
+    routes = PATH_ROUTES["conv sweep"] = ops.route_counts()
+    log(f"[conv sweep] routes {json.dumps(routes)}")
+    for name in ("int8_conv_direct", "int8_conv_flat"):
+        if routes[name].get("tile", 0) or not routes[name].get("sm90", 0):
+            raise AssertionError(f"conv sweep: {name} left the mainloop: {routes[name]}")
+    sweep_conv.run_sweep(SERVE_BATCH, ("intmm",), target_secs=SWEEP_TARGET_SECS, reps=2, probe_loops=4,
+                         shapes=[row for row in sweep_conv.SHAPES if (row[4], row[5]) == (1, 1)],
+                         out=lambda line: log(f"[conv sweep] {line}"))
     return counts, times
 
 
@@ -1139,6 +1207,8 @@ def main() -> int:
             "bound_by": numbers["bound_by"], "library_ms": numbers["library_ms"],
             "event_ms": numbers["event_ms"], "path": path, "case": numbers["case"],
         })
+        if kname in PATH_ROUTES.get(path, {}):  # K2 and B7: their launches on the path by route
+            kernels[-1]["routes"] = PATH_ROUTES[path][kname]
         for extra in ("int8_matmul_ms", "int8_conv_direct_ms"):  # B6: K1 unpacked; B7: K2, same inputs
             if extra in numbers:
                 kernels[-1][extra] = numbers[extra]

@@ -29,15 +29,27 @@
 // == 0, 4 where Cin % 4 == 0 (the space-to-depth stem, Cin = 12, K = 192;
 // MobileNet-v1 at width 0.75, Cin = 24), else 1 (the CIFAR stem, Cin = 3).
 // The per-tap and gather-K forms differ only in which Pallas body they stand
-// for and which launch count they add to: on the card both are this one
-// kernel behind one entry, qt_int8_conv; the residual form is its RES
-// instance, so the residual's loads and registers stay out of the others. The
-// product is mma.sync m16n8k32 on the int8 tensor cores (int8_mma.cuh). No
-// load/compute overlap, no wgmma/TMA yet: later work.
+// for and which launch count they add to; the residual form is the RES
+// instance of this tile, so the residual's loads and registers stay out of
+// the others. The product is mma.sync m16n8k32 on the int8 tensor cores
+// (int8_mma.cuh), with no load/compute overlap: at ResNet-50's 1x1 64->256
+// it took 3.4x torch._int_mm's time on the same product.
+//
+// Two routes behind one entry, qt_int8_conv, chosen by ops.conv_plan and
+// passed in as `sm90`:
+// - the per-tap form over Cin % 16 == 0 with 16-byte-aligned bases (every
+//   per-tap conv of ResNet-50/18, MobileNet-v1 at width 1.0 and AlexNet)
+//   runs the Hopper conv mainloop of conv_sm90.cuh: wgmma tiles of 128
+//   pixels x up to 128 channels, A and W by TMA through a ring, persistent
+//   blocks, the zero-filled padding corrected by the weights' tap sums
+//   (conv_sm90.cuh's header says how);
+// - the gather-K form, the residual form (B8), Cin % 16 != 0 and unaligned
+//   inputs run the tile below, which refuses nothing.
 //
 // The epilogue uses __fmul_rn/__fadd_rn (and the build passes -fmad=false),
 // so it rounds exactly as the plain PyTorch version does.
 
+#include "conv_sm90.cuh"
 #include "int8_mma.cuh"
 
 namespace {
@@ -163,11 +175,27 @@ int launch_any_cin(const ConvArgs& a, const ConvShape& s, int stored_zp, const C
 
 // K2 in all its forms (per-tap, gather-K, and B8 where residual is not
 // null: (N, Ho, Wo, Cout) s8, r_off = f32(128 - r_zp), r_scale =
-// f32(r_scale)), any Cin.
+// f32(r_scale)), any Cin. sm90 != 0: the per-tap form on the Hopper
+// mainloop under the plan (kc, bn, two, tho, nb, stages, blocks, smem) of
+// ops.conv_plan, with border_sums ((KH + 1) * (KW + 1), Cout) int32, the
+// summed-area table of the tap sums (ops.conv_border_sums), where a padded
+// tap reads a nonzero stored zero point; refused (an error, never another route) where
+// the mainloop cannot take the call.
 extern "C" int qt_int8_conv(const void* x, const void* w, const void* alpha, const void* beta,
-                            const void* residual, void* out, int N, int H, int W, int Cin, int Cout, int KH,
-                            int KW, int SH, int SW, int PH, int PW, int Ho, int Wo, int stored_zp, int relu,
-                            int out_int8, float inv, float zps, float r_off, float r_scale, void* stream) {
+                            const void* residual, const void* border_sums, void* out, int N, int H, int W, int Cin,
+                            int Cout, int KH, int KW, int SH, int SW, int PH, int PW, int Ho, int Wo, int stored_zp,
+                            int relu, int out_int8, float inv, float zps, float r_off, float r_scale, int sm90,
+                            int kc, int bn, int two, int tho, int nb, int stages, int blocks, int smem,
+                            void* stream) {
+  if (sm90) {
+    if (residual != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    // a 1x1 stride-1 conv without padding is a product of its input's rows: flat rows, whole 128-row tiles
+    const int flat = KH == 1 && KW == 1 && SH == 1 && SW == 1 && PH == 0 && PW == 0;
+    const qtconv::ConvGeom g{N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo, flat};
+    const qtconv::ConvEpi ep{static_cast<const float*>(alpha), static_cast<const float*>(beta),
+                             static_cast<const int*>(border_sums), out, stored_zp, relu, out_int8, inv, zps};
+    return qtconv::launch_conv(x, w, g, ep, qtconv::ConvPlan{kc, bn, two, tho, nb, stages, blocks, smem}, stream);
+  }
   const ConvArgs a{x, w, alpha, beta, residual, out};
   const ConvShape s{N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo};
   const ConvEpilogue e{r_off, r_scale, relu, out_int8, inv, zps};

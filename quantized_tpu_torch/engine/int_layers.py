@@ -36,7 +36,7 @@ from torch import nn
 
 from quantized_tpu_torch.ops.int4 import int4_matmul_nk, unpack_int4_conv_channels
 from quantized_tpu_torch.ops.int8_conv import int8_conv_gemm_ck, int8_conv_xla_ck, pack_conv_weight
-from quantized_tpu_torch.ops.int8_conv_pallas import int8_conv_direct_ck
+from quantized_tpu_torch.ops.int8_conv_pallas import conv_border_sums, int8_conv_direct_ck, use_gather_k
 from quantized_tpu_torch.ops.int8_matmul import f32, int8_matmul_nk
 
 Grid = Tuple[float, int]
@@ -106,6 +106,14 @@ class IntConv2d(nn.Module):
         self.groups = groups
         self.relu = relu
         self.backend = backend
+        # K2's Hopper route reads padded taps as zeros and adds back stored_zp
+        # times the weights' tap sums (ops.conv_border_sums), computed here once
+        kh, kw = self.kernel_size
+        cin = w_q.shape[2] if self.int4_shape is None else self.int4_shape[2]
+        uses_sums = (groups == 1 and backend == "pallas" and any(self.padding) and cin % 16 == 0
+                     and not use_gather_k(cin, (kh, kw)))
+        self.register_buffer("border_sums", conv_border_sums(self.weights_ck(), (kh, kw)) if uses_sums else None,
+                             persistent=False)
 
     def weights_ck(self) -> torch.Tensor:
         """The int8 kernel as the kernels take it, (Cout, Kh*Kw*Cin/groups);
@@ -159,10 +167,13 @@ class IntConv2d(nn.Module):
         if self.groups != 1:
             return int8_conv_xla_ck(x_q, self.w_ck, self.kernel_size, alpha, beta, self.stride,
                                     self.padding, self.stored_zp, relu, out_requant, self.groups)
-        conv = int8_conv_direct_ck if self.backend == "pallas" else int8_conv_gemm_ck
-        return conv(x_q, self.weights_ck(), self.kernel_size, alpha, beta, stride=self.stride,
-                    padding=self.padding, stored_zp=self.stored_zp, relu=relu,
-                    out_requant=out_requant)
+        if self.backend == "pallas":
+            return int8_conv_direct_ck(x_q, self.weights_ck(), self.kernel_size, alpha, beta, stride=self.stride,
+                                       padding=self.padding, stored_zp=self.stored_zp, relu=relu,
+                                       out_requant=out_requant, border_sums=self.border_sums)
+        return int8_conv_gemm_ck(x_q, self.weights_ck(), self.kernel_size, alpha, beta, stride=self.stride,
+                                 padding=self.padding, stored_zp=self.stored_zp, relu=relu,
+                                 out_requant=out_requant)
 
 
 class IntLinear(nn.Module):

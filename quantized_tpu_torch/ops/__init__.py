@@ -1,10 +1,11 @@
 """Integer ops of the port: the hand-written CUDA kernels (K1, K2 and its
 fused-residual form B8, the fused bottlenecks B3, BasicBlocks B4 and
 depthwise-separable pairs B5, the int4 GEMM B6, the flat-row conv B7, the
-copy probes B9), their plain PyTorch versions, the int4 packing, and the
-tensor plumbing around them."""
+copy probes B9), the launch plans of the Hopper GEMM (``gemm_plan``: K1,
+B6) and conv mainloop (``conv_plan``: K2's per-tap form, B7), their plain
+PyTorch versions, the int4 packing, and the tensor plumbing around them."""
 
-from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches
+from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches, route_counts
 from quantized_tpu_torch.ops.copy_probe import bulk_copy, copy_plain, grid_copy, ring_copy
 from quantized_tpu_torch.ops.fused_block import (
     fused_basicblock_ds,
@@ -45,12 +46,16 @@ from quantized_tpu_torch.ops.int8_conv import (
     pad_stored_zp,
 )
 from quantized_tpu_torch.ops.int8_conv_pallas import (
+    conv_border_sums,
+    conv_plan,
+    conv_tapsum,
     int8_conv_direct,
     int8_conv_direct_ck,
     int8_conv_direct_plain,
     int8_conv_flat,
     int8_conv_flat_ck,
     int8_conv_flat_plain,
+    int8_conv_zero_filled_plain,
 )
 from quantized_tpu_torch.ops.int8_matmul import (
     gemm_plan,

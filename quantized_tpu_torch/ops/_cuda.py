@@ -113,7 +113,9 @@ class CudaKernel:
     """One C entry point of a ``csrc`` source and its launch count.
 
     ``launches`` goes up by one for each launch that the CUDA runtime
-    accepted, and nowhere else."""
+    accepted, and nowhere else; where the entry has several routes (K2 and
+    B7: the Hopper mainloop or the general tile), ``routes[route]`` counts
+    the same launches by the route the caller asked the entry to take."""
 
     def __init__(self, name: str, source: str, symbol: str, arg_kinds: Sequence[str]):
         self.name = name
@@ -121,10 +123,11 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes: List = [ARG_TYPES[k] for k in arg_kinds] + [_P]  # + stream
         self.launches = 0
+        self.routes: Dict[str, int] = {}
         self._fn = None
         KERNELS[name] = self
 
-    def __call__(self, device: torch.device, *args) -> None:
+    def __call__(self, device: torch.device, *args, route: Optional[str] = None) -> None:
         if self._fn is None:
             lib = load_library(self.source)
             fn = getattr(lib, self.symbol)
@@ -137,6 +140,8 @@ class CudaKernel:
             msg = self._lib.qt_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: launch failed with CUDA error {rc} ({msg})")
         self.launches += 1
+        if route is not None:
+            self.routes[route] = self.routes.get(route, 0) + 1
 
 
 KERNELS: Dict[str, CudaKernel] = {}
@@ -145,10 +150,16 @@ KERNELS: Dict[str, CudaKernel] = {}
 def reset_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+        k.routes = {}
 
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+def route_counts() -> Dict[str, Dict[str, int]]:
+    """{kernel: {route: launches}} of the kernels with routes."""
+    return {name: dict(k.routes) for name, k in KERNELS.items() if k.routes}
 
 
 def require_cuda_tensors(*tensors: torch.Tensor) -> torch.device:

@@ -8,15 +8,25 @@ accumulation, then ``y = acc * alpha + beta``, with a residual ``y = y + (r
 requant ``clip(rint(y * f32(1/s) + (zp - 128)), -128, 127)`` onto the
 consumer's grid.
 
-K2 is one CUDA kernel behind one C entry (``csrc/int8_conv.cu``), counted
-under three names that stand for the Pallas bodies, chosen like them:
-per-tap, gather-K for small Cin (``cin <= 32`` with more than one tap) and
-the residual form (always per-tap in JAX). The kernel takes any Cin,
-gathering 16-byte chunks where Cin is a multiple of 16, 4-byte chunks where
-it is a multiple of 4 (the space-to-depth stem, MobileNet at width 0.75)
-and single bytes otherwise (the Cin-3 stems, Cin 9). B7 (``csrc/int8_conv_flat.cu``) runs
+K2 is one C entry (``csrc/int8_conv.cu``), counted under three names that
+stand for the Pallas bodies, chosen like them: per-tap, gather-K for small
+Cin (``cin <= 32`` with more than one tap) and the residual form (always
+per-tap in JAX). Its per-tap form over Cin % 16 == 0 with 16-byte-aligned
+operands runs the Hopper conv mainloop (``csrc/conv_sm90.cuh``: wgmma, a TMA
+ring, persistent blocks) under the launch plan of :func:`conv_plan`; the
+mainloop reads the padding as zeros, so it adds back ``stored_zp * tapsum``
+over each pixel's outside taps (:func:`conv_tapsum`; the kernel reads them
+from their summed-area table, :func:`conv_border_sums`, computed once per
+weight by :class:`~quantized_tpu_torch.engine.int_layers.IntConv2d`;
+:func:`int8_conv_zero_filled_plain` is that arithmetic in PyTorch). Every
+other call runs the general tile, which takes any Cin, gathering 16-byte
+chunks where Cin is a multiple of 16, 4-byte chunks where it is a multiple
+of 4 (the space-to-depth stem, MobileNet at width 0.75) and single bytes
+otherwise (the Cin-3 stems, Cin 9). B7 (``csrc/int8_conv_flat.cu``) runs
 stride-1 convs over the zero-point-padded image's flattened rows, every tap
-one read at a constant offset. The kernels take the weights packed (Cout,
+one read at a constant offset, on the same mainloop where Cin % 16 == 0 and
+on its own tile elsewhere. Each kernel counts its launches by route
+(``KERNELS[name].routes``: ``"sm90"`` or ``"tile"``). The kernels take the weights packed (Cout,
 Kh*Kw*Cin), which :class:`~quantized_tpu_torch.engine.int_layers.IntConv2d`
 stores once at build time; :func:`int8_conv_direct` and
 :func:`int8_conv_flat` keep the JAX signatures (HWIO), without the TPU
@@ -30,23 +40,38 @@ tensors it launches the kernel or raises. The whole-block kernels are in
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from quantized_tpu_torch.ops import _cuda
 from quantized_tpu_torch.ops.int8_conv import Ints, _pair, int8_conv_acc, pack_conv_weight, pad_stored_zp
-from quantized_tpu_torch.ops.int8_matmul import exact_int_matmul, f32
+from quantized_tpu_torch.ops.int8_matmul import H100_SMS, exact_int_matmul, f32
 
+CONV_PLAN_ARGS = ["int"] * 9  # the C entries' trailing plan arguments: ConvPlan.args()
 # one C entry (qt_int8_conv) behind the three counted forms: x, w, alpha,
-# beta, residual (None but for B8), out; the shape; the epilogue's scalars
-_CONV_ARGS = ["ptr"] * 6 + ["int"] * 16 + ["float"] * 4
+# beta, residual (None but for B8), border sums, out; the shape; the epilogue's
+# scalars; the plan
+_CONV_ARGS = ["ptr"] * 7 + ["int"] * 16 + ["float"] * 4 + CONV_PLAN_ARGS
 CONV_TAP = _cuda.CudaKernel("int8_conv_direct", "int8_conv.cu", "qt_int8_conv", _CONV_ARGS)
 CONV_GATHERK = _cuda.CudaKernel("int8_conv_direct_gatherk", "int8_conv.cu", "qt_int8_conv", _CONV_ARGS)
 CONV_RESIDUAL = _cuda.CudaKernel("int8_conv_direct_residual", "int8_conv.cu", "qt_int8_conv", _CONV_ARGS)
 CONV_FLAT = _cuda.CudaKernel("int8_conv_flat", "int8_conv_flat.cu", "qt_int8_conv_flat",
-                             ["ptr"] * 5 + ["int"] * 11 + ["float"] * 2)
+                             ["ptr"] * 5 + ["int"] * 11 + ["float"] * 2 + CONV_PLAN_ARGS)
+
+# The launch plan of the Hopper conv mainloop (csrc/conv_sm90.cuh); the
+# constants mirror the header's.
+CONV_TILE_M = 128  # output pixels (GEMM rows) per tile: two warpgroups of 64
+CONV_KCS = (128, 64, 32)  # K bytes per ring stage: one swizzle row
+CONV_MAX_STAGES = 8
+CONV_DEEP_STAGES = 4  # ring slots where a tile takes more stages: deeper rings timed slower on an H100
+CONV_PASS = 32  # channels the epilogue stages at a time
+CONV_ROW_INFO = 24  # bytes of a row of the epilogue's row table (RowInfo)
+CONV_BLOCKS_PER_SM = 2  # the kernel's __launch_bounds__ and the plan's shared memory allow two
+CONV_SMEM_PER_BLOCK = 228 * 1024 // CONV_BLOCKS_PER_SM - 1024  # an SM's 228 KB, less 1 KB a block for the system
+CONV_FORMS = ("tap", "gatherk", "residual", "flat")
 
 
 Grid = Tuple[float, int]
@@ -67,6 +92,135 @@ def flat_gather_k(cin: int, kernel_size: Tuple[int, int]) -> bool:
 def conv_out_hw(h: int, w: int, kernel_size, stride, padding) -> Tuple[int, int]:
     (kh, kw), (sh, sw), (ph, pw) = _pair(kernel_size), _pair(stride), _pair(padding)
     return (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+
+
+class ConvPlan(NamedTuple):
+    route: str  # "sm90": the Hopper mainloop; "tile": the general mma.sync tile (every field below 0)
+    kc: int  # K bytes per ring stage (128, 64 or 32: the widest that divides Cin, else 32)
+    bn: int  # output channels per tile (wgmma's N: 32, 64 or 128)
+    two: int  # K2: output columns x rows x images per tile (two * tho * nb <= 128); B7: 128, 1, 1
+    tho: int
+    nb: int
+    stages: int  # ring slots
+    smem: int  # dynamic shared memory per block, bytes
+    k_stages: int  # ring stages per tile: Kh * Kw * ceil(Cin / kc)
+    tiles: int  # output tiles: pixel tiles x ceil(Cout / bn)
+    blocks: int  # persistent blocks: min(tiles, 2 x SMs)
+
+    @property
+    def tma_shape(self) -> bool:
+        """The shape suits TMA; the C entry also needs 16-byte-aligned bases."""
+        return self.route == "sm90"
+
+    def args(self, sm90: bool) -> List[int]:
+        """The C entry's plan arguments: the mainloop's, or all 0 for the tile."""
+        if not sm90:
+            return [0] * len(CONV_PLAN_ARGS)
+        return [1, self.kc, self.bn, self.two, self.tho, self.nb, self.stages, self.blocks, self.smem]
+
+
+def conv_epilogue_bytes() -> int:
+    """Shared memory of the epilogue: each of the 8 consumer warps' 16
+    staged rows of 32 int32 channels (+16 bytes) and its row table."""
+    return 8 * 16 * (CONV_PASS * 4 + 16 + CONV_ROW_INFO)
+
+
+def conv_smem_bytes(kc: int, bn: int, stages: int) -> int:
+    """``smem_bytes`` of conv_sm90.cuh: 1024 bytes of alignment slack, the
+    ring of (128 + bn) x kc-byte stages, two 8-byte mbarriers a slot, the
+    epilogue's staging."""
+    return 1024 + stages * (CONV_TILE_M + bn) * kc + 16 * stages + conv_epilogue_bytes()
+
+
+_TILE_PLAN = ConvPlan("tile", *([0] * 10))
+
+
+@functools.lru_cache(maxsize=4096)  # a wrapper plans every call; the engines repeat a few shapes
+def conv_plan(n: int, h: int, w: int, cin: int, cout: int, kernel_size: Tuple[int, int],
+              stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0), form: str = "tap",
+              sms: int = H100_SMS) -> ConvPlan:
+    """The launch plan of K2 (``form`` "tap", "gatherk" or "residual") or B7
+    ("flat") on an (n, h, w, cin) input, before padding.
+
+    - route: the mainloop for the per-tap form and B7 where Cin % 16 == 0
+      (TMA's 16-byte row pitch) and, for K2, strides up to 8 (TMA's traversal
+      stride); the general tile for gather-K, the residual form and the rest;
+    - kc: 128, 64 or 32 K bytes a stage, the widest dividing Cin (32 for Cin
+      16 or 48: the chunk past Cin arrives as zeros);
+    - K2's tile: whole output rows (up to 128 columns), as many as make up to
+      128 pixels, balanced over the image; whole images, several a tile,
+      where one takes less than half (7x7: 2 images, 98 rows). B7's, and
+      K2's at a 1x1 stride-1 conv without padding (the C entry reads its
+      input as the rows of a matrix then): 128 consecutive flat rows;
+    - bn: 32, 64 or 128 channels, the smallest that holds Cout, and 64 in
+      place of 128 where the tiles would not cover the SMs;
+    - stages: 2 where a tile takes one or two stages (1x1 convs), else up
+      to 4, as many as fit in half an SM's shared memory beside the
+      epilogue's staging; blocks: two an SM (one block's epilogue runs
+      beside the other's loads and products), persistent over the tiles."""
+    if form not in CONV_FORMS:
+        raise ValueError(f"form {form!r} is not one of {CONV_FORMS}")
+    (kh, kw), (sh, sw), (ph, pw) = _pair(kernel_size), _pair(stride), _pair(padding)
+    hp, wp = h + 2 * ph, w + 2 * pw
+    if form == "flat":
+        ho, wo = hp - kh + 1, wp - kw + 1
+    else:
+        ho, wo = conv_out_hw(h, w, (kh, kw), (sh, sw), (ph, pw))
+    if cin % 16 or not (form == "flat" or (form == "tap" and sh <= 8 and sw <= 8)):
+        return _TILE_PLAN
+    kc = next(k for k in CONV_KCS if cin % k == 0 or k == CONV_KCS[-1])
+    k_stages = kh * kw * -(-cin // kc)
+    if form == "flat" or (kh, kw, sh, sw, ph, pw) == (1, 1, 1, 1, 0, 0):  # flat rows: B7, and K2's plain 1x1s
+        two, tho, nb = CONV_TILE_M, 1, 1
+        m_tiles = -(-((n - 1) * hp * wp + ho * wp) // CONV_TILE_M)
+    else:
+        two = min(wo, CONV_TILE_M, 256 // sw)
+        tho = min(ho, CONV_TILE_M // two, 256 // sh)
+        tho = -(-ho // -(-ho // tho))  # the same number of bands, evened out
+        nb = min(n, CONV_TILE_M // (two * tho), 256) if (two, tho) == (wo, ho) else 1
+        m_tiles = -(-wo // two) * -(-ho // tho) * -(-n // nb)
+    bn = 32 if cout <= 32 else 64 if cout <= 64 else 128
+    if bn == 128 and m_tiles * -(-cout // 128) < CONV_BLOCKS_PER_SM * sms:
+        bn = 64
+    tiles = m_tiles * -(-cout // bn)
+    ring = CONV_SMEM_PER_BLOCK - 1024 - 16 * CONV_MAX_STAGES - conv_epilogue_bytes()
+    deep = 2 if k_stages <= 2 else CONV_DEEP_STAGES  # a tile of one or two stages needs no deeper ring
+    stages = max(2, min(deep, ring // ((CONV_TILE_M + bn) * kc)))
+    smem = conv_smem_bytes(kc, bn, stages)
+    assert smem <= CONV_SMEM_PER_BLOCK
+    return ConvPlan("sm90", kc, bn, two, tho, nb, stages, smem, k_stages, tiles, min(tiles, CONV_BLOCKS_PER_SM * sms))
+
+
+def conv_tapsum(w_ck: torch.Tensor, taps: int) -> torch.Tensor:
+    """(taps, Cout) int32: ``tapsum[tap][n] = sum_c w[n, tap * Cin + c]``,
+    the weight sum that a tap reading the stored zero point multiplies."""
+    cout = w_ck.shape[0]
+    return w_ck.reshape(cout, taps, -1).sum(-1, dtype=torch.int32).T.contiguous()
+
+
+def conv_border_sums(w_ck: torch.Tensor, kernel_size) -> torch.Tensor:
+    """((Kh + 1) * (Kw + 1), Cout) int32, the summed-area table of
+    :func:`conv_tapsum`: entry (i, j) sums the tap sums of the taps (kh, kw)
+    with kh < i and kw < j. K2's Hopper route reads five of its entries for a
+    border pixel: the window's total less its rectangle of inside taps."""
+    kh, kw = _pair(kernel_size)
+    sums = conv_tapsum(w_ck, kh * kw).reshape(kh, kw, -1)
+    sat = torch.zeros((kh + 1, kw + 1, sums.shape[-1]), dtype=torch.int32, device=w_ck.device)
+    sat[1:, 1:] = sums.cumsum(0, dtype=torch.int32).cumsum(1, dtype=torch.int32)
+    return sat.reshape((kh + 1) * (kw + 1), -1)
+
+
+def outside_taps(h: int, w: int, kernel_size, stride, padding, device=None) -> torch.Tensor:
+    """(Ho, Wo, Kh * Kw) bool: which taps of each output pixel's window fall
+    outside the (h, w) image (the static border map of the JAX package's
+    strict engine, ``engine/strict.py`` ``_border_map``)."""
+    (kh, kw), (sh, sw), (ph, pw) = _pair(kernel_size), _pair(stride), _pair(padding)
+    ho, wo = conv_out_hw(h, w, (kh, kw), (sh, sw), (ph, pw))
+    rows = torch.arange(ho, device=device)[:, None] * sh - ph + torch.arange(kh, device=device)
+    cols = torch.arange(wo, device=device)[:, None] * sw - pw + torch.arange(kw, device=device)
+    hin, win = (rows >= 0) & (rows < h), (cols >= 0) & (cols < w)
+    inside = hin[:, None, :, None] & win[None, :, None, :]
+    return ~inside.reshape(ho, wo, kh * kw)
 
 
 def _epilogue(acc: torch.Tensor, alpha, beta, relu: bool, out_requant: Optional[Grid],
@@ -107,6 +261,33 @@ def int8_conv_direct_plain(
     return _epilogue(acc, alpha, beta, relu, out_requant, residual, res_grid)
 
 
+def int8_conv_zero_filled_plain(
+    x_q: torch.Tensor,
+    w_ck: torch.Tensor,
+    kernel_size: Tuple[int, int],
+    alpha: torch.Tensor,
+    beta: torch.Tensor,
+    stride: Ints = 1,
+    padding: Ints = 0,
+    stored_zp: int = -128,
+    relu: bool = False,
+    out_requant: Optional[Grid] = None,
+    tapsum: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """K2 in the Hopper mainloop's arithmetic: the padded taps read 0 (as
+    TMA fills them), then ``stored_zp * sum of tapsum`` over each pixel's
+    outside taps is added to the int32 accumulator, then K2's epilogue. It
+    equals :func:`int8_conv_direct_plain` exactly."""
+    kh, kw = _pair(kernel_size)
+    n, h, w, _ = x_q.shape
+    acc = int8_conv_acc(x_q, w_ck, (kh, kw), stride, padding, 0)
+    if tapsum is None:
+        tapsum = conv_tapsum(w_ck, kh * kw)
+    outside = outside_taps(h, w, (kh, kw), stride, padding, x_q.device)
+    border = (outside.to(torch.float64) @ tapsum.to(torch.float64)).to(torch.int32)  # exact: |sum| < 2**31
+    return _epilogue(acc + int(stored_zp) * border, alpha, beta, relu, out_requant)
+
+
 def _check_conv(x_q, w_ck, kh, kw, alpha, beta):
     cin, cout = x_q.shape[3], w_ck.shape[0]
     if w_ck.shape != (cout, kh * kw * cin):
@@ -141,10 +322,15 @@ def int8_conv_direct_ck(
     *,
     residual: Optional[torch.Tensor] = None,
     res_grid: Optional[Grid] = None,
+    border_sums: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2 on packed (Cout, Kh*Kw*Cin) weights. NHWC f32 out, or int8 on
     ``out_requant``'s grid. ``residual`` (N, Ho, Wo, Cout) int8 on
-    ``res_grid`` = (scale, zero point) is added before ReLU (B8)."""
+    ``res_grid`` = (scale, zero point) is added before ReLU (B8).
+    ``border_sums``: :func:`conv_border_sums` of the weights, which the
+    Hopper route needs where a padded tap reads a nonzero stored zero point;
+    the engines pass it, computed once, and other callers may leave it to
+    this call."""
     kh, kw = _pair(kernel_size)
     n, h, w, cin = x_q.shape
     cout = w_ck.shape[0]
@@ -164,12 +350,25 @@ def int8_conv_direct_ck(
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
     out, out_int8, inv, zps = _requant_args(out_requant, (n, ho, wo, cout), dev)
     if residual is None:
-        kernel, r_ptr, r_off, r_scale = CONV_GATHERK if use_gather_k(cin, (kh, kw)) else CONV_TAP, None, 0.0, 0.0
+        form = "gatherk" if use_gather_k(cin, (kh, kw)) else "tap"
+        kernel, r_ptr, r_off, r_scale = CONV_GATHERK if form == "gatherk" else CONV_TAP, None, 0.0, 0.0
     else:
+        form = "residual"
         kernel, r_ptr, r_off, r_scale = CONV_RESIDUAL, residual.data_ptr(), f32(128 - res_grid[1]), f32(res_grid[0])
-    kernel(dev, x_q.data_ptr(), w_ck.data_ptr(), alpha.data_ptr(), beta.data_ptr(), r_ptr, out.data_ptr(),
+    plan = conv_plan(n, h, w, cin, cout, (kh, kw), (sh, sw), (ph, pw), form, _cuda.sm_count(dev))
+    sm90 = plan.tma_shape and x_q.data_ptr() % 16 == 0 and w_ck.data_ptr() % 16 == 0
+    t_ptr = None
+    if sm90 and (ph or pw) and stored_zp != 0:
+        if border_sums is None:
+            border_sums = conv_border_sums(w_ck, (kh, kw))
+        elif border_sums.shape != ((kh + 1) * (kw + 1), cout):
+            raise ValueError(f"border_sums {tuple(border_sums.shape)} is not ({(kh + 1) * (kw + 1)}, {cout})")
+        _cuda.check_dtype(border_sums, torch.int32, "border_sums")
+        _cuda.require_cuda_tensors(x_q, border_sums)
+        t_ptr = border_sums.data_ptr()
+    kernel(dev, x_q.data_ptr(), w_ck.data_ptr(), alpha.data_ptr(), beta.data_ptr(), r_ptr, t_ptr, out.data_ptr(),
            n, h, w, cin, cout, kh, kw, sh, sw, ph, pw, ho, wo, int(stored_zp), int(relu), out_int8, inv, zps,
-           r_off, r_scale)
+           r_off, r_scale, *plan.args(sm90), route="sm90" if sm90 else "tile")
     return out
 
 
@@ -250,7 +449,8 @@ def int8_conv_flat_ck(
 ) -> torch.Tensor:
     """B7 on packed (Cout, Kh*Kw*Cin) weights: stride 1 only. ``gather_k``
     (default: :func:`flat_gather_k`) walks K over all taps at once instead
-    of tap by tap; both compute the same function."""
+    of tap by tap on the general tile; both compute the same function, and
+    the Hopper mainloop walks tap by tap for either."""
     _check_stride1(stride)
     kh, kw = _pair(kernel_size)
     n, h, w, cin = x_q.shape
@@ -262,11 +462,14 @@ def int8_conv_flat_ck(
     dev = _cuda.require_cuda_tensors(x_q, w_ck, alpha, beta)
     if gather_k is None:
         gather_k = flat_gather_k(cin, (kh, kw))
+    plan = conv_plan(n, h, w, cin, cout, (kh, kw), (1, 1), _pair(padding), "flat", _cuda.sm_count(dev))
     xp = pad_stored_zp(x_q, padding, stored_zp)
     _, hp, wp, _ = xp.shape
+    sm90 = plan.tma_shape and xp.data_ptr() % 16 == 0 and w_ck.data_ptr() % 16 == 0
     out, out_int8, inv, zps = _requant_args(out_requant, (n, hp - kh + 1, wp - kw + 1, cout), dev)
     CONV_FLAT(dev, xp.data_ptr(), w_ck.data_ptr(), alpha.data_ptr(), beta.data_ptr(), out.data_ptr(),
-              n, hp, wp, cin, cout, kh, kw, int(stored_zp), int(relu), out_int8, int(gather_k), inv, zps)
+              n, hp, wp, cin, cout, kh, kw, int(stored_zp), int(relu), out_int8, int(gather_k), inv, zps,
+              *plan.args(sm90), route="sm90" if sm90 else "tile")
     return out
 
 

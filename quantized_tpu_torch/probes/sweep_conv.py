@@ -15,7 +15,10 @@ distinct conv shape of ResNet-50 (ImageNet geometry, NHWC, batch B) with
 - ``bf16``: a cuDNN bf16 conv (``torch.nn.functional.conv2d``, channels
   last), the float cost model: a baseline only, never called by the port;
 - ``xla``: the port's plain ``int8_conv_xla`` (exact int32 accumulation,
-  f32 out), the path the JAX package left to XLA.
+  f32 out), the path the JAX package left to XLA;
+- ``intmm``: ``torch._int_mm`` on the 1x1 stride-1 shapes (the int32
+  product only, no epilogue): the one PyTorch call that computes a conv's
+  integer product on CUDA, the yardstick of rule 2 (``n/a`` elsewhere).
 
 ``i8io`` and ``b16io`` model TPU-resident layouts that only the JAX package
 runs on a TPU; here each prints a refusal cell.
@@ -27,11 +30,15 @@ the JAX script's perturbation of the input by the carry (there to stop XLA
 from reusing a result) has no counterpart. Prints ms per call, TOP/s and
 the share of the H100's dense peaks (1979 int8 TOP/s and 989 bf16 TFLOP/s,
 NVIDIA's data sheet), then each path's shape-count-weighted conv time of a
-whole ResNet-50.
+whole ResNet-50, and of its 1x1 stride-1 convs alone. With ``--host`` it
+also prints, for the int8 paths, the host's time per wrapper call
+(``host_us`` of ``probes/gemm_sweep.py``: checks, plan, output allocation
+and launch). The default mode uses only the wrappers, so the file also
+runs in an older checkout of the port for a parent-and-change comparison.
 
 Usage, on a GPU: ``python -m quantized_tpu_torch.probes.sweep_conv [batch]
-[modes]`` (defaults: 64, ``direct,flat,gemm,bf16``). It exits non-zero
-without one.
+[modes] [--host] [--secs S]`` (defaults: 64, ``direct,flat,gemm,bf16``,
+about 1 s a timed loop). It exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ INT8_PEAK_TOPS = 1979.0  # H100 SXM, dense, NVIDIA's data sheet
 BF16_PEAK_TOPS = 989.0
 DEFAULT_MODES = ("direct", "flat", "gemm", "bf16")
 TPU_ONLY_MODES = ("i8io", "b16io")
+ONE_BY_ONE_MODES = ("intmm",)  # defined on the 1x1 stride-1 shapes only
 OUT_REQUANT = (0.05, 128)
 STORED_ZP = 0
 
@@ -97,11 +105,14 @@ def _step(mode: str, k: int, stride: int, pad: int, inputs: Dict[str, torch.Tens
     elif mode == "xla":
         fn = lambda x, w, a, b: ops.int8_conv_xla(x, w, a, b, stride, pad, STORED_ZP, relu=True)  # noqa: E731
         args = (inputs["x_q8"], inputs["w_q"], inputs["alpha"], inputs["beta"])
+    elif mode == "intmm":
+        fn = lambda x, w: torch._int_mm(x.reshape(-1, x.shape[-1]), w.T)  # noqa: E731
+        args = (inputs["x_q8"], inputs["w_ck"])
     elif mode == "bf16":
         fn = lambda x, w: F.conv2d(x, w, stride=stride, padding=pad)  # noqa: E731
         args = (inputs["x_bf16"], inputs["w_bf16"])
     else:
-        raise ValueError(f"unknown mode {mode!r}: the port runs {sorted(INT8_PATHS) + ['bf16', 'xla']}")
+        raise ValueError(f"unknown mode {mode!r}: the port runs {sorted(INT8_PATHS) + ['bf16', 'intmm', 'xla']}")
 
     def step(carry, *a):
         fn(*a)
@@ -129,10 +140,12 @@ def _inputs(rng: np.random.Generator, batch: int, h: int, cin: int, cout: int, k
 
 def run_sweep(batch: int = 64, modes: Sequence[str] = DEFAULT_MODES, target_secs: float = 1.0, reps: int = 3,
               probe_loops: int = PROBE_LOOPS, device: DeviceLike = "cuda",
-              shapes: Optional[List[Tuple]] = None,
+              shapes: Optional[List[Tuple]] = None, host: bool = False,
               out: Callable[[str], None] = print) -> Dict[str, Dict[str, float]]:
     """Time every shape on every mode and print the table; returns
-    {mode: {shape name: seconds per call, nan where the path refused}}."""
+    {mode: {shape name: seconds per call, nan where the path refused or is
+    not defined}}; with ``host``, also {"host_us " + mode: {shape: us}} for
+    the int8 paths."""
     dev = resolve_device(device)
     shapes = SHAPES if shapes is None else shapes
     rng = np.random.default_rng(0)
@@ -147,8 +160,8 @@ def run_sweep(batch: int = 64, modes: Sequence[str] = DEFAULT_MODES, target_secs
         inputs = _inputs(rng, batch, h, cin, cout, k, "bf16" in modes, dev)
         cells = []
         for mode in modes:
-            if mode in TPU_ONLY_MODES:
-                cells.append(f"{'TPU only':>17}")
+            if mode in TPU_ONLY_MODES or (mode in ONE_BY_ONE_MODES and (k, s) != (1, 1)):
+                cells.append(f"{'TPU only' if mode in TPU_ONLY_MODES else 'n/a':>17}")
                 times[mode][shape] = math.nan
                 continue
             step, args = _step(mode, k, s, pad, inputs)
@@ -162,12 +175,24 @@ def run_sweep(batch: int = 64, modes: Sequence[str] = DEFAULT_MODES, target_secs
             peak = BF16_PEAK_TOPS if mode == "bf16" else INT8_PEAK_TOPS
             cells.append(f"{dt * 1e3:>7.3f} {tops:>5.1f} {100 * tops / peak:>3.0f}%")
             times[mode][shape] = dt
+            if host and mode in INT8_PATHS:
+                from quantized_tpu_torch.probes.gemm_sweep import host_us
+
+                us = host_us(lambda step=step, args=args: step(None, *args))
+                times.setdefault(f"host_us {mode}", {})[shape] = us
+                cells[-1] += f" host {us:6.2f} us"
         out(f"{shape:>9} {h:>4}x{cin:>4}x{cout:>4} {gops:>7.2f} | " + " | ".join(cells))
     out(f"whole-ResNet50 conv time (sum of shape x count), ms/batch of {batch}; nan where a shape refused:")
     counts = {row[0]: row[6] for row in shapes}
-    for mode, per_shape in times.items():
+    for mode in modes:
+        per_shape = times[mode]
         t = sum(per_shape[sh] * counts[sh] for sh in per_shape)
         out(f"  {mode:>5}: {t * 1e3:8.3f} ms  -> {batch / t if t > 0 else math.nan:9.0f} img/s (conv-only bound)")
+    out(f"its 1x1 stride-1 convs alone, ms/batch of {batch}:")
+    one_by_one = [row[0] for row in shapes if (row[4], row[5]) == (1, 1)]
+    for mode in modes:
+        t = sum(times[mode][sh] * counts[sh] for sh in one_by_one)
+        out(f"  {mode:>5}: {t * 1e3:8.3f} ms")
     return times
 
 
@@ -175,10 +200,17 @@ def main(argv: Sequence[str]) -> int:
     if not torch.cuda.is_available():
         print("sweep_conv: torch sees no CUDA GPU; this probe runs on one", file=sys.stderr)
         return 1
+    host = "--host" in argv
+    argv = [a for a in argv if a != "--host"]
+    secs = 1.0
+    if "--secs" in argv:
+        i = argv.index("--secs")
+        secs = float(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
     batch = int(argv[0]) if argv else 64
     modes = argv[1].split(",") if len(argv) > 1 else list(DEFAULT_MODES)
     torch.backends.cudnn.allow_tf32 = False
-    run_sweep(batch, modes)
+    run_sweep(batch, modes, target_secs=secs, host=host)
     return 0
 
 

@@ -678,3 +678,151 @@ def test_narrow_mobilenet_on_the_gpu_equals_its_cpu_twin(cuda_device):
                 assert torch.equal(hg.cpu(), hc), f"stage{j}"
         assert ops.KERNELS["fused_dw_pw"].launches == before + 12
         _assert_logits_close(fg.run_u8(u8.to(cuda_device)), fc.run_u8(u8))
+
+
+# ----------------------------------------------------------------- the Hopper conv mainloop (K2 per-tap, B7)
+
+SM90_CONV_CASES = [
+    # n, h, cin, cout, k, stride, pad, out_requant: each ResNet-50 shape class
+    # at batch 2 (1x1 s1, 3x3 s1, 3x3 s2 at 56->28, 28->14 and 14->7 with pad
+    # 1 and pad 0, 1x1 s2), ragged M, Cout 32 and 192, AlexNet's 5x5 pad-2
+    # conv2, Cin 16 and 48 (a 32-byte chunk zero-filled past Cin)
+    (2, 56, 64, 256, 1, 1, 0, None),
+    (2, 28, 512, 128, 1, 1, 0, (0.05, 113)),
+    (2, 56, 64, 64, 3, 1, 1, (0.07, 113)),
+    (2, 14, 256, 256, 3, 1, 1, None),
+    (2, 7, 512, 512, 3, 1, 1, (0.04, 99)),
+    (2, 56, 128, 128, 3, 2, 1, (0.05, 120)),
+    (2, 28, 256, 256, 3, 2, 1, None),
+    (2, 14, 512, 512, 3, 2, 1, (0.05, 120)),
+    (2, 14, 512, 512, 3, 2, 0, (0.05, 120)),
+    (2, 15, 64, 64, 3, 2, 0, None),
+    (2, 56, 256, 512, 1, 2, 0, None),
+    (2, 14, 1024, 2048, 1, 2, 0, (0.03, 128)),
+    (3, 9, 64, 40, 3, 1, 1, (0.05, 113)),
+    (5, 11, 128, 70, 1, 1, 0, None),
+    (2, 14, 64, 32, 3, 1, 1, (0.05, 113)),
+    (2, 14, 128, 192, 3, 1, 1, None),
+    (2, 27, 64, 192, 5, 1, 2, (0.05, 113)),
+    (1, 27, 64, 192, 5, 1, 2, None),
+    (2, 14, 16, 32, 1, 1, 0, (0.05, 113)),
+    (2, 13, 48, 64, 3, 1, 1, None),
+]
+
+
+def _routes(name):
+    return dict(ops.KERNELS[name].routes)
+
+
+def _sm90_case(gen, device, n, h, cin, cout, k):
+    """_conv_case with alpha scaled by 1/sqrt(K), so the requant spreads over
+    the int8 range at any K instead of saturating."""
+    x, w_ck, _, beta = _conv_case(gen, device, n, h, cin, cout, k)
+    alpha = _dev((gen.uniform(0.5, 1.5, cout) * 1e-3 / np.sqrt(k * k * cin)).astype(np.float32), device)
+    return x, w_ck, alpha, beta
+
+
+def _check_conv_route(x, w_ck, args, route, name="int8_conv_direct", spread=False, **kw):
+    """One call through the wrapper: the route taken and one launch, then
+    the output against the plain version (s8 equal, f32 within F32_ATOL;
+    ``spread``: s8 outputs take more than 20 values)."""
+    before, routes = ops.KERNELS[name].launches, _routes(name)
+    fn, plain = ((ops.int8_conv_flat_ck, ops.int8_conv_flat_plain) if name == "int8_conv_flat"
+                 else (ops.int8_conv_direct_ck, ops.int8_conv_direct_plain))
+    got = fn(x, w_ck, *args, **kw)
+    assert ops.KERNELS[name].launches == before + 1
+    assert _routes(name).get(route, 0) == routes.get(route, 0) + 1, (route, _routes(name))
+    want = plain(x, w_ck, *args)
+    torch.cuda.synchronize()
+    if got.dtype == torch.int8:
+        assert torch.equal(got, want)
+        assert not spread or len(torch.unique(want)) > 20  # not stuck on a clip
+    else:
+        torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout,k,s,pad,req", SM90_CONV_CASES)
+def test_conv_sm90_route_matches_plain(cuda_device, gen, n, h, cin, cout, k, s, pad, req):
+    """K2's per-tap form on the Hopper mainloop, the route asserted."""
+    x, w_ck, alpha, beta = _sm90_case(gen, cuda_device, n, h, cin, cout, k)
+    plan = ops.conv_plan(n, h, h, cin, cout, (k, k), (s, s), (pad, pad))
+    print(f"K2 {n}x{h}x{h}x{cin}->{cout} {k}x{k}/{s} pad {pad}: {plan}")
+    assert plan.route == "sm90"
+    _check_conv_route(x, w_ck, ((k, k), alpha, beta, s, pad, -5, True, req), "sm90", spread=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stored_zp", [127, -128])
+def test_conv_sm90_border_correction_at_extreme_zero_points(cuda_device, gen, stored_zp):
+    """The zero-filled padding corrected by stored_zp * tapsum at the
+    extreme stored zero points, with the border sums passed (as the engines
+    pass them) and left to the wrapper; 3x3 pad 1 and 5x5 pad 2."""
+    for n, h, cin, cout, k, s, pad in [(2, 14, 64, 64, 3, 1, 1), (2, 13, 64, 96, 5, 2, 2)]:
+        x, w_ck, alpha, beta = _sm90_case(gen, cuda_device, n, h, cin, cout, k)
+        args = ((k, k), alpha, beta, s, pad, stored_zp, True, (0.05, 113))
+        given = _check_conv_route(x, w_ck, args, "sm90", spread=True,
+                                  border_sums=ops.conv_border_sums(w_ck, (k, k)))
+        assert torch.equal(given, _check_conv_route(x, w_ck, args, "sm90"))
+        _check_conv_route(x, w_ck, ((k, k), alpha, beta, s, pad, stored_zp, False, None), "sm90")
+
+
+@pytest.mark.cuda
+def test_conv_stays_on_the_tile_where_the_mainloop_cannot_take_it(cuda_device, gen):
+    """An unaligned input (Cin 64, 3x3), Cin 24 (MobileNet at width 0.75),
+    the gather-K stem and the residual form take the general tile, exactly."""
+    n, h, cin, cout = 2, 9, 64, 40
+    buf = torch.empty(n * h * h * cin + 8, dtype=torch.int8, device=cuda_device)
+    x = buf[8:].view(n, h, h, cin)
+    x.copy_(_dev(gen.integers(-128, 128, (n, h, h, cin)).astype(np.int8), cuda_device))
+    assert x.data_ptr() % 16 != 0
+    _, w_ck, alpha, beta = _conv_case(gen, cuda_device, n, h, cin, cout, 3)
+    _check_conv_route(x, w_ck, ((3, 3), alpha, beta, 1, 1, -5, True, (0.05, 113)), "tile")
+    x24, w24, a24, b24 = _conv_case(gen, cuda_device, 2, 14, 24, 48, 1)
+    _check_conv_route(x24, w24, ((1, 1), a24, b24, 1, 0, -5, True, (0.05, 113)), "tile")
+    xs, ws, as_, bs = _conv_case(gen, cuda_device, 2, 30, 12, 64, 4)
+    _check_conv_route(xs, ws, ((4, 4), as_, bs, 1, 0, -5, True, (0.05, 113)), "tile",
+                      name="int8_conv_direct_gatherk")
+    xr, wr, ar, br = _conv_case(gen, cuda_device, 2, 14, 64, 64, 3)
+    r = _dev(gen.integers(-128, 128, (2, 14, 14, 64)).astype(np.int8), cuda_device)
+    kw = dict(residual=r, res_grid=(0.03, 117))
+    before = _routes("int8_conv_direct_residual").get("tile", 0)
+    got = ops.int8_conv_direct_ck(xr, wr, (3, 3), ar, br, 1, 1, -5, True, (0.06, 105), **kw)
+    assert _routes("int8_conv_direct_residual")["tile"] == before + 1
+    assert torch.equal(got, ops.int8_conv_direct_plain(xr, wr, (3, 3), ar, br, 1, 1, -5, True, (0.06, 105), **kw))
+
+
+@pytest.mark.cuda
+def test_conv_sm90_is_deterministic_and_takes_the_current_stream(cuda_device, gen):
+    """Two calls give the same bytes, also on a non-default stream, for K2
+    (s8 and f32) and B7."""
+    x, w_ck, alpha, beta = _conv_case(gen, cuda_device, 4, 28, 128, 128, 3)
+
+    def calls():
+        return [ops.int8_conv_direct_ck(x, w_ck, (3, 3), alpha, beta, 1, 1, -5, True, (0.05, 113)),
+                ops.int8_conv_direct_ck(x, w_ck, (3, 3), alpha, beta, 2, 1, -5, True, None),
+                ops.int8_conv_flat_ck(x, w_ck, (3, 3), alpha, beta, 1, 1, -5, True, (0.05, 113))]
+
+    first = calls()
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(stream):
+        second = calls()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(torch.int8) if a.dtype == torch.int8 else a.view(torch.int32),
+                           b.view(torch.int8) if b.dtype == torch.int8 else b.view(torch.int32))
+    assert torch.equal(second[2], ops.int8_conv_direct_plain(x, w_ck, (3, 3), alpha, beta, 1, 1, -5, True,
+                                                             (0.05, 113)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout,k,req,gather_k", FLAT_CASES)
+def test_flat_conv_route(cuda_device, gen, n, h, cin, cout, k, req, gather_k):
+    """B7 takes the mainloop where Cin % 16 == 0, in both K walks, and the
+    tile elsewhere (Cin 3 and 24)."""
+    x, w_ck, alpha, beta = _conv_case(gen, cuda_device, n, h, cin, cout, k)
+    route = "sm90" if cin % 16 == 0 else "tile"
+    _check_conv_route(x, w_ck, ((k, k), alpha, beta, 1, k // 2, -5, True, req), route, name="int8_conv_flat",
+                      gather_k=gather_k)

@@ -2,7 +2,13 @@
 ``gemm_plan`` (CPU) and of the GEMM kernels (GPU): the fc heads of the
 ResNets and MobileNet and AlexNet's fc1-3 at serving batches 1, 8, 32 and
 128, and the "gemm" backend's im2col products of ResNet-50's 24 conv shapes
-(``probes/sweep_conv.SHAPES``) at the same batches."""
+(``probes/sweep_conv.SHAPES``) at the same batches; and the calls that the
+engines make to K2 (``engine_conv_calls``), for the tests of ``conv_plan``."""
+
+import functools
+from typing import NamedTuple, Optional
+
+import torch
 
 from quantized_tpu_torch.ops.int8_matmul import gemm_plan
 from quantized_tpu_torch.probes.gemm_sweep import BATCHES, FC, INT4_FC
@@ -42,3 +48,63 @@ def distinct_plans(packed: bool):
         if plan.tma_shape:
             chosen.setdefault((plan.tile, plan.split, plan.stages), (label, m, n, k))
     return sorted(chosen.values())
+
+
+class ConvCall(NamedTuple):
+    """One call of an engine to K2's wrapper, at batch 1."""
+    engine: str
+    h: int
+    w: int
+    cin: int
+    cout: int
+    kernel_size: tuple
+    stride: tuple
+    padding: tuple
+    stored_zp: int
+    w_ck: torch.Tensor  # the packed weights
+    border_sums: Optional[torch.Tensor]  # what the layer passes (IntConv2d.border_sums)
+
+
+# name: (registered model, its config); each served at 224x224
+CONV_ENGINES = {
+    "resnet50": ("resnet_quantized_float_bn", dict(dataset="imagenet", depth=50)),
+    "resnet18": ("resnet_quantized_float_bn", dict(dataset="imagenet", depth=18)),
+    "mobilenet": ("mobilenet_quantized", dict(num_classes=1000, width_mult=1.0)),
+    "alexnet": ("alexnet_quantized", dict(num_classes=1000)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def engine_conv_calls(name: str):
+    """Every K2 call (per-tap and gather-K) of one batch-1 224x224 forward of
+    an int8 engine built on the CPU from seed 0; the convs themselves are not
+    computed (each call returns zeros of its output's shape and type)."""
+    from quantized_tpu_torch.engine import build_int8_alexnet, build_int8_mobilenet, build_int8_resident
+    from quantized_tpu_torch.engine import int_layers
+    from quantized_tpu_torch.entry import _calibrated_model
+    from quantized_tpu_torch.ops.int8_conv_pallas import conv_out_hw
+
+    model_name, cfg = CONV_ENGINES[name]
+    model = _calibrated_model(model_name, device="cpu", generator=torch.Generator().manual_seed(0), **cfg)
+    build = {"resnet50": build_int8_resident, "resnet18": build_int8_resident,
+             "mobilenet": build_int8_mobilenet, "alexnet": build_int8_alexnet}[name]
+    engine = build(model, backend="pallas", device="cpu")
+    calls = []
+
+    def record(x_q, w_ck, kernel_size, alpha, beta, stride, padding, stored_zp, relu, out_requant,
+               border_sums=None, **_):
+        n, h, w, cin = x_q.shape
+        ho, wo = conv_out_hw(h, w, kernel_size, stride, padding)
+        calls.append(ConvCall(name, h, w, cin, w_ck.shape[0], tuple(kernel_size), tuple(stride), tuple(padding),
+                              int(stored_zp), w_ck, border_sums))
+        dtype = torch.float32 if out_requant is None else torch.int8
+        return torch.zeros((n, ho, wo, w_ck.shape[0]), dtype=dtype)
+
+    real = int_layers.int8_conv_direct_ck
+    int_layers.int8_conv_direct_ck = record
+    try:
+        with torch.inference_mode():
+            engine.run_u8(torch.zeros((1, 224, 224, 3), dtype=torch.uint8))
+    finally:
+        int_layers.int8_conv_direct_ck = real
+    return tuple(calls)
