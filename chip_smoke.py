@@ -23,8 +23,14 @@ and a non-zero exit:
    could take (the bytes the function must move over 3.35 TB/s or its int8
    operations over 1979 TOP/s, whichever is larger: ``bound_ms`` of
    ``probes/gemm_sweep.py``). The fused bottleneck
-   kernels (B3) run at five of ResNet-50's block shapes, the fused
-   BasicBlock kernels (B4) at ResNet-18's and CIFAR ResNet-20's, the fused
+   kernels (B3) run at seven of ResNet-50's block shapes (layer1-4, the
+   layer3 blocks included), the fused BasicBlock kernels (B4) at
+   ResNet-18's and CIFAR ResNet-20's, each on the Hopper mainloop (route
+   "sm90", asserted) with its launch plan (``block_plan``: cluster, images
+   a cluster, band, job width, ring stages, shared memory) and its
+   instance's ptxas line printed first; the stage probes of B3
+   (``fused_stages_conv1`` and ``_conv12``, ``bench/fused_probe.py``'s
+   ``k_conv1`` and ``k_conv12``) at (32, 56, 56, 256), C 256, Cm 64; the fused
    depthwise-separable kernel (B5) at MobileNet-v1's pairs 0, 1, 6 and 11
    and at width 0.75's and 0.25's pair 0 (C = 24 and 8; each with its band
    height R and grid), K2's gather-K form also at MobileNet's stem (3x3/s2
@@ -58,7 +64,10 @@ and a non-zero exit:
    shapes (a yardstick, no kernel of the port); "conv ops", B8 through
    ``int8_conv_direct(..., residual=, res_grid=)`` (2 launches, equal to
    its plain version); "copy probe", every variant of ``probes/dma_ring``
-   checked exact, then timed;
+   checked exact, then timed; "fused stages", ``probes/fused_stages``:
+   copy, conv1, conv12 and the full identity block on one (32, 56, 56,
+   256) input, each equal to its plain version, then timed (which stage of
+   B3 takes the time);
 5. the serving paths, each through the entry points a user calls
    (``_calibrated_model`` from a seeded generator, ``build_int8_resident(...,
    backend="pallas")`` or ``build_int8_mobilenet``, ``IntExecutor(...,
@@ -67,7 +76,8 @@ and a non-zero exit:
    with the launch counts set to 0 just before and read just after; every
    kernel must launch exactly the stated number of times per forward, and
    every K2 per-tap launch takes the mainloop but the one over Cin 24 of
-   MobileNet at width 0.75 (the general tile):
+   MobileNet at width 0.75 (the general tile), and every B3 and B4 launch
+   takes the Hopper mainloop:
    - ResNet-50 (ImageNet geometry, 224x224, layers [3, 4, 6, 3], 1000
      classes): unfused, 52 K2 per-tap (48 block convs, 4 downsamples), 1 K2
      gather-K (the space-to-depth stem) and 1 K1 (the fc); the "gemm"
@@ -197,6 +207,8 @@ KERNEL_INFO = {
     "ring_copy": ("quantized_tpu_torch/csrc/copy_probe.cu",
                   "bench/dma_ring_probe.py:103, bench/dma_ring_probe2.py:90, bench/dma_ring_probe3.py:164"),
     "bulk_copy": ("quantized_tpu_torch/csrc/copy_probe.cu", "bench/dma_ring_probe2.py:47, bench/dma_ring_probe3.py:185"),
+    "fused_stages_conv1": ("quantized_tpu_torch/csrc/fused_stages.cu", "bench/fused_probe.py:66"),
+    "fused_stages_conv12": ("quantized_tpu_torch/csrc/fused_stages.cu", "bench/fused_probe.py:75"),
 }
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
@@ -204,13 +216,14 @@ KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "r
                "fused_basicblock_ds": "resnet18 fused", "fused_dw_pw": "mobilenet fused",
                "int4_matmul": "alexnet int4 serve", "int8_conv_flat": "conv sweep",
                "int8_conv_direct_residual": "conv ops", "grid_copy": "copy probe", "ring_copy": "copy probe",
-               "bulk_copy": "copy probe"}
-OUR_KERNELS = ("int8_conv_kernel", "conv_sm90_kernel", "int8_matmul_kernel", "gemm_sm90_kernel", "fused_bottleneck_kernel",
-               "fused_basicblock_kernel", "fused_dw_pw_kernel", "int4_matmul_kernel", "int8_conv_flat_kernel",
-               "grid_copy_kernel", "ring_copy_kernel", "bulk_copy_kernel")  # device kernel names
+               "bulk_copy": "copy probe", "fused_stages_conv1": "fused stages", "fused_stages_conv12": "fused stages"}
+OUR_KERNELS = ("int8_conv_kernel", "conv_sm90_kernel", "int8_matmul_kernel", "gemm_sm90_kernel",
+               "bottleneck_sm90_kernel", "basic_sm90_kernel", "fused_dw_pw_kernel", "int4_matmul_kernel",
+               "int8_conv_flat_kernel", "grid_copy_kernel", "ring_copy_kernel", "bulk_copy_kernel")  # device kernel names
 SWEEP_MODES = ("direct", "flat", "gemm")  # the conv sweep path: K2, B7 and im2col + K1
 # K2 per-tap launches per forward on the general tile (Cin % 16 != 0); every other one takes the mainloop
 SERVE_TILE_ROUTE = {"mobilenet w0.75 serve": 1}
+BLOCK_KERNELS = ("fused_bottleneck_s1", "fused_bottleneck_ds", "fused_basicblock_s1", "fused_basicblock_ds")
 PATH_ROUTES = {}  # path: {kernel: {route: launches}} of the kernels with routes
 SWEEP_TARGET_SECS = 0.02  # per timed loop of the sweep; the probe's own default is 1 s
 COPY_TARGET_SECS = 0.05
@@ -338,6 +351,23 @@ def _log_conv_plan(kernel, label, x, wc, ks, stride, pad, form):
     return plan
 
 
+def _log_block_plan(kernel, label, kind, x, cm, cout, stride, ds):
+    """B3's or B4's plan of a call (``block_plan``: cluster size, images a
+    cluster, band, job width, ring stages, shared memory, blocks) and its
+    instance's ptxas line; the route is asserted by the caller from the counts."""
+    from quantized_tpu_torch.ops import block_plan
+
+    n, h, w, c = x.shape
+    plan = block_plan(kind, n, h, w, c, cm, cout, stride, ds)
+    instance = (f"bottleneck_sm90_kernelILi{plan.bn}ELi{stride}ELb{int(ds)}ELi0E" if kind == "bottleneck"
+                else f"basic_sm90_kernelILi{plan.bn}ELi{stride}ELb{int(ds)}E")
+    ptxas = next((v for key, v in _ptxas_lines("fused_block.cu").items() if instance in key), "not built in this run")
+    log(f"[kernels] {kernel} {label} plan: cluster {plan.q}x1x1, images a cluster {plan.nb}, band {plan.r}, "
+        f"bn {plan.bn}, stages {plan.stages}, dynamic smem {plan.smem} B, blocks {plan.blocks}, ring stages a "
+        f"block {plan.steps}; ptxas: {ptxas}")
+    return plan
+
+
 def _route_of(name, before):
     """The route of the one launch of ``name`` since ``before`` (its routes then)."""
     from quantized_tpu_torch import ops
@@ -386,6 +416,15 @@ def phase_kernels(timer):
         if representative:
             entry.update(case=case, ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
+
+    def _block_case(name, case, kind, x, cm, cout, s, ds, kernel, plain, nbytes, nops, rep):
+        """B3 or B4: its plan, then the kernel against its plain version and
+        timed; it must take the mainloop."""
+        _log_block_plan(name, case, kind, x, cm, cout, s, ds)
+        before = dict(ops.KERNELS[name].routes)
+        record(name, case, kernel, plain, None, nbytes, nops, rep, plain_iters=3)
+        if _route_of(name, before) != "sm90":
+            raise AssertionError(f"{name} {case}: not on the mainloop")
 
     # K1, f32 form: the fc head, (32, 2048) x (2048, 1000), then AlexNet's
     # fc1-3 at batches 1, 8, 32 and 128 (torch._int_mm refuses M <= 16)
@@ -526,9 +565,11 @@ def phase_kernels(timer):
     fused_cases = [
         # name, label, (h, c, cm, cout, stride), representative
         ("fused_bottleneck_s1", "layer1.1 56x56 256->64->256", (56, 256, 64, 256, 1), True),
+        ("fused_bottleneck_s1", "layer3.1 14x14 1024->256->1024", (14, 1024, 256, 1024, 1), False),
         ("fused_bottleneck_s1", "layer4.1 7x7 2048->512->2048", (7, 2048, 512, 2048, 1), False),
         ("fused_bottleneck_ds", "layer1.0 s1 56x56 64->64->256", (56, 64, 64, 256, 1), False),
         ("fused_bottleneck_ds", "layer2.0 s2 56x56 256->128->512", (56, 256, 128, 512, 2), True),
+        ("fused_bottleneck_ds", "layer3.0 s2 28x28 512->256->1024", (28, 512, 256, 1024, 2), False),
         ("fused_bottleneck_ds", "layer4.0 s2 14x14 1024->512->2048", (14, 1024, 512, 2048, 2), False),
     ]
     for name, label, (h, c, cm, cout, s), rep in fused_cases:
@@ -550,10 +591,9 @@ def phase_kernels(timer):
         nbytes = x.numel() + b * ho * ho * cout + sum(w.numel() for w in ws) + 4 * sum(v.numel() for v in vecs)
         nops = 2 * b * (h * h * c * cm + 9 * ho * ho * cm * cm + ho * ho * cm * cout
                         + (ho * ho * c * cout if ds else 0))
-        record(name, f"{label} batch {b}",
-               lambda x=x, args=args, kernel=kernel: kernel(x, *args),
-               lambda x=x, args=args, plain=plain: plain(x, *args),
-               None, nbytes, nops, rep, plain_iters=3)
+        _block_case(name, f"{label} batch {b}", "bottleneck", x, cm, cout, s, ds,
+                    lambda x=x, args=args, kernel=kernel: kernel(x, *args),
+                    lambda x=x, args=args, plain=plain: plain(x, *args), nbytes, nops, rep)
 
     # B4: the fused BasicBlocks at ResNet-18's and CIFAR ResNet-20's shapes,
     # conv1's stored zero point unlike conv2's, the int16 shortcut leg on
@@ -584,10 +624,25 @@ def phase_kernels(timer):
         ho = h // s
         nbytes = x.numel() + b * ho * ho * cm + sum(w.numel() for w in ws) + 4 * sum(v.numel() for v in vecs)
         nops = 2 * b * ho * ho * (9 * c * cm + 9 * cm * cm + (c * cm if ds else 0))
-        record(name, f"{label} batch {b}",
-               lambda x=x, args=args, kernel=kernel: kernel(x, *args),
-               lambda x=x, args=args, plain=plain: plain(x, *args),
-               None, nbytes, nops, rep, plain_iters=3)
+        _block_case(name, f"{label} batch {b}", "basic", x, cm, cm, s, ds,
+                    lambda x=x, args=args, kernel=kernel: kernel(x, *args),
+                    lambda x=x, args=args, plain=plain: plain(x, *args), nbytes, nops, rep)
+
+    # the stage probes of B3 (bench/fused_probe.py's k_conv1 and k_conv12) at
+    # their geometry, (32, 56, 56, 256), C = 256, Cm = 64: bytes of x, the
+    # output and the weights; conv1's operations, and conv2's for conv12
+    from quantized_tpu_torch.probes.fused_stages import CM, SCALE
+    xs = _rand_int8(gen, (b, 56, 56, 256))
+    w1s, w2s = _rand_int8(gen, (CM, 256), low=-127), _rand_int8(gen, (CM, 9 * CM), low=-127)
+    a_s = torch.full((CM,), SCALE, device=dev)
+    for stop, name in ((1, "fused_stages_conv1"), (2, "fused_stages_conv12")):
+        ops_n = 2 * b * 56 * 56 * (256 * CM + (9 * CM * CM if stop == 2 else 0))
+        before = dict(ops.KERNELS[name].routes)
+        record(name, f"(32, 56, 56, 256) C 256 Cm {CM}", lambda stop=stop: ops.fused_stage_ck(xs, w1s, w2s, a_s, stop),
+               lambda stop=stop: ops.fused_stage_plain(xs, w1s, w2s, a_s, stop), None,
+               2 * xs.numel() + w1s.numel() + (w2s.numel() if stop == 2 else 0) + 4 * CM, ops_n, True, plain_iters=3)
+        if _route_of(name, before) != "sm90":
+            raise AssertionError(f"{name}: not on the mainloop")
 
     # B5: MobileNet-v1's fused depthwise-separable pairs, the depthwise
     # conv's stored zero point unlike either clip floor
@@ -857,6 +912,10 @@ def _serve(what, executor, requests, per_forward, classes):
     tile = routes.get("int8_conv_direct", {}).get("tile", 0)
     if tile != SERVE_TILE_ROUTE.get(what, 0) * len(requests):
         raise AssertionError(f"{what}: {tile} K2 per-tap launches on the general tile")
+    for name in BLOCK_KERNELS:  # every B3 and B4 launch on the Hopper mainloop
+        if counts[name] and routes.get(name) != {"sm90": counts[name]}:
+            raise AssertionError(f"{what}: {name} launches by route {routes.get(name)}, all {counts[name]} "
+                                 f"expected on the mainloop")
     for logits in answers:
         if tuple(logits.shape) != (requests[0].shape[0], classes) or not torch.isfinite(logits).all():
             raise AssertionError(f"{what}: bad logits, shape {tuple(logits.shape)}")
@@ -1078,6 +1137,24 @@ def phase_copy_probe():
     return counts, times
 
 
+def phase_fused_stages():
+    """The stage split of B3 (``probes/fused_stages``): copy, conv1, conv12
+    and the full identity block on one (32, 56, 56, 256) input, each equal
+    to its plain version, then timed; the stage probes on the mainloop."""
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.probes import fused_stages
+
+    counts, times = _path_counts("fused stages", lambda: fused_stages.run_probe(
+        SERVE_BATCH, out=lambda line: log(f"[fused stages] {line}")))
+    _require_launched(counts, ("grid_copy", "fused_stages_conv1", "fused_stages_conv12", "fused_bottleneck_s1"),
+                      "fused stages")
+    routes = PATH_ROUTES["fused stages"] = ops.route_counts()
+    for name in ("fused_stages_conv1", "fused_stages_conv12", "fused_bottleneck_s1"):
+        if set(routes.get(name, {})) != {"sm90"}:
+            raise AssertionError(f"fused stages: {name} routes {routes.get(name)}")
+    return counts, times
+
+
 def _time_forward(executor, dev_batch, iters=10):
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1184,6 +1261,7 @@ def main() -> int:
     path_counts["conv sweep"], _ = phase_conv_sweep()
     path_counts["conv ops"] = phase_conv_ops()
     path_counts["copy probe"], _ = phase_copy_probe()
+    path_counts["fused stages"], _ = phase_fused_stages()
     for key in ("resnet50", "resnet18", "cifar20", "mobilenet", "mobilenet w0.75"):
         executors[key], counts = phase_model(key)
         path_counts.update(counts)

@@ -1,13 +1,15 @@
 """Integer ops of the port: the hand-written CUDA kernels (K1, K2 and its
 fused-residual form B8, the fused bottlenecks B3, BasicBlocks B4 and
 depthwise-separable pairs B5, the int4 GEMM B6, the flat-row conv B7, the
-copy probes B9), the launch plans of the Hopper GEMM (``gemm_plan``: K1,
-B6) and conv mainloop (``conv_plan``: K2's per-tap form, B7), their plain
+copy probes B9, the fused bottleneck's stage probes), the launch plans of
+the Hopper GEMM (``gemm_plan``: K1, B6), conv mainloop (``conv_plan``: K2's
+per-tap form, B7) and block mainloop (``block_plan``: B3, B4), their plain
 PyTorch versions, the int4 packing, and the tensor plumbing around them."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches, route_counts
 from quantized_tpu_torch.ops.copy_probe import bulk_copy, copy_plain, grid_copy, ring_copy
 from quantized_tpu_torch.ops.fused_block import (
+    block_plan,
     fused_basicblock_ds,
     fused_basicblock_ds_ck,
     fused_basicblock_ds_plain,
@@ -23,6 +25,9 @@ from quantized_tpu_torch.ops.fused_block import (
     fused_dw_pw,
     fused_dw_pw_ck,
     fused_dw_pw_plain,
+    fused_stage,
+    fused_stage_ck,
+    fused_stage_plain,
 )
 from quantized_tpu_torch.ops.int4 import (
     int4_matmul,

@@ -46,7 +46,7 @@ from quantized_tpu_torch.entry import _calibrated_model as t_calibrated_model
 from quantized_tpu_torch.ingest import load_jax_arrays
 from quantized_tpu_torch.models import get_model
 from quantized_tpu_torch.ops import _cuda
-from quantized_tpu_torch.ops.fused_block import basicblock_band_rows, basicblock_smem_bytes
+from quantized_tpu_torch.ops.fused_block import SMEM_PER_BLOCK, block_plan, block_smem_bytes
 
 MAX_STEP = 1
 MAX_DIFF_SHARE = 0.01
@@ -145,12 +145,15 @@ def test_fused_basicblock_wrappers_check_their_inputs(rng):
 
 @pytest.mark.parametrize("ho,cm,want_rows", [
     # the fused blocks of ResNet-18 at 224x224 and of CIFAR ResNet-20: (output rows = width, Cm)
-    (56, 64, 8), (28, 128, 10), (14, 256, 14), (7, 512, 7), (32, 16, 8), (16, 32, 16), (8, 64, 8),
+    (56, 64, 14), (28, 128, 14), (14, 256, 7), (7, 512, 7), (32, 16, 8), (16, 32, 6), (8, 64, 8),
 ])
 def test_basicblock_band_plan_fits_shared_memory(ho, cm, want_rows):
-    r = basicblock_band_rows(ho, ho, cm)
-    assert r == want_rows
-    assert basicblock_smem_bytes(r, ho, cm) <= 113 * 1024  # two blocks per SM
+    """block_plan's band for an identity BasicBlock at batch 32, within one
+    block's shared memory."""
+    plan = block_plan("basic", 32, ho, ho, cm, cm, cm, 1, False)
+    assert plan.r == want_rows
+    assert plan.smem == block_smem_bytes("basic", plan.bn, plan.stages, plan.nb, plan.r, ho, cm, 1)
+    assert plan.smem <= SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("n,h,cout,stride,req", [(2, 32, 16, 1, (0.05, 113)), (2, 9, 24, 2, None)])

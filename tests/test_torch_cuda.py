@@ -331,6 +331,8 @@ def test_fused_s1_kernel_matches_plain(cuda_device, gen, n, h, c, cm):
     (2, 56, 256, 128, 512, 2, 0.0),
     # ragged widths and bands
     (3, 10, 48, 32, 80, 2, 32.0), (2, 9, 32, 16, 40, 1, 0.0),
+    # Cout % 16 != 0, odd: the wrapper pads the output channels to 48
+    (2, 10, 32, 16, 41, 2, 32.0),
 ])
 def test_fused_ds_kernel_matches_plain(cuda_device, gen, n, h, c, cm, cout, stride, fine):
     x, w, v = _fused_case(gen, cuda_device, n, h, c, cm, cout, ds=True)
@@ -441,6 +443,95 @@ def test_fused_basicblock_wrappers_raise_on_shapes_the_kernel_refuses(cuda_devic
         ops.fused_basicblock_ds_ck(x[:, :7, :7].contiguous(), *w, *v, 2, **BASIC_SCALARS)
     with pytest.raises(ValueError):  # a CPU vector mixed into a CUDA call
         ops.fused_basicblock_ds_ck(x, *w, v[0].cpu(), *v[1:], 1, **BASIC_SCALARS)
+
+
+# B3 and B4 on the Hopper mainloop (csrc/block_sm90.cuh): every block shape of
+# chip_smoke.py's kernels phase, ResNet-50's layer3 blocks, and shapes whose
+# plan leaves a ragged last band; (kind, side, C, Cm, Cout, stride, ds)
+BLOCK_SHAPES = [
+    ("bottleneck", 56, 256, 64, 256, 1, False),  # ResNet-50 layer1.1
+    ("bottleneck", 14, 1024, 256, 1024, 1, False),  # layer3.1
+    ("bottleneck", 7, 2048, 512, 2048, 1, False),  # layer4.1
+    ("bottleneck", 56, 64, 64, 256, 1, True),  # layer1.0
+    ("bottleneck", 56, 256, 128, 512, 2, True),  # layer2.0
+    ("bottleneck", 28, 512, 256, 1024, 2, True),  # layer3.0
+    ("bottleneck", 14, 1024, 512, 2048, 2, True),  # layer4.0
+    ("basic", 56, 64, 64, 64, 1, False),  # ResNet-18 layer1.1
+    ("basic", 14, 256, 256, 256, 1, False),  # layer3.1
+    ("basic", 32, 16, 16, 16, 1, False),  # CIFAR ResNet-20 layer1.1
+    ("basic", 56, 64, 128, 128, 2, True),  # ResNet-18 layer2.0
+    ("basic", 14, 256, 512, 512, 2, True),  # layer4.0
+    ("basic", 32, 16, 32, 32, 2, True),  # CIFAR layer2.0
+]
+RAGGED_BLOCKS = [  # at batch 1 the plan cuts these into bands that do not divide the image
+    ("bottleneck", 19, 64, 32, 64, 1, False), ("bottleneck", 23, 64, 64, 256, 1, True),
+    ("basic", 19, 16, 16, 16, 1, False), ("basic", 38, 16, 32, 32, 2, True),
+]
+
+
+def _run_block(gen, device, kind, n, h, c, cm, cout, stride, ds):
+    """The kernel and its plain version on one case; returns the plan."""
+    if kind == "bottleneck":
+        x, w, v = _fused_case(gen, device, n, h, c, cm, cout, ds)
+        if ds:
+            name, args = "fused_bottleneck_ds", (*w, *v, stride)
+            kw = dict(FUSED_SCALARS, ds_fine=32.0)
+            kernel, plain = ops.fused_bottleneck_ds_ck, ops.fused_bottleneck_ds_plain
+        else:
+            name, args = "fused_bottleneck_s1", (*w, *v)
+            kw = dict(FUSED_SCALARS, id_k=0.8137192, id_c=2.71828)
+            kernel, plain = ops.fused_bottleneck_s1_ck, ops.fused_bottleneck_s1_plain
+    else:
+        x, w, v = _basic_case(gen, device, n, h, c, cm, ds)
+        if ds:
+            name, args = "fused_basicblock_ds", (*w, *v, stride)
+            kw = dict(BASIC_SCALARS, ds_fine=32.0)
+            kernel, plain = ops.fused_basicblock_ds_ck, ops.fused_basicblock_ds_plain
+        else:
+            name, args = "fused_basicblock_s1", (*w, *v)
+            kw = dict(BASIC_SCALARS, id_k=0.8137192, id_c=2.71828)
+            kernel, plain = ops.fused_basicblock_s1_ck, ops.fused_basicblock_s1_plain
+    plan = ops.block_plan(kind, n, h, h, c, cm, cout, stride, ds)
+    before = ops.KERNELS[name].routes.get("sm90", 0)
+    got = kernel(x, *args, **kw)
+    assert ops.KERNELS[name].routes.get("sm90", 0) == before + 1
+    want = plain(x, *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("kind,h,c,cm,cout,stride,ds", BLOCK_SHAPES)
+def test_block_mainloop_matches_plain(cuda_device, gen, batch, kind, h, c, cm, cout, stride, ds):
+    _run_block(gen, cuda_device, kind, batch, h, c, cm, cout, stride, ds)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,h,c,cm,cout,stride,ds", RAGGED_BLOCKS)
+def test_block_mainloop_ragged_last_band(cuda_device, gen, kind, h, c, cm, cout, stride, ds):
+    plan = _run_block(gen, cuda_device, kind, 1, h, c, cm, cout, stride, ds)
+    assert (h // stride) % plan.r, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c,cm", [(2, 56, 256, 64), (3, 9, 64, 32)])
+@pytest.mark.parametrize("stop", [1, 2])
+def test_fused_stage_probes_match_plain(cuda_device, gen, n, h, c, cm, stop):
+    """The stage probes (B3's mainloop stopped after conv1 or conv2) at
+    bench/fused_probe.py's geometry and a small one."""
+    x = _dev(gen.integers(-128, 128, (n, h, h, c)).astype(np.int8), cuda_device)
+    w1 = _dev(gen.integers(-127, 128, (cm, c)).astype(np.int8), cuda_device)
+    w2 = _dev(gen.integers(-127, 128, (cm, 9 * cm)).astype(np.int8), cuda_device)
+    a = torch.full((cm,), 0.01 if c == 256 else 0.02, device=cuda_device)
+    name = "fused_stages_conv1" if stop == 1 else "fused_stages_conv12"
+    before = ops.KERNELS[name].routes.get("sm90", 0)
+    got = ops.fused_stage_ck(x, w1, w2, a, stop)
+    assert ops.KERNELS[name].routes.get("sm90", 0) == before + 1
+    want = ops.fused_stage_plain(x, w1, w2, a, stop)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _dw_pw_case(gen, device, n, h, c, cout):

@@ -44,7 +44,7 @@ from quantized_tpu_torch.engine.int_layers import S16_FINE
 from quantized_tpu_torch.entry import _calibrated_model as t_calibrated_model
 from quantized_tpu_torch.ingest import load_jax_arrays
 from quantized_tpu_torch.ops import _cuda
-from quantized_tpu_torch.ops.fused_block import band_rows, fused_smem_bytes
+from quantized_tpu_torch.ops.fused_block import SMEM_PER_BLOCK, block_plan, block_smem_bytes
 
 MODEL = ("resnet_quantized_float_bn", dict(dataset="imagenet", depth=50))
 MAX_STEP = 1
@@ -148,13 +148,18 @@ def test_fused_wrappers_check_their_inputs(rng):
 
 @pytest.mark.parametrize("ho,w,cm,stride,want_rows", [
     # ResNet-50's fused blocks at 224x224: (output rows, input width, Cm, stride)
-    (56, 56, 64, 1, 4), (28, 56, 128, 2, 4), (28, 28, 128, 1, 7), (14, 28, 256, 2, 4),
-    (14, 14, 256, 1, 7), (7, 14, 512, 2, 4), (7, 7, 512, 1, 7),
+    (56, 56, 64, 1, 14), (28, 56, 128, 2, 7), (28, 28, 128, 1, 14), (14, 28, 256, 2, 7),
+    (14, 14, 256, 1, 7), (7, 14, 512, 2, 7), (7, 7, 512, 1, 7),
 ])
 def test_band_plan_fits_shared_memory(ho, w, cm, stride, want_rows):
-    r = band_rows(ho, w, cm, stride)
-    assert r == want_rows
-    assert fused_smem_bytes(r, w, cm, stride) <= 113 * 1024  # two blocks per SM
+    """block_plan's band at batch 32 (the block's input C and output Cout
+    as in ResNet-50: C = 4 Cm for an identity block, 2 Cm for a stride-2
+    one), within one block's shared memory."""
+    c, cout = (2 * cm, 4 * cm) if stride == 2 else (4 * cm, 4 * cm)
+    plan = block_plan("bottleneck", 32, w, w, c, cm, cout, stride, stride == 2)
+    assert plan.r == want_rows
+    assert plan.smem == block_smem_bytes("bottleneck", plan.bn, plan.stages, plan.nb, plan.r, w, cm, stride)
+    assert plan.smem <= SMEM_PER_BLOCK
 
 
 # ----------------------------------------------------------------- the engine

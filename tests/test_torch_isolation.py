@@ -45,12 +45,14 @@ def test_chip_smoke_imports_no_jax_and_reports_every_kernel():
     """``chip_smoke.py`` (imported, not run) loads no JAX either, and its
     kernels line names every kernel the port registers, the fused
     BasicBlock and depthwise-separable kernels, the int4 GEMM, the flat-row
-    conv, K2's residual form and the three copy kernels included."""
+    conv, K2's residual form, the three copy kernels and the two stage
+    probes of the fused bottleneck included."""
     out = subprocess.run([sys.executable, "-c", _SMOKE_PROBE], cwd=ROOT, capture_output=True, text=True,
                          timeout=120, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["bad"] == [], result
     assert result["kernels"] == result["reported"], result
     assert {"fused_basicblock_s1", "fused_basicblock_ds", "fused_dw_pw", "int4_matmul", "int8_conv_flat",
-            "int8_conv_direct_residual", "grid_copy", "ring_copy", "bulk_copy"} <= set(result["kernels"]), result
-    assert len(result["kernels"]) == 15, result
+            "int8_conv_direct_residual", "grid_copy", "ring_copy", "bulk_copy", "fused_stages_conv1",
+            "fused_stages_conv12"} <= set(result["kernels"]), result
+    assert len(result["kernels"]) == 17, result
