@@ -31,15 +31,20 @@ and a non-zero exit:
    instance's ptxas line printed first; the stage probes of B3
    (``fused_stages_conv1`` and ``_conv12``, ``bench/fused_probe.py``'s
    ``k_conv1`` and ``k_conv12``) at (32, 56, 56, 256), C 256, Cm 64; the fused
-   depthwise-separable kernel (B5) at MobileNet-v1's pairs 0, 1, 6 and 11
-   and at width 0.75's and 0.25's pair 0 (C = 24 and 8; each with its band
-   height R and grid), K2's gather-K form also at MobileNet's stem (3x3/s2
-   over Cin = 3) and AlexNet's conv1 (11x11/s4 over Cin = 3), its per-tap
-   form also at AlexNet's conv2 (5x5/p2, 64->192) and at 1x1 convs over Cin
-   24 and 9, each case with its launch plan (``conv_plan``) and the route
-   it took: the Hopper mainloop ("sm90") for the per-tap form over Cin % 16
-   == 0, the general tile for the rest; no PyTorch call computes a
-   fused block or pair. K1's f32 form also runs at AlexNet's fc1-3 at
+   depthwise-separable kernel (B5) at MobileNet-v1's eight distinct pair
+   shapes (pairs 0-5, 6-10 and 11) and at width 0.75's and 0.25's pair 0
+   (C = 24 and 8), each with its launch plan (``dw_pw_plan``: route, cluster
+   size, tile, shared memory, clusters) and its instance's ptxas line, the
+   route asserted: the Hopper route ("sm90") wherever C and Cout are
+   multiples of 16, the tile kernel for C 24 and 8; K2's gather-K form at
+   the s2d stem, MobileNet's stem at widths 1.0 and 0.75 (3x3/s2 over Cin =
+   3), AlexNet's conv1 (11x11/s4 over Cin = 3), the CIFAR stem and CIFAR's
+   3x3 convs over Cin 16 and 32 (strides 1 and 2), each on its Hopper route
+   ("sm90", asserted), its per-tap form also at AlexNet's conv2 (5x5/p2,
+   64->192) and at 1x1 convs over Cin 24 and 9, each case with its launch
+   plan (``conv_plan``), its ptxas line and the route it took: the Hopper
+   mainloop ("sm90") for the per-tap form over Cin % 16 == 0, the general
+   tile for the rest; no PyTorch call computes a fused block or pair. K1's f32 form also runs at AlexNet's fc1-3 at
    batches 1, 8, 32 and 128, and the int4 GEMM (B6) there too, f32 and
    requant forms; B6's yardstick is ``torch._int_mm`` on the unpacked int8
    weights (which refuses M <= 16: ``library_ms`` is then None), and K1's
@@ -76,8 +81,10 @@ and a non-zero exit:
    with the launch counts set to 0 just before and read just after; every
    kernel must launch exactly the stated number of times per forward, and
    every K2 per-tap launch takes the mainloop but the one over Cin 24 of
-   MobileNet at width 0.75 (the general tile), and every B3 and B4 launch
-   takes the Hopper mainloop:
+   MobileNet at width 0.75 (the general tile), every B3 and B4 launch
+   takes the Hopper mainloop, every gather-K launch its Hopper route, and
+   every B5 launch its Hopper route but the first pair's at width 0.75 (C =
+   24: the tile kernel):
    - ResNet-50 (ImageNet geometry, 224x224, layers [3, 4, 6, 3], 1000
      classes): unfused, 52 K2 per-tap (48 block convs, 4 downsamples), 1 K2
      gather-K (the space-to-depth stem) and 1 K1 (the fc); the "gemm"
@@ -217,12 +224,15 @@ KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "r
                "int4_matmul": "alexnet int4 serve", "int8_conv_flat": "conv sweep",
                "int8_conv_direct_residual": "conv ops", "grid_copy": "copy probe", "ring_copy": "copy probe",
                "bulk_copy": "copy probe", "fused_stages_conv1": "fused stages", "fused_stages_conv12": "fused stages"}
-OUR_KERNELS = ("int8_conv_kernel", "conv_sm90_kernel", "int8_matmul_kernel", "gemm_sm90_kernel",
-               "bottleneck_sm90_kernel", "basic_sm90_kernel", "fused_dw_pw_kernel", "int4_matmul_kernel",
-               "int8_conv_flat_kernel", "grid_copy_kernel", "ring_copy_kernel", "bulk_copy_kernel")  # device kernel names
+OUR_KERNELS = ("int8_conv_kernel", "conv_sm90_kernel", "gatherk_sm90_kernel", "int8_matmul_kernel", "gemm_sm90_kernel",
+               "bottleneck_sm90_kernel", "basic_sm90_kernel", "fused_dw_pw_kernel", "dw_pw_sm90_kernel",
+               "int4_matmul_kernel", "int8_conv_flat_kernel", "grid_copy_kernel", "ring_copy_kernel",
+               "bulk_copy_kernel")  # device kernel names
 SWEEP_MODES = ("direct", "flat", "gemm")  # the conv sweep path: K2, B7 and im2col + K1
 # K2 per-tap launches per forward on the general tile (Cin % 16 != 0); every other one takes the mainloop
 SERVE_TILE_ROUTE = {"mobilenet w0.75 serve": 1}
+# B5 launches per forward on its tile kernel (C = 24); every other one takes the Hopper route
+DW_PW_TILE_ROUTE = {"mobilenet w0.75 fused": 1}
 BLOCK_KERNELS = ("fused_bottleneck_s1", "fused_bottleneck_ds", "fused_basicblock_s1", "fused_basicblock_ds")
 PATH_ROUTES = {}  # path: {kernel: {route: launches}} of the kernels with routes
 SWEEP_TARGET_SECS = 0.02  # per timed loop of the sweep; the probe's own default is 1 s
@@ -333,14 +343,23 @@ def _log_gemm_plan(kernel, label, a, w, n, packed):
 
 
 def _log_conv_plan(kernel, label, x, wc, ks, stride, pad, form):
-    """The conv mainloop's plan of a call (``conv_plan``) and its instance's
-    ptxas line; the route is asserted by the caller from the counts."""
+    """The conv mainloop's plan of a call (``conv_plan``; the gather-K
+    form's own route for form "gatherk") and its instance's ptxas line; the
+    route is asserted by the caller from the counts."""
     from quantized_tpu_torch.ops import conv_plan
 
     n, h, w, cin = x.shape
     plan = conv_plan(n, h, w, cin, wc.shape[0], ks, stride, pad, form)
     if plan.route != "sm90":
         log(f"[kernels] {kernel} {label} plan: general tile ({form}, Cin {cin})")
+        return plan
+    if plan.mode == 2:
+        ch = 16 if cin % 16 == 0 else 4 if cin % 4 == 0 else 1
+        instance = f"gatherk_sm90_kernelILi{ch}ELi{plan.bn}EE"
+        ptxas = next((v for key, v in _ptxas_lines("int8_conv.cu").items() if instance in key), "not built in this run")
+        log(f"[kernels] {kernel} {label} plan: gather-K route, swizzle row {plan.kc} B, bn {plan.bn}, tile "
+            f"{plan.two}x{plan.tho}x{plan.nb}, dynamic smem {plan.smem} B, wgmma steps {plan.k_stages}, tiles "
+            f"{plan.tiles}, blocks {plan.blocks}; ptxas: {ptxas}")
         return plan
     source = "int8_conv_flat.cu" if form == "flat" else "int8_conv.cu"
     instance = f"conv_sm90_kernelILi{plan.kc}ELi{plan.bn}EE"
@@ -368,6 +387,26 @@ def _log_block_plan(kernel, label, kind, x, cm, cout, stride, ds):
     return plan
 
 
+def _log_dw_pw_plan(label, x, cout, stride):
+    """B5's plan of a call (``dw_pw_plan``) and its instance's ptxas line;
+    the route is asserted by the caller from the counts."""
+    from quantized_tpu_torch.ops.fused_block import dw_pw_plan
+
+    n, h, w, c = x.shape
+    plan = dw_pw_plan(n, h, w, c, cout, stride)
+    if plan.route == "sm90":
+        instance = f"dw_pw_sm90_kernelILi{cout // plan.q}ELi{stride}EE"
+        desc = (f"Hopper route, cluster {plan.q}x1x1, tile {w // stride}x{plan.tho}x{plan.nb}, dynamic smem "
+                f"{plan.smem} B, tiles {plan.tiles}, clusters {plan.clusters} ({plan.per_sm} blocks an SM)")
+    else:
+        ch = 16 if c % 16 == 0 else 4 if c % 4 == 0 else 1
+        instance = f"fused_dw_pw_kernelILi{stride}ELi{ch}EE"
+        desc = f"tile kernel, band {plan.tho}, grid {-(-(h // stride) // plan.tho)}x{n}"
+    ptxas = next((v for key, v in _ptxas_lines("fused_dw_pw.cu").items() if instance in key), "not built in this run")
+    log(f"[kernels] fused_dw_pw {label} plan: {desc}; ptxas: {ptxas}")
+    return plan
+
+
 def _route_of(name, before):
     """The route of the one launch of ``name`` since ``before`` (its routes then)."""
     from quantized_tpu_torch import ops
@@ -383,7 +422,6 @@ def phase_kernels(timer):
     """Each kernel against its plain version at serving shapes; returns
     {kernel name: numbers} for the kernels line."""
     from quantized_tpu_torch import ops
-    from quantized_tpu_torch.ops import fused_block
     from quantized_tpu_torch.probes.gemm_sweep import BATCHES, FC, IM2COL, INT4_FC, bound_ms, gemm_work
 
     dev = torch.device("cuda")
@@ -465,8 +503,15 @@ def phase_kernels(timer):
         ("int8_conv_direct_gatherk", "cifar stem 3x3 s1 3->16 s8", (32, 3, 16, 3, 1, 1, (0.05, 113)), False),
         ("int8_conv_direct_gatherk", "mobilenet stem 3x3 s2 3->32 s8", (224, 3, 32, 3, 2, 1, (0.05, 113)),
          False),
+        ("int8_conv_direct_gatherk", "mobilenet w0.75 stem 3x3 s2 3->24 s8", (224, 3, 24, 3, 2, 1, (0.05, 113)),
+         False),
         ("int8_conv_direct_gatherk", "alexnet conv1 11x11 s4 3->64 s8", (224, 3, 64, 11, 4, 2, (0.05, 113)),
          False),
+        # CIFAR ResNet-20's block convs over Cin 16 and 32 (13 of its 14 gather-K launches)
+        ("int8_conv_direct_gatherk", "cifar 3x3 s1 16->16 s8", (32, 16, 16, 3, 1, 1, (0.05, 113)), False),
+        ("int8_conv_direct_gatherk", "cifar 3x3 s2 16->32 s8", (32, 16, 32, 3, 2, 1, (0.05, 113)), False),
+        ("int8_conv_direct_gatherk", "cifar 3x3 s1 32->32 s8", (16, 32, 32, 3, 1, 1, (0.05, 113)), False),
+        ("int8_conv_direct_gatherk", "cifar 3x3 s2 32->64 s8", (16, 32, 64, 3, 2, 1, (0.05, 113)), False),
         ("int8_conv_direct", "alexnet conv2 5x5 s1 p2 64->192 s8", (27, 64, 192, 5, 1, 2, (0.05, 113)), False),
         # the per-tap form over Cin % 16 != 0: MobileNet-v1 at width 0.75's first
         # pointwise conv (4-byte chunks) and Cin 9 (single bytes)
@@ -494,7 +539,7 @@ def phase_kernels(timer):
                2 * b * ho * ho * kk * kk * cin * cout, rep, plain_iters=3)
         route = _route_of(name, before)
         log(f"[kernels] {name} {label}: route {route}")
-        if route != plan.route:
+        if route != plan.route or (name == "int8_conv_direct_gatherk" and route != "sm90"):
             raise AssertionError(f"{name} {label}: took {route}, planned {plan.route}")
 
     # B7: the flat-row conv at ResNet-50's stride-1 shapes, K2's time on the
@@ -644,15 +689,20 @@ def phase_kernels(timer):
         if _route_of(name, before) != "sm90":
             raise AssertionError(f"{name}: not on the mainloop")
 
-    # B5: MobileNet-v1's fused depthwise-separable pairs, the depthwise
-    # conv's stored zero point unlike either clip floor
+    # B5: MobileNet-v1's fused depthwise-separable pairs at their eight
+    # distinct shapes, the depthwise conv's stored zero point unlike either
+    # clip floor, each on the route of its plan
     dw_pw_cases = [
         # label, (input side, C, Cout, stride), representative
         ("pair 0 112x112 32->64", (112, 32, 64, 1), True),
         ("pair 1 s2 112->56 64->128", (112, 64, 128, 2), False),
-        ("pair 6 14x14 512->512", (14, 512, 512, 1), False),
+        ("pair 2 56x56 128->128", (56, 128, 128, 1), False),
+        ("pair 3 s2 56->28 128->256", (56, 128, 256, 2), False),
+        ("pair 4 28x28 256->256", (28, 256, 256, 1), False),
+        ("pair 5 s2 28->14 256->512", (28, 256, 512, 2), False),
+        ("pairs 6-10 14x14 512->512", (14, 512, 512, 1), False),
         ("pair 11 s2 14->7 512->1024", (14, 512, 1024, 2), False),
-        # C % 16 != 0: width 0.75's pair 0 (4-byte chunks) and width 0.25's (C = 8)
+        # C % 16 != 0: width 0.75's pair 0 (4-byte chunks) and width 0.25's (C = 8), on the tile kernel
         ("w0.75 pair 0 112x112 24->48", (112, 24, 48, 1), False),
         ("w0.25 pair 0 112x112 8->16", (112, 8, 16, 1), False),
     ]
@@ -665,12 +715,17 @@ def phase_kernels(timer):
                 ((torch.rand(cout, generator=gen) - 0.5) * 16).to(dev)]
         args = (wdw, wpw, *vecs, s, -21.0, -9.0, -17)
         ho = h // s
-        r = fused_block.dw_pw_band_rows(b, ho, h, c, cout, s)
+        plan = _log_dw_pw_plan(label, x, cout, s)
+        before = dict(ops.KERNELS["fused_dw_pw"].routes)
         nbytes = x.numel() + b * ho * ho * cout + wdw.numel() + wpw.numel() + 4 * sum(v.numel() for v in vecs)
-        record("fused_dw_pw", f"{label} batch {b} (R {r}, grid {-(-ho // r)}x{b})",
+        record("fused_dw_pw", f"{label} batch {b}",
                lambda x=x, args=args: ops.fused_dw_pw_ck(x, *args),
                lambda x=x, args=args: ops.fused_dw_pw_plain(x, *args),
                None, nbytes, 2 * b * ho * ho * (9 * c + c * cout), rep, plain_iters=3)
+        route = _route_of("fused_dw_pw", before)
+        log(f"[kernels] fused_dw_pw {label}: route {route}")
+        if route != plan.route or route != ("sm90" if c % 16 == 0 else "tile"):
+            raise AssertionError(f"fused_dw_pw {label}: took {route}, planned {plan.route}")
 
     # B6: AlexNet's fc head on split-half packed int4 weights, f32 and
     # requant forms; torch._int_mm (the yardstick) and K1 take the unpacked
@@ -912,10 +967,15 @@ def _serve(what, executor, requests, per_forward, classes):
     tile = routes.get("int8_conv_direct", {}).get("tile", 0)
     if tile != SERVE_TILE_ROUTE.get(what, 0) * len(requests):
         raise AssertionError(f"{what}: {tile} K2 per-tap launches on the general tile")
-    for name in BLOCK_KERNELS:  # every B3 and B4 launch on the Hopper mainloop
+    for name in BLOCK_KERNELS + ("int8_conv_direct_gatherk",):  # B3, B4 and gather-K: all on a Hopper route
         if counts[name] and routes.get(name) != {"sm90": counts[name]}:
             raise AssertionError(f"{what}: {name} launches by route {routes.get(name)}, all {counts[name]} "
-                                 f"expected on the mainloop")
+                                 f"expected on the Hopper route")
+    dw_tile = DW_PW_TILE_ROUTE.get(what, 0) * len(requests)  # B5: all on the Hopper route but C = 24
+    if counts["fused_dw_pw"] and routes.get("fused_dw_pw") != {k: v for k, v in (
+            ("sm90", counts["fused_dw_pw"] - dw_tile), ("tile", dw_tile)) if v}:
+        raise AssertionError(f"{what}: fused_dw_pw launches by route {routes.get('fused_dw_pw')}, "
+                             f"{dw_tile} expected on the tile kernel")
     for logits in answers:
         if tuple(logits.shape) != (requests[0].shape[0], classes) or not torch.isfinite(logits).all():
             raise AssertionError(f"{what}: bad logits, shape {tuple(logits.shape)}")

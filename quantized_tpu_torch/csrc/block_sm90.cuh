@@ -469,8 +469,13 @@ __device__ __forceinline__ void final_jobs(int mts, int nsub, int nbase, int M, 
 
 // ---- the cluster
 
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  cluster_arrive();
+  cluster_wait();
 }
 
 // 16 bytes into the cluster's block `rank` at shared address `saddr` of its own layout

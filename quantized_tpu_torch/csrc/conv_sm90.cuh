@@ -420,7 +420,8 @@ inline bool conv_map(CUtensorMap* map, const MapKey& key) {
   if (encode == nullptr) return false;
   const CUtensorMapSwizzle swz = key.swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : key.swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                     : CU_TENSOR_MAP_SWIZZLE_32B;
+                                 : key.swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                     : CU_TENSOR_MAP_SWIZZLE_NONE;  // 0: dense boxes
   if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, key.rank, const_cast<void*>(key.p), key.dims, key.strides,
              key.box, key.estr, CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)

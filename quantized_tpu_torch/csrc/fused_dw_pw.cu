@@ -42,13 +42,19 @@
 //     clearing.
 // A depthwise output row belongs to one band: shorter bands re-read 2 input
 // halo rows from L2 and recompute nothing, so the wrapper shortens them
-// where the batch leaves SMs idle (ops/fused_block.py dw_pw_band_rows), and
-// never splits Cout, which would repeat the depthwise pass on the CUDA
-// cores. No load/compute overlap and no wgmma/TMA: later work.
+// where the batch leaves SMs idle (ops/fused_block.py dw_pw_band_rows).
+//
+// Two routes behind one entry, chosen by ops.dw_pw_plan and passed in as
+// `sm90`: the Hopper route of dw_pw_sm90.cuh (clusters splitting C and Cout,
+// TMA windows, wgmma, a TMA-stored epilogue) wherever it takes the shape
+// (C and Cout multiples of 16: every pair of MobileNet-v1 at width 1.0 and
+// all but the first at width 0.75), and this tile kernel elsewhere (C = 24
+// at width 0.75, C = 8 at width 0.25, C = 9), which refuses nothing.
 //
 // Epilogues use __fmul_rn/__fadd_rn and rintf (the build passes
 // -fmad=false): the kernel rounds exactly as its plain PyTorch version.
 
+#include "dw_pw_sm90.cuh"
 #include "int8_mma.cuh"
 
 namespace {
@@ -201,11 +207,21 @@ int launch_dw_pw(const void* x, const void* wdw, const void* wpw, void* out, DwP
 
 }  // namespace
 
-// Stride 1 or 2 over an image it divides; any C; R output rows per block.
+// Stride 1 or 2 over an image it divides. sm90 != 0: the Hopper route under
+// the plan (q, tho, nb, clusters, smem) of ops.dw_pw_plan, refused (an
+// error, never another route) where it cannot take the call; else the tile
+// kernel, any C, R output rows per block.
 extern "C" int qt_fused_dw_pw(const void* x, const void* wdw, const void* wpw, const void* a1,
                               const void* b1, const void* a2, const void* b2, void* out, int N, int H,
                               int W, int C, int Cout, int stride, int R, int zp1, float lo1, float lo2,
-                              void* stream) {
+                              int sm90, int q, int tho, int nb, int clusters, int smem, void* stream) {
+  if (sm90) {
+    qtdw::DwGeom g{};
+    g.N = N, g.H = H, g.W = W, g.C = C, g.Cout = Cout, g.S = stride;
+    const qtdw::DwEpi e{static_cast<const float*>(a1), static_cast<const float*>(b1), static_cast<const float*>(a2),
+                        static_cast<const float*>(b2), lo1, lo2, zp1};
+    return qtdw::launch_dw_pw(x, wdw, wpw, out, g, e, qtdw::DwPlan{q, tho, nb, clusters, smem}, stream);
+  }
   const DwPwShape s{N, H, W, C, Cout, 0, 0, R, 0, 0, 0};
   const DwPwEpilogue e{static_cast<const float*>(a1), static_cast<const float*>(b1),
                        static_cast<const float*>(a2), static_cast<const float*>(b2), lo1, lo2, zp1};

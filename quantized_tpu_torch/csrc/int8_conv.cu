@@ -35,21 +35,26 @@
 // (int8_mma.cuh), with no load/compute overlap: at ResNet-50's 1x1 64->256
 // it took 3.4x torch._int_mm's time on the same product.
 //
-// Two routes behind one entry, qt_int8_conv, chosen by ops.conv_plan and
+// Three routes behind one entry, qt_int8_conv, chosen by ops.conv_plan and
 // passed in as `sm90`:
-// - the per-tap form over Cin % 16 == 0 with 16-byte-aligned bases (every
-//   per-tap conv of ResNet-50/18, MobileNet-v1 at width 1.0 and AlexNet)
-//   runs the Hopper conv mainloop of conv_sm90.cuh: wgmma tiles of 128
-//   pixels x up to 128 channels, A and W by TMA through a ring, persistent
-//   blocks, the zero-filled padding corrected by the weights' tap sums
-//   (conv_sm90.cuh's header says how);
-// - the gather-K form, the residual form (B8), Cin % 16 != 0 and unaligned
-//   inputs run the tile below, which refuses nothing.
+// - 1: the per-tap form over Cin % 16 == 0 with 16-byte-aligned bases
+//   (every per-tap conv of ResNet-50/18, MobileNet-v1 at width 1.0 and
+//   AlexNet) runs the Hopper conv mainloop of conv_sm90.cuh: wgmma tiles of
+//   128 pixels x up to 128 channels, A and W by TMA through a ring,
+//   persistent blocks, the zero-filled padding corrected by the weights' tap
+//   sums (conv_sm90.cuh's header says how);
+// - 2: the gather-K form (Cout <= 64, a 16-byte-aligned input: every stem
+//   and CIFAR's 16- and 32-channel convs) runs its own Hopper route,
+//   gatherk_sm90.cuh: the input window and the weights in shared memory, A
+//   built from the window, wgmma, a bulk-copied epilogue;
+// - 0: the residual form (B8), the per-tap form over Cin % 16 != 0 and
+//   unaligned inputs run the tile below, which refuses nothing.
 //
 // The epilogue uses __fmul_rn/__fadd_rn (and the build passes -fmad=false),
 // so it rounds exactly as the plain PyTorch version does.
 
 #include "conv_sm90.cuh"
+#include "gatherk_sm90.cuh"
 #include "int8_mma.cuh"
 
 namespace {
@@ -175,18 +180,29 @@ int launch_any_cin(const ConvArgs& a, const ConvShape& s, int stored_zp, const C
 
 // K2 in all its forms (per-tap, gather-K, and B8 where residual is not
 // null: (N, Ho, Wo, Cout) s8, r_off = f32(128 - r_zp), r_scale =
-// f32(r_scale)), any Cin. sm90 != 0: the per-tap form on the Hopper
+// f32(r_scale)), any Cin. sm90 == 1: the per-tap form on the Hopper
 // mainloop under the plan (kc, bn, two, tho, nb, stages, blocks, smem) of
 // ops.conv_plan, with border_sums ((KH + 1) * (KW + 1), Cout) int32, the
 // summed-area table of the tap sums (ops.conv_border_sums), where a padded
-// tap reads a nonzero stored zero point; refused (an error, never another route) where
-// the mainloop cannot take the call.
+// tap reads a nonzero stored zero point; sm90 == 2: the gather-K form on its
+// Hopper route under the plan (kc: the swizzle row, bn, two, tho, nb,
+// blocks, smem; stages unused). Either is refused (an error, never another
+// route) where it cannot take the call.
 extern "C" int qt_int8_conv(const void* x, const void* w, const void* alpha, const void* beta,
                             const void* residual, const void* border_sums, void* out, int N, int H, int W, int Cin,
                             int Cout, int KH, int KW, int SH, int SW, int PH, int PW, int Ho, int Wo, int stored_zp,
                             int relu, int out_int8, float inv, float zps, float r_off, float r_scale, int sm90,
                             int kc, int bn, int two, int tho, int nb, int stages, int blocks, int smem,
                             void* stream) {
+  if (sm90 == 2) {
+    if (residual != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    qtgk::GkGeom g{};
+    g.N = N, g.H = H, g.W = W, g.Cin = Cin, g.Cout = Cout, g.KH = KH, g.KW = KW;
+    g.SH = SH, g.SW = SW, g.PH = PH, g.PW = PW, g.Ho = Ho, g.Wo = Wo;
+    const qtgk::GkEpi ep{static_cast<const float*>(alpha), static_cast<const float*>(beta), out, stored_zp, relu,
+                         out_int8, inv, zps};
+    return qtgk::launch_gatherk(x, w, g, ep, qtgk::GkPlan{kc, bn, two, tho, nb, blocks, smem}, stream);
+  }
   if (sm90) {
     if (residual != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     // a 1x1 stride-1 conv without padding is a product of its input's rows: flat rows, whole 128-row tiles

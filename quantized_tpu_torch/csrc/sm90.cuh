@@ -6,6 +6,7 @@
 // - shared-memory matrix descriptors of K-major tiles with a 128-, 64- or
 //   32-byte swizzle (the layouts TMA writes with the same swizzle);
 // - wgmma fences, commit and wait; mbarriers; TMA tile loads (2-D and 4-D);
+//   cp.async; the async-proxy fence; the swizzled tile's byte offsets;
 // - cuTensorMapEncodeTiled, fetched from the driver through the runtime's
 //   entry-point query, so no build links -lcuda.
 #pragma once
@@ -81,6 +82,17 @@ template <> struct Wgmma<32> {
   }
 };
 
+template <> struct Wgmma<48> {
+  static __device__ __forceinline__ void ss(int (&d)[24], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
+
 template <> struct Wgmma<64> {
   static __device__ __forceinline__ void ss(int (&d)[32], uint64_t a, uint64_t b) {
     asm volatile(
@@ -98,6 +110,17 @@ template <> struct Wgmma<64> {
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
         : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
         : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<96> {
+  static __device__ __forceinline__ void ss(int (&d)[48], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, %48, %49, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+        : "l"(a), "l"(b), "r"(1));
   }
 };
 
@@ -184,6 +207,52 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "[%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// order this thread's generic-proxy accesses of shared memory before later
+// async-proxy ones (wgmma's operand reads, TMA)
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// cp.async of 16 (cg: L2 only) or 4 bytes (ca), both addresses aligned to the size
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- integer <-> float without the conversion unit (a quarter of the FP32
+// rate on Hopper): a float of exponent 2^23 holds integers at unit steps
+constexpr float ROUND_MAGIC = 12582912.0f;  // 1.5 * 2^23, bits 0x4B400000
+
+// exactly float(a) for |a| <= 2^22
+__device__ __forceinline__ float small_int_to_float(int a) {
+  return __fsub_rn(__int_as_float(0x4B400000 + a), ROUND_MAGIC);
+}
+
+// clip(rint(y), lo, 127) as two's complement in the low byte (the upper
+// bytes hold the magic constant's): lo and 127 are integers, so clipping
+// first gives the same value, and adding 1.5 * 2^23 rounds to the nearest
+// integer, ties to even, as rintf does
+__device__ __forceinline__ uint32_t clip_round_byte(float y, float lo) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(y, lo), 127.0f), ROUND_MAGIC));
+}
+
+// the low bytes of four words packed into one (byte i from word i)
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t b0, uint32_t b1, uint32_t b2, uint32_t b3) {
+  return __byte_perm(__byte_perm(b0, b1, 0x0040), __byte_perm(b2, b3, 0x0040), 0x5410);
+}
+
+// byte offset of (row, byte c) in a K-major tile of `row_bytes`-byte rows
+// (128, 64 or 32) under the swizzle of that width (the layout TMA writes and
+// sw_desc reads): 16-byte chunk c / 16 XOR the row's place in its 8-row group
+__device__ __forceinline__ uint32_t sw_offset(int row, int c, int row_bytes) {
+  const uint32_t o = static_cast<uint32_t>(row * row_bytes + c);
+  return o ^ (((o >> 7) & static_cast<uint32_t>(row_bytes / 16 - 1)) << 4);
 }
 
 // ---- host side

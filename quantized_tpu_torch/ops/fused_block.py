@@ -45,9 +45,12 @@ memory; each launch is counted under route "sm90" (``KERNELS[name].routes``).
 Bands recompute conv1 on the halo rows that the neighbouring band also
 needs. The stage probes of the bottleneck (:func:`fused_stage_ck`,
 ``bench/fused_probe.py``'s ``k_conv1`` and ``k_conv12``) are the same
-mainloop stopped after conv1 or conv2. B5 owns one image and a band of
-rows a block (:func:`dw_pw_band_rows`) and only re-reads its input halo,
-since a depthwise output row belongs to one band.
+mainloop stopped after conv1 or conv2. B5 runs its own Hopper route
+(``csrc/dw_pw_sm90.cuh``) under the plan of :func:`dw_pw_plan`: a cluster
+of q blocks per tile of output rows splits C for the depthwise pass (the
+blocks share h1 through distributed shared memory) and Cout for the
+pointwise product; where C or Cout is not a multiple of 16, the tile kernel
+of ``csrc/fused_dw_pw.cu``; each launch is counted under its route.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernel or raises.
@@ -77,8 +80,9 @@ BASIC_DS = _cuda.CudaKernel("fused_basicblock_ds", "fused_block.cu", "qt_fused_b
 _STAGE_ARGS = ["ptr"] * 6 + ["int"] * 12
 STAGE_CONV1 = _cuda.CudaKernel("fused_stages_conv1", "fused_stages.cu", "qt_fused_stages", _STAGE_ARGS)
 STAGE_CONV12 = _cuda.CudaKernel("fused_stages_conv12", "fused_stages.cu", "qt_fused_stages", _STAGE_ARGS)
+DW_PW_PLAN_ARGS = ["int"] * 6  # the C entry's trailing plan arguments: DwPwPlan.args()
 DW_PW = _cuda.CudaKernel("fused_dw_pw", "fused_dw_pw.cu", "qt_fused_dw_pw",
-                         ["ptr"] * 8 + ["int"] * 8 + ["float"] * 2)
+                         ["ptr"] * 8 + ["int"] * 8 + ["float"] * 2 + DW_PW_PLAN_ARGS)
 
 SMEM_PER_BLOCK = 232448  # the H100's opt-in limit for one block
 SMEM_TWO_PER_SM = 113 * 1024  # small enough for two blocks to share an SM's 228 KB
@@ -163,8 +167,8 @@ def block_steps(gemms, q: int, bn: int) -> int:
 H100_GPC_SMS = (18, 18, 18, 18, 16, 16, 14, 14)
 
 
-def resident_clusters(q: int) -> int:
-    return sum(n // q for n in H100_GPC_SMS)
+def resident_clusters(q: int, per_sm: int = 1) -> int:
+    return sum(n * per_sm // q for n in H100_GPC_SMS)
 
 
 @functools.lru_cache(maxsize=4096)  # a wrapper plans every call; the engines repeat a few shapes
@@ -209,27 +213,59 @@ def block_plan(kind: str, n: int, h: int, w: int, c: int, cm: int, cout: int, st
     return min(plans)[3]
 
 
-# B5's shared memory (csrc/fused_dw_pw.cu keeps the same layout): the W
-# staging tile; h1, R*Wo GEMM rows padded to a multiple of 64, stored as
-# ceil(C/64) K chunks of 64-row tiles at the 80-byte pitch, so that each
-# chunk is an A tile of the int8_mma.cuh product as it stands; the input
-# band, (R-1)*S + 3 rows of W + 2 pixels of C bytes; the depthwise weights,
-# 9*C bytes tap-major.
+# ----------------------------------------------------------------- B5's plan
+#
+# B5 has two routes (csrc/fused_dw_pw.cu): the Hopper route of
+# csrc/dw_pw_sm90.cuh, and the tile kernel of fused_dw_pw.cu where the
+# Hopper route cannot take the shape (C or Cout not a multiple of 16).
 NUM_SMS = 132  # the H100 SXM's streaming multiprocessors
+DW_PW_TILE_M = 128  # output pixels a tile of the Hopper route: two warpgroups of 64 rows
+DW_PW_MAX_CS = 128  # depthwise channels a block: at most 16 rows of one 4-channel word a thread
+DW_PW_NS = (16, 32, 48, 64, 96, 128)  # the pointwise channels a block may take (wgmma's N)
+SMEM_PER_SM = 228 * 1024  # an SM's shared memory, 1 KB of it a block for the system
+
+
+def _align128(v: int) -> int:
+    return -(-v // 128) * 128
+
+
+def dw_pw_sm90_smem_bytes(c: int, cout: int, q: int, w: int, stride: int, tho: int, nb: int) -> int:
+    """``dw_layout(...).total`` of dw_pw_sm90.cuh: h1 (128 rows) and the
+    block's Cout/q pointwise weight rows in swizzled K blocks (K = C
+    rounded up to 32, rows of 32, 64 or 128 bytes), two input windows of nb
+    x ((tho - 1) * s + 3) rows x (W + 2) pixels x C/q channels, the staging
+    tile (128 rows of Cout/q + 16 bytes), the depthwise weight words (9 x
+    C/q int32), four constant vectors, two row tables (2 x 128 ints each), three
+    mbarriers and 1024 bytes of alignment slack."""
+    kp = -(-c // 32) * 32
+    kb = 32 if kp <= 32 else 64 if kp <= 64 else 128
+    nkb = -(-kp // kb)
+    cs, no = c // q, cout // q
+    wr = (tho - 1) * stride + 3
+    h1 = DW_PW_TILE_M * kb * nkb
+    win = _align128(h1 + no * kb * nkb)
+    stage = win + 2 * _align128(nb * wr * (w + 2) * cs)
+    wd = stage + _align128(DW_PW_TILE_M * (no + 16))
+    consts = wd + _align128(9 * cs * 4)
+    return consts + 8 * (cs + no) + 4 * DW_PW_TILE_M * 4 + 3 * 8 + 1024
 
 
 def dw_pw_smem_bytes(r: int, w: int, c: int, stride: int) -> int:
+    """Shared memory of the tile kernel (fused_dw_pw.cu keeps the same
+    layout): the W staging tile; h1, R*Wo GEMM rows padded to a multiple of
+    64, stored as ceil(C/64) K chunks of 64-row tiles at the 80-byte pitch;
+    the input band, (R-1)*S + 3 rows of W + 2 pixels of C bytes; the
+    depthwise weights, 9*C bytes tap-major."""
     rows = -(-r * (w // stride) // 64) * 64
     return 64 * 80 + -(-c // 64) * rows * 80 + ((r - 1) * stride + 3) * (w + 2) * c + 9 * c
 
 
 def dw_pw_band_rows(n: int, ho: int, w: int, c: int, cout: int, stride: int) -> int:
-    """Output rows per kernel block of B5, from a count of 64x64x64 tile
-    steps: bands of equal height; of the heights whose blocks let two share
-    an SM, the one that gives the busiest SM the fewest steps (blocks per
-    SM, rounded up, times the pointwise GEMM's tile steps per block), the
-    shorter on a tie. Short bands cost no recompute, only a re-read of the
-    2-row input halo, so a small batch gets short bands and more blocks."""
+    """Output rows per block of B5's tile kernel, from a count of 64x64x64
+    tile steps: bands of equal height; of the heights whose blocks let two
+    share an SM, the one that gives the busiest SM the fewest steps (blocks
+    per SM, rounded up, times the pointwise GEMM's tile steps per block),
+    the shorter on a tie."""
     wo = w // stride
     plans = []  # (tile steps of the busiest SM, R)
     for nb in range(1, ho + 1):
@@ -240,6 +276,66 @@ def dw_pw_band_rows(n: int, ho: int, w: int, c: int, cout: int, stride: int) -> 
     if not plans:
         raise ValueError(f"a fused dw/pw pair over W={w}, C={c} does not fit in shared memory")
     return min(plans)[1]
+
+
+class DwPwPlan(NamedTuple):
+    route: str  # "sm90": csrc/dw_pw_sm90.cuh; "tile": the tile kernel of fused_dw_pw.cu
+    q: int  # blocks of a cluster, each C/q depthwise and Cout/q pointwise channels (tile: 1)
+    tho: int  # output rows a tile (tile: R, the band of a block)
+    nb: int  # images a tile (more than 1 only where tho covers the image)
+    smem: int  # dynamic shared memory per block, bytes
+    tiles: int  # tiles of the output (tile: blocks)
+    clusters: int  # persistent clusters: min(tiles, clusters resident at once) (tile: blocks)
+    blocks: int  # q x clusters
+    per_sm: int  # blocks an SM: by shared memory, and the kernel's register bound (3 up to Cout/q 64, else 2)
+
+    def args(self):
+        """The C entry's plan arguments: sm90, q, tho, nb, clusters, smem."""
+        if self.route != "sm90":
+            return [0] * len(DW_PW_PLAN_ARGS)
+        return [1, self.q, self.tho, self.nb, self.clusters, self.smem]
+
+
+@functools.lru_cache(maxsize=4096)  # a wrapper plans every call; the engines repeat a few shapes
+def dw_pw_plan(n: int, h: int, w: int, c: int, cout: int, stride: int) -> DwPwPlan:
+    """The launch plan of B5 on an (n, h, w, c) input.
+
+    The Hopper route where C and Cout are multiples of 16 and Wo fits a
+    128-pixel tile: tiles of whole output rows (the most that make up to 128
+    pixels, evened over the image; several whole images where one takes at
+    most half a tile); the smallest cluster size q (C/q a multiple of 16 up
+    to 128, Cout/q one of 16-128) whose shared memory fits a block, since a
+    clustered block pays distributed-shared-memory stores and two cluster
+    barriers a tile (``probes/pair_stem --plans`` times every q on the H100:
+    the smallest was the fastest or within 3% at every pair shape);
+    persistent clusters, as many as are resident at once
+    (``resident_clusters`` at ``per_sm`` blocks an SM). Else the tile kernel
+    (C = 24 at width 0.75, C = 8 at 0.25), its band height in ``tho``."""
+    ho, wo = h // stride, w // stride
+    if c % 16 == 0 and cout % 16 == 0 and wo <= DW_PW_TILE_M and w + 2 <= 256:
+        tho = min(ho, DW_PW_TILE_M // wo)
+        tho = -(-ho // -(-ho // tho))  # the same number of bands, evened out
+        nb = min(n, DW_PW_TILE_M // (wo * tho), 256) if tho == ho else 1
+        tiles = -(-ho // tho) * -(-n // nb)
+        for q in BLOCK_QS:
+            if c % q or cout % q or (c // q) % 16 or c // q > DW_PW_MAX_CS or cout // q not in DW_PW_NS:
+                continue
+            smem = dw_pw_sm90_smem_bytes(c, cout, q, w, stride, tho, nb)
+            if smem > SMEM_PER_BLOCK:
+                continue
+            per_sm = min(3 if cout // q <= 64 else 2, SMEM_PER_SM // (smem + 1024))  # the kernel's register bound
+            clusters = min(tiles, resident_clusters(q, per_sm))
+            return DwPwPlan("sm90", q, tho, nb, smem, tiles, clusters, q * clusters, per_sm)
+    return dw_pw_tile_plan(n, h, w, c, cout, stride)
+
+
+def dw_pw_tile_plan(n: int, h: int, w: int, c: int, cout: int, stride: int) -> DwPwPlan:
+    """The tile kernel's plan: bands of :func:`dw_pw_band_rows` rows (in
+    ``tho``), one block an image's band."""
+    ho = h // stride
+    r = dw_pw_band_rows(n, ho, w, c, cout, stride)
+    blocks = -(-ho // r) * n
+    return DwPwPlan("tile", 1, r, 1, dw_pw_smem_bytes(r, w, c, stride), blocks, blocks, blocks, 2)
 
 
 # ----------------------------------------------------------------- plain versions
@@ -518,11 +614,14 @@ def fused_dw_pw_ck(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp1_st
     if x_q.device.type == "cpu":
         return fused_dw_pw_plain(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, *args)
     dev = _cuda.require_cuda_tensors(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2)
-    r = dw_pw_band_rows(n, h // s, w, c, cout, s)
+    plan = dw_pw_plan(n, h, w, c, cout, s)
     out = torch.empty((n, h // s, w // s, cout), dtype=torch.int8, device=dev)
+    sm90 = plan.route == "sm90" and x_q.data_ptr() % 16 == 0 and wpw_nk.data_ptr() % 16 == 0
+    if not sm90 and plan.route == "sm90":  # an unaligned base: the tile kernel
+        plan = dw_pw_tile_plan(n, h, w, c, cout, s)
     DW_PW(dev, x_q.data_ptr(), wdw_ck.data_ptr(), wpw_nk.data_ptr(), a1.data_ptr(), b1.data_ptr(),
-          a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, w, c, cout, s, r, int(zp1_stored),
-          f32(lo1), f32(lo2))
+          a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, w, c, cout, s, plan.tho, int(zp1_stored),
+          f32(lo1), f32(lo2), *plan.args(), route=plan.route)
     return out
 
 

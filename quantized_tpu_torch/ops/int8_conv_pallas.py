@@ -18,11 +18,16 @@ mainloop reads the padding as zeros, so it adds back ``stored_zp * tapsum``
 over each pixel's outside taps (:func:`conv_tapsum`; the kernel reads them
 from their summed-area table, :func:`conv_border_sums`, computed once per
 weight by :class:`~quantized_tpu_torch.engine.int_layers.IntConv2d`;
-:func:`int8_conv_zero_filled_plain` is that arithmetic in PyTorch). Every
-other call runs the general tile, which takes any Cin, gathering 16-byte
-chunks where Cin is a multiple of 16, 4-byte chunks where it is a multiple
-of 4 (the space-to-depth stem, MobileNet at width 0.75) and single bytes
-otherwise (the Cin-3 stems, Cin 9). B7 (``csrc/int8_conv_flat.cu``) runs
+:func:`int8_conv_zero_filled_plain` is that arithmetic in PyTorch). Its
+gather-K form over Cout <= 64 with a 16-byte-aligned input runs a Hopper
+route of its own (``csrc/gatherk_sm90.cuh``: each tile's input window in
+shared memory by cp.async, the zero point in its padding, the weights
+resident, A built from the window as Kh runs of Kw * Cin bytes a pixel,
+wgmma, a bulk-copied epilogue; :func:`gatherk_a_plain` is that K layout in
+PyTorch). Every other call runs the general tile, which takes any Cin,
+gathering 16-byte chunks where Cin is a multiple of 16, 4-byte chunks where
+it is a multiple of 4 (MobileNet at width 0.75) and single bytes otherwise
+(Cin 9). B7 (``csrc/int8_conv_flat.cu``) runs
 stride-1 convs over the zero-point-padded image's flattened rows, every tap
 one read at a constant offset, on the same mainloop where Cin % 16 == 0 and
 on its own tile elsewhere. Each kernel counts its launches by route
@@ -48,7 +53,7 @@ import torch.nn.functional as F
 
 from quantized_tpu_torch.ops import _cuda
 from quantized_tpu_torch.ops.int8_conv import Ints, _pair, int8_conv_acc, pack_conv_weight, pad_stored_zp
-from quantized_tpu_torch.ops.int8_matmul import H100_SMS, exact_int_matmul, f32
+from quantized_tpu_torch.ops.int8_matmul import H100_SMS, SMEM_LIMIT, exact_int_matmul, f32
 
 CONV_PLAN_ARGS = ["int"] * 9  # the C entries' trailing plan arguments: ConvPlan.args()
 # one C entry (qt_int8_conv) behind the three counted forms: x, w, alpha,
@@ -95,28 +100,29 @@ def conv_out_hw(h: int, w: int, kernel_size, stride, padding) -> Tuple[int, int]
 
 
 class ConvPlan(NamedTuple):
-    route: str  # "sm90": the Hopper mainloop; "tile": the general mma.sync tile (every field below 0)
-    kc: int  # K bytes per ring stage (128, 64 or 32: the widest that divides Cin, else 32)
-    bn: int  # output channels per tile (wgmma's N: 32, 64 or 128)
+    route: str  # "sm90": a Hopper route; "tile": the general mma.sync tile (every field below 0)
+    kc: int  # K bytes per ring stage (128, 64 or 32: the widest that divides Cin, else 32); gather-K: the swizzle row
+    bn: int  # output channels per tile (wgmma's N: 32, 64 or 128; gather-K: 16, 32 or 64)
     two: int  # K2: output columns x rows x images per tile (two * tho * nb <= 128); B7: 128, 1, 1
     tho: int
     nb: int
-    stages: int  # ring slots
-    smem: int  # dynamic shared memory per block, bytes
-    k_stages: int  # ring stages per tile: Kh * Kw * ceil(Cin / kc)
+    stages: int  # ring slots (gather-K: its two input windows)
+    smem: int  # dynamic shared memory per block, bytes (gather-K: with s8 out)
+    k_stages: int  # ring stages per tile: Kh * Kw * ceil(Cin / kc); gather-K: wgmma steps, ceil(K / 32)
     tiles: int  # output tiles: pixel tiles x ceil(Cout / bn)
     blocks: int  # persistent blocks: min(tiles, 2 x SMs)
+    mode: int = 1  # the C entry's Hopper route: 1 the conv mainloop, 2 the gather-K route
 
     @property
     def tma_shape(self) -> bool:
-        """The shape suits TMA; the C entry also needs 16-byte-aligned bases."""
+        """The shape suits the Hopper route; the C entry also needs 16-byte-aligned bases."""
         return self.route == "sm90"
 
     def args(self, sm90: bool) -> List[int]:
-        """The C entry's plan arguments: the mainloop's, or all 0 for the tile."""
+        """The C entry's plan arguments: the Hopper route's, or all 0 for the tile."""
         if not sm90:
             return [0] * len(CONV_PLAN_ARGS)
-        return [1, self.kc, self.bn, self.two, self.tho, self.nb, self.stages, self.blocks, self.smem]
+        return [self.mode, self.kc, self.bn, self.two, self.tho, self.nb, self.stages, self.blocks, self.smem]
 
 
 def conv_epilogue_bytes() -> int:
@@ -134,6 +140,72 @@ def conv_smem_bytes(kc: int, bn: int, stages: int) -> int:
 
 _TILE_PLAN = ConvPlan("tile", *([0] * 10))
 
+GATHERK_MAX_COUT = 64  # the gather-K route keeps every output channel in one wgmma tile
+GATHERK_THREADS = 256
+GATHERK_SLACK = 15 + 8  # a window row's left margin (up to 15 bytes) and the funnel shifts' over-read
+GATHERK_BLOCKS_PER_SM = 3  # as many as shared memory allows, up to the kernel's __launch_bounds__ (three)
+
+
+def _align16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def gatherk_smem_bytes(kb: int, kp: int, bn: int, cout: int, nb: int, wr: int, rp: int, out_bytes: int = 1) -> int:
+    """``gk_layout(...).total`` of gatherk_sm90.cuh: A (128 rows) and the
+    weights (bn rows) in ceil(kp / kb) swizzled blocks of kb-byte rows, the
+    staging tile (128 pixels, a row of Cout outputs rounded up to 16 bytes
+    and 16 more), two input windows of nb x wr rows at a pitch of rp bytes,
+    the epilogue constants (2 x 64 floats), the row tables (3 x 128 ints)
+    and 1024 bytes of alignment slack."""
+    nkb = -(-kp // kb)
+    return (CONV_TILE_M * kb * nkb + bn * kb * nkb + CONV_TILE_M * (_align16(cout * out_bytes) + 16)
+            + 2 * nb * wr * rp + 2 * GATHERK_MAX_COUT * 4 + 3 * CONV_TILE_M * 4 + 1024)
+
+
+def _tile_box(n: int, ho: int, wo: int, max_two: int, max_rows: int):
+    """Whole output rows (up to max_two columns), as many as make up to 128
+    pixels, balanced over the image; whole images, several a tile, where one
+    takes less than half."""
+    two = min(wo, CONV_TILE_M, max_two)
+    tho = min(ho, CONV_TILE_M // two, max_rows)
+    tho = -(-ho // -(-ho // tho))  # the same number of bands, evened out
+    nb = min(n, CONV_TILE_M // (two * tho), 256) if (two, tho) == (wo, ho) else 1
+    return two, tho, nb
+
+
+def _gatherk_plan(n, h, w, cin, cout, kh, kw, sh, sw, ho, wo, sms) -> ConvPlan:
+    """The gather-K form's Hopper route (gatherk_sm90.cuh), or the tile
+    where it cannot take the shape: Cout past 64, a K row of more than 256
+    copy units, Cin 1-3 with a run of fewer than 4 bytes, or shared memory
+    past a block's. The tile is K2's box, halved (images first, then rows)
+    while there are fewer tiles than SMs; blocks persist, up to three an SM
+    as their shared memory allows."""
+    k = kh * kw * cin
+    kp = -(-k // 32) * 32
+    unit = 16 if cin % 16 == 0 else 4
+    if cout > GATHERK_MAX_COUT or kp // unit > GATHERK_THREADS or (cin % 4 and kw * cin < 4):
+        return _TILE_PLAN
+    kb = 32 if kp <= 32 else 64 if kp <= 64 else 128
+    bn = 16 if cout <= 16 else 32 if cout <= 32 else 64
+    two, tho, nb = _tile_box(n, ho, wo, CONV_TILE_M, CONV_TILE_M)
+
+    def tiles_of(tho, nb):
+        return -(-wo // two) * -(-ho // tho) * -(-n // nb)
+
+    while tiles_of(tho, nb) < sms and (nb > 1 or tho > 1):  # fewer tiles than SMs: smaller tiles
+        if nb > 1:
+            nb = -(-nb // 2)
+        else:
+            tho = -(-ho // -(-ho // -(-tho // 2)))  # half the rows, bands evened out
+    wr, wc = (tho - 1) * sh + kh, (two - 1) * sw + kw
+    rp = _align16(wc * cin + GATHERK_SLACK)
+    smem = gatherk_smem_bytes(kb, kp, bn, cout, nb, wr, rp)
+    if smem > SMEM_LIMIT:
+        return _TILE_PLAN
+    per_sm = min(GATHERK_BLOCKS_PER_SM, 228 * 1024 // (smem + 1024))
+    tiles = tiles_of(tho, nb)
+    return ConvPlan("sm90", kb, bn, two, tho, nb, 2, smem, kp // 32, tiles, min(tiles, per_sm * sms), mode=2)
+
 
 @functools.lru_cache(maxsize=4096)  # a wrapper plans every call; the engines repeat a few shapes
 def conv_plan(n: int, h: int, w: int, cin: int, cout: int, kernel_size: Tuple[int, int],
@@ -144,7 +216,10 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, kernel_size: Tuple[in
 
     - route: the mainloop for the per-tap form and B7 where Cin % 16 == 0
       (TMA's 16-byte row pitch) and, for K2, strides up to 8 (TMA's traversal
-      stride); the general tile for gather-K, the residual form and the rest;
+      stride); for gather-K its own route (:func:`_gatherk_plan`: kc is the
+      swizzle row, 32, 64 or 128 bytes, bn the Cout tile, stages its two
+      input windows, up to three blocks an SM where they fit); the general
+      tile for the residual form and the rest;
     - kc: 128, 64 or 32 K bytes a stage, the widest dividing Cin (32 for Cin
       16 or 48: the chunk past Cin arrives as zeros);
     - K2's tile: whole output rows (up to 128 columns), as many as make up to
@@ -166,6 +241,8 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, kernel_size: Tuple[in
         ho, wo = hp - kh + 1, wp - kw + 1
     else:
         ho, wo = conv_out_hw(h, w, (kh, kw), (sh, sw), (ph, pw))
+    if form == "gatherk":
+        return _gatherk_plan(n, h, w, cin, cout, kh, kw, sh, sw, ho, wo, sms)
     if cin % 16 or not (form == "flat" or (form == "tap" and sh <= 8 and sw <= 8)):
         return _TILE_PLAN
     kc = next(k for k in CONV_KCS if cin % k == 0 or k == CONV_KCS[-1])
@@ -174,10 +251,7 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, kernel_size: Tuple[in
         two, tho, nb = CONV_TILE_M, 1, 1
         m_tiles = -(-((n - 1) * hp * wp + ho * wp) // CONV_TILE_M)
     else:
-        two = min(wo, CONV_TILE_M, 256 // sw)
-        tho = min(ho, CONV_TILE_M // two, 256 // sh)
-        tho = -(-ho // -(-ho // tho))  # the same number of bands, evened out
-        nb = min(n, CONV_TILE_M // (two * tho), 256) if (two, tho) == (wo, ho) else 1
+        two, tho, nb = _tile_box(n, ho, wo, 256 // sw, 256 // sh)
         m_tiles = -(-wo // two) * -(-ho // tho) * -(-n // nb)
     bn = 32 if cout <= 32 else 64 if cout <= 64 else 128
     if bn == 128 and m_tiles * -(-cout // 128) < CONV_BLOCKS_PER_SM * sms:
@@ -358,7 +432,7 @@ def int8_conv_direct_ck(
     plan = conv_plan(n, h, w, cin, cout, (kh, kw), (sh, sw), (ph, pw), form, _cuda.sm_count(dev))
     sm90 = plan.tma_shape and x_q.data_ptr() % 16 == 0 and w_ck.data_ptr() % 16 == 0
     t_ptr = None
-    if sm90 and (ph or pw) and stored_zp != 0:
+    if sm90 and plan.mode == 1 and (ph or pw) and stored_zp != 0:
         if border_sums is None:
             border_sums = conv_border_sums(w_ck, (kh, kw))
         elif border_sums.shape != ((kh + 1) * (kw + 1), cout):

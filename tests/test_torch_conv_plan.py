@@ -16,6 +16,17 @@ sums exactly where the mainloop needs them.
 The twin equals K2's plain version bit for bit (int32 sums are exact, and
 the epilogue is the same code). Against JAX, the bounds of
 ``tests/test_pallas_conv.py``: int8 outputs equal, f32 within 1e-3.
+
+The gather-K form's Hopper route (``csrc/gatherk_sm90.cuh``): its plan over
+every gather-K call of the engines (the stems of ResNet-50/18, MobileNet at
+widths 1.0 and 0.75, AlexNet, and CIFAR ResNet-20's 14) at batches 1-128,
+and a NumPy twin of the kernel's K layout, tile by tile: the input window
+with the stored zero point in its padding and the 16-byte left margin, the
+row table of window corners, A built unit by unit as the kernel copies it
+(16- or 4-byte units, or for Cin 3 a 4-byte word that may cross into the
+next run of Kw * Cin bytes), the weights zero past K, the staging tile's
+rows copied out to their pixels; it equals K2's plain version bit for bit, and JAX's
+``int8_conv_direct`` at small sizes of the four stems.
 """
 
 import jax.numpy as jnp
@@ -27,16 +38,18 @@ from quantized_tpu.ops.int8_conv_pallas import int8_conv_direct as j_int8_conv_d
 from quantized_tpu_torch import ops
 from quantized_tpu_torch.ops.int8_conv_pallas import (
     CONV_TILE_M,
+    _epilogue,
     conv_out_hw,
     conv_plan,
     conv_smem_bytes,
+    gatherk_smem_bytes,
     outside_taps,
     use_gather_k,
 )
 from quantized_tpu_torch.ops.int8_matmul import SMEM_LIMIT
 from quantized_tpu_torch.probes.gemm_sweep import BATCHES
 from quantized_tpu_torch.probes.sweep_conv import SHAPES
-from torch_gemm_shapes import CONV_ENGINES, engine_conv_calls
+from torch_gemm_shapes import CONV_ENGINES, GATHERK_ENGINES, engine_conv_calls
 
 F32_ATOL = 1e-3
 WGMMA_K = 32  # K bytes of one s8 wgmma step
@@ -96,7 +109,7 @@ def test_plan_bounds_at_every_engine_conv(engine):
             assert torch.equal(c.border_sums, ops.conv_border_sums(c.w_ck, c.kernel_size)), label
     stem = next(c for c in calls if use_gather_k(c.cin, c.kernel_size))
     assert conv_plan(1, stem.h, stem.w, stem.cin, stem.cout, stem.kernel_size, stem.stride, stem.padding,
-                     "gatherk").route == "tile"
+                     "gatherk").route == "sm90"
 
 
 @pytest.mark.parametrize("name,h,cin,cout,k,stride", [s[:6] for s in SHAPES[1:]])
@@ -215,3 +228,214 @@ def test_zero_filled_twin_matches_jax_pallas(rng, n, h, cin, cout, k, s, req, st
         np.testing.assert_array_equal(got.numpy(), want)
     else:
         np.testing.assert_allclose(got.numpy(), want, atol=F32_ATOL, rtol=0)
+
+
+# ----------------------------------------------------------------- the gather-K route
+
+
+def _check_gatherk_plan(label, n, h, w, cin, cout, ks, stride, pad):
+    plan = conv_plan(n, h, w, cin, cout, ks, stride, pad, "gatherk")
+    assert plan.route == "sm90" and plan.mode == 2, (label, plan)
+    (kh, kw), (sh, sw) = ks, stride
+    ho, wo = conv_out_hw(h, w, ks, stride, pad)
+    k = kh * kw * cin
+    kp = -(-k // WGMMA_K) * WGMMA_K
+    assert plan.k_stages == kp // WGMMA_K and plan.kc == (32 if kp <= 32 else 64 if kp <= 64 else 128), (label, plan)
+    assert plan.bn == (16 if cout <= 16 else 32 if cout <= 32 else 64) and cout <= plan.bn, (label, plan)
+    unit = 16 if cin % 16 == 0 else 4
+    assert kp // unit <= 256, (label, plan)  # a thread a K unit of a row
+    assert plan.two == min(wo, CONV_TILE_M) and plan.two * plan.tho * plan.nb <= CONV_TILE_M, (label, plan)
+    assert plan.nb == 1 or (plan.two, plan.tho) == (wo, ho), (label, plan)
+    bands = -(-ho // plan.tho)
+    assert (bands - 1) * plan.tho < ho <= bands * plan.tho, (label, plan)  # bands of equal height cover the rows
+    assert plan.tiles == -(-wo // plan.two) * bands * -(-n // plan.nb), (label, plan)
+    if plan.two * plan.tho * plan.nb < min(CONV_TILE_M // 2, ho * wo):  # a small tile: only to fill the SMs
+        assert plan.tiles < 2 * 132 and (plan.tiles >= 132 or plan.tho * plan.nb == 1), (label, plan)
+    wr, wc = (plan.tho - 1) * sh + kh, (plan.two - 1) * sw + kw
+    rp = -(-(wc * cin + 23) // 16) * 16
+    assert plan.smem == gatherk_smem_bytes(plan.kc, kp, plan.bn, cout, plan.nb, wr, rp) <= SMEM_LIMIT, (label, plan)
+    per_sm = min(3, 228 * 1024 // (plan.smem + 1024))
+    assert plan.blocks == min(plan.tiles, per_sm * 132), (label, plan)
+    assert plan.args(True) == [2, plan.kc, plan.bn, plan.two, plan.tho, plan.nb, 2, plan.blocks, plan.smem]
+    return plan
+
+
+@pytest.mark.parametrize("engine", sorted(GATHERK_ENGINES))
+def test_gatherk_plan_at_every_engine_call(engine):
+    """Every gather-K call of the engine, at batches 1, 8, 32 and 128, on the
+    Hopper route; CIFAR ResNet-20 makes 14 (the stem and the block convs over
+    Cin 16 and 32), the ImageNet engines one (the stem)."""
+    calls = [c for c in engine_conv_calls(engine) if use_gather_k(c.cin, c.kernel_size)]
+    assert len(calls) == (14 if engine == "cifar20" else 1)
+    for c in calls:
+        assert c.border_sums is None  # the window holds the zero point: no border correction
+        for b in BATCHES:
+            _check_gatherk_plan(f"{engine} {c.h}x{c.w}x{c.cin}->{c.cout} {c.kernel_size}/{c.stride} batch {b}",
+                                b, c.h, c.w, c.cin, c.cout, c.kernel_size, c.stride, c.padding)
+
+
+def test_gatherk_plan_routes():
+    """The tile where the route cannot take the shape: Cout past 64, a run of
+    fewer than 4 bytes (a 3x1 kernel over Cin 1), K rows of more than 256
+    units."""
+    assert conv_plan(2, 9, 9, 16, 96, (3, 3), (1, 1), (1, 1), "gatherk").route == "tile"
+    assert conv_plan(2, 9, 9, 1, 8, (3, 1), (1, 1), (1, 0), "gatherk").route == "tile"
+    assert conv_plan(2, 40, 40, 3, 8, (19, 19), (1, 1), (9, 9), "gatherk").route == "tile"
+    assert conv_plan(2, 9, 9, 2, 8, (1, 3), (1, 1), (0, 1), "gatherk").route == "sm90"  # a run of 6 bytes
+
+
+def _sw_offset(row, c, kb):
+    o = row * kb + c
+    return o ^ (((o >> 7) & (kb // 16 - 1)) << 4)
+
+
+def gatherk_twin(x, w_ck, ks, alpha, beta, stride, pad, stored_zp, relu, out_requant, plan):
+    """gatherk_sm90.cuh on the CPU under ``plan``: NumPy x and weights, the
+    epilogue through K2's own (torch) code."""
+    n, h, w, cin = x.shape
+    cout = w_ck.shape[0]
+    (kh, kw), (sh, sw), (ph, pw) = ks, (stride, stride), (pad, pad)
+    ho, wo = conv_out_hw(h, w, ks, sh, ph)
+    two, tho, nb, kb, bn = plan.two, plan.tho, plan.nb, plan.kc, plan.bn
+    k_all = kh * kw * cin
+    kp = -(-k_all // 32) * 32
+    nkb = -(-kp // kb)
+    wr, wc = (tho - 1) * sh + kh, (two - 1) * sw + kw
+    rp = -(-(wc * cin + 23) // 16) * 16
+    w_tiles, h_tiles = -(-wo // two), -(-ho // tho)
+    rng = np.random.default_rng(1)
+    # the resident weights: zero past K and Cout, through the swizzle and back
+    wbuf = np.zeros(nkb * bn * kb, dtype=np.int8)
+    for nn_ in range(bn):
+        for k in range(kp):
+            blk = k // kb
+            wbuf[blk * bn * kb + _sw_offset(nn_, k - blk * kb, kb)] = w_ck[nn_, k] if nn_ < cout and k < k_all else 0
+    wmat = np.zeros((bn, kp), dtype=np.int64)
+    for k in range(kp):
+        blk = k // kb
+        wmat[:, k] = wbuf[blk * bn * kb + _sw_offset(np.arange(bn), k - blk * kb, kb)]
+    rb = cout * (1 if out_requant is not None else 4)
+    out = np.full(n * ho * wo * rb, 7, dtype=np.uint8)
+    written = np.zeros(n * ho * wo * rb, dtype=np.int32)
+    unit = 16 if cin % 16 == 0 else 4
+    run = kw * cin
+    for t in range(plan.tiles):
+        wi_, rest = t % w_tiles, t // w_tiles
+        n0, ho0, wo0 = (rest // h_tiles) * nb, (rest % h_tiles) * tho, wi_ * two
+        wi0, hi0 = wo0 * sw - pw, ho0 * sh - ph
+        c_lo = min(max(0, -wi0), wc)
+        c_hi = min(max(c_lo, w - wi0), wc)
+        lp = (16 - (c_lo * cin) % 16) % 16
+        win = rng.integers(-128, 128, nb * wr * rp + 16).astype(np.int8)  # bytes never written hold anything
+        for rr in range(nb * wr):
+            img, r = divmod(rr, wr)
+            nn_, hi = n0 + img, hi0 + r
+            row = rr * rp + lp
+            inside = nn_ < n and 0 <= hi < h and c_hi > c_lo
+            b0, b1 = (c_lo * cin, c_hi * cin) if inside else (wc * cin, wc * cin)
+            win[row:row + b0] = stored_zp
+            win[row + b1:row + wc * cin] = stored_zp
+            if inside:
+                win[row + b0:row + b1] = x[nn_, hi, wi0 + c_lo:wi0 + c_hi].reshape(-1)
+        m = np.arange(CONV_TILE_M)
+        m = np.where(m < two * tho * nb, m, 0)
+        img, rem = m // (two * tho), m % (two * tho)
+        corner = (img * wr + (rem // two) * sh) * rp + lp + (rem % two) * sw * cin
+        a = np.zeros((CONV_TILE_M, kp), dtype=np.int64)
+        for k in range(0, kp, unit):  # one thread's K unit, for every row
+            if k >= k_all:
+                continue  # a unit past K: zeros
+            khh, j = divmod(k, run)
+            src = corner + khh * rp + j
+            v = win[src[:, None] + np.arange(unit)]
+            p_left = run - j
+            if unit == 4 and cin % 4 and p_left < 4 and khh + 1 < kh:  # Cin 3: the word crosses into run kh + 1
+                v2 = win[(corner + (khh + 1) * rp - p_left)[:, None] + np.arange(4)]
+                v = np.concatenate([v[:, :p_left], v2[:, p_left:]], axis=1)
+            a[:, k:k + unit] = v
+        acc = torch.from_numpy((a @ wmat.T)[:, :cout].astype(np.int32))
+        y = _epilogue(acc, torch.from_numpy(alpha), torch.from_numpy(beta), relu, out_requant).numpy()
+        stage = y.view(np.uint8).reshape(CONV_TILE_M, rb)  # a staging row a pixel
+        for mm in range(two * tho * nb):  # each stored row out to its pixel
+            img_, rem_ = divmod(mm, two * tho)
+            nn_, hoo, woo = n0 + img_, ho0 + rem_ // two, wo0 + rem_ % two
+            if nn_ < n and hoo < ho and woo < wo:
+                pix = (nn_ * ho + hoo) * wo + woo
+                out[pix * rb:(pix + 1) * rb] = stage[mm]
+                written[pix * rb:(pix + 1) * rb] += 1
+    assert (written == 1).all()
+    dtype = np.int8 if out_requant is not None else np.float32
+    return out.view(dtype).reshape(n, ho, wo, cout)
+
+
+# (n, h, cin, cout, k, stride, pad): the five shape families at small sizes
+# (the s2d stem; MobileNet's stem at widths 1.0 and 0.75; AlexNet's conv1;
+# the CIFAR stem; CIFAR's Cin-16 and Cin-32 3x3 convs at strides 1 and 2),
+# then a tile narrower than the output (Wo > 128: row segments), a ragged
+# last band and several images a tile with an odd batch
+GATHERK_CASES = [
+    (2, 15, 12, 64, 4, 1, 0),
+    (2, 16, 3, 32, 3, 2, 1),
+    (2, 16, 3, 24, 3, 2, 1),
+    (1, 35, 3, 64, 11, 4, 2),
+    (2, 12, 3, 16, 3, 1, 1),
+    (2, 12, 16, 16, 3, 1, 1),
+    (3, 12, 16, 32, 3, 2, 1),
+    (2, 8, 32, 32, 3, 1, 1),
+    (3, 8, 32, 64, 3, 2, 1),
+    (1, 131, 3, 8, 3, 1, 1),
+    (2, 27, 12, 16, 4, 1, 0),
+]
+
+
+@pytest.mark.parametrize("stored_zp", [-128, -5, 127])
+@pytest.mark.parametrize("n,h,cin,cout,k,stride,pad", GATHERK_CASES)
+def test_gatherk_twin_equals_k2_plain(rng, n, h, cin, cout, k, stride, pad, stored_zp):
+    """f32 and s8 out, bit for bit (f32: the same float32 operations)."""
+    x, w, alpha, beta = _case(rng, n, h, cin, cout, k)
+    w_ck = ops.pack_conv_weight(_t(w))
+    # a few SMs, so these small inputs keep the tiles of the serving batches
+    plan = conv_plan(n, h, h, cin, cout, (k, k), (stride, stride), (pad, pad), "gatherk", sms=1)
+    assert plan.route == "sm90"
+    for req in (None, (0.05, 113)):
+        args = ((k, k), _t(alpha), _t(beta), stride, pad, stored_zp, True, req)
+        want = ops.int8_conv_direct_plain(_t(x), w_ck, *args).numpy()
+        got = gatherk_twin(x, w_ck.numpy(), (k, k), alpha, beta, stride, pad, stored_zp, True, req, plan)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+
+
+def test_gatherk_twin_cases_cover_the_tile_shapes():
+    """The cases above reach a tile of row segments, a ragged band, several
+    images a tile and a word crossing runs (Cin 3, Kw * Cin = 9 and 33); at
+    batch 32, CIFAR's 8x8 outputs take tiles of one row to fill the SMs."""
+    wide = conv_plan(1, 131, 131, 3, 8, (3, 3), (1, 1), (1, 1), "gatherk", sms=4)
+    assert wide.two < 131
+    ragged = conv_plan(2, 27, 27, 12, 16, (4, 4), (1, 1), (0, 0), "gatherk", sms=4)
+    assert 24 % ragged.tho
+    assert conv_plan(3, 8, 8, 32, 64, (3, 3), (2, 2), (1, 1), "gatherk", sms=1).nb == 3
+    small = conv_plan(32, 16, 16, 32, 64, (3, 3), (2, 2), (1, 1), "gatherk")
+    assert (small.two, small.tho, small.nb, small.tiles) == (8, 1, 1, 256)
+
+
+# the four stems at small sizes, against JAX (its gather-K body in interpret mode)
+JAX_STEMS = [(2, 15, 12, 64, 4, 1, 0), (2, 16, 3, 32, 3, 2, 1), (1, 35, 3, 64, 11, 4, 2), (2, 12, 3, 16, 3, 1, 1)]
+
+
+@pytest.mark.parametrize("stored_zp", [-128, -5, 127])
+@pytest.mark.parametrize("n,h,cin,cout,k,s,pad", JAX_STEMS)
+def test_gatherk_twin_matches_jax_pallas(rng, n, h, cin, cout, k, s, pad, stored_zp):
+    x, w, alpha, beta = _case(rng, n, h, cin, cout, k)
+    w_ck = ops.pack_conv_weight(_t(w)).numpy()
+    plan = conv_plan(n, h, h, cin, cout, (k, k), (s, s), (pad, pad), "gatherk", sms=1)
+    for req in (None, (0.05, 113)):
+        want = np.asarray(j_int8_conv_direct(jnp.asarray(x), jnp.asarray(w), jnp.asarray(alpha), jnp.asarray(beta),
+                                             stride=s, padding=pad, stored_zp=stored_zp, relu=True, out_requant=req,
+                                             interpret=True))
+        got = gatherk_twin(x, w_ck, (k, k), alpha, beta, s, pad, stored_zp, True, req, plan)
+        assert got.shape == want.shape
+        if req is not None:
+            np.testing.assert_array_equal(got, want)
+            assert len(np.unique(want)) > 20
+        else:
+            np.testing.assert_allclose(got, want, atol=F32_ATOL, rtol=0)

@@ -20,7 +20,7 @@ import torch
 from torch_markers import cuda_device  # noqa: F401  (fixture)
 
 from quantized_tpu_torch import ops
-from quantized_tpu_torch.ops.fused_block import dw_pw_band_rows
+from quantized_tpu_torch.ops.fused_block import dw_pw_band_rows, dw_pw_plan
 from quantized_tpu_torch.ops.int8_matmul import gemm_plan
 from torch_gemm_shapes import RAGGED_SPLIT, distinct_plans
 
@@ -565,13 +565,77 @@ def test_fused_dw_pw_kernel_matches_plain(cuda_device, gen, n, h, c, cout, strid
     ho = h // stride
     if n == 32:
         assert ho % dw_pw_band_rows(n, ho, h, c, cout, stride), "the case should have a ragged last band"
-    before = ops.KERNELS["fused_dw_pw"].launches
-    got = ops.fused_dw_pw_ck(x, wdw, wpw, *v, stride, **DW_PW_SCALARS)
+    _check_dw_pw_route(x, wdw, wpw, v, stride)
+
+
+def _check_dw_pw_route(x, wdw, wpw, v, stride, **scalars):
+    """One call through the wrapper on the route its plan gives (the Hopper
+    route where C and Cout are multiples of 16), one launch, equal to the
+    plain version and spread over the int8 range; returns the plan."""
+    n, h, w, c = x.shape
+    plan = dw_pw_plan(n, h, w, c, wpw.shape[0], stride)
+    assert plan.route == ("sm90" if c % 16 == 0 and wpw.shape[0] % 16 == 0 else "tile"), plan
+    before, routes = ops.KERNELS["fused_dw_pw"].launches, _routes("fused_dw_pw")
+    scalars = {**DW_PW_SCALARS, **scalars}
+    got = ops.fused_dw_pw_ck(x, wdw, wpw, *v, stride, **scalars)
     assert ops.KERNELS["fused_dw_pw"].launches == before + 1
-    want = ops.fused_dw_pw_plain(x, wdw, wpw, *v, stride, **DW_PW_SCALARS)
+    assert _routes("fused_dw_pw").get(plan.route, 0) == routes.get(plan.route, 0) + 1, (plan, _routes("fused_dw_pw"))
+    want = ops.fused_dw_pw_plain(x, wdw, wpw, *v, stride, **scalars)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert len(torch.unique(want)) > 100
+    return plan
+
+
+# MobileNet-v1's distinct pair shapes at 224x224 (input side, C, Cout, stride):
+# width 1.0's pairs 0, 1, 2, 3, 4, 5, 6-10 and 11, then width 0.75's and 0.25's
+DW_PW_PAIRS = [(112, 32, 64, 1), (112, 64, 128, 2), (56, 128, 128, 1), (56, 128, 256, 2), (28, 256, 256, 1),
+               (28, 256, 512, 2), (14, 512, 512, 1), (14, 512, 1024, 2)]
+DW_PW_NARROW_PAIRS = [(112, 24, 48, 1), (112, 48, 96, 2), (56, 96, 96, 1), (56, 96, 192, 2), (28, 192, 192, 1),
+                      (28, 192, 384, 2), (14, 384, 384, 1), (14, 384, 768, 2), (112, 8, 16, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [2, 32])
+@pytest.mark.parametrize("h,c,cout,stride", DW_PW_PAIRS + DW_PW_NARROW_PAIRS)
+def test_fused_dw_pw_at_every_pair_shape(cuda_device, gen, batch, h, c, cout, stride):
+    """B5 at every distinct pair shape of MobileNet-v1 at widths 1.0, 0.75
+    and 0.25, on the route its plan gives (the tile for C 24 and 8)."""
+    x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, batch, h, c, cout)
+    plan = _check_dw_pw_route(x, wdw, wpw, v, stride)
+    print(f"B5 {batch}x{h}x{h}x{c}->{cout}/{stride}: {plan}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,c,cout,stride,zp1", [
+    # ragged last bands (26 rows in bands of 4; 13 in bands of 5), an odd
+    # batch of two-image tiles (7x7), C 48 (a K block of 64 bytes, zero past
+    # C) and 96, the extreme stored zero points of the depthwise padding
+    (3, 26, 32, 16, 1, -17), (2, 13, 64, 64, 1, 127), (3, 14, 128, 256, 2, -128), (5, 14, 512, 1024, 2, 127),
+    (2, 24, 48, 96, 2, -17), (2, 18, 96, 96, 1, -128),
+])
+def test_fused_dw_pw_sm90_edges(cuda_device, gen, n, h, c, cout, stride, zp1):
+    x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, n, h, c, cout)
+    plan = _check_dw_pw_route(x, wdw, wpw, v, stride, zp1_stored=zp1)
+    ho = h // stride
+    assert plan.route == "sm90"
+    if n in (2, 3) and stride == 1 and h in (26, 13):
+        assert ho % plan.tho, "the case should have a ragged last band"
+
+
+@pytest.mark.cuda
+def test_fused_dw_pw_unaligned_input_takes_the_tile(cuda_device, gen):
+    """x starting 4 bytes into its buffer: the tile kernel, exactly."""
+    n, h, c, cout = 2, 14, 64, 64
+    _, wdw, wpw, v = _dw_pw_case(gen, cuda_device, n, h, c, cout)
+    buf = torch.empty(n * h * h * c + 4, dtype=torch.int8, device=cuda_device)
+    x = buf[4:].view(n, h, h, c)
+    x.copy_(_dev(gen.integers(-128, 128, (n, h, h, c)).astype(np.int8), cuda_device))
+    routes = _routes("fused_dw_pw")
+    got = ops.fused_dw_pw_ck(x, wdw, wpw, *v, 1, **DW_PW_SCALARS)
+    assert _routes("fused_dw_pw").get("tile", 0) == routes.get("tile", 0) + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.fused_dw_pw_plain(x, wdw, wpw, *v, 1, **DW_PW_SCALARS))
 
 
 @pytest.mark.cuda
@@ -872,7 +936,10 @@ def test_conv_stays_on_the_tile_where_the_mainloop_cannot_take_it(cuda_device, g
     _check_conv_route(x, w_ck, ((3, 3), alpha, beta, 1, 1, -5, True, (0.05, 113)), "tile")
     x24, w24, a24, b24 = _conv_case(gen, cuda_device, 2, 14, 24, 48, 1)
     _check_conv_route(x24, w24, ((1, 1), a24, b24, 1, 0, -5, True, (0.05, 113)), "tile")
-    xs, ws, as_, bs = _conv_case(gen, cuda_device, 2, 30, 12, 64, 4)
+    _, ws, as_, bs = _conv_case(gen, cuda_device, 2, 30, 12, 64, 4)  # the gather-K form over an unaligned input
+    sbuf = torch.empty(2 * 30 * 30 * 12 + 4, dtype=torch.int8, device=cuda_device)
+    xs = sbuf[4:].view(2, 30, 30, 12)
+    xs.copy_(_dev(gen.integers(-128, 128, (2, 30, 30, 12)).astype(np.int8), cuda_device))
     _check_conv_route(xs, ws, ((4, 4), as_, bs, 1, 0, -5, True, (0.05, 113)), "tile",
                       name="int8_conv_direct_gatherk")
     xr, wr, ar, br = _conv_case(gen, cuda_device, 2, 14, 64, 64, 3)
@@ -882,6 +949,34 @@ def test_conv_stays_on_the_tile_where_the_mainloop_cannot_take_it(cuda_device, g
     got = ops.int8_conv_direct_ck(xr, wr, (3, 3), ar, br, 1, 1, -5, True, (0.06, 105), **kw)
     assert _routes("int8_conv_direct_residual")["tile"] == before + 1
     assert torch.equal(got, ops.int8_conv_direct_plain(xr, wr, (3, 3), ar, br, 1, 1, -5, True, (0.06, 105), **kw))
+
+
+# n, h, cin, cout, k, stride, pad: the gather-K form's five shape families at
+# their serving sizes (two images): the s2d stem; MobileNet's stem at widths
+# 1.0 and 0.75; AlexNet's conv1; the CIFAR stem; CIFAR's Cin-16 and Cin-32
+# 3x3 convs at strides 1 and 2; then an odd batch of 8x8 outputs (two images
+# a tile) and a row wider than a tile (row segments)
+GATHERK_CASES = [
+    (2, 115, 12, 64, 4, 1, 0), (2, 224, 3, 32, 3, 2, 1), (2, 224, 3, 24, 3, 2, 1), (2, 224, 3, 64, 11, 4, 2),
+    (2, 32, 3, 16, 3, 1, 1), (2, 32, 16, 16, 3, 1, 1), (2, 32, 16, 32, 3, 2, 1), (2, 16, 32, 32, 3, 1, 1),
+    (2, 16, 32, 64, 3, 2, 1), (3, 16, 32, 64, 3, 2, 1), (1, 150, 3, 8, 3, 1, 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("req", [None, (0.05, 113)])
+@pytest.mark.parametrize("n,h,cin,cout,k,s,pad", GATHERK_CASES)
+def test_conv_gatherk_route_matches_plain(cuda_device, gen, n, h, cin, cout, k, s, pad, req):
+    """K2's gather-K form on its Hopper route, a nonzero stored zero point
+    in the padding, f32 and s8 out, the route asserted."""
+    x, w_ck, alpha, beta = _sm90_case(gen, cuda_device, n, h, cin, cout, k)
+    plan = ops.conv_plan(n, h, h, cin, cout, (k, k), (s, s), (pad, pad), "gatherk")
+    print(f"K2 gather-K {n}x{h}x{h}x{cin}->{cout} {k}x{k}/{s} pad {pad}: {plan}")
+    assert plan.route == "sm90"
+    _check_conv_route(x, w_ck, ((k, k), alpha, beta, s, pad, -5, True, req), "sm90",
+                      name="int8_conv_direct_gatherk", spread=True)
+    _check_conv_route(x, w_ck, ((k, k), alpha, beta, s, pad, 127, False, req), "sm90",
+                      name="int8_conv_direct_gatherk")
 
 
 @pytest.mark.cuda

@@ -72,22 +72,33 @@ CONV_ENGINES = {
     "mobilenet": ("mobilenet_quantized", dict(num_classes=1000, width_mult=1.0)),
     "alexnet": ("alexnet_quantized", dict(num_classes=1000)),
 }
+# the engines whose gather-K calls the tests check: the four above, MobileNet
+# at width 0.75 (its stem's Cout 24) and CIFAR ResNet-20 at 32x32 (14
+# gather-K convs: the stem and the block convs over Cin 16 and 32)
+GATHERK_ENGINES = {
+    **CONV_ENGINES,
+    "mobilenet w0.75": ("mobilenet_quantized", dict(num_classes=1000, width_mult=0.75)),
+    "cifar20": ("resnet_quantized_float_bn", dict(dataset="cifar10", depth=20)),
+}
+ENGINE_SIDES = {"cifar20": 32}  # the others: 224
 
 
 @functools.lru_cache(maxsize=None)
 def engine_conv_calls(name: str):
-    """Every K2 call (per-tap and gather-K) of one batch-1 224x224 forward of
-    an int8 engine built on the CPU from seed 0; the convs themselves are not
-    computed (each call returns zeros of its output's shape and type)."""
+    """Every K2 call (per-tap and gather-K) of one batch-1 forward (224x224;
+    CIFAR: 32x32) of an int8 engine built on the CPU from seed 0; the convs
+    themselves are not computed (each call returns zeros of its output's
+    shape and type)."""
     from quantized_tpu_torch.engine import build_int8_alexnet, build_int8_mobilenet, build_int8_resident
     from quantized_tpu_torch.engine import int_layers
     from quantized_tpu_torch.entry import _calibrated_model
     from quantized_tpu_torch.ops.int8_conv_pallas import conv_out_hw
 
-    model_name, cfg = CONV_ENGINES[name]
+    model_name, cfg = GATHERK_ENGINES[name]
+    side = ENGINE_SIDES.get(name, 224)
     model = _calibrated_model(model_name, device="cpu", generator=torch.Generator().manual_seed(0), **cfg)
-    build = {"resnet50": build_int8_resident, "resnet18": build_int8_resident,
-             "mobilenet": build_int8_mobilenet, "alexnet": build_int8_alexnet}[name]
+    build = {"resnet_quantized_float_bn": build_int8_resident, "mobilenet_quantized": build_int8_mobilenet,
+             "alexnet_quantized": build_int8_alexnet}[model_name]
     engine = build(model, backend="pallas", device="cpu")
     calls = []
 
@@ -104,7 +115,7 @@ def engine_conv_calls(name: str):
     int_layers.int8_conv_direct_ck = record
     try:
         with torch.inference_mode():
-            engine.run_u8(torch.zeros((1, 224, 224, 3), dtype=torch.uint8))
+            engine.run_u8(torch.zeros((1, side, side, 3), dtype=torch.uint8))
     finally:
         int_layers.int8_conv_direct_ck = real
     return tuple(calls)
