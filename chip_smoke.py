@@ -9,7 +9,8 @@ package beside it, it exits non-zero before printing any result.
 Phases, each printed as it runs; any failure ends the run with an exception
 and a non-zero exit:
 
-1. device: the GPU's name, and its name and power limit from nvidia-smi;
+1. device: the GPU's name, and its name and power limit from nvidia-smi,
+   then the predictions this run tests (``PREDICTIONS``);
 2. build: one nvcc per CUDA source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the same GPU
    tensors, at the shapes the serving paths give it (batch 32): int8
@@ -60,7 +61,11 @@ and a non-zero exit:
    junk columns); K2's residual form (B8) at ResNet-18's conv2 + identity
    (layer1 and layer3), f32 and s8 out; the copy kernels (B9) on the
    (32, 56, 56, 256) layer1 activation, ``Tensor.copy_`` their yardstick
-   and 2 x its bytes their bound;
+   and 2 x its bytes their bound, ``grid_copy`` and ``ring_copy`` on their
+   Hopper route ("sm90", asserted) with their plans (``copy_plan``,
+   ``ring_plan``) printed. B3 and B4 also run at C = 24 (Cm 16 and 24,
+   Cout 32 and 40, strides 1 and 2), which their wrappers pad to multiples
+   of 16, each equal to its plain version;
 4. the op paths, each with the launch counts set to 0 just before and read
    just after: "conv sweep", the per-shape sweep of ``probes/sweep_conv``
    over ResNet-50's 24 conv shapes at batch 32 on K2, B7 and im2col + K1
@@ -68,8 +73,10 @@ and a non-zero exit:
    launch on the mainloop), then ``torch._int_mm`` on its 1x1 stride-1
    shapes (a yardstick, no kernel of the port); "conv ops", B8 through
    ``int8_conv_direct(..., residual=, res_grid=)`` (2 launches, equal to
-   its plain version); "copy probe", every variant of ``probes/dma_ring``
-   checked exact, then timed; "fused stages", ``probes/fused_stages``:
+   its plain version), then a grouped conv of 2 groups (``int8_conv_xla``,
+   plain PyTorch) against its CPU twin; "copy probe", every variant of
+   ``probes/dma_ring`` checked exact, then timed, every ``grid_copy`` and
+   ``ring_copy`` launch on the Hopper route; "fused stages", ``probes/fused_stages``:
    copy, conv1, conv12 and the full identity block on one (32, 56, 56,
    256) input, each equal to its plain version, then timed (which stage of
    B3 takes the time);
@@ -217,6 +224,12 @@ KERNEL_INFO = {
     "fused_stages_conv1": ("quantized_tpu_torch/csrc/fused_stages.cu", "bench/fused_probe.py:66"),
     "fused_stages_conv12": ("quantized_tpu_torch/csrc/fused_stages.cu", "bench/fused_probe.py:75"),
 }
+# what this run should show, written before it ran; printed as it starts
+PREDICTIONS = ("grid_copy (bi 1) about 0.020 ms and ring_copy (S 4, D 2, bi 1) about 0.021 ms at (32, 56, 56, "
+               "256) s8 (parent 0.0321 and 0.0315), each at or under Tensor.copy_ in the same call and under "
+               "2 x bound (0.0307 ms); in probes/dma_ring copy-bi2 to copy-bi16 near copy-bi1, the ring's "
+               "S8D4, bi 4, add and sep variants no slower than their parent times; the fused stages' copy "
+               "floor falls the same way; no served forward moves beyond its run-to-run spread")
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
@@ -226,8 +239,8 @@ KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "r
                "bulk_copy": "copy probe", "fused_stages_conv1": "fused stages", "fused_stages_conv12": "fused stages"}
 OUR_KERNELS = ("int8_conv_kernel", "conv_sm90_kernel", "gatherk_sm90_kernel", "int8_matmul_kernel", "gemm_sm90_kernel",
                "bottleneck_sm90_kernel", "basic_sm90_kernel", "fused_dw_pw_kernel", "dw_pw_sm90_kernel",
-               "int4_matmul_kernel", "int8_conv_flat_kernel", "grid_copy_kernel", "ring_copy_kernel",
-               "bulk_copy_kernel")  # device kernel names
+               "int4_matmul_kernel", "int8_conv_flat_kernel", "grid_copy_kernel", "grid_copy_tma_kernel",
+               "ring_copy_kernel", "bulk_copy_kernel")  # device kernel names
 SWEEP_MODES = ("direct", "flat", "gemm")  # the conv sweep path: K2, B7 and im2col + K1
 # K2 per-tap launches per forward on the general tile (Cin % 16 != 0); every other one takes the mainloop
 SERVE_TILE_ROUTE = {"mobilenet w0.75 serve": 1}
@@ -372,11 +385,14 @@ def _log_conv_plan(kernel, label, x, wc, ks, stride, pad, form):
 
 def _log_block_plan(kernel, label, kind, x, cm, cout, stride, ds):
     """B3's or B4's plan of a call (``block_plan``: cluster size, images a
-    cluster, band, job width, ring stages, shared memory, blocks) and its
-    instance's ptxas line; the route is asserted by the caller from the counts."""
+    cluster, band, job width, ring stages, shared memory, blocks) at the
+    widths the wrapper launches (C, Cm and Cout padded to multiples of 16)
+    and its instance's ptxas line; the route is asserted by the caller from
+    the counts."""
     from quantized_tpu_torch.ops import block_plan
 
     n, h, w, c = x.shape
+    c, cm, cout = (-(-v // 16) * 16 for v in (c, cm, cout))
     plan = block_plan(kind, n, h, w, c, cm, cout, stride, ds)
     instance = (f"bottleneck_sm90_kernelILi{plan.bn}ELi{stride}ELb{int(ds)}ELi0E" if kind == "bottleneck"
                 else f"basic_sm90_kernelILi{plan.bn}ELi{stride}ELb{int(ds)}E")
@@ -597,13 +613,20 @@ def phase_kernels(timer):
 
     # B9: the copy kernels on the layer1 activation; the yardstick is
     # Tensor.copy_ into a preallocated tensor, the bound 2 x its bytes
+    from quantized_tpu_torch.ops.copy_probe import copy_plan, ring_plan
     xa = _rand_int8(gen, (b, 56, 56, 256))
     dst = torch.empty_like(xa)
+    image, sms = xa.numel() // b, torch.cuda.get_device_properties(dev).multi_processor_count
+    log(f"[kernels] grid_copy plan at bi 1: {copy_plan(xa.numel(), image, sms)}; ring_copy plan at S 4, D 2, "
+        f"bi 1: {ring_plan(xa.numel(), image, 4, 2, False, sms)}")
     for name, kernel in (("grid_copy", lambda: ops.grid_copy(xa, 1)),
                          ("ring_copy", lambda: ops.ring_copy(xa, 4, 2, 1)),
                          ("bulk_copy", lambda: ops.bulk_copy(xa, 1))):
+        before = dict(ops.KERNELS[name].routes)
         record(name, f"({b}, 56, 56, 256) s8", kernel, lambda: ops.copy_plain(xa), lambda: dst.copy_(xa),
                2 * xa.numel(), 0, True)
+        if name != "bulk_copy" and _route_of(name, before) != "sm90":
+            raise AssertionError(f"{name}: not on its Hopper route")
 
     # B3: the fused bottlenecks at ResNet-50's block shapes, with the int16
     # shortcut leg (ds_fine = 32) as the engine passes it
@@ -616,6 +639,10 @@ def phase_kernels(timer):
         ("fused_bottleneck_ds", "layer2.0 s2 56x56 256->128->512", (56, 256, 128, 512, 2), True),
         ("fused_bottleneck_ds", "layer3.0 s2 28x28 512->256->1024", (28, 512, 256, 1024, 2), False),
         ("fused_bottleneck_ds", "layer4.0 s2 14x14 1024->512->2048", (14, 1024, 512, 2048, 2), False),
+        # C = 24 (no zoo block has it): the wrapper pads C, Cm and Cout to multiples of 16
+        ("fused_bottleneck_s1", "C 24 28x28 24->16->24", (28, 24, 16, 24, 1), False),
+        ("fused_bottleneck_ds", "C 24 s2 56x56 24->24->40", (56, 24, 24, 40, 2), False),
+        ("fused_bottleneck_ds", "C 24 s1 28x28 24->16->32", (28, 24, 16, 32, 1), False),
     ]
     for name, label, (h, c, cm, cout, s), rep in fused_cases:
         ds = name == "fused_bottleneck_ds"
@@ -650,6 +677,10 @@ def phase_kernels(timer):
         ("fused_basicblock_ds", "resnet18 layer2.0 s2 56->28 64->128", (56, 64, 128, 2), True),
         ("fused_basicblock_ds", "resnet18 layer4.0 s2 14->7 256->512", (14, 256, 512, 2), False),
         ("fused_basicblock_ds", "cifar20 layer2.0 s2 32->16 16->32", (32, 16, 32, 2), False),
+        # C = 24, padded by the wrapper as above
+        ("fused_basicblock_s1", "C 24 28x28 24", (28, 24, 24, 1), False),
+        ("fused_basicblock_ds", "C 24 s2 56->28 24->16", (56, 24, 16, 2), False),
+        ("fused_basicblock_ds", "C 24 s1 28x28 24->24", (28, 24, 24, 1), False),
     ]
     for name, label, (h, c, cm, s), rep in basic_cases:
         ds = name == "fused_basicblock_ds"
@@ -1182,6 +1213,18 @@ def phase_conv_ops():
         if err > (0 if req else F32_ATOL):
             raise AssertionError(f"conv ops: the residual conv differs from its plain version by {err}")
     log("[conv ops] int8_conv_direct(residual=, res_grid=) equals its plain version, s8 and f32")
+
+    # a grouped conv of 2 groups (plain PyTorch: the JAX package leaves it to
+    # XLA, so no kernel is owed) against its CPU twin, s8 and f32 out
+    xg, wg = _rand_int8(gen, (2, 56, 56, 64)), _rand_int8(gen, (3, 3, 32, 64), low=-127)
+    ag, bg = _epilogue_params(gen, 64, dev)
+    for req in ((0.05, 113), None):
+        args = (1, 1, -5, True, req)
+        got = ops.int8_conv_xla(xg, wg, ag, bg, *args, groups=2)
+        want = ops.int8_conv_xla(xg.cpu(), wg.cpu(), ag.cpu(), bg.cpu(), *args, groups=2)
+        if got.shape != want.shape or not torch.equal(got.cpu(), want):
+            raise AssertionError(f"conv ops: the grouped conv on the GPU differs from its CPU twin ({req})")
+    log("[conv ops] int8_conv_xla(groups=2) on the GPU equals its CPU twin, s8 and f32")
     return counts
 
 
@@ -1189,11 +1232,17 @@ def phase_copy_probe():
     """The copy probe (``probes/dma_ring``): every variant of the TPU DMA
     studies exact against its plain version, then timed as a chain, on the
     (32, 56, 56, 256) layer1 activation."""
+    from quantized_tpu_torch import ops
     from quantized_tpu_torch.probes import dma_ring
 
     counts, times = _path_counts("copy probe", lambda: dma_ring.run_probe(
         SERVE_BATCH, target_secs=COPY_TARGET_SECS, reps=2, out=lambda line: log(f"[copy probe] {line}")))
     _require_launched(counts, ("grid_copy", "ring_copy", "bulk_copy"), "copy probe")
+    routes = PATH_ROUTES["copy probe"] = ops.route_counts()
+    log(f"[copy probe] routes {json.dumps(routes)}")
+    for name in ("grid_copy", "ring_copy"):
+        if routes.get(name) != {"sm90": counts[name]}:
+            raise AssertionError(f"copy probe: {name} launches by route {routes.get(name)}")
     return counts, times
 
 
@@ -1209,7 +1258,7 @@ def phase_fused_stages():
     _require_launched(counts, ("grid_copy", "fused_stages_conv1", "fused_stages_conv12", "fused_bottleneck_s1"),
                       "fused stages")
     routes = PATH_ROUTES["fused stages"] = ops.route_counts()
-    for name in ("fused_stages_conv1", "fused_stages_conv12", "fused_bottleneck_s1"):
+    for name in ("grid_copy", "fused_stages_conv1", "fused_stages_conv12", "fused_bottleneck_s1"):
         if set(routes.get(name, {})) != {"sm90"}:
             raise AssertionError(f"fused stages: {name} routes {routes.get(name)}")
     return counts, times
@@ -1314,6 +1363,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, card = phase_device()
+    log(f"[predictions] {PREDICTIONS}")
     phase_build()
     timer = Timer("cuda")
     kernel_numbers = phase_kernels(timer)

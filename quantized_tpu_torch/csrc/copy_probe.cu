@@ -1,39 +1,77 @@
 // B9: copy probes. out = x, or out = x + 1 per byte (wrapping in int8), over
 // the layer1 activation of ResNet-50, (B, 56, 56, 256) s8, by three routes.
 //
-// Replaces the Pallas copy bodies of the TPU DMA studies:
-//   grid_copy  one block per `bi` images (the auto-pipelined grid copies:
-//              bench/fused_probe.py:45, bench/dma_ring_probe.py:132,
-//              bench/dma_ring_probe3.py:89);
-//   ring_copy  one persistent block per SM streaming `bi`-image steps through
-//              an S-slot shared-memory ring filled by cp.async, D steps ahead
-//              (the hand-rolled DMA rings: bench/dma_ring_probe.py:103,
-//              bench/dma_ring_probe2.py:90, bench/dma_ring_probe3.py:164);
-//   bulk_copy  TMA bulk copies, global -> shared -> global on an mbarrier,
-//              issued by one thread per block with `streams` copies in flight
-//              (the raw whole-array DMAs: bench/dma_ring_probe2.py:47,
-//              bench/dma_ring_probe3.py:185).
-//
 // What bounds them on the H100: bytes only, 2 x the tensor over 3.35 TB/s.
-// A TPU step of bi images (0.8 MB each) fits in VMEM; a Hopper block has at
-// most 227 KB of shared memory, so the ring splits each step across the SMs:
-// block b takes the b-th of gridDim.x equal pieces of every step, and a slot
-// holds one piece. A TPU out-DMA frees its slot only when it completes, so
-// the Pallas ring waits on it; here a thread stores a slot's words from
-// registers, so the slot is free once they are read and only D (<= S) slots
-// are ever in use. Each thread copies the same words of every piece, so
-// cp.async.wait_group (per thread) orders the ring without a barrier.
-// 16-byte loads and stores throughout; the bytes past the last whole 16 are
-// copied one by one.
+// By Little's law that rate with about 1 us of loaded latency needs some
+// 3 MB in flight across the card, some 20 KB on every SM, reads and writes
+// together; each design below is about keeping that much in flight.
+//
+// grid_copy  replaces the auto-pipelined grid copies (bench/fused_probe.py:45,
+//            bench/dma_ring_probe.py:132, bench/dma_ring_probe3.py:89). A TPU
+//            grid step of `bi` images is a unit of order on one core; carried
+//            over as one block per step it left 32 blocks on 132 SMs at batch
+//            32 (2 at bi 16) and 1.6 TB/s. Here the step stays the unit a
+//            block draws from (a block copies one piece of one step and never
+//            crosses a step), but the plan (ops/copy_probe.py copy_plan) cuts
+//            every step into pieces of whole 128-byte lines, at most 16 KB,
+//            and enough of them for at least two blocks on every SM, whatever
+//            bi. Two forms of a piece: `tma`, one TMA bulk load of the piece
+//            into shared memory on an mbarrier (the +1 in shared memory), and
+//            one bulk store back, issued by one thread, some 13 blocks an SM;
+//            `regs`, 256 threads each with up to 8 independent 16-byte loads
+//            in flight before its stores. The plan takes `tma` at 16 KB: on an
+//            H100 80GB HBM3 (700 W), `python -m quantized_tpu_torch.probes.dma_ring
+//            32 --plans` times it at 0.0218-0.0224 ms against 0.0234 for
+//            `regs` at its best piece (8-16 KB) and 0.0235 for Tensor.copy_;
+//            both forms lose 2-7% at 32-64 KB pieces and at 4 KB.
+//
+// ring_copy  replaces the hand-rolled S-slot, D-deep DMA rings
+//            (bench/dma_ring_probe.py:103, bench/dma_ring_probe2.py:90,
+//            bench/dma_ring_probe3.py:164). One persistent block per SM takes
+//            the b-th of gridDim.x pieces (whole 128-byte lines) of every
+//            `bi`-image step (a step of 0.8 MB an image fits the TPU's VMEM;
+//            a block has at most 227 KB). The ring is the TPU's: one thread
+//            issues TMA bulk loads (global -> slot, mbarrier::complete_tx) D
+//            steps ahead, and sends each slot out by a TMA bulk store (bulk
+//            group) with no trip through registers; for "add" and "sep" the
+//            block's threads first transform the slot in shared memory (or
+//            copy it into the separate out buffer), then fence.proxy.async,
+//            then the store. A slot is refilled only after
+//            cp.async.bulk.wait_group.read says the store S - D steps back has
+//            read it, so the S - D spare slots hold stores in flight while D
+//            slots fill, as the TPU's out-DMAs drain there. As on the TPU, the
+//            load of step i + D starts once step i has landed, so the card
+//            holds at most D steps (D x bi images) of loads in flight: on the
+//            H100 that, not the stores, sets the ring's rate (`--plans`: S 8
+//            and S 4 at D 2 take the same time; D 1, 2, 4 and 6 at bi 1 take
+//            0.043, 0.030, 0.026 and 0.025 ms).
+//
+// bulk_copy  replaces the raw whole-array DMAs (bench/dma_ring_probe2.py:47,
+//            bench/dma_ring_probe3.py:185): TMA bulk copies of 32 KB, global ->
+//            shared -> global on an mbarrier, issued by one thread per block
+//            with `streams` copies in flight.
+//
+// TMA bulk copies take whole 16-byte units at 16-byte aligned addresses, and
+// the plans cut only whole units; the bytes past the last whole 16 are copied
+// one by one by block 0.
 
 #include "int8_mma.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int GRID_THREADS = 512;
-constexpr int MAX_DEPTH = 8;         // cp.async.wait_group takes an immediate
-constexpr int BULK_CHUNK = 32768;    // bytes of one TMA bulk copy
+using qt90::fence_proxy_async;
+using qt90::mbar_expect_tx;
+using qt90::mbar_init;
+using qt90::mbar_wait;
+using qt90::smem_u32;
+
+constexpr int GRID_THREADS = 256;
+constexpr int GRID_UNROLL = 8;       // 16-byte loads a thread of the register form keeps in flight
+constexpr int BULK_CHUNK = 32768;    // bytes of one TMA bulk copy of bulk_copy
 constexpr int MAX_STREAMS = 6;       // 6 x 32 KB of the 227 KB
+
+enum RingCompute { RING_NONE = 0, RING_ADD = 1, RING_SEP = 2 };
 
 template <typename T>
 __host__ __device__ __forceinline__ T lo(T a, T b) { return a < b ? a : b; }
@@ -50,168 +88,222 @@ __device__ __forceinline__ int8_t add1(int8_t b) {
   return static_cast<int8_t>(static_cast<uint8_t>(static_cast<uint8_t>(b) + 1u));
 }
 
-// bytes [b0, b1) of x into out (both 16-byte aligned), +1 each if add; all
-// threads of the block
-__device__ void copy_span(int8_t* __restrict__ out, const int8_t* __restrict__ x, size_t b0, size_t b1,
-                          int add) {
-  const size_t a0 = lo(b1, (b0 + 15) & ~static_cast<size_t>(15));
-  const size_t a1 = hi(a0, b1 & ~static_cast<size_t>(15));
-  const size_t step = blockDim.x;
-  for (size_t i = b0 + threadIdx.x; i < a0; i += step) out[i] = add ? add1(x[i]) : x[i];
-  for (size_t i = a1 + threadIdx.x; i < b1; i += step) out[i] = add ? add1(x[i]) : x[i];
-  const uint4* src = reinterpret_cast<const uint4*>(x);
-  uint4* dst = reinterpret_cast<uint4*>(out);
-  size_t u = a0 / 16 + threadIdx.x;
-  const size_t ue = a1 / 16;
-  for (; u + 3 * step < ue; u += 4 * step) {  // four loads in flight per thread
-    uint4 v0 = src[u], v1 = src[u + step], v2 = src[u + 2 * step], v3 = src[u + 3 * step];
-    if (add) {
-      v0 = add1(v0);
-      v1 = add1(v1);
-      v2 = add1(v2);
-      v3 = add1(v3);
-    }
-    dst[u] = v0;
-    dst[u + step] = v1;
-    dst[u + 2 * step] = v2;
-    dst[u + 3 * step] = v3;
-  }
-  for (; u < ue; u += step) dst[u] = add ? add1(src[u]) : src[u];
+// a 16-byte load that is read once: no L1 allocation (not volatile, so the
+// compiler may issue a thread's loads together)
+__device__ __forceinline__ uint4 ldg_stream(const uint4* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
 }
 
-__global__ void __launch_bounds__(GRID_THREADS)
-    grid_copy_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, long long total,
-                     long long per_block, int add) {
-  const size_t b0 = static_cast<size_t>(blockIdx.x) * static_cast<size_t>(per_block);
-  copy_span(out, x, b0, lo(static_cast<size_t>(total), b0 + static_cast<size_t>(per_block)), add);
-}
-
-// ---- the cp.async ring
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// a 16-byte shared-memory load the compiler may not replace by a value it holds
-__device__ __forceinline__ uint4 lds16(const uint4* p) {
+// 16-byte shared-memory accesses the compiler keeps in program order
+__device__ __forceinline__ uint4 lds16(uint32_t a) {
   uint4 v;
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(smem_addr(p))
+               : "r"(a)
                : "memory");
   return v;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem) : "memory");
+__device__ __forceinline__ void sts16(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// ---- TMA bulk copies (non-tensor): whole 16-byte units, 16-byte aligned
 
-// wait until at most `pending` of this thread's newest groups are in flight
-__device__ __forceinline__ void cp_async_wait(int pending) {
+__device__ __forceinline__ void bulk_load(uint32_t smem, const void* gmem, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem),
+               "l"(gmem), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* gmem, uint32_t smem, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem), "r"(smem), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// every bulk store of this thread complete (written), or at most `pending`
+// of its newest groups still reading shared memory
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void bulk_wait_read(int pending) {
   switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
-    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
-    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+    case 0: asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.bulk.wait_group.read 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.bulk.wait_group.read 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.bulk.wait_group.read 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.bulk.wait_group.read 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.bulk.wait_group.read 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.bulk.wait_group.read 7;\n" ::: "memory"); break;  // waits longer: still safe
   }
 }
 
-enum RingCompute { RING_NONE = 0, RING_ADD = 1, RING_SEP = 2 };
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// bytes [units * 16, total) one by one: the part no 16-byte unit covers
+template <bool ADD>
+__device__ __forceinline__ void copy_tail(const int8_t* __restrict__ x, int8_t* __restrict__ out, long long units,
+                                          long long total) {
+  for (long long b = units * 16 + threadIdx.x; b < total; b += blockDim.x) out[b] = ADD ? add1(x[b]) : x[b];
+}
+
+// ---- grid_copy: pieces of steps over the whole card
+
+struct GridShape {
+  long long total, units;  // bytes; whole 16-byte units
+  long long step, piece;   // units a step (bi images), a piece (the last of a step may be shorter)
+  long long per_step;      // pieces a step: block b takes piece b % per_step of step b / per_step
+};
+
+__device__ __forceinline__ long long grid_piece(const GridShape& s, long long& begin) {
+  const long long j = blockIdx.x / s.per_step;
+  begin = j * s.step + (blockIdx.x % s.per_step) * s.piece;
+  return lo(lo(begin + s.piece, (j + 1) * s.step), s.units) - begin;
+}
+
+template <bool ADD>
+__global__ void __launch_bounds__(GRID_THREADS)
+    grid_copy_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, GridShape s) {
+  long long begin = 0;
+  const long long n = grid_piece(s, begin);
+  const uint4* src = reinterpret_cast<const uint4*>(x) + begin;
+  uint4* dst = reinterpret_cast<uint4*>(out) + begin;
+  for (long long u0 = threadIdx.x; u0 < n; u0 += GRID_THREADS * GRID_UNROLL) {
+    uint4 v[GRID_UNROLL];
+#pragma unroll
+    for (int k = 0; k < GRID_UNROLL; ++k) {  // every load issued before the first store
+      const long long u = u0 + k * GRID_THREADS;
+      if (u < n) v[k] = ldg_stream(src + u);
+    }
+#pragma unroll
+    for (int k = 0; k < GRID_UNROLL; ++k) {
+      const long long u = u0 + k * GRID_THREADS;
+      if (u < n) dst[u] = ADD ? add1(v[k]) : v[k];
+    }
+  }
+  if (blockIdx.x == 0) copy_tail<ADD>(x, out, s.units, s.total);
+}
+
+// the same pieces by one TMA bulk load into shared memory and one bulk store
+template <bool ADD>
+__global__ void __launch_bounds__(qt::THREADS)
+    grid_copy_tma_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, GridShape s) {
+  extern __shared__ __align__(128) uint4 piece_buf[];  // s.piece units
+  __shared__ __align__(8) uint64_t bar;
+  long long begin = 0;
+  const long long n = grid_piece(s, begin);
+  const uint32_t buf = smem_u32(piece_buf), b = smem_u32(&bar);
+  if (n > 0) {
+    if (threadIdx.x == 0) {
+      mbar_init(b);
+      mbar_init_fence();
+      mbar_expect_tx(b, static_cast<uint32_t>(n * 16));
+      bulk_load(buf, x + begin * 16, static_cast<uint32_t>(n * 16), b);
+    }
+    if (ADD) {
+      __syncthreads();  // the barrier is initialised
+      mbar_wait(b, 0);
+      for (long long u = threadIdx.x; u < n; u += blockDim.x) sts16(buf + 16 * u, add1(lds16(buf + 16 * u)));
+      fence_proxy_async();
+      __syncthreads();
+    } else if (threadIdx.x == 0) {
+      mbar_wait(b, 0);
+    }
+    if (threadIdx.x == 0) {
+      bulk_store(out + begin * 16, buf, static_cast<uint32_t>(n * 16));
+      bulk_commit();
+      bulk_wait_all();
+    }
+  }
+  if (blockIdx.x == 0) copy_tail<ADD>(x, out, s.units, s.total);
+}
+
+// ---- ring_copy: the S-slot, D-deep TMA ring
 
 struct RingShape {
   long long total, units;  // bytes; whole 16-byte units
-  long long step, piece;   // units per step (bi images), per block's piece of a step
+  long long step, piece;   // units a step (bi images), a block's piece of a step
   long long nsteps;
   int slots, depth;
 };
 
+// this block's piece of step j: units [begin, begin + count); for every block
+// the non-empty pieces are those of a prefix of the steps
+__device__ __forceinline__ long long ring_piece(const RingShape& s, long long j, long long& begin) {
+  begin = j * s.step + static_cast<long long>(blockIdx.x) * s.piece;
+  return hi(0LL, lo(lo(begin + s.piece, (j + 1) * s.step), s.units) - begin);
+}
+
 template <int COMPUTE>
 __global__ void __launch_bounds__(qt::THREADS)
     ring_copy_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, RingShape s) {
-  extern __shared__ __align__(16) uint4 ring[];  // slots x piece units (x 2 for RING_SEP)
-  uint4* obuf = ring + static_cast<size_t>(s.slots) * s.piece;
-  const uint4* src = reinterpret_cast<const uint4*>(x);
-  uint4* dst = reinterpret_cast<uint4*>(out);
+  // slots x piece units of the in ring (and as many of the out buffer for
+  // RING_SEP), then one mbarrier a slot
+  extern __shared__ __align__(128) uint4 ring[];
+  const long long ring_units = static_cast<long long>(s.slots) * s.piece;
+  const uint32_t in0 = smem_u32(ring);
+  const uint32_t out0 = COMPUTE == RING_SEP ? in0 + static_cast<uint32_t>(16 * ring_units) : in0;
+  const uint32_t bar0 = in0 + static_cast<uint32_t>(16 * ring_units * (COMPUTE == RING_SEP ? 2 : 1));
+  long long begin = 0;
+  const long long nst = s.nsteps == 0 || ring_piece(s, 0, begin) == 0 ? 0
+                        : ring_piece(s, s.nsteps - 1, begin) == 0 ? s.nsteps - 1
+                                                                   : s.nsteps;
+  const bool issuer = threadIdx.x == 0;
 
-  // this block's piece of step j: units [begin, begin + count)
-  auto piece = [&](long long j, long long& begin) -> long long {
-    if (j >= s.nsteps) return 0;
-    begin = j * s.step + static_cast<long long>(blockIdx.x) * s.piece;
-    const long long end = lo(lo(begin + s.piece, (j + 1) * s.step), s.units);
-    return hi(0LL, end - begin);
-  };
-  auto issue = [&](long long j) {
-    long long begin = 0;
-    const long long n = piece(j, begin);
-    uint4* slot = ring + static_cast<size_t>(j % s.slots) * s.piece;
-    for (long long u = threadIdx.x; u < n; u += blockDim.x) cp_async16(slot + u, src + begin + u);
-    cp_async_commit();  // one group per step, empty or not
+  auto load = [&](long long j) {  // step j's piece into its slot, by the issuing thread
+    long long b = 0;
+    const uint32_t bytes = static_cast<uint32_t>(16 * ring_piece(s, j, b));
+    const uint32_t slot = static_cast<uint32_t>(j % s.slots);
+    mbar_expect_tx(bar0 + 8 * slot, bytes);
+    bulk_load(in0 + static_cast<uint32_t>(16 * s.piece) * slot, x + 16 * b, bytes, bar0 + 8 * slot);
   };
 
-  for (int j = 0; j < s.depth; ++j) issue(j);
-  for (long long i = 0; i < s.nsteps; ++i) {
-    cp_async_wait(s.depth - 1);  // step i's group has landed
-    long long begin = 0;
-    const long long n = piece(i, begin);
-    const size_t off = static_cast<size_t>(i % s.slots) * s.piece;
-    for (long long u = threadIdx.x; u < n; u += blockDim.x) {
-      uint4 v = ring[off + u];
-      if (COMPUTE == RING_ADD) v = add1(v);
-      if (COMPUTE == RING_SEP) {  // the in -> out buffer copy, then the store from the out buffer
-        obuf[off + u] = v;
-        v = lds16(obuf + off + u);
+  if (issuer) {
+    for (int i = 0; i < s.slots; ++i) mbar_init(bar0 + 8 * i);
+    mbar_init_fence();
+    for (long long j = 0; j < lo(static_cast<long long>(s.depth), nst); ++j) load(j);
+  }
+  if (COMPUTE != RING_NONE) __syncthreads();  // the barriers are initialised
+
+  if (COMPUTE != RING_NONE || issuer) {
+    for (long long i = 0; i < nst; ++i) {
+      const uint32_t slot = static_cast<uint32_t>(i % s.slots);
+      const uint32_t off = static_cast<uint32_t>(16 * s.piece) * slot;
+      const long long n = ring_piece(s, i, begin);
+      mbar_wait(bar0 + 8 * slot, static_cast<uint32_t>((i / s.slots) & 1));  // step i has landed
+      if (COMPUTE != RING_NONE) {  // +1 in place, or the in -> out buffer copy
+        for (long long u = threadIdx.x; u < n; u += blockDim.x) {
+          const uint4 v = lds16(in0 + off + 16 * u);
+          sts16(out0 + off + 16 * u, COMPUTE == RING_ADD ? add1(v) : v);
+        }
+        fence_proxy_async();  // the generic-proxy writes before the bulk store reads them
+        __syncthreads();
       }
-      dst[begin + u] = v;
+      if (issuer) {
+        bulk_store(out + 16 * begin, out0 + off, static_cast<uint32_t>(16 * n));
+        bulk_commit();
+        if (i + s.depth < nst) {
+          bulk_wait_read(s.slots - s.depth);  // the store of step i + D - S has read the slot
+          load(i + s.depth);
+        }
+      }
     }
-    issue(i + s.depth);
+    if (issuer) bulk_wait_all();
   }
-  cp_async_wait(0);
-  if (blockIdx.x == 0) {
-    for (long long b = s.units * 16 + threadIdx.x; b < s.total; b += blockDim.x)
-      out[b] = COMPUTE == RING_ADD ? add1(x[b]) : x[b];
-  }
+  if (blockIdx.x == 0) copy_tail<COMPUTE == RING_ADD>(x, out, s.units, s.total);
 }
 
-// ---- TMA bulk copies on an mbarrier
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_load(void* smem, const void* gmem, uint32_t bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_addr(smem)),
-               "l"(gmem), "r"(bytes), "r"(smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem), "r"(smem_addr(smem)),
-               "r"(bytes)
-               : "memory");
-}
+// ---- bulk_copy: TMA bulk copies of 32 KB, `streams` in flight a block
 
 __global__ void __launch_bounds__(qt::THREADS)
     bulk_copy_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, long long total, int streams) {
@@ -219,9 +311,10 @@ __global__ void __launch_bounds__(qt::THREADS)
   __shared__ __align__(8) uint64_t bars[MAX_STREAMS];
   const long long vbytes = total & ~15LL;  // whole 16-byte units: what a bulk copy takes
   const long long nchunks = (vbytes + BULK_CHUNK - 1) / BULK_CHUNK;
+  const uint32_t buf0 = smem_u32(buf), bar0 = smem_u32(bars);
   if (threadIdx.x == 0) {
-    for (int st = 0; st < streams; ++st) mbar_init(&bars[st]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int st = 0; st < streams; ++st) mbar_init(bar0 + 8 * st);
+    mbar_init_fence();
     uint32_t parity = 0;
     for (long long g = static_cast<long long>(blockIdx.x) * streams; g < nchunks;
          g += static_cast<long long>(gridDim.x) * streams) {
@@ -229,57 +322,86 @@ __global__ void __launch_bounds__(qt::THREADS)
       for (int st = 0; st < n; ++st) {  // `streams` loads in flight
         const long long at = (g + st) * BULK_CHUNK;
         const uint32_t bytes = static_cast<uint32_t>(lo(static_cast<long long>(BULK_CHUNK), vbytes - at));
-        mbar_expect_tx(&bars[st], bytes);
-        bulk_load(buf + st * BULK_CHUNK, x + at, bytes, &bars[st]);
+        mbar_expect_tx(bar0 + 8 * st, bytes);
+        bulk_load(buf0 + st * BULK_CHUNK, x + at, bytes, bar0 + 8 * st);
       }
       for (int st = 0; st < n; ++st) {  // each stored as soon as it has landed
         const long long at = (g + st) * BULK_CHUNK;
         const uint32_t bytes = static_cast<uint32_t>(lo(static_cast<long long>(BULK_CHUNK), vbytes - at));
-        mbar_wait(&bars[st], parity);
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-        bulk_store(out + at, buf + st * BULK_CHUNK, bytes);
+        mbar_wait(bar0 + 8 * st, parity);
+        fence_proxy_async();
+        bulk_store(out + at, buf0 + st * BULK_CHUNK, bytes);
       }
-      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");  // the buffers may be refilled
+      bulk_commit();
+      bulk_wait_read(0);  // the buffers may be refilled
       parity ^= 1u;
     }
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+    bulk_wait_all();
   }
-  if (blockIdx.x == 0) {
-    for (long long b = vbytes + threadIdx.x; b < total; b += blockDim.x) out[b] = x[b];
+  if (blockIdx.x == 0) copy_tail<false>(x, out, vbytes / 16, total);
+}
+
+template <typename Kernel>
+int launch_threads(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream, const int8_t* x, int8_t* out,
+                   GridShape s) {
+  if (smem > 48 * 1024) {  // above the default: opt in, as qt::launch does
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(x, out, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// out = x (+1 per byte if add); one block per per_block bytes (bi images).
-extern "C" int qt_grid_copy(const void* x, void* out, long long total, long long per_block, int add,
-                            void* stream) {
-  if (total < 1 || per_block < 1 || !qt::aligned16(x) || !qt::aligned16(out))
+// out = x (+1 per byte if add): step_units (bi images) a step, each cut into
+// per_step pieces of piece_units, one block a piece; tma 0 the register
+// form, 1 the TMA bulk form (ops/copy_probe.py copy_plan).
+extern "C" int qt_grid_copy(const void* x, void* out, long long total, long long step_units, long long piece_units,
+                            long long per_step, int tma, int add, void* stream) {
+  if (total < 1 || step_units < 1 || piece_units < 1 || per_step < 1 || piece_units * per_step < step_units ||
+      (tma && 16 * piece_units > qt::SMEM_LIMIT) || !qt::aligned16(x) || !qt::aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (total + per_block - 1) / per_block;
-  grid_copy_kernel<<<static_cast<unsigned>(blocks), GRID_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<int8_t*>(out), total, per_block, add);
-  return static_cast<int>(cudaGetLastError());
+  GridShape s{};
+  s.total = total;
+  s.units = total / 16;
+  s.step = step_units;
+  s.piece = piece_units;
+  s.per_step = per_step;
+  const long long blocks = hi(1LL, (s.units + s.step - 1) / s.step * per_step);
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks));
+  const auto* xi = static_cast<const int8_t*>(x);
+  auto* oi = static_cast<int8_t*>(out);
+  if (tma) {
+    const size_t smem = static_cast<size_t>(16 * piece_units);
+    return add ? launch_threads(grid_copy_tma_kernel<true>, grid, qt::THREADS, smem, stream, xi, oi, s)
+               : launch_threads(grid_copy_tma_kernel<false>, grid, qt::THREADS, smem, stream, xi, oi, s);
+  }
+  return add ? launch_threads(grid_copy_kernel<true>, grid, GRID_THREADS, 0, stream, xi, oi, s)
+             : launch_threads(grid_copy_kernel<false>, grid, GRID_THREADS, 0, stream, xi, oi, s);
 }
 
-// out = x through a ring of `slots` pieces per block, `depth` steps of
-// step_bytes (bi images) ahead, on `blocks` persistent blocks; compute 0
-// none, 1 +1 per byte, 2 a separate out buffer.
-extern "C" int qt_ring_copy(const void* x, void* out, long long total, long long step_bytes, int slots,
-                            int depth, int compute, int blocks, void* stream) {
-  if (total < 1 || step_bytes < 16 || blocks < 1 || depth < 1 || depth > slots || depth > MAX_DEPTH ||
-      compute < RING_NONE || compute > RING_SEP || !qt::aligned16(x) || !qt::aligned16(out))
+// out = x through a ring of `slots` pieces a block, `depth` steps of
+// step_units (bi images) ahead, on `blocks` persistent blocks, each the
+// piece_units-unit piece of every step; compute 0 none, 1 +1 per byte, 2 a
+// separate out buffer (ops/copy_probe.py ring_plan).
+extern "C" int qt_ring_copy(const void* x, void* out, long long total, long long step_units, long long piece_units,
+                            int slots, int depth, int compute, int blocks, void* stream) {
+  if (total < 1 || step_units < 1 || piece_units < 1 || blocks < 1 || depth < 1 || depth > slots ||
+      piece_units * blocks < step_units || compute < RING_NONE || compute > RING_SEP || !qt::aligned16(x) ||
+      !qt::aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
   RingShape s{};
   s.total = total;
   s.units = total / 16;
-  s.step = step_bytes / 16;
-  s.piece = (s.step + blocks - 1) / blocks;
+  s.step = step_units;
+  s.piece = piece_units;
   s.nsteps = (s.units + s.step - 1) / s.step;
   s.slots = slots;
   s.depth = depth;
-  const size_t smem = static_cast<size_t>(slots) * s.piece * 16 * (compute == RING_SEP ? 2 : 1);
+  const size_t smem = static_cast<size_t>(slots) * (16 * piece_units * (compute == RING_SEP ? 2 : 1) + 8);
   const dim3 grid(blocks);
   const auto* xi = static_cast<const int8_t*>(x);
   auto* oi = static_cast<int8_t*>(out);

@@ -4,38 +4,121 @@ hand-written CUDA kernels (``csrc/copy_probe.cu``), the counterparts of the
 Pallas copy and DMA-ring bodies of the JAX package's TPU studies
 (``bench/fused_probe.py``, ``bench/dma_ring_probe*.py``):
 
-- :func:`grid_copy`: one kernel block per ``bi`` images (``x.shape[0]``
-  counts the images), 16-byte loads and stores: the auto-pipelined grid
-  copies;
-- :func:`ring_copy`: one persistent block per SM streaming ``bi``-image
-  steps through a ``slots``-slot shared-memory ring filled by ``cp.async``,
-  ``prefetch`` steps ahead, with ``compute`` "none", "add" (+1) or "sep"
-  (a separate out buffer, the slot copied into it before the store): the
-  hand-rolled DMA rings (S, D, bi);
+- :func:`grid_copy`: the auto-pipelined grid copies. A step of ``bi``
+  images (``x.shape[0]`` counts the images) is the unit a block draws its
+  work from, but :func:`copy_plan` cuts every step into pieces of at most
+  16 KB, enough for two blocks on every SM, so the copy fills the card
+  whatever ``bi``; a block moves its piece by one TMA bulk load into shared
+  memory and one bulk store (the plan's register form, 16-byte loads with 8
+  a thread in flight, measured slower on the H100);
+- :func:`ring_copy`: the hand-rolled DMA rings (S, D, bi). One persistent
+  block per SM streams its piece of every ``bi``-image step
+  (:func:`ring_plan`) through a ``slots``-slot shared-memory ring: TMA bulk
+  loads ``prefetch`` steps ahead, each slot sent out by a TMA bulk store, a
+  slot refilled once its store has read it, so the spare slots hold stores
+  in flight; ``compute`` "none", "add" (+1 in shared memory) or "sep" (the
+  slot copied into a separate out buffer before the store);
 - :func:`bulk_copy`: TMA bulk copies through shared memory on an mbarrier,
   ``streams`` in flight per block, issued by one thread: the raw
   whole-array DMAs.
 
-They serve the probe ``quantized_tpu_torch.probes.dma_ring``; no engine
-path runs them. A wrapper given a CPU tensor runs :func:`copy_plain`; given
-a CUDA tensor it launches its kernel or raises.
+They serve the probes ``quantized_tpu_torch.probes.dma_ring`` and
+``probes.fused_stages`` (the copy floor); no engine path runs them. A
+wrapper given a CPU tensor runs :func:`copy_plain`; given a CUDA tensor it
+launches its kernel or raises. ``grid_copy`` and ``ring_copy`` count their
+launches under route "sm90" (``KERNELS[name].routes``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from quantized_tpu_torch.ops import _cuda
 
-GRID_COPY = _cuda.CudaKernel("grid_copy", "copy_probe.cu", "qt_grid_copy", ["ptr", "ptr", "long", "long", "int"])
+GRID_COPY = _cuda.CudaKernel("grid_copy", "copy_probe.cu", "qt_grid_copy",
+                             ["ptr", "ptr"] + ["long"] * 4 + ["int"] * 2)
 RING_COPY = _cuda.CudaKernel("ring_copy", "copy_probe.cu", "qt_ring_copy",
-                             ["ptr", "ptr", "long", "long"] + ["int"] * 4)
+                             ["ptr", "ptr"] + ["long"] * 3 + ["int"] * 4)
 BULK_COPY = _cuda.CudaKernel("bulk_copy", "copy_probe.cu", "qt_bulk_copy", ["ptr", "ptr", "long", "int", "int"])
 
 RING_COMPUTE = {"none": 0, "add": 1, "sep": 2}
-MAX_PREFETCH = 8  # csrc/copy_probe.cu MAX_DEPTH
 MAX_STREAMS = 6  # csrc/copy_probe.cu MAX_STREAMS
 SMEM_PER_BLOCK = 232448  # the H100's opt-in shared memory of one block
+UNIT = 16  # bytes a load, a store and a TMA bulk copy move in one piece: plans cut whole units
+LINE_UNITS = 8  # a 128-byte line: pieces are cut in whole lines where a step allows
+COPY_PIECE_UNITS = 1024  # 16 KB: the grid copy's largest piece (the fastest on the H100, probes/dma_ring --plans)
+COPY_BLOCKS_PER_SM = 2  # the least the grid copy's plan puts on every SM
+
+
+def _cut(step: int, pieces: int) -> int:
+    """Units of each of ``pieces`` pieces of a ``step``-unit step: whole
+    128-byte lines where the step has more than one line, else units."""
+    piece = -(-step // pieces)
+    return -(-piece // LINE_UNITS) * LINE_UNITS if step > LINE_UNITS else piece
+
+
+class CopyPlan(NamedTuple):
+    units: int  # whole 16-byte units of the tensor
+    tail: int  # bytes past the last whole unit, copied one by one
+    step: int  # units a step (bi images), at least 1
+    steps: int
+    piece: int  # units a piece; the last piece of a step may be shorter
+    per_step: int  # pieces a step: block b copies piece b % per_step of step b // per_step
+    blocks: int  # steps x per_step, at least 1 (the tail's block)
+    tma: bool  # the TMA bulk form; else the register form
+
+    def args(self):
+        """The C entry's plan arguments: step, piece, pieces a step, form."""
+        return [self.step, self.piece, self.per_step, int(self.tma)]
+
+
+def copy_plan(total: int, step_bytes: int, sms: int, tma: bool = True,
+              max_piece: int = COPY_PIECE_UNITS) -> CopyPlan:
+    """The grid copy's plan over ``total`` bytes in steps of ``step_bytes``
+    (``bi`` images; whole 16-byte units of it, at least one): each step cut
+    into equal pieces of whole 128-byte lines, at most ``max_piece`` units
+    (a multiple of 8), and into enough of them that the grid holds
+    :data:`COPY_BLOCKS_PER_SM` blocks on each of ``sms`` SMs, however few
+    the steps. ``tma``: the TMA bulk form, the default; else the register
+    form (``probes/dma_ring --plans`` times both, and other piece sizes, on
+    the card)."""
+    units = total // UNIT
+    step = max(1, step_bytes // UNIT)
+    steps = -(-units // step)
+    per_step = min(step, max(-(-step // max_piece), -(-COPY_BLOCKS_PER_SM * sms // max(1, steps))))
+    piece = _cut(step, per_step)
+    per_step = -(-step // piece)  # no empty piece in a whole step
+    return CopyPlan(units, total - units * UNIT, step, steps, piece, per_step, max(1, steps * per_step), tma)
+
+
+class RingPlan(NamedTuple):
+    units: int  # whole 16-byte units of the tensor
+    tail: int  # bytes past the last whole unit, copied one by one
+    step: int  # units a step (bi images), at least 1
+    steps: int
+    piece: int  # units of a block's piece of a step, a slot's size; the last blocks' may be shorter
+    blocks: int  # persistent blocks, block b the b-th piece of every step
+    slots: int
+    depth: int  # steps loaded ahead
+    smem: int  # dynamic shared memory a block: the slots (twice for "sep") and a mbarrier each
+
+    def args(self):
+        """The C entry's plan arguments: step, piece, slots, depth."""
+        return [self.step, self.piece, self.slots, self.depth]
+
+
+def ring_plan(total: int, step_bytes: int, slots: int, prefetch: int, sep: bool, blocks: int) -> RingPlan:
+    """The ring copy's plan: steps of ``step_bytes`` (whole 16-byte units,
+    at least one) cut into ``blocks`` pieces of whole 128-byte lines (the
+    last blocks' shorter or empty), one a block, a slot holding one piece;
+    ``sep`` doubles the slots (the separate out buffer)."""
+    units = total // UNIT
+    step = max(1, step_bytes // UNIT)
+    piece = _cut(step, blocks)
+    smem = slots * (UNIT * piece * (2 if sep else 1) + 8)
+    return RingPlan(units, total - units * UNIT, step, -(-units // step), piece, blocks, slots, prefetch, smem)
 
 
 def copy_plain(x: torch.Tensor, add: bool = False) -> torch.Tensor:
@@ -65,45 +148,58 @@ def _image_bytes(x: torch.Tensor) -> int:
 
 
 def grid_copy(x: torch.Tensor, bi: int = 1, add: bool = False) -> torch.Tensor:
-    """``x`` (+1 per byte if ``add``), one kernel block per ``bi`` images."""
+    """``x`` (+1 per byte if ``add``) in steps of ``bi`` images, each step
+    cut into pieces over the whole card (:func:`copy_plan`)."""
     _check(x)
     if bi < 1:
         raise ValueError(f"bi must be at least 1, got {bi}")
     if x.device.type == "cpu":
         return copy_plain(x, add)
+    dev = _cuda.require_cuda_tensors(x)
+    return launch_grid_copy(x, copy_plan(x.numel(), bi * _image_bytes(x), _cuda.sm_count(dev)), add)
+
+
+def launch_grid_copy(x: torch.Tensor, plan: CopyPlan, add: bool = False) -> torch.Tensor:
+    """The grid copy of a CUDA tensor under ``plan`` (``probes/dma_ring
+    --plans`` times plans other than :func:`copy_plan`'s)."""
     dev, out, total = _launch_args(x)
-    GRID_COPY(dev, x.data_ptr(), out.data_ptr(), total, bi * _image_bytes(x), int(add))
+    GRID_COPY(dev, x.data_ptr(), out.data_ptr(), total, *plan.args(), int(add), route="sm90")
     return out
 
 
 def ring_slot_bytes(x: torch.Tensor, bi: int, blocks: int) -> int:
     """Bytes of one ring slot: a block's share of a step of ``bi`` images,
-    in whole 16-byte words."""
-    step = max(16, bi * _image_bytes(x)) // 16
-    return -(-step // blocks) * 16
+    in whole 128-byte lines (16-byte words for a step of one line or less)."""
+    return UNIT * ring_plan(x.numel(), bi * _image_bytes(x), 1, 1, False, blocks).piece
 
 
 def ring_copy(x: torch.Tensor, slots: int = 4, prefetch: int = 2, bi: int = 1,
               compute: str = "none") -> torch.Tensor:
     """``x`` (+1 per byte for ``compute="add"``) through a shared-memory
     ring of ``slots`` slots, ``prefetch`` steps of ``bi`` images ahead, one
-    persistent block per SM."""
+    persistent block per SM (:func:`ring_plan`)."""
     _check(x)
     if compute not in RING_COMPUTE:
         raise ValueError(f"compute must be one of {sorted(RING_COMPUTE)}, got {compute!r}")
-    if bi < 1 or not 1 <= prefetch <= min(slots, MAX_PREFETCH):
-        raise ValueError(f"need bi >= 1 and 1 <= prefetch <= min(slots, {MAX_PREFETCH}), "
+    if bi < 1 or not 1 <= prefetch <= slots:
+        raise ValueError(f"need bi >= 1 and 1 <= prefetch <= slots, "
                          f"got bi {bi}, slots {slots}, prefetch {prefetch}")
     if x.device.type == "cpu":
         return copy_plain(x, compute == "add")
+    dev = _cuda.require_cuda_tensors(x)
+    plan = ring_plan(x.numel(), bi * _image_bytes(x), slots, prefetch, compute == "sep", _cuda.sm_count(dev))
+    return launch_ring_copy(x, plan, compute)
+
+
+def launch_ring_copy(x: torch.Tensor, plan: RingPlan, compute: str = "none") -> torch.Tensor:
+    """The ring copy of a CUDA tensor under ``plan``; raises where its slots
+    do not fit a block's shared memory."""
     dev, out, total = _launch_args(x)
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    smem = slots * ring_slot_bytes(x, bi, blocks) * (2 if compute == "sep" else 1)
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"a ring of {slots} slots of {bi} image(s) needs {smem} bytes of shared memory per "
-                         f"block, more than {SMEM_PER_BLOCK}")
-    RING_COPY(dev, x.data_ptr(), out.data_ptr(), total, max(16, bi * _image_bytes(x)), slots, prefetch,
-              RING_COMPUTE[compute], blocks)
+    if plan.smem > SMEM_PER_BLOCK:
+        raise ValueError(f"a ring of {plan.slots} slots of {UNIT * plan.piece} bytes needs {plan.smem} bytes of "
+                         f"shared memory per block, more than {SMEM_PER_BLOCK}")
+    RING_COPY(dev, x.data_ptr(), out.data_ptr(), total, *plan.args(), RING_COMPUTE[compute], plan.blocks,
+              route="sm90")
     return out
 
 

@@ -42,6 +42,9 @@ launch plan of :func:`block_plan`: a cluster of q blocks per band of output
 rows (and nb whole images where an image is small) splits the channels of
 each stage, and the blocks share h1 and h2 through distributed shared
 memory; each launch is counted under route "sm90" (``KERNELS[name].routes``).
+The mainloop takes whole 16-channel slices: at a C, Cm or Cout that is not
+a multiple of 16 the wrappers widen the operands with zeros
+(:func:`pad_block_operands`, one copy of x per call) and slice the output.
 Bands recompute conv1 on the halo rows that the neighbouring band also
 needs. The stage probes of the bottleneck (:func:`fused_stage_ck`,
 ``bench/fused_probe.py``'s ``k_conv1`` and ``k_conv12``) are the same
@@ -465,10 +468,63 @@ def _check(x_q, mats, vecs):
         _cuda.check_dtype(t, torch.float32, name)
 
 
-def _check_widths(c: int, cm: int):
-    if c % 16 or cm % 16:
-        raise ValueError(f"the fused kernel gathers 16-byte chunks and needs C and Cm multiples of 16, "
-                         f"got C={c}, Cm={cm}")
+# The operands after x_q of each block form, in the ``*_ck`` wrappers'
+# order: a weight matrix as (its rows, its input channels, taps), K in (tap,
+# cin) order; a vector by its length. "c", "cm" and "cout" name the widths.
+BLOCK_OPERANDS = {
+    "bottleneck_s1": (("cm", "c", 1), ("cm", "cm", 9), ("c", "cm", 1)) + ("cm",) * 4 + ("c",) * 2,
+    "bottleneck_ds": (("cm", "c", 1), ("cm", "cm", 9), ("cout", "cm", 1), ("cout", "c", 1))
+    + ("cm",) * 4 + ("cout",) * 4,
+    "basic_s1": (("c", "c", 9), ("c", "c", 9)) + ("c",) * 4,
+    "basic_ds": (("cm", "c", 9), ("cm", "cm", 9), ("cm", "c", 1)) + ("cm",) * 6,
+    "stage": (("cm", "c", 1), ("cm", "cm", 9), "cm"),
+}
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def pad_block_operands(form: str, x_q: torch.Tensor, *operands: torch.Tensor):
+    """x_q and the operands of a block ``form`` (:data:`BLOCK_OPERANDS`)
+    widened to the channel counts the Hopper mainloop takes, C, Cm and Cout
+    each rounded up to a multiple of 16 (the stage probes: C to C/Cm tiles
+    of the padded Cm). The new weights and constants are 0: a new input
+    channel, whatever x_q holds there (0), meets only zero weights; a
+    weight's input channels are padded inside each tap, never at the end of
+    K; a new output channel is computed from nothing real and is sliced
+    away by the caller, so the identity leg (``id_k``, ``id_c``), the halo's
+    stored zero point and the clip floors leave no trace in the real
+    channels. Returns ``(x_q, operands)``, the same tensors where every
+    width is already a multiple of 16. The pad costs one copy of x_q and the
+    weights per call, and only at widths that no zoo model has."""
+    layout = BLOCK_OPERANDS[form]
+    true = {"c": x_q.shape[-1]}
+    for t, spec in zip(operands, layout):
+        if isinstance(spec, str):
+            true[spec] = t.shape[0]
+        else:
+            true[spec[0]], true[spec[1]] = t.shape[0], t.shape[1] // spec[2]
+    padded = {k: _pad16(v) for k, v in true.items()}
+    if form == "stage":
+        padded["c"] = true["c"] // true["cm"] * padded["cm"]
+    if padded == true:
+        return x_q, operands
+    x_q = torch.nn.functional.pad(x_q, (0, padded["c"] - true["c"]))
+    out = []
+    for t, spec in zip(operands, layout):
+        if isinstance(spec, str):
+            out.append(torch.nn.functional.pad(t, (0, padded[spec] - t.shape[0])))
+            continue
+        rows, cin, taps = spec
+        w = t.reshape(t.shape[0], taps, -1)
+        w = torch.nn.functional.pad(w, (0, padded[cin] - w.shape[2], 0, 0, 0, padded[rows] - w.shape[0]))
+        out.append(w.reshape(padded[rows], taps * padded[cin]))
+    return x_q, tuple(out)
+
+
+def _unpad(out: torch.Tensor, width: int) -> torch.Tensor:
+    return out if out.shape[-1] == width else out[..., :width].contiguous()
 
 
 def fused_bottleneck_s1_ck(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3,
@@ -482,14 +538,16 @@ def fused_bottleneck_s1_ck(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3,
     if x_q.device.type == "cpu":
         return fused_bottleneck_s1_plain(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3, *args)
     dev = _cuda.require_cuda_tensors(x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3)
-    _check_widths(c, cm)
-    plan = block_plan("bottleneck", n, h, w, c, cm, c, 1, False)
-    out = torch.empty_like(x_q)
-    FUSED_S1(dev, x_q.data_ptr(), w1_nk.data_ptr(), w2_ck.data_ptr(), w3_nk.data_ptr(),
+    xp, (w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3) = pad_block_operands(
+        "bottleneck_s1", x_q, w1_nk, w2_ck, w3_nk, a1, b1, a2, b2, a3, b3)
+    cp, cmp = xp.shape[-1], w1_nk.shape[0]
+    plan = block_plan("bottleneck", n, h, w, cp, cmp, cp, 1, False)
+    out = torch.empty_like(xp)
+    FUSED_S1(dev, xp.data_ptr(), w1_nk.data_ptr(), w2_ck.data_ptr(), w3_nk.data_ptr(),
              a1.data_ptr(), b1.data_ptr(), a2.data_ptr(), b2.data_ptr(), a3.data_ptr(), b3.data_ptr(),
-             out.data_ptr(), n, h, w, c, cm, plan.r, int(zp2_stored),
+             out.data_ptr(), n, h, w, cp, cmp, plan.r, int(zp2_stored),
              f32(lo1), f32(lo2), f32(shift), f32(id_k), f32(id_c), *plan.args(), route="sm90")
-    return out
+    return _unpad(out, c)
 
 
 def fused_bottleneck_ds_ck(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3, ad, bd,
@@ -508,23 +566,18 @@ def fused_bottleneck_ds_ck(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, 
         return fused_bottleneck_ds_plain(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3,
                                          ad, bd, *args)
     dev = _cuda.require_cuda_tensors(x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3, ad, bd)
-    _check_widths(c, cm)
-    # the kernel's output slices are whole 16-channel jobs: another Cout runs
-    # on weights and constants padded to a multiple of 16, the pad sliced off
-    cpad = -(-cout // 16) * 16
-    if cpad != cout:
-        w3_nk, wd_nk, a3, b3, ad, bd = (torch.nn.functional.pad(t, (0, 0, 0, cpad - cout)) if t.ndim == 2
-                                        else torch.nn.functional.pad(t, (0, cpad - cout))
-                                        for t in (w3_nk, wd_nk, a3, b3, ad, bd))
-    plan = block_plan("bottleneck", n, h, w, c, cm, cpad, s, True)
-    out = torch.empty((n, h // s, w // s, cpad), dtype=torch.int8, device=dev)
+    xp, (w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3, ad, bd) = pad_block_operands(
+        "bottleneck_ds", x_q, w1_nk, w2_ck, w3_nk, wd_nk, a1, b1, a2, b2, a3, b3, ad, bd)
+    cp, cmp, coutp = xp.shape[-1], w1_nk.shape[0], w3_nk.shape[0]
+    plan = block_plan("bottleneck", n, h, w, cp, cmp, coutp, s, True)
+    out = torch.empty((n, h // s, w // s, coutp), dtype=torch.int8, device=dev)
     inv_fine = f32(1.0 / ds_fine) if ds_fine else 0.0
-    FUSED_DS(dev, x_q.data_ptr(), w1_nk.data_ptr(), w2_ck.data_ptr(), w3_nk.data_ptr(),
+    FUSED_DS(dev, xp.data_ptr(), w1_nk.data_ptr(), w2_ck.data_ptr(), w3_nk.data_ptr(),
              wd_nk.data_ptr(), a1.data_ptr(), b1.data_ptr(), a2.data_ptr(), b2.data_ptr(),
              a3.data_ptr(), b3.data_ptr(), ad.data_ptr(), bd.data_ptr(), out.data_ptr(),
-             n, h, w, c, cm, cpad, s, plan.r, int(zp2_stored),
+             n, h, w, cp, cmp, coutp, s, plan.r, int(zp2_stored),
              f32(lo1), f32(lo2), f32(shift), f32(ds_fine), inv_fine, *plan.args(), route="sm90")
-    return out if cpad == cout else out[..., :cout].contiguous()
+    return _unpad(out, cout)
 
 
 def _check_stride(s: int, h: int, w: int):
@@ -543,13 +596,14 @@ def fused_basicblock_s1_ck(x_q, w1_ck, w2_ck, a1, b1, a2, b2, lo1, shift, zp1_st
     if x_q.device.type == "cpu":
         return fused_basicblock_s1_plain(x_q, w1_ck, w2_ck, a1, b1, a2, b2, *args)
     dev = _cuda.require_cuda_tensors(x_q, w1_ck, w2_ck, a1, b1, a2, b2)
-    _check_widths(c, c)
-    plan = block_plan("basic", n, h, w, c, c, c, 1, False)
-    out = torch.empty_like(x_q)
-    BASIC_S1(dev, x_q.data_ptr(), w1_ck.data_ptr(), w2_ck.data_ptr(), a1.data_ptr(), b1.data_ptr(),
-             a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, w, c, c, plan.r, int(zp1_stored),
+    xp, (w1_ck, w2_ck, a1, b1, a2, b2) = pad_block_operands("basic_s1", x_q, w1_ck, w2_ck, a1, b1, a2, b2)
+    cp = xp.shape[-1]
+    plan = block_plan("basic", n, h, w, cp, cp, cp, 1, False)
+    out = torch.empty_like(xp)
+    BASIC_S1(dev, xp.data_ptr(), w1_ck.data_ptr(), w2_ck.data_ptr(), a1.data_ptr(), b1.data_ptr(),
+             a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, w, cp, cp, plan.r, int(zp1_stored),
              int(zp2_stored), f32(lo1), f32(shift), f32(id_k), f32(id_c), *plan.args(), route="sm90")
-    return out
+    return _unpad(out, c)
 
 
 def fused_basicblock_ds_ck(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd, stride, lo1, shift,
@@ -566,15 +620,17 @@ def fused_basicblock_ds_ck(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd, str
     if x_q.device.type == "cpu":
         return fused_basicblock_ds_plain(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd, *args)
     dev = _cuda.require_cuda_tensors(x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd)
-    _check_widths(c, cm)
-    plan = block_plan("basic", n, h, w, c, cm, cm, s, True)
-    out = torch.empty((n, h // s, w // s, cm), dtype=torch.int8, device=dev)
+    xp, (w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd) = pad_block_operands(
+        "basic_ds", x_q, w1_ck, w2_ck, wd_nk, a1, b1, a2, b2, ad, bd)
+    cp, cmp = xp.shape[-1], w1_ck.shape[0]
+    plan = block_plan("basic", n, h, w, cp, cmp, cmp, s, True)
+    out = torch.empty((n, h // s, w // s, cmp), dtype=torch.int8, device=dev)
     inv_fine = f32(1.0 / ds_fine) if ds_fine else 0.0
-    BASIC_DS(dev, x_q.data_ptr(), w1_ck.data_ptr(), w2_ck.data_ptr(), wd_nk.data_ptr(), a1.data_ptr(),
+    BASIC_DS(dev, xp.data_ptr(), w1_ck.data_ptr(), w2_ck.data_ptr(), wd_nk.data_ptr(), a1.data_ptr(),
              b1.data_ptr(), a2.data_ptr(), b2.data_ptr(), ad.data_ptr(), bd.data_ptr(), out.data_ptr(),
-             n, h, w, c, cm, s, plan.r, int(zp1_stored), int(zp2_stored),
+             n, h, w, cp, cmp, s, plan.r, int(zp1_stored), int(zp2_stored),
              f32(lo1), f32(shift), f32(ds_fine), inv_fine, *plan.args(), route="sm90")
-    return out
+    return _unpad(out, cm)
 
 
 def fused_stage_ck(x_q, w1_nk, w2_ck, a, stop: int) -> torch.Tensor:
@@ -592,14 +648,17 @@ def fused_stage_ck(x_q, w1_nk, w2_ck, a, stop: int) -> torch.Tensor:
     if x_q.device.type == "cpu":
         return fused_stage_plain(x_q, w1_nk, w2_ck, a, stop)
     dev = _cuda.require_cuda_tensors(x_q, w1_nk, w2_ck, a)
-    _check_widths(c, cm)
-    plan = block_plan("bottleneck", n, h, w, c, cm, c, 1, False)
+    xp, (w1_nk, w2_ck, a) = pad_block_operands("stage", x_q, w1_nk, w2_ck, a)
+    cp, cmp = xp.shape[-1], w1_nk.shape[0]
+    plan = block_plan("bottleneck", n, h, w, cp, cmp, cp, 1, False)
     zero = torch.zeros_like(a)
-    out = torch.empty_like(x_q)
+    out = torch.empty_like(xp)
     (STAGE_CONV1 if stop == 1 else STAGE_CONV12)(
-        dev, x_q.data_ptr(), w1_nk.data_ptr(), w2_ck.data_ptr(), a.data_ptr(), zero.data_ptr(), out.data_ptr(),
-        n, h, w, c, cm, stop, plan.r, *plan.args(), route="sm90")
-    return out
+        dev, xp.data_ptr(), w1_nk.data_ptr(), w2_ck.data_ptr(), a.data_ptr(), zero.data_ptr(), out.data_ptr(),
+        n, h, w, cp, cmp, stop, plan.r, *plan.args(), route="sm90")
+    if cmp == cm:
+        return out
+    return out.reshape(n, h, w, c // cm, cmp)[..., :cm].reshape(n, h, w, c).contiguous()
 
 
 def fused_dw_pw_ck(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp1_stored) -> torch.Tensor:

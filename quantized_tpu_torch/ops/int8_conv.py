@@ -1,7 +1,7 @@
 """Int8 convolution helpers: zero-point padding, im2col, the im2col + K1
 GEMM path (``int8_conv_gemm``) and the plain reference ``int8_conv_xla``,
-which also runs the grouped (depthwise) convs that the JAX package leaves
-to XLA.
+which also runs the grouped convs (depthwise or any other grouping) that
+the JAX package leaves to XLA.
 
 Layouts are the JAX package's: NHWC int8 activations (stored u - 128), HWIO
 int8 kernels. Padded taps hold the *stored zero-point* so they contribute
@@ -113,27 +113,42 @@ def int8_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, stri
 
 def grouped_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, stride: Ints,
                      padding: Ints, stored_zp: int, groups: int) -> torch.Tensor:
-    """Exact int32 NHWC accumulator of a depthwise conv (``groups`` = C =
-    Cout, one input channel per group) on packed weights (C, Kh*Kw), tap by
-    tap in int32 over the zero-point-padded input. The same integer ops run
-    on the CPU and on a GPU: no float conv, which a GPU library may run in
-    TF32 or through a transform that rounds."""
+    """Exact int32 NHWC accumulator of a grouped conv over the
+    zero-point-padded input, on packed weights (Cout, Kh*Kw*C/groups):
+    output channels [g*Cout/groups, (g+1)*Cout/groups) read input channels
+    [g*C/groups, (g+1)*C/groups), as ``feature_group_count`` does.
+
+    A depthwise conv (``groups`` = C = Cout) runs tap by tap in int32, the
+    same integer ops on the CPU and on a GPU. Any other grouping: int32
+    ``F.conv2d`` on the CPU, as :func:`int8_conv_acc` does for one group; on
+    a GPU, which has no integer conv, im2col and an exact integer matmul per
+    group."""
     kh, kw = _pair(kernel_size)
     sh, sw = _pair(stride)
     c = x_q.shape[-1]
-    if groups != c or tuple(w_ck.shape) != (c, kh * kw):
-        raise ValueError(f"only depthwise grouped convs are supported: groups={groups} over C={c}, "
-                         f"packed weight {tuple(w_ck.shape)} for a {kh}x{kw} kernel")
+    cout, k = w_ck.shape
+    if groups < 1 or c % groups or cout % groups or k != kh * kw * (c // groups):
+        raise ValueError(f"groups={groups} must divide C={c} and Cout={cout}, and a {kh}x{kw} kernel "
+                         f"takes packed weights (Cout, {kh * kw * (c // max(groups, 1))}), got {tuple(w_ck.shape)}")
     xp = pad_stored_zp(x_q, padding, stored_zp)
     n, hp, wp, _ = xp.shape
     ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
-    w = w_ck.to(torch.int32)
-    acc = torch.zeros((n, ho, wo, c), dtype=torch.int32, device=x_q.device)
-    for dy in range(kh):
-        for dx in range(kw):
-            tap = xp[:, dy: dy + (ho - 1) * sh + 1: sh, dx: dx + (wo - 1) * sw + 1: sw]
-            acc += tap.to(torch.int32) * w[:, dy * kw + dx]
-    return acc
+    if groups == c == cout:
+        w = w_ck.to(torch.int32)
+        acc = torch.zeros((n, ho, wo, c), dtype=torch.int32, device=x_q.device)
+        for dy in range(kh):
+            for dx in range(kw):
+                tap = xp[:, dy: dy + (ho - 1) * sh + 1: sh, dx: dx + (wo - 1) * sw + 1: sw]
+                acc += tap.to(torch.int32) * w[:, dy * kw + dx]
+        return acc
+    cg, og = c // groups, cout // groups
+    if not x_q.is_cuda:
+        w = w_ck.reshape(cout, kh, kw, cg).permute(0, 3, 1, 2).to(torch.int32)
+        acc = F.conv2d(xp.to(torch.int32).permute(0, 3, 1, 2), w, stride=(sh, sw), groups=groups)
+        return acc.permute(0, 2, 3, 1).contiguous()
+    accs = [exact_int_matmul(im2col_int8(xp[..., g * cg:(g + 1) * cg], (kh, kw), (sh, sw)).reshape(-1, k),
+                             w_ck[g * og:(g + 1) * og]) for g in range(groups)]
+    return torch.cat(accs, dim=-1).reshape(n, ho, wo, cout)
 
 
 def int8_conv_xla_ck(x_q, w_ck, kernel_size, alpha, beta, stride: Ints = 1, padding: Ints = 0,
@@ -157,7 +172,7 @@ def int8_conv_xla(x_q, w_q, alpha, beta, stride: Ints = 1, padding: Ints = 0,
                   out_requant: Optional[Tuple[float, int]] = None, groups: int = 1) -> torch.Tensor:
     """Plain reference with ``int8_conv_xla``'s epilogue (the fused-requant
     form folds 1/s into alpha/beta and ReLU into the clip floor). ``groups``
-    takes depthwise convs (:func:`grouped_conv_acc`); ``round_s16`` and
-    ``y_clip`` are not ported yet."""
+    takes any grouping that divides C and Cout (:func:`grouped_conv_acc`);
+    ``round_s16`` and ``y_clip`` are not ported yet."""
     return int8_conv_xla_ck(x_q, pack_conv_weight(w_q), tuple(w_q.shape[:2]), alpha, beta, stride,
                             padding, stored_zp, relu, out_requant, groups)

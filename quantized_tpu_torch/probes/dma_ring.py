@@ -15,7 +15,7 @@ calls it.
 How the TPU variants map onto the card (:data:`VARIANTS` lists each with
 its JAX counterpart):
 - the auto-pipelined grid copies are :func:`~quantized_tpu_torch.ops.grid_copy`,
-  one kernel block per ``bi`` images;
+  steps of ``bi`` images, each cut into pieces over the whole card;
 - the hand-rolled DMA rings are :func:`~quantized_tpu_torch.ops.ring_copy`
   with the same S, D and bi. probe3's ``ring-dyn`` (dynamic slot indices)
   and ``ring-unroll`` (a fully unrolled ring), and probe2's DMA priorities,
@@ -26,8 +26,16 @@ its JAX counterpart):
 - ``xla-add`` (XLA's fused ``x + 1``) is the plain version's ``x + 1``
   through PyTorch's elementwise ops.
 
-Usage, on a GPU: ``python -m quantized_tpu_torch.probes.dma_ring [batch]``
-(default 128, as the JAX scripts). It exits non-zero without one.
+With ``--plans`` it times instead, by the L2-flushed
+:class:`~quantized_tpu_torch.utils.timing.Timer`, the grid copy under other
+plans than :func:`~quantized_tpu_torch.ops.copy_probe.copy_plan`'s (the
+register and the TMA form, pieces of 4 to 64 KB, at bi 1 and 16) and the
+ring over S, D and bi and on two blocks an SM, each held exact first,
+beside ``Tensor.copy_``: what the plans' choices are worth on the card.
+
+Usage, on a GPU: ``python -m quantized_tpu_torch.probes.dma_ring [batch]
+[--plans]`` (default 128, as the JAX scripts). It exits non-zero without
+one.
 """
 
 from __future__ import annotations
@@ -102,11 +110,70 @@ def run_probe(batch: int = 128, target_secs: float = 0.5, reps: int = 3, device:
     return times
 
 
+def plan_calls(x: torch.Tensor) -> Dict[str, Tuple[Callable[[], torch.Tensor], bool]]:
+    """name: (the copy under one plan, adds 1): the grid copy at bi 1 and 16
+    in both forms at pieces of 4 to 64 KB; the ring (none) over S, D and bi,
+    the bytes of loads it may keep in flight being D x bi images; S 4, D 2,
+    bi 1 also with "add" and on two blocks an SM."""
+    from quantized_tpu_torch.ops import _cuda
+    from quantized_tpu_torch.ops.copy_probe import copy_plan, launch_grid_copy, launch_ring_copy, ring_plan
+
+    sms = _cuda.sm_count(x.device)
+    image = x.numel() // x.shape[0]
+    calls = {}
+    for bi in (1, 16):
+        for tma in (False, True):
+            for kb in (4, 8, 16, 32, 64):
+                plan = copy_plan(x.numel(), bi * image, sms, tma, max_piece=kb * 1024 // 16)
+                calls[f"grid bi{bi} {'tma' if tma else 'regs'} <={kb}KB ({plan.blocks} blocks)"] = (
+                    lambda plan=plan: launch_grid_copy(x, plan), False)
+    rings = [(s, d, bi, "none", sms) for s, d, bi in ((4, 1, 1), (4, 2, 1), (8, 2, 1), (4, 3, 1), (4, 4, 1),
+                                                      (8, 4, 1), (8, 6, 1), (4, 2, 2), (4, 2, 4))]
+    # "add"; two blocks an SM; 128 blocks, whose pieces of a layer1 image are whole 128-byte lines
+    rings += [(4, 2, 1, "add", sms), (4, 2, 1, "none", 2 * sms), (4, 2, 1, "add", 2 * sms), (4, 2, 1, "none", 128)]
+    for slots, depth, bi, compute, blocks in rings:
+        plan = ring_plan(x.numel(), bi * image, slots, depth, False, blocks)
+        calls[f"ring S{slots}D{depth} bi{bi} {compute} {blocks} blocks"] = (
+            lambda plan=plan, compute=compute: launch_ring_copy(x, plan, compute), compute == "add")
+    return calls
+
+
+def run_plans(batch: int = 32, device: DeviceLike = "cuda", out: Callable[[str], None] = print,
+              iters: int = 20) -> Dict[str, float]:
+    """Every plan of :func:`plan_calls` checked exact, then its device ms by
+    :class:`~quantized_tpu_torch.utils.timing.Timer` (L2 flushed), with
+    ``Tensor.copy_`` and the plans' own choices timed beside them."""
+    from quantized_tpu_torch.utils.timing import Timer
+
+    x = layer1_activation(batch, device)
+    want = {False: ops.copy_plain(x), True: ops.copy_plain(x, add=True)}
+    calls = plan_calls(x)
+    for name, (fn, add) in calls.items():
+        if not torch.equal(fn(), want[add]):
+            raise AssertionError(f"{name}: the copy differs from its plain version")
+    dst = torch.empty_like(x)
+    calls["grid_copy(x, 1)"] = (lambda: ops.grid_copy(x, 1), False)
+    calls["ring_copy(x, 4, 2, 1)"] = (lambda: ops.ring_copy(x, 4, 2, 1), False)
+    calls["torch copy_"] = (lambda: dst.copy_(x), False)
+    timer = Timer(x.device)
+    bound = 2 * x.numel() / HBM_BYTES_PER_S * 1e3
+    times = {}
+    for name, (fn, _) in calls.items():
+        times[name] = ms = timer.ms(fn, iters=iters)
+        out(f"{name:>36}: {ms:7.4f} ms ({2 * x.numel() / ms / 1e6:6.0f} GB/s duplex, {ms / bound:.2f}x bound)")
+    return times
+
+
 def main(argv: Sequence[str]) -> int:
     if not torch.cuda.is_available():
         print("dma_ring: torch sees no CUDA GPU; this probe runs on one", file=sys.stderr)
         return 1
-    run_probe(int(argv[0]) if argv else 128)
+    args = [a for a in argv if not a.startswith("--")]
+    batch = int(args[0]) if args else 128
+    if "--plans" in argv:
+        run_plans(batch)
+    else:
+        run_probe(batch)
     return 0
 
 

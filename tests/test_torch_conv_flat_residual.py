@@ -258,7 +258,7 @@ def test_ring_slot_plan_fits_the_layer1_variants():
     x = torch.empty((128, 56, 56, 256), dtype=torch.int8, device="meta")
     for slots, bi, sep in [(4, 1, False), (8, 1, False), (4, 4, False), (4, 4, True), (8, 4, False)]:
         assert slots * ring_slot_bytes(x, bi, 132) * (2 if sep else 1) <= SMEM_PER_BLOCK, (slots, bi, sep)
-    assert ring_slot_bytes(x, 1, 132) == 6096  # 802,816 bytes over 132 blocks, in 16-byte words
+    assert ring_slot_bytes(x, 1, 132) == 6144  # 802,816 bytes over 132 blocks, in whole 128-byte lines
 
 
 def test_dma_ring_probe_checks_and_times_every_variant_on_the_cpu():

@@ -348,9 +348,11 @@ def test_fused_ds_kernel_matches_plain(cuda_device, gen, n, h, c, cm, cout, stri
 
 @pytest.mark.cuda
 def test_fused_wrappers_raise_on_shapes_the_kernel_refuses(cuda_device, gen):
-    x, w, v = _fused_case(gen, cuda_device, 1, 8, 24, 16, 32, ds=True)  # C = 24: not a multiple of 16
-    with pytest.raises(ValueError):
-        ops.fused_bottleneck_ds_ck(x, *w, *v, 1, **FUSED_SCALARS)
+    x, w, v = _fused_case(gen, cuda_device, 1, 8, 24, 16, 32, ds=True)  # C = 24, once refused: padded to 32
+    before = ops.KERNELS["fused_bottleneck_ds"].routes.get("sm90", 0)
+    got = ops.fused_bottleneck_ds_ck(x, *w, *v, 1, **FUSED_SCALARS)
+    assert ops.KERNELS["fused_bottleneck_ds"].routes.get("sm90", 0) == before + 1
+    assert torch.equal(got, ops.fused_bottleneck_ds_plain(x, *w, *v, 1, **FUSED_SCALARS))
     x, w, v = _fused_case(gen, cuda_device, 1, 8, 32, 16, 32, ds=True)
     with pytest.raises(ValueError):  # stride 2 over an odd image
         ops.fused_bottleneck_ds_ck(x[:, :7, :7].contiguous(), *w, *v, 2, **FUSED_SCALARS)
@@ -435,14 +437,73 @@ def test_fused_basicblock_ds_kernel_matches_plain(cuda_device, gen, n, h, c, cm,
 
 @pytest.mark.cuda
 def test_fused_basicblock_wrappers_raise_on_shapes_the_kernel_refuses(cuda_device, gen):
-    x, w, v = _basic_case(gen, cuda_device, 1, 8, 24, 16, ds=True)  # C = 24: not a multiple of 16
-    with pytest.raises(ValueError):
-        ops.fused_basicblock_ds_ck(x, *w, *v, 1, **BASIC_SCALARS)
+    x, w, v = _basic_case(gen, cuda_device, 1, 8, 24, 16, ds=True)  # C = 24, once refused: padded to 32
+    before = ops.KERNELS["fused_basicblock_ds"].routes.get("sm90", 0)
+    got = ops.fused_basicblock_ds_ck(x, *w, *v, 1, **BASIC_SCALARS)
+    assert ops.KERNELS["fused_basicblock_ds"].routes.get("sm90", 0) == before + 1
+    assert torch.equal(got, ops.fused_basicblock_ds_plain(x, *w, *v, 1, **BASIC_SCALARS))
     x, w, v = _basic_case(gen, cuda_device, 1, 8, 32, 16, ds=True)
     with pytest.raises(ValueError):  # stride 2 over an odd image
         ops.fused_basicblock_ds_ck(x[:, :7, :7].contiguous(), *w, *v, 2, **BASIC_SCALARS)
     with pytest.raises(ValueError):  # a CPU vector mixed into a CUDA call
         ops.fused_basicblock_ds_ck(x, *w, v[0].cpu(), *v[1:], 1, **BASIC_SCALARS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cm", [16, 24])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_fused_wrappers_pad_widths_that_are_not_multiples_of_16(cuda_device, gen, cm, stride):
+    """C = 24 (and Cm 24, Cout 40) on all four block wrappers and the stage
+    probe: the operands padded to multiples of 16, the mainloop launched,
+    the output sliced, equal to the plain version on the originals."""
+    n, h = 2, 10
+
+    def check(name, kernel, plain, *args, **kw):
+        before = ops.KERNELS[name].routes.get("sm90", 0)
+        got = kernel(*args, **kw)
+        assert ops.KERNELS[name].routes.get("sm90", 0) == before + 1
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and torch.equal(got, want), name
+
+    x, w, v = _fused_case(gen, cuda_device, n, h, 24, cm, 40, ds=True)
+    check("fused_bottleneck_ds", ops.fused_bottleneck_ds_ck, ops.fused_bottleneck_ds_plain, x, *w, *v, stride,
+          **FUSED_SCALARS, ds_fine=32.0)
+    x, w, v = _basic_case(gen, cuda_device, n, h, 24, cm, ds=True)
+    check("fused_basicblock_ds", ops.fused_basicblock_ds_ck, ops.fused_basicblock_ds_plain, x, *w, *v, stride,
+          **BASIC_SCALARS, ds_fine=32.0)
+    if stride == 1:
+        x, w, v = _fused_case(gen, cuda_device, n, h, 24, cm, 24, ds=False)
+        check("fused_bottleneck_s1", ops.fused_bottleneck_s1_ck, ops.fused_bottleneck_s1_plain, x, *w, *v,
+              **FUSED_SCALARS, id_k=0.8137192, id_c=2.71828)
+        x, w, v = _basic_case(gen, cuda_device, n, h, 24, 24, ds=False)
+        check("fused_basicblock_s1", ops.fused_basicblock_s1_ck, ops.fused_basicblock_s1_plain, x, *w, *v,
+              **BASIC_SCALARS, id_k=0.8137192, id_c=2.71828)
+    else:
+        for c, cs in ([(24, 24), (48, 24)] if cm == 24 else [(24, 8)]):  # the stage probe tiles its Cm across C
+            x = _dev(gen.integers(-128, 128, (n, h, h, c)).astype(np.int8), cuda_device)
+            w1 = _dev(gen.integers(-127, 128, (cs, c)).astype(np.int8), cuda_device)
+            w2 = _dev(gen.integers(-127, 128, (cs, 9 * cs)).astype(np.int8), cuda_device)
+            a = torch.full((cs,), 0.02, device=cuda_device)
+            for stop, name in ((1, "fused_stages_conv1"), (2, "fused_stages_conv12")):
+                check(name, ops.fused_stage_ck, ops.fused_stage_plain, x, w1, w2, a, stop)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_shape,groups", [((3, 3, 4, 6), 2), ((3, 3, 2, 8), 4), ((3, 3, 1, 16), 8)])
+@pytest.mark.parametrize("out_requant", [None, (0.05, 37)])
+def test_grouped_conv_on_the_gpu_equals_the_cpu(cuda_device, gen, w_shape, groups, out_requant):
+    """Grouped convs other than depthwise: im2col and the exact integer
+    matmul per group on the GPU, int32 F.conv2d on the CPU; equal."""
+    x = gen.integers(-128, 128, (2, 8, 8, 8)).astype(np.int8)
+    w = gen.integers(-127, 128, w_shape).astype(np.int8)
+    alpha = (gen.uniform(0.5, 1.5, w_shape[3]) * 1e-4).astype(np.float32)
+    beta = gen.uniform(-1, 1, w_shape[3]).astype(np.float32)
+    for stride in (1, 2):
+        kw = dict(stride=stride, padding=1, stored_zp=-17, relu=True, out_requant=out_requant, groups=groups)
+        cpu = ops.int8_conv_xla(*(torch.from_numpy(a) for a in (x, w, alpha, beta)), **kw)
+        got = ops.int8_conv_xla(*(_dev(a, cuda_device) for a in (x, w, alpha, beta)), **kw)
+        assert got.is_cuda and torch.equal(got.cpu(), cpu), (stride, out_requant)
 
 
 # B3 and B4 on the Hopper mainloop (csrc/block_sm90.cuh): every block shape of

@@ -128,13 +128,21 @@ def test_grouped_conv_integer_contract_exact(rng, stride, out_requant):
 
 
 def test_grouped_conv_acc_refuses_other_grouped_convs(rng):
-    """Only depthwise convs (one input and one output channel per group)
-    take the grouped path; other groupings raise instead of computing."""
+    """Other groupings than depthwise (2 inputs a group; a channel
+    multiplier of 2) no longer raise in ``grouped_conv_acc``: it computes
+    them, equal to an int32 grouped conv (tests/test_torch_grouped_conv.py
+    holds them against JAX); a grouping that does not divide C raises. The
+    engine's layer still refuses them when it is built: only depthwise convs
+    take its grouped path."""
     x = _t(rng.integers(-128, 128, (1, 5, 5, 4)).astype(np.int8))
+    xp = torch.nn.functional.pad(x.to(torch.int32).permute(0, 3, 1, 2), (1, 1, 1, 1), value=-3)
     for w_shape, groups in [((3, 3, 2, 4), 2), ((3, 3, 1, 8), 4)]:  # 2 inputs per group; a multiplier of 2
-        w = ops.pack_conv_weight(_t(rng.integers(-127, 128, w_shape).astype(np.int8)))
-        with pytest.raises(ValueError):
-            ops.grouped_conv_acc(x, w, (3, 3), 1, 1, -3, groups)
+        w_hwio = _t(rng.integers(-127, 128, w_shape).astype(np.int8))
+        w = ops.pack_conv_weight(w_hwio)
+        want = torch.nn.functional.conv2d(xp, w_hwio.to(torch.int32).permute(3, 2, 0, 1), groups=groups)
+        assert torch.equal(ops.grouped_conv_acc(x, w, (3, 3), 1, 1, -3, groups), want.permute(0, 2, 3, 1))
+        with pytest.raises(ValueError):  # 3 groups over 4 channels
+            ops.grouped_conv_acc(x, w, (3, 3), 1, 1, -3, 3)
         with pytest.raises(ValueError):  # and the layer refuses them when it is built
             IntConv2d(_t(np.zeros(w_shape, np.int8)), torch.zeros(w_shape[3]), torch.zeros(w_shape[3]), 0.03,
                       21, padding=(1, 1), groups=groups)
