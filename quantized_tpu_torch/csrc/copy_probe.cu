@@ -15,15 +15,15 @@
 //            crosses a step), but the plan (ops/copy_probe.py copy_plan) cuts
 //            every step into pieces of whole 128-byte lines, at most 16 KB,
 //            and enough of them for at least two blocks on every SM, whatever
-//            bi. Two forms of a piece: `tma`, one TMA bulk load of the piece
-//            into shared memory on an mbarrier (the +1 in shared memory), and
-//            one bulk store back, issued by one thread, some 13 blocks an SM;
-//            `regs`, 256 threads each with up to 8 independent 16-byte loads
-//            in flight before its stores. The plan takes `tma` at 16 KB: on an
-//            H100 80GB HBM3 (700 W), `python -m quantized_tpu_torch.probes.dma_ring
-//            32 --plans` times it at 0.0218-0.0224 ms against 0.0234 for
-//            `regs` at its best piece (8-16 KB) and 0.0235 for Tensor.copy_;
-//            both forms lose 2-7% at 32-64 KB pieces and at 4 KB.
+//            bi. A piece goes by one TMA bulk load into shared memory on an
+//            mbarrier (the +1 in shared memory) and one bulk store back, issued
+//            by one thread, some 13 blocks an SM. Chosen by measurement over a
+//            register form (256 threads, each with up to 8 independent 16-byte
+//            loads in flight before its stores), since removed: on an H100
+//            80GB HBM3 (700 W), `python -m quantized_tpu_torch.probes.dma_ring
+//            32 --plans` timed the TMA form at 0.0218-0.0224 ms at 16 KB
+//            pieces (0.0223-0.0239 at 4, 8, 32 and 64 KB), the register form
+//            at 0.0232-0.0243 at every piece size, Tensor.copy_ at 0.0233.
 //
 // ring_copy  replaces the hand-rolled S-slot, D-deep DMA rings
 //            (bench/dma_ring_probe.py:103, bench/dma_ring_probe2.py:90,
@@ -54,6 +54,12 @@
 // TMA bulk copies take whole 16-byte units at 16-byte aligned addresses, and
 // the plans cut only whole units; the bytes past the last whole 16 are copied
 // one by one by block 0.
+//
+// Every bulk store follows fence.proxy.async. After the threads' own writes
+// to the slot it is required; after a bulk load alone, the write (async
+// proxy) reaches the store (async proxy) only through the issuing thread's
+// mbarrier wait (generic proxy), an ordering the PTX ISA does not spell out,
+// so the fence is kept there too: one instruction a piece, by one thread.
 
 #include "int8_mma.cuh"
 #include "sm90.cuh"
@@ -66,8 +72,6 @@ using qt90::mbar_init;
 using qt90::mbar_wait;
 using qt90::smem_u32;
 
-constexpr int GRID_THREADS = 256;
-constexpr int GRID_UNROLL = 8;       // 16-byte loads a thread of the register form keeps in flight
 constexpr int BULK_CHUNK = 32768;    // bytes of one TMA bulk copy of bulk_copy
 constexpr int MAX_STREAMS = 6;       // 6 x 32 KB of the 227 KB
 
@@ -86,16 +90,6 @@ __device__ __forceinline__ uint4 add1(uint4 v) {
 
 __device__ __forceinline__ int8_t add1(int8_t b) {
   return static_cast<int8_t>(static_cast<uint8_t>(static_cast<uint8_t>(b) + 1u));
-}
-
-// a 16-byte load that is read once: no L1 allocation (not volatile, so the
-// compiler may issue a thread's loads together)
-__device__ __forceinline__ uint4 ldg_stream(const uint4* p) {
-  uint4 v;
-  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
 }
 
 // 16-byte shared-memory accesses the compiler keeps in program order
@@ -171,33 +165,10 @@ __device__ __forceinline__ long long grid_piece(const GridShape& s, long long& b
   return lo(lo(begin + s.piece, (j + 1) * s.step), s.units) - begin;
 }
 
-template <bool ADD>
-__global__ void __launch_bounds__(GRID_THREADS)
-    grid_copy_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, GridShape s) {
-  long long begin = 0;
-  const long long n = grid_piece(s, begin);
-  const uint4* src = reinterpret_cast<const uint4*>(x) + begin;
-  uint4* dst = reinterpret_cast<uint4*>(out) + begin;
-  for (long long u0 = threadIdx.x; u0 < n; u0 += GRID_THREADS * GRID_UNROLL) {
-    uint4 v[GRID_UNROLL];
-#pragma unroll
-    for (int k = 0; k < GRID_UNROLL; ++k) {  // every load issued before the first store
-      const long long u = u0 + k * GRID_THREADS;
-      if (u < n) v[k] = ldg_stream(src + u);
-    }
-#pragma unroll
-    for (int k = 0; k < GRID_UNROLL; ++k) {
-      const long long u = u0 + k * GRID_THREADS;
-      if (u < n) dst[u] = ADD ? add1(v[k]) : v[k];
-    }
-  }
-  if (blockIdx.x == 0) copy_tail<ADD>(x, out, s.units, s.total);
-}
-
-// the same pieces by one TMA bulk load into shared memory and one bulk store
+// block b's piece by one TMA bulk load into shared memory and one bulk store
 template <bool ADD>
 __global__ void __launch_bounds__(qt::THREADS)
-    grid_copy_tma_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, GridShape s) {
+    grid_copy_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, GridShape s) {
   extern __shared__ __align__(128) uint4 piece_buf[];  // s.piece units
   __shared__ __align__(8) uint64_t bar;
   long long begin = 0;
@@ -218,6 +189,7 @@ __global__ void __launch_bounds__(qt::THREADS)
       __syncthreads();
     } else if (threadIdx.x == 0) {
       mbar_wait(b, 0);
+      fence_proxy_async();
     }
     if (threadIdx.x == 0) {
       bulk_store(out + begin * 16, buf, static_cast<uint32_t>(n * 16));
@@ -288,6 +260,8 @@ __global__ void __launch_bounds__(qt::THREADS)
         }
         fence_proxy_async();  // the generic-proxy writes before the bulk store reads them
         __syncthreads();
+      } else {
+        fence_proxy_async();
       }
       if (issuer) {
         bulk_store(out + 16 * begin, out0 + off, static_cast<uint32_t>(16 * n));
@@ -341,27 +315,15 @@ __global__ void __launch_bounds__(qt::THREADS)
   if (blockIdx.x == 0) copy_tail<false>(x, out, vbytes / 16, total);
 }
 
-template <typename Kernel>
-int launch_threads(Kernel kernel, dim3 grid, int threads, size_t smem, void* stream, const int8_t* x, int8_t* out,
-                   GridShape s) {
-  if (smem > 48 * 1024) {  // above the default: opt in, as qt::launch does
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(x, out, s);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 // out = x (+1 per byte if add): step_units (bi images) a step, each cut into
-// per_step pieces of piece_units, one block a piece; tma 0 the register
-// form, 1 the TMA bulk form (ops/copy_probe.py copy_plan).
+// per_step pieces of piece_units, one block a piece (ops/copy_probe.py
+// copy_plan).
 extern "C" int qt_grid_copy(const void* x, void* out, long long total, long long step_units, long long piece_units,
-                            long long per_step, int tma, int add, void* stream) {
+                            long long per_step, int add, void* stream) {
   if (total < 1 || step_units < 1 || piece_units < 1 || per_step < 1 || piece_units * per_step < step_units ||
-      (tma && 16 * piece_units > qt::SMEM_LIMIT) || !qt::aligned16(x) || !qt::aligned16(out))
+      16 * piece_units > qt::SMEM_LIMIT || !qt::aligned16(x) || !qt::aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
   GridShape s{};
   s.total = total;
@@ -374,13 +336,9 @@ extern "C" int qt_grid_copy(const void* x, void* out, long long total, long long
   const dim3 grid(static_cast<unsigned>(blocks));
   const auto* xi = static_cast<const int8_t*>(x);
   auto* oi = static_cast<int8_t*>(out);
-  if (tma) {
-    const size_t smem = static_cast<size_t>(16 * piece_units);
-    return add ? launch_threads(grid_copy_tma_kernel<true>, grid, qt::THREADS, smem, stream, xi, oi, s)
-               : launch_threads(grid_copy_tma_kernel<false>, grid, qt::THREADS, smem, stream, xi, oi, s);
-  }
-  return add ? launch_threads(grid_copy_kernel<true>, grid, GRID_THREADS, 0, stream, xi, oi, s)
-             : launch_threads(grid_copy_kernel<false>, grid, GRID_THREADS, 0, stream, xi, oi, s);
+  const size_t smem = static_cast<size_t>(16 * piece_units);
+  return add ? qt::launch(grid_copy_kernel<true>, grid, smem, stream, xi, oi, s)
+             : qt::launch(grid_copy_kernel<false>, grid, smem, stream, xi, oi, s);
 }
 
 // out = x through a ring of `slots` pieces a block, `depth` steps of

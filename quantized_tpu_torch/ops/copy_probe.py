@@ -9,8 +9,7 @@ Pallas copy and DMA-ring bodies of the JAX package's TPU studies
   work from, but :func:`copy_plan` cuts every step into pieces of at most
   16 KB, enough for two blocks on every SM, so the copy fills the card
   whatever ``bi``; a block moves its piece by one TMA bulk load into shared
-  memory and one bulk store (the plan's register form, 16-byte loads with 8
-  a thread in flight, measured slower on the H100);
+  memory and one bulk store;
 - :func:`ring_copy`: the hand-rolled DMA rings (S, D, bi). One persistent
   block per SM streams its piece of every ``bi``-image step
   (:func:`ring_plan`) through a ``slots``-slot shared-memory ring: TMA bulk
@@ -38,7 +37,7 @@ import torch
 from quantized_tpu_torch.ops import _cuda
 
 GRID_COPY = _cuda.CudaKernel("grid_copy", "copy_probe.cu", "qt_grid_copy",
-                             ["ptr", "ptr"] + ["long"] * 4 + ["int"] * 2)
+                             ["ptr", "ptr"] + ["long"] * 4 + ["int"])
 RING_COPY = _cuda.CudaKernel("ring_copy", "copy_probe.cu", "qt_ring_copy",
                              ["ptr", "ptr"] + ["long"] * 3 + ["int"] * 4)
 BULK_COPY = _cuda.CudaKernel("bulk_copy", "copy_probe.cu", "qt_bulk_copy", ["ptr", "ptr", "long", "int", "int"])
@@ -67,30 +66,27 @@ class CopyPlan(NamedTuple):
     piece: int  # units a piece; the last piece of a step may be shorter
     per_step: int  # pieces a step: block b copies piece b % per_step of step b // per_step
     blocks: int  # steps x per_step, at least 1 (the tail's block)
-    tma: bool  # the TMA bulk form; else the register form
 
     def args(self):
-        """The C entry's plan arguments: step, piece, pieces a step, form."""
-        return [self.step, self.piece, self.per_step, int(self.tma)]
+        """The C entry's plan arguments: step, piece, pieces a step."""
+        return [self.step, self.piece, self.per_step]
 
 
-def copy_plan(total: int, step_bytes: int, sms: int, tma: bool = True,
-              max_piece: int = COPY_PIECE_UNITS) -> CopyPlan:
+def copy_plan(total: int, step_bytes: int, sms: int, max_piece: int = COPY_PIECE_UNITS) -> CopyPlan:
     """The grid copy's plan over ``total`` bytes in steps of ``step_bytes``
     (``bi`` images; whole 16-byte units of it, at least one): each step cut
     into equal pieces of whole 128-byte lines, at most ``max_piece`` units
     (a multiple of 8), and into enough of them that the grid holds
     :data:`COPY_BLOCKS_PER_SM` blocks on each of ``sms`` SMs, however few
-    the steps. ``tma``: the TMA bulk form, the default; else the register
-    form (``probes/dma_ring --plans`` times both, and other piece sizes, on
-    the card)."""
+    the steps (``probes/dma_ring --plans`` times other piece sizes on the
+    card)."""
     units = total // UNIT
     step = max(1, step_bytes // UNIT)
     steps = -(-units // step)
     per_step = min(step, max(-(-step // max_piece), -(-COPY_BLOCKS_PER_SM * sms // max(1, steps))))
     piece = _cut(step, per_step)
     per_step = -(-step // piece)  # no empty piece in a whole step
-    return CopyPlan(units, total - units * UNIT, step, steps, piece, per_step, max(1, steps * per_step), tma)
+    return CopyPlan(units, total - units * UNIT, step, steps, piece, per_step, max(1, steps * per_step))
 
 
 class RingPlan(NamedTuple):

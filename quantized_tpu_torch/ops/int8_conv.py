@@ -93,36 +93,38 @@ def int8_conv_gemm(x_q, w_q, alpha, beta, stride: Ints = 1, padding: Ints = 0,
 
 
 def int8_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, stride: Ints,
-                  padding: Ints, stored_zp: int) -> torch.Tensor:
-    """Exact int32 NHWC accumulator of the zero-point-padded conv:
+                  padding: Ints, stored_zp: int, groups: int = 1) -> torch.Tensor:
+    """Exact int32 NHWC accumulator of the zero-point-padded conv, on packed
+    weights (Cout, Kh*Kw*C/groups); with ``groups`` > 1 output channels
+    [g*Cout/groups, (g+1)*Cout/groups) read input channels
+    [g*C/groups, (g+1)*C/groups), as ``feature_group_count`` does.
     ``F.conv2d`` in int32 on the CPU. A GPU has no integer conv, and a
     float conv library may pick a transform (FFT, Winograd) that rounds, so
-    there it is im2col and a float64 matmul (every partial sum is an integer
-    below 2**53, so exact)."""
+    there it is im2col and a float64 matmul per group (every partial sum is
+    an integer below 2**53, so exact)."""
     kh, kw = _pair(kernel_size)
     cout, k = w_ck.shape
     xp = pad_stored_zp(x_q, padding, stored_zp)
     if x_q.is_cuda:
-        patches = im2col_int8(xp, (kh, kw), stride)
+        cg, og = xp.shape[-1] // groups, cout // groups
+        accs = []
+        for g in range(groups):
+            patches = im2col_int8(xp[..., g * cg:(g + 1) * cg], (kh, kw), stride)
+            accs.append(exact_int_matmul(patches.reshape(-1, k), w_ck[g * og:(g + 1) * og]))
         n, ho, wo, _ = patches.shape
-        return exact_int_matmul(patches.reshape(-1, k), w_ck).reshape(n, ho, wo, cout)
+        return (accs[0] if groups == 1 else torch.cat(accs, dim=-1)).reshape(n, ho, wo, cout)
     w = w_ck.reshape(cout, kh, kw, k // (kh * kw)).permute(0, 3, 1, 2).to(torch.int32)
-    acc = F.conv2d(xp.to(torch.int32).permute(0, 3, 1, 2), w, stride=_pair(stride))
+    acc = F.conv2d(xp.to(torch.int32).permute(0, 3, 1, 2), w, stride=_pair(stride), groups=groups)
     return acc.permute(0, 2, 3, 1).contiguous()
 
 
 def grouped_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, stride: Ints,
                      padding: Ints, stored_zp: int, groups: int) -> torch.Tensor:
     """Exact int32 NHWC accumulator of a grouped conv over the
-    zero-point-padded input, on packed weights (Cout, Kh*Kw*C/groups):
-    output channels [g*Cout/groups, (g+1)*Cout/groups) read input channels
-    [g*C/groups, (g+1)*C/groups), as ``feature_group_count`` does.
-
-    A depthwise conv (``groups`` = C = Cout) runs tap by tap in int32, the
-    same integer ops on the CPU and on a GPU. Any other grouping: int32
-    ``F.conv2d`` on the CPU, as :func:`int8_conv_acc` does for one group; on
-    a GPU, which has no integer conv, im2col and an exact integer matmul per
-    group."""
+    zero-point-padded input, on packed weights (Cout, Kh*Kw*C/groups), for
+    any ``groups`` that divides C and Cout. A depthwise conv (``groups`` =
+    C = Cout) runs tap by tap in int32, the same integer ops on the CPU and
+    on a GPU; any other grouping is :func:`int8_conv_acc` with ``groups``."""
     kh, kw = _pair(kernel_size)
     sh, sw = _pair(stride)
     c = x_q.shape[-1]
@@ -130,25 +132,18 @@ def grouped_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, s
     if groups < 1 or c % groups or cout % groups or k != kh * kw * (c // groups):
         raise ValueError(f"groups={groups} must divide C={c} and Cout={cout}, and a {kh}x{kw} kernel "
                          f"takes packed weights (Cout, {kh * kw * (c // max(groups, 1))}), got {tuple(w_ck.shape)}")
+    if not groups == c == cout:
+        return int8_conv_acc(x_q, w_ck, (kh, kw), (sh, sw), padding, stored_zp, groups)
     xp = pad_stored_zp(x_q, padding, stored_zp)
     n, hp, wp, _ = xp.shape
     ho, wo = (hp - kh) // sh + 1, (wp - kw) // sw + 1
-    if groups == c == cout:
-        w = w_ck.to(torch.int32)
-        acc = torch.zeros((n, ho, wo, c), dtype=torch.int32, device=x_q.device)
-        for dy in range(kh):
-            for dx in range(kw):
-                tap = xp[:, dy: dy + (ho - 1) * sh + 1: sh, dx: dx + (wo - 1) * sw + 1: sw]
-                acc += tap.to(torch.int32) * w[:, dy * kw + dx]
-        return acc
-    cg, og = c // groups, cout // groups
-    if not x_q.is_cuda:
-        w = w_ck.reshape(cout, kh, kw, cg).permute(0, 3, 1, 2).to(torch.int32)
-        acc = F.conv2d(xp.to(torch.int32).permute(0, 3, 1, 2), w, stride=(sh, sw), groups=groups)
-        return acc.permute(0, 2, 3, 1).contiguous()
-    accs = [exact_int_matmul(im2col_int8(xp[..., g * cg:(g + 1) * cg], (kh, kw), (sh, sw)).reshape(-1, k),
-                             w_ck[g * og:(g + 1) * og]) for g in range(groups)]
-    return torch.cat(accs, dim=-1).reshape(n, ho, wo, cout)
+    w = w_ck.to(torch.int32)
+    acc = torch.zeros((n, ho, wo, c), dtype=torch.int32, device=x_q.device)
+    for dy in range(kh):
+        for dx in range(kw):
+            tap = xp[:, dy: dy + (ho - 1) * sh + 1: sh, dx: dx + (wo - 1) * sw + 1: sw]
+            acc += tap.to(torch.int32) * w[:, dy * kw + dx]
+    return acc
 
 
 def int8_conv_xla_ck(x_q, w_ck, kernel_size, alpha, beta, stride: Ints = 1, padding: Ints = 0,

@@ -28,8 +28,8 @@ its JAX counterpart):
 
 With ``--plans`` it times instead, by the L2-flushed
 :class:`~quantized_tpu_torch.utils.timing.Timer`, the grid copy under other
-plans than :func:`~quantized_tpu_torch.ops.copy_probe.copy_plan`'s (the
-register and the TMA form, pieces of 4 to 64 KB, at bi 1 and 16) and the
+plans than :func:`~quantized_tpu_torch.ops.copy_probe.copy_plan`'s (pieces
+of 4 to 64 KB, at bi 1 and 16) and the
 ring over S, D and bi and on two blocks an SM, each held exact first,
 beside ``Tensor.copy_``: what the plans' choices are worth on the card.
 
@@ -112,7 +112,7 @@ def run_probe(batch: int = 128, target_secs: float = 0.5, reps: int = 3, device:
 
 def plan_calls(x: torch.Tensor) -> Dict[str, Tuple[Callable[[], torch.Tensor], bool]]:
     """name: (the copy under one plan, adds 1): the grid copy at bi 1 and 16
-    in both forms at pieces of 4 to 64 KB; the ring (none) over S, D and bi,
+    at pieces of 4 to 64 KB; the ring (none) over S, D and bi,
     the bytes of loads it may keep in flight being D x bi images; S 4, D 2,
     bi 1 also with "add" and on two blocks an SM."""
     from quantized_tpu_torch.ops import _cuda
@@ -122,11 +122,9 @@ def plan_calls(x: torch.Tensor) -> Dict[str, Tuple[Callable[[], torch.Tensor], b
     image = x.numel() // x.shape[0]
     calls = {}
     for bi in (1, 16):
-        for tma in (False, True):
-            for kb in (4, 8, 16, 32, 64):
-                plan = copy_plan(x.numel(), bi * image, sms, tma, max_piece=kb * 1024 // 16)
-                calls[f"grid bi{bi} {'tma' if tma else 'regs'} <={kb}KB ({plan.blocks} blocks)"] = (
-                    lambda plan=plan: launch_grid_copy(x, plan), False)
+        for kb in (4, 8, 16, 32, 64):
+            plan = copy_plan(x.numel(), bi * image, sms, max_piece=kb * 1024 // 16)
+            calls[f"grid bi{bi} <={kb}KB ({plan.blocks} blocks)"] = (lambda plan=plan: launch_grid_copy(x, plan), False)
     rings = [(s, d, bi, "none", sms) for s, d, bi in ((4, 1, 1), (4, 2, 1), (8, 2, 1), (4, 3, 1), (4, 4, 1),
                                                       (8, 4, 1), (8, 6, 1), (4, 2, 2), (4, 2, 4))]
     # "add"; two blocks an SM; 128 blocks, whose pieces of a layer1 image are whole 128-byte lines

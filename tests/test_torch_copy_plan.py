@@ -89,8 +89,7 @@ def test_copy_plan_covers_every_byte_once_in_whole_units(images, image_bytes, bi
     assert np.all(begin[nonempty] // plan.step == j[nonempty])
     whole = j < plan.units // plan.step  # every piece of a whole step is non-empty
     assert np.all(end[whole] > begin[whole])
-    assert UNIT * plan.piece <= SMEM_PER_BLOCK  # the TMA form holds a piece in shared memory
-    assert copy_plan(total, bi * image_bytes, SMS, tma=False).args()[:3] == plan.args()[:3]
+    assert UNIT * plan.piece <= SMEM_PER_BLOCK  # a block holds its piece in shared memory
     if plan.step > 8:  # whole 128-byte lines
         assert plan.piece % 8 == 0
 
@@ -107,15 +106,11 @@ def test_copy_plan_fills_the_card_whatever_bi(batch, bi):
 
 def test_copy_plan_at_the_layer1_activation():
     """Batch 32, bi 1: 32 steps of 50,176 units, each in 49 pieces of 1,024
-    (16 KB), 1,568 blocks, in the TMA form; bi 16: two steps of 784 pieces
-    of 16 KB; the register form cuts the same pieces."""
+    (16 KB), 1,568 blocks; bi 16: two steps of 784 pieces of 16 KB."""
     plan = copy_plan(32 * LAYER1_IMAGE, LAYER1_IMAGE, SMS)
-    assert (plan.steps, plan.step, plan.per_step, plan.piece, plan.blocks, plan.tma) == (32, 50176, 49, 1024,
-                                                                                          1568, True)
+    assert (plan.steps, plan.step, plan.per_step, plan.piece, plan.blocks) == (32, 50176, 49, 1024, 1568)
     plan = copy_plan(32 * LAYER1_IMAGE, 16 * LAYER1_IMAGE, SMS)
     assert (plan.steps, plan.per_step, plan.piece, plan.blocks) == (2, 784, COPY_PIECE_UNITS, 1568)
-    assert copy_plan(32 * LAYER1_IMAGE, LAYER1_IMAGE, SMS, tma=False)._replace(tma=True) == copy_plan(
-        32 * LAYER1_IMAGE, LAYER1_IMAGE, SMS)
     assert copy_plan(15, 15, SMS) == copy_plan(15, 15, SMS)._replace(units=0, tail=15, blocks=1)
 
 
