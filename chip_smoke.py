@@ -36,8 +36,10 @@ and a non-zero exit:
    shapes (pairs 0-5, 6-10 and 11) and at width 0.75's and 0.25's pair 0
    (C = 24 and 8), each with its launch plan (``dw_pw_plan``: route, cluster
    size, tile, shared memory, clusters) and its instance's ptxas line, the
-   route asserted: the Hopper route ("sm90") wherever C and Cout are
-   multiples of 16, the tile kernel for C 24 and 8; K2's gather-K form at
+   route asserted: the Hopper route ("sm90") everywhere, C 24 and 8
+   computed as 32 and 16 (at both narrow pairs, batches 32 and 128, the
+   call's time beside the tile kernel's on the same inputs and, on a line of
+   its own, the time a pad of x to 32 or 16 channels would add); K2's gather-K form at
    the s2d stem, MobileNet's stem at widths 1.0 and 0.75 (3x3/s2 over Cin =
    3), AlexNet's conv1 (11x11/s4 over Cin = 3), the CIFAR stem and CIFAR's
    3x3 convs over Cin 16 and 32 (strides 1 and 2), each on its Hopper route
@@ -61,9 +63,9 @@ and a non-zero exit:
    junk columns); K2's residual form (B8) at ResNet-18's conv2 + identity
    (layer1 and layer3), f32 and s8 out; the copy kernels (B9) on the
    (32, 56, 56, 256) layer1 activation, ``Tensor.copy_`` their yardstick
-   and 2 x its bytes their bound, ``grid_copy`` and ``ring_copy`` on their
-   Hopper route ("sm90", asserted) with their plans (``copy_plan``,
-   ``ring_plan``) printed. B3 and B4 also run at C = 24 (Cm 16 and 24,
+   and 2 x its bytes their bound, ``grid_copy``, ``ring_copy`` and
+   ``bulk_copy`` on their Hopper route ("sm90", asserted) with their plans
+   (``copy_plan``, ``ring_plan``, ``bulk_plan``) printed. B3 and B4 also run at C = 24 (Cm 16 and 24,
    Cout 32 and 40, strides 1 and 2), which their wrappers pad to multiples
    of 16, each equal to its plain version;
 4. the op paths, each with the launch counts set to 0 just before and read
@@ -75,8 +77,8 @@ and a non-zero exit:
    ``int8_conv_direct(..., residual=, res_grid=)`` (2 launches, equal to
    its plain version), then a grouped conv of 2 groups (``int8_conv_xla``,
    plain PyTorch) against its CPU twin; "copy probe", every variant of
-   ``probes/dma_ring`` checked exact, then timed, every ``grid_copy`` and
-   ``ring_copy`` launch on the Hopper route; "fused stages", ``probes/fused_stages``:
+   ``probes/dma_ring`` checked exact, then timed, every ``grid_copy``,
+   ``ring_copy`` and ``bulk_copy`` launch on the Hopper route; "fused stages", ``probes/fused_stages``:
    copy, conv1, conv12 and the full identity block on one (32, 56, 56,
    256) input, each equal to its plain version, then timed (which stage of
    B3 takes the time);
@@ -90,8 +92,8 @@ and a non-zero exit:
    every K2 per-tap launch takes the mainloop but the one over Cin 24 of
    MobileNet at width 0.75 (the general tile), every B3 and B4 launch
    takes the Hopper mainloop, every gather-K launch its Hopper route, and
-   every B5 launch its Hopper route but the first pair's at width 0.75 (C =
-   24: the tile kernel):
+   every B5 launch its Hopper route (at width 0.75 the first pair's C = 24
+   computed as 32):
    - ResNet-50 (ImageNet geometry, 224x224, layers [3, 4, 6, 3], 1000
      classes): unfused, 52 K2 per-tap (48 block convs, 4 downsamples), 1 K2
      gather-K (the space-to-depth stem) and 1 K1 (the fc); the "gemm"
@@ -173,7 +175,7 @@ MODELS = {
     "resnet18": ("resnet_quantized_float_bn", dict(dataset="imagenet", depth=18), 224, 1000),
     "cifar20": ("resnet_quantized_float_bn", dict(dataset="cifar10", depth=20), 32, 10),
     "mobilenet": ("mobilenet_quantized", dict(num_classes=1000, width_mult=1.0), 224, 1000),
-    # C = 24 at the first pair: K2's per-tap form and B5 in 4-byte chunks
+    # C = 24 at the first pair: K2's per-tap form on its general tile, B5 computing at C = 32
     "mobilenet w0.75": ("mobilenet_quantized", dict(num_classes=1000, width_mult=0.75), 224, 1000),
     "alexnet": ("alexnet_quantized", dict(num_classes=1000), 224, 1000),
 }
@@ -225,11 +227,12 @@ KERNEL_INFO = {
     "fused_stages_conv12": ("quantized_tpu_torch/csrc/fused_stages.cu", "bench/fused_probe.py:75"),
 }
 # what this run should show, written before it ran; printed as it starts
-PREDICTIONS = ("grid_copy (bi 1) about 0.020 ms and ring_copy (S 4, D 2, bi 1) about 0.021 ms at (32, 56, 56, "
-               "256) s8 (parent 0.0321 and 0.0315), each at or under Tensor.copy_ in the same call and under "
-               "2 x bound (0.0307 ms); in probes/dma_ring copy-bi2 to copy-bi16 near copy-bi1, the ring's "
-               "S8D4, bi 4, add and sep variants no slower than their parent times; the fused stages' copy "
-               "floor falls the same way; no served forward moves beyond its run-to-run spread")
+PREDICTIONS = ("bulk_copy(x, 1) about 0.0227 ms at (32, 56, 56, 256) s8 (parent 0.0253), under "
+               "Tensor.copy_ in the same call and under 2 x bound (0.0306 ms), streams 2-6 within 2% of it; "
+               "fused_dw_pw w0.75 pair 0 (C 24 -> 48, 112x112) about 0.055 ms at batch 32, under half the tile "
+               "kernel's time on the same inputs, about 0.20 at batch 128; w0.25 pair 0 about 0.047 at batch 32; "
+               "the fused MobileNet w0.75 at batch 128 about 2.45 ms (parent 2.77); no other kernel or forward "
+               "moves beyond its run-to-run spread")
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
@@ -244,8 +247,6 @@ OUR_KERNELS = ("int8_conv_kernel", "conv_sm90_kernel", "gatherk_sm90_kernel", "i
 SWEEP_MODES = ("direct", "flat", "gemm")  # the conv sweep path: K2, B7 and im2col + K1
 # K2 per-tap launches per forward on the general tile (Cin % 16 != 0); every other one takes the mainloop
 SERVE_TILE_ROUTE = {"mobilenet w0.75 serve": 1}
-# B5 launches per forward on its tile kernel (C = 24); every other one takes the Hopper route
-DW_PW_TILE_ROUTE = {"mobilenet w0.75 fused": 1}
 BLOCK_KERNELS = ("fused_bottleneck_s1", "fused_bottleneck_ds", "fused_basicblock_s1", "fused_basicblock_ds")
 PATH_ROUTES = {}  # path: {kernel: {route: launches}} of the kernels with routes
 SWEEP_TARGET_SECS = 0.02  # per timed loop of the sweep; the probe's own default is 1 s
@@ -411,9 +412,10 @@ def _log_dw_pw_plan(label, x, cout, stride):
     n, h, w, c = x.shape
     plan = dw_pw_plan(n, h, w, c, cout, stride)
     if plan.route == "sm90":
-        instance = f"dw_pw_sm90_kernelILi{cout // plan.q}ELi{stride}EE"
-        desc = (f"Hopper route, cluster {plan.q}x1x1, tile {w // stride}x{plan.tho}x{plan.nb}, dynamic smem "
-                f"{plan.smem} B, tiles {plan.tiles}, clusters {plan.clusters} ({plan.per_sm} blocks an SM)")
+        instance = f"dw_pw_sm90_kernelILi{plan.cout // plan.q}ELi{stride}ELb{int(plan.c != c)}EE"
+        desc = (f"Hopper route at C {plan.c}, Cout {plan.cout}, cluster {plan.q}x1x1, tile "
+                f"{w // stride}x{plan.tho}x{plan.nb}, dynamic smem {plan.smem} B, tiles {plan.tiles}, clusters "
+                f"{plan.clusters} ({plan.per_sm} blocks an SM)")
     else:
         ch = 16 if c % 16 == 0 else 4 if c % 4 == 0 else 1
         instance = f"fused_dw_pw_kernelILi{stride}ELi{ch}EE"
@@ -421,6 +423,39 @@ def _log_dw_pw_plan(label, x, cout, stride):
     ptxas = next((v for key, v in _ptxas_lines("fused_dw_pw.cu").items() if instance in key), "not built in this run")
     log(f"[kernels] fused_dw_pw {label} plan: {desc}; ptxas: {ptxas}")
     return plan
+
+
+def _log_dw_pw_narrow(timer, label, x, args, batch):
+    """B5 at a C that is not a multiple of 16: the device time of the call
+    (the Hopper route staging x at its true width) beside the tile kernel's
+    on the same inputs (the route these pairs took before, launched here for
+    the comparison only), and on a line of its own the time of the copy of x
+    that padding it to a multiple of 16 in the wrapper would add (the design
+    not taken)."""
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.ops import fused_block as fb
+
+    n, h, w, c = x.shape
+    wdw, wpw, *vecs = args[:6]
+    s, lo1, lo2, zp1 = args[6:]
+    cout = wpw.shape[0]
+    tile = fb.dw_pw_tile_plan(n, h, w, c, cout, s)
+    out = torch.empty((n, h // s, w // s, cout), dtype=torch.int8, device=x.device)
+
+    def run_tile():
+        fb.DW_PW(x.device, x.data_ptr(), wdw.data_ptr(), wpw.data_ptr(), *(v.data_ptr() for v in vecs),
+                 out.data_ptr(), n, h, w, c, cout, s, tile.tho, zp1, lo1, lo2, *tile.args(), route="tile")
+        return out
+
+    if not torch.equal(run_tile(), ops.fused_dw_pw_ck(x, *args)):
+        raise AssertionError(f"fused_dw_pw {label}: the tile kernel and the Hopper route differ")
+    call_ms, tile_ms = timer.ms(lambda: ops.fused_dw_pw_ck(x, *args)), timer.ms(run_tile)
+    pad_ms = timer.ms(lambda: torch.nn.functional.pad(x, (0, -c % 16)))
+    log(f"[kernels] fused_dw_pw {label} batch {batch}: ms {call_ms:.4f} on the Hopper route, the tile kernel on "
+        f"the same inputs {tile_ms:.4f} (ratio {call_ms / tile_ms:.2f})")
+    log(f"[kernels] fused_dw_pw {label} batch {batch}: a pad of x from C {c} to {c - c % -16} (F.pad, not run "
+        f"by the port) would add ms {pad_ms:.4f}, {pad_ms / call_ms:.2f} of the call")
+    return call_ms, tile_ms
 
 
 def _route_of(name, before):
@@ -613,20 +648,23 @@ def phase_kernels(timer):
 
     # B9: the copy kernels on the layer1 activation; the yardstick is
     # Tensor.copy_ into a preallocated tensor, the bound 2 x its bytes
-    from quantized_tpu_torch.ops.copy_probe import copy_plan, ring_plan
+    from quantized_tpu_torch.ops.copy_probe import bulk_plan, copy_plan, ring_plan
     xa = _rand_int8(gen, (b, 56, 56, 256))
     dst = torch.empty_like(xa)
     image, sms = xa.numel() // b, torch.cuda.get_device_properties(dev).multi_processor_count
     log(f"[kernels] grid_copy plan at bi 1: {copy_plan(xa.numel(), image, sms)}; ring_copy plan at S 4, D 2, "
-        f"bi 1: {ring_plan(xa.numel(), image, 4, 2, False, sms)}")
-    for name, kernel in (("grid_copy", lambda: ops.grid_copy(xa, 1)),
-                         ("ring_copy", lambda: ops.ring_copy(xa, 4, 2, 1)),
-                         ("bulk_copy", lambda: ops.bulk_copy(xa, 1))):
+        f"bi 1: {ring_plan(xa.numel(), image, 4, 2, False, sms)}; bulk_copy plan at 1 stream: "
+        f"{bulk_plan(xa.numel(), 1, sms)}")
+    for name, case, kernel, rep in (
+            ("grid_copy", "", lambda: ops.grid_copy(xa, 1), True),
+            ("ring_copy", "", lambda: ops.ring_copy(xa, 4, 2, 1), True),
+            ("bulk_copy", "", lambda: ops.bulk_copy(xa, 1), True),
+            *(("bulk_copy", f" {st} streams", lambda st=st: ops.bulk_copy(xa, st), False) for st in range(2, 7))):
         before = dict(ops.KERNELS[name].routes)
-        record(name, f"({b}, 56, 56, 256) s8", kernel, lambda: ops.copy_plain(xa), lambda: dst.copy_(xa),
-               2 * xa.numel(), 0, True)
-        if name != "bulk_copy" and _route_of(name, before) != "sm90":
-            raise AssertionError(f"{name}: not on its Hopper route")
+        record(name, f"({b}, 56, 56, 256) s8{case}", kernel, lambda: ops.copy_plain(xa), lambda: dst.copy_(xa),
+               2 * xa.numel(), 0, rep, plain_iters=3)
+        if _route_of(name, before) != "sm90":
+            raise AssertionError(f"{name}{case}: not on its Hopper route")
 
     # B3: the fused bottlenecks at ResNet-50's block shapes, with the int16
     # shortcut leg (ds_fine = 32) as the engine passes it
@@ -733,7 +771,7 @@ def phase_kernels(timer):
         ("pair 5 s2 28->14 256->512", (28, 256, 512, 2), False),
         ("pairs 6-10 14x14 512->512", (14, 512, 512, 1), False),
         ("pair 11 s2 14->7 512->1024", (14, 512, 1024, 2), False),
-        # C % 16 != 0: width 0.75's pair 0 (4-byte chunks) and width 0.25's (C = 8), on the tile kernel
+        # C % 16 != 0: width 0.75's pair 0 and width 0.25's (C = 8), computed at C 32 and 16
         ("w0.75 pair 0 112x112 24->48", (112, 24, 48, 1), False),
         ("w0.25 pair 0 112x112 8->16", (112, 8, 16, 1), False),
     ]
@@ -755,8 +793,14 @@ def phase_kernels(timer):
                None, nbytes, 2 * b * ho * ho * (9 * c + c * cout), rep, plain_iters=3)
         route = _route_of("fused_dw_pw", before)
         log(f"[kernels] fused_dw_pw {label}: route {route}")
-        if route != plan.route or route != ("sm90" if c % 16 == 0 else "tile"):
+        if route != plan.route or route != "sm90":
             raise AssertionError(f"fused_dw_pw {label}: took {route}, planned {plan.route}")
+        if c % 16:  # the narrow pairs against the tile kernel, at this batch and at 128
+            call_ms, tile_ms = _log_dw_pw_narrow(timer, label, x, args, b)
+            if label.startswith("w0.75") and not call_ms <= tile_ms / 2:
+                log(f"[kernels] fused_dw_pw {label}: MISSED the target of at most half the tile kernel's time")
+            x = _rand_int8(gen, (THROUGHPUT_BATCH, h, h, c))
+            _log_dw_pw_narrow(timer, label, x, args, THROUGHPUT_BATCH)
 
     # B6: AlexNet's fc head on split-half packed int4 weights, f32 and
     # requant forms; torch._int_mm (the yardstick) and K1 take the unpacked
@@ -998,15 +1042,10 @@ def _serve(what, executor, requests, per_forward, classes):
     tile = routes.get("int8_conv_direct", {}).get("tile", 0)
     if tile != SERVE_TILE_ROUTE.get(what, 0) * len(requests):
         raise AssertionError(f"{what}: {tile} K2 per-tap launches on the general tile")
-    for name in BLOCK_KERNELS + ("int8_conv_direct_gatherk",):  # B3, B4 and gather-K: all on a Hopper route
+    for name in BLOCK_KERNELS + ("int8_conv_direct_gatherk", "fused_dw_pw"):  # B3-B5, gather-K: a Hopper route
         if counts[name] and routes.get(name) != {"sm90": counts[name]}:
             raise AssertionError(f"{what}: {name} launches by route {routes.get(name)}, all {counts[name]} "
                                  f"expected on the Hopper route")
-    dw_tile = DW_PW_TILE_ROUTE.get(what, 0) * len(requests)  # B5: all on the Hopper route but C = 24
-    if counts["fused_dw_pw"] and routes.get("fused_dw_pw") != {k: v for k, v in (
-            ("sm90", counts["fused_dw_pw"] - dw_tile), ("tile", dw_tile)) if v}:
-        raise AssertionError(f"{what}: fused_dw_pw launches by route {routes.get('fused_dw_pw')}, "
-                             f"{dw_tile} expected on the tile kernel")
     for logits in answers:
         if tuple(logits.shape) != (requests[0].shape[0], classes) or not torch.isfinite(logits).all():
             raise AssertionError(f"{what}: bad logits, shape {tuple(logits.shape)}")
@@ -1240,7 +1279,7 @@ def phase_copy_probe():
     _require_launched(counts, ("grid_copy", "ring_copy", "bulk_copy"), "copy probe")
     routes = PATH_ROUTES["copy probe"] = ops.route_counts()
     log(f"[copy probe] routes {json.dumps(routes)}")
-    for name in ("grid_copy", "ring_copy"):
+    for name in ("grid_copy", "ring_copy", "bulk_copy"):
         if routes.get(name) != {"sm90": counts[name]}:
             raise AssertionError(f"copy probe: {name} launches by route {routes.get(name)}")
     return counts, times

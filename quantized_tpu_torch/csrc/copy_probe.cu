@@ -47,9 +47,31 @@
 //            0.043, 0.030, 0.026 and 0.025 ms).
 //
 // bulk_copy  replaces the raw whole-array DMAs (bench/dma_ring_probe2.py:47,
-//            bench/dma_ring_probe3.py:185): TMA bulk copies of 32 KB, global ->
-//            shared -> global on an mbarrier, issued by one thread per block
-//            with `streams` copies in flight.
+//            bench/dma_ring_probe3.py:185): the array cut into `streams`
+//            contiguous slices, one DMA each on the TPU. Here each slice takes
+//            its share of the blocks (ops/copy_probe.py bulk_plan: a few an
+//            SM, the SMs counted on the device), and each block streams its share of
+//            the slice, whole 128-byte lines, through a ring of `slots` chunk
+//            slots in shared memory. One thread issues a TMA bulk load a slot
+//            onto the slot's mbarrier and sends each slot out by a bulk store
+//            as soon as it has landed, then refills that slot as soon as
+//            cp.async.bulk.wait_group.read 0 says its store has read it, so
+//            the other slots' loads stay in flight beside the stores, never a
+//            wait for every store. The plan (16 KB chunks, 4 slots, 3 blocks
+//            an SM: 192 KB of loads in flight an SM) was chosen by
+//            `python -m quantized_tpu_torch.probes.dma_ring 32 --plans` on an
+//            H100 80GB HBM3 (700 W): at (32, 56, 56, 256) it took 0.0227 ms,
+//            as did every plan holding 192 KB an SM (4-32 KB chunks), with
+//            Tensor.copy_ at 0.0236; less in flight was slower (16 KB, 4
+//            slots at 1 and 2 blocks an SM: 0.0244 and 0.0238; 2 slots at 1
+//            block: 0.0250); at batch 128 they took 0.0767-0.0775 against
+//            copy_'s 0.0735. Refilling a slot one store later (the issuer
+//            waiting on the store before last, one load fewer in flight) was
+//            slower at every plan (16 KB, 4 slots, 3 blocks an SM: 0.0234 and
+//            0.0774), and is gone. The form the redesign replaced loaded
+//            `streams` 32 KB chunks a block, one block an SM, stored them,
+//            then waited for every store to read before the next load:
+//            0.0252-0.0257 ms against copy_'s 0.0230-0.0232.
 //
 // TMA bulk copies take whole 16-byte units at 16-byte aligned addresses, and
 // the plans cut only whole units; the bytes past the last whole 16 are copied
@@ -66,14 +88,12 @@
 
 namespace {
 
+using qt90::bulk_load;
 using qt90::fence_proxy_async;
 using qt90::mbar_expect_tx;
 using qt90::mbar_init;
 using qt90::mbar_wait;
 using qt90::smem_u32;
-
-constexpr int BULK_CHUNK = 32768;    // bytes of one TMA bulk copy of bulk_copy
-constexpr int MAX_STREAMS = 6;       // 6 x 32 KB of the 227 KB
 
 enum RingCompute { RING_NONE = 0, RING_ADD = 1, RING_SEP = 2 };
 
@@ -108,13 +128,6 @@ __device__ __forceinline__ void sts16(uint32_t a, uint4 v) {
 }
 
 // ---- TMA bulk copies (non-tensor): whole 16-byte units, 16-byte aligned
-
-__device__ __forceinline__ void bulk_load(uint32_t smem, const void* gmem, uint32_t bytes, uint32_t bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem),
-               "l"(gmem), "r"(bytes), "r"(bar)
-               : "memory");
-}
 
 __device__ __forceinline__ void bulk_store(void* gmem, uint32_t smem, uint32_t bytes) {
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(gmem), "r"(smem), "r"(bytes)
@@ -277,42 +290,55 @@ __global__ void __launch_bounds__(qt::THREADS)
   if (blockIdx.x == 0) copy_tail<COMPUTE == RING_ADD>(x, out, s.units, s.total);
 }
 
-// ---- bulk_copy: TMA bulk copies of 32 KB, `streams` in flight a block
+// ---- bulk_copy: every block streams its share of a slice through a ring
+
+struct BulkShape {
+  long long total, units;  // bytes; whole 16-byte units
+  long long slice, share;  // units a stream's slice, a block's share of it (the last of a slice may be shorter)
+  long long per_slice;     // blocks a slice: block b takes share b % per_slice of slice b / per_slice
+  int chunk;               // units a slot
+  int slots;
+};
 
 __global__ void __launch_bounds__(qt::THREADS)
-    bulk_copy_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, long long total, int streams) {
-  extern __shared__ __align__(128) int8_t buf[];  // streams x BULK_CHUNK
-  __shared__ __align__(8) uint64_t bars[MAX_STREAMS];
-  const long long vbytes = total & ~15LL;  // whole 16-byte units: what a bulk copy takes
-  const long long nchunks = (vbytes + BULK_CHUNK - 1) / BULK_CHUNK;
-  const uint32_t buf0 = smem_u32(buf), bar0 = smem_u32(bars);
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < streams; ++st) mbar_init(bar0 + 8 * st);
+    bulk_copy_kernel(const int8_t* __restrict__ x, int8_t* __restrict__ out, BulkShape s) {
+  extern __shared__ __align__(128) uint4 ring[];  // slots x chunk units, then one mbarrier a slot
+  const uint32_t in0 = smem_u32(ring);
+  const uint32_t bar0 = in0 + static_cast<uint32_t>(16 * s.chunk * s.slots);
+  const long long j = blockIdx.x / s.per_slice;
+  const long long begin = j * s.slice + (blockIdx.x % s.per_slice) * s.share;
+  const long long end = lo(lo(begin + s.share, (j + 1) * s.slice), s.units);
+  const long long n = end > begin ? (end - begin + s.chunk - 1) / s.chunk : 0;  // chunks of this block
+  if (threadIdx.x == 0 && n > 0) {
+    auto io = [&](long long c, uint32_t& slot_addr) {  // chunk c's bytes; its slot's address
+      slot_addr = in0 + static_cast<uint32_t>(16 * s.chunk) * static_cast<uint32_t>(c % s.slots);
+      return static_cast<uint32_t>(16 * lo(static_cast<long long>(s.chunk), end - begin - c * s.chunk));
+    };
+    auto load = [&](long long c) {
+      uint32_t slot = 0;
+      const uint32_t bytes = io(c, slot);
+      const uint32_t bar = bar0 + 8 * static_cast<uint32_t>(c % s.slots);
+      mbar_expect_tx(bar, bytes);
+      bulk_load(slot, x + 16 * (begin + c * s.chunk), bytes, bar);
+    };
+    for (int i = 0; i < s.slots; ++i) mbar_init(bar0 + 8 * i);
     mbar_init_fence();
-    uint32_t parity = 0;
-    for (long long g = static_cast<long long>(blockIdx.x) * streams; g < nchunks;
-         g += static_cast<long long>(gridDim.x) * streams) {
-      const int n = static_cast<int>(lo(static_cast<long long>(streams), nchunks - g));
-      for (int st = 0; st < n; ++st) {  // `streams` loads in flight
-        const long long at = (g + st) * BULK_CHUNK;
-        const uint32_t bytes = static_cast<uint32_t>(lo(static_cast<long long>(BULK_CHUNK), vbytes - at));
-        mbar_expect_tx(bar0 + 8 * st, bytes);
-        bulk_load(buf0 + st * BULK_CHUNK, x + at, bytes, bar0 + 8 * st);
-      }
-      for (int st = 0; st < n; ++st) {  // each stored as soon as it has landed
-        const long long at = (g + st) * BULK_CHUNK;
-        const uint32_t bytes = static_cast<uint32_t>(lo(static_cast<long long>(BULK_CHUNK), vbytes - at));
-        mbar_wait(bar0 + 8 * st, parity);
-        fence_proxy_async();
-        bulk_store(out + at, buf0 + st * BULK_CHUNK, bytes);
-      }
+    for (long long c = 0; c < lo(static_cast<long long>(s.slots), n); ++c) load(c);
+    for (long long i = 0; i < n; ++i) {
+      uint32_t slot = 0;
+      const uint32_t bytes = io(i, slot);
+      mbar_wait(bar0 + 8 * static_cast<uint32_t>(i % s.slots), static_cast<uint32_t>((i / s.slots) & 1));
+      fence_proxy_async();
+      bulk_store(out + 16 * (begin + i * s.chunk), slot, bytes);
       bulk_commit();
-      bulk_wait_read(0);  // the buffers may be refilled
-      parity ^= 1u;
+      if (i + s.slots < n) {
+        bulk_wait_read(0);  // the store just issued has read the slot: refill it
+        load(i + s.slots);
+      }
     }
     bulk_wait_all();
   }
-  if (blockIdx.x == 0) copy_tail<false>(x, out, vbytes / 16, total);
+  if (blockIdx.x == 0) copy_tail<false>(x, out, s.units, s.total);
 }
 
 }  // namespace
@@ -368,14 +394,26 @@ extern "C" int qt_ring_copy(const void* x, void* out, long long total, long long
   return qt::launch(ring_copy_kernel<RING_NONE>, grid, smem, stream, xi, oi, s);
 }
 
-// out = x by TMA bulk copies of 32 KB, `streams` in flight per block.
-extern "C" int qt_bulk_copy(const void* x, void* out, long long total, int streams, int blocks, void* stream) {
-  if (total < 1 || streams < 1 || streams > MAX_STREAMS || blocks < 1 || !qt::aligned16(x) ||
-      !qt::aligned16(out))
+// out = x: `streams` slices of slice_units, each cut into per_slice shares
+// of share_units, one block a share, streamed through `slots` slots of
+// chunk_units, a slot refilled once its store has read it (ops/copy_probe.py
+// bulk_plan).
+extern "C" int qt_bulk_copy(const void* x, void* out, long long total, long long slice_units, long long share_units,
+                            long long per_slice, int chunk_units, int slots, void* stream) {
+  if (total < 1 || slice_units < 1 || share_units < 1 || per_slice < 1 || share_units * per_slice < slice_units ||
+      chunk_units < 1 || slots < 1 || !qt::aligned16(x) || !qt::aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long chunks = ((total & ~15LL) + BULK_CHUNK - 1) / BULK_CHUNK;
-  const long long groups = (chunks + streams - 1) / streams;
-  const dim3 grid(static_cast<unsigned>(hi(1LL, lo(static_cast<long long>(blocks), groups))));
-  return qt::launch(bulk_copy_kernel, grid, static_cast<size_t>(streams) * BULK_CHUNK, stream,
-                    static_cast<const int8_t*>(x), static_cast<int8_t*>(out), total, streams);
+  BulkShape s{};
+  s.total = total;
+  s.units = total / 16;
+  s.slice = slice_units;
+  s.share = share_units;
+  s.per_slice = per_slice;
+  s.chunk = chunk_units;
+  s.slots = slots;
+  const long long blocks = hi(1LL, (s.units + s.slice - 1) / s.slice * per_slice);
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(slots) * (16 * static_cast<size_t>(chunk_units) + 8);
+  return qt::launch(bulk_copy_kernel, dim3(static_cast<unsigned>(blocks)), smem, stream,
+                    static_cast<const int8_t*>(x), static_cast<int8_t*>(out), s);
 }

@@ -19,13 +19,33 @@
 //   (rank + 1) * Cout/q) of the output, as block_sm90.cuh splits B3 and B4.
 //   Clusters are persistent: each walks the tiles with a stride of the
 //   clusters resident at once (ops.dw_pw_plan).
+// - The pair computes at C and Cout rounded up to multiples of 16 (g.C,
+//   g.Cout); x, the weights, the constants and the output keep their true
+//   widths (g.Cx, g.Co, multiples of 8). The added channels get zero
+//   depthwise weights and constants and zero pointwise weight rows and
+//   columns, read as 0 past the true widths, so whatever the window holds
+//   there a new h1 channel is clip(rint(0), lo1, 127) and meets only zeros,
+//   and a new output channel is never stored. Width 0.75's and 0.25's first
+//   pair (C 24 and 8) take the route this way without a copy of x (padding
+//   x in the wrapper cost 34-42% of the call, PERF.md).
 // - The input window of a tile, nb x ((tho - 1) * S + 3) rows x (W + 2)
 //   pixels x the block's C/q channels, arrives by one 4-D TMA box at (channel
 //   rank * C/q, column -1, row ho0 * S - 1, image n0), double-buffered: the
 //   next tile's window is in flight while this one is computed. TMA fills
 //   the halo outside the image with zeros; the block overwrites it with zp1
 //   (border columns and rows only) before the depthwise pass, so padding is
-//   exact as in the plain version.
+//   exact as in the plain version. Where Cx % 16 != 0 (then q = 1) the pixel
+//   stride (Cx bytes) is one a tensor map cannot take, but an image row (W
+//   Cx bytes, a multiple of 16) is one bulk copy: thread 0 sends each
+//   in-image row of the window by a 1-D TMA bulk copy onto the same
+//   mbarrier, into a row slot where pixels keep their Cx bytes (the left
+//   halo pixel ends at byte C, where the row's first pixel starts, 16-byte
+//   aligned), and a word of the added channels reads the next pixel's
+//   bytes, which meet zero weights. The pointwise weights are then loaded once by the block's
+//   threads into their swizzled layout. (A first form staged the pixels by
+//   8-byte cp.async copies from every thread, some 1,000 a tile with their
+//   index arithmetic: 0.080 ms for width 0.75's pair 0 at batch 32, against
+//   0.062 for this one and the tile kernel's 0.151, on an H100 80GB HBM3.)
 // - The depthwise pass runs on the CUDA cores in int32, a thread taking 4
 //   channels (one word a tap) of up to 16 output pixels; each product is one
 //   dp4a against a weight word that holds the channel's weight in the
@@ -70,10 +90,12 @@ constexpr int MAX_CS = 128;  // depthwise channels a block: at most 16 rows of o
 constexpr int MAX_UNITS = 16;  // TILE_M * MAX_CS / 4 / THREADS: rows of one word a thread
 
 struct DwGeom {
-  int N, H, W, C, Cout, S, Ho, Wo;
+  int N, H, W, C, Cout, S, Ho, Wo;  // C, Cout: the widths computed, multiples of 16
+  int Cx, Co;     // the true widths of x, wdw, a1, b1 (Cx) and of wpw's rows, a2, b2, out (Co)
   int q, cs, no;  // cluster size; the block's depthwise and pointwise channels, C/q and Cout/q
   int tho, nb;    // a tile: tho rows of Wo pixels of one image, or nb whole images
   int WR, WP;     // the window: rows an image, pixels a row (W + 2)
+  int RP;         // the window's bytes a row: WP C/q, or 2 C + (W + 1) Cx rounded up to 16 (its pixels Cx apart)
   int Kp, KB;     // the pointwise K (C rounded up to 32), the swizzle row bytes
   int h_tiles, tiles;
 };
@@ -102,7 +124,7 @@ __host__ __device__ inline DwLayout dw_layout(const DwGeom& g) {
   l.h1 = 0;
   l.w = TILE_M * g.KB * nkb;
   l.win = align128(l.w + g.no * g.KB * nkb);
-  l.stage = l.win + 2 * align128(g.nb * g.WR * g.WP * g.cs);
+  l.stage = l.win + 2 * align128(g.nb * g.WR * g.RP);
   l.wd = l.stage + align128(TILE_M * (g.no + 16));
   l.consts = l.wd + align128(9 * g.cs * 4);
   l.rows = l.consts + 8 * (g.cs + g.no);
@@ -125,10 +147,13 @@ __device__ __forceinline__ void tile_origin(const DwGeom& g, int t, int& n0, int
 // blocks an SM the registers allow: three up to 64 pointwise channels a block, else two (ops.dw_pw_plan)
 __host__ __device__ constexpr int blocks_per_sm(int bn) { return bn <= 64 ? 3 : 2; }
 
-template <int BN, int S>
+// NARROW: C % 16 != 0, x's rows by bulk copies (its own instances, so the
+// tensor-map route keeps its window arithmetic)
+template <int BN, int S, bool NARROW>
 __global__ void __launch_bounds__(THREADS, blocks_per_sm(BN))
     dw_pw_sm90_kernel(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
-                      const int8_t* __restrict__ wdw, int8_t* __restrict__ out, DwGeom g, DwEpi e) {
+                      const int8_t* __restrict__ x, const int8_t* __restrict__ wdw,
+                      const int8_t* __restrict__ wpw, int8_t* __restrict__ out, DwGeom g, DwEpi e) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = qt90::smem_u32(smem_raw);
   uint8_t* base = smem_raw + (((raw + 1023u) & ~1023u) - raw);
@@ -138,7 +163,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(BN))
   const int q = g.q, rank = blockIdx.x % q;  // clusters of (q, 1, 1) over a grid of q x clusters
   const int cid = blockIdx.x / q, clusters = gridDim.x / q;
   const int nkb = (g.Kp + g.KB - 1) / g.KB;
-  const int wbytes = align128(g.nb * g.WR * g.WP * g.cs);  // one window
+  const int wbytes = align128(g.nb * g.WR * g.RP);  // one window
   const uint32_t bar_w = sbase + l.bars, bar_win = bar_w + 8;  // the weights; window b at bar_win + 8b
   float* a1 = reinterpret_cast<float*>(base + l.consts);
   float* b1 = a1 + g.cs;
@@ -146,11 +171,23 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(BN))
   float* b2 = a2 + g.no;
   const int P = g.Wo * g.tho * g.nb;  // the tile's output pixels
 
+  constexpr bool narrow = NARROW;
   auto load_window = [&](int t, int buf) {  // thread 0
     int n0, ho0;
     tile_origin(g, t, n0, ho0);
-    qt90::mbar_expect_tx(bar_win + 8 * buf, g.nb * g.WR * g.WP * g.cs);
-    qt90::tma_load_4d(sbase + l.win + buf * wbytes, &tx, bar_win + 8 * buf, rank * g.cs, -1, ho0 * S - 1, n0);
+    const uint32_t win = sbase + l.win + buf * wbytes, bar = bar_win + 8 * buf;
+    if (!narrow) {
+      qt90::mbar_expect_tx(bar, g.nb * g.WR * g.RP);
+      qt90::tma_load_4d(win, &tx, bar, rank * g.cs, -1, ho0 * S - 1, n0);
+      return;
+    }
+    const int rowb = g.W * g.Cx;  // the halo rows and images past the batch are not loaded
+    const int imgs = min(g.nb, g.N - n0), r0 = max(0, 1 - ho0 * S), r1 = min(g.WR, g.H + 1 - ho0 * S);
+    qt90::mbar_expect_tx(bar, imgs * max(0, r1 - r0) * rowb);
+    for (int img = 0; img < imgs; ++img)
+      for (int r = r0; r < r1; ++r)
+        qt90::bulk_load(win + (img * g.WR + r) * g.RP + g.cs,
+                        x + (static_cast<long long>(n0 + img) * g.H + ho0 * S - 1 + r) * rowb, rowb, bar);
   };
 
   if (tid == 0) {
@@ -159,24 +196,36 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(BN))
   }
   __syncthreads();
   if (tid == 0) {
-    qt90::mbar_expect_tx(bar_w, nkb * g.KB * BN);
-    for (int b = 0; b < nkb; ++b) qt90::tma_load(sbase + l.w + b * BN * g.KB, &tw, bar_w, b * g.KB, rank * BN);
+    if (!narrow) {
+      qt90::mbar_expect_tx(bar_w, nkb * g.KB * BN);
+      for (int b = 0; b < nkb; ++b) qt90::tma_load(sbase + l.w + b * BN * g.KB, &tw, bar_w, b * g.KB, rank * BN);
+    }
     if (cid < g.tiles) load_window(cid, 0);
   }
+  if (narrow) {  // the pointwise weights, zero past Cx and Co, into TMA's swizzled layout
+    for (int i = tid; i < BN * g.Kp; i += THREADS) {
+      const int n = i / g.Kp, k = i - n * g.Kp, row = rank * BN + n, blk = k / g.KB;
+      base[l.w + blk * BN * g.KB + qt90::sw_offset(n, k - blk * g.KB, g.KB)] =
+          row < g.Co && k < g.Cx ? static_cast<uint8_t>(wpw[static_cast<long long>(row) * g.Cx + k]) : 0;
+    }
+  }
   // the depthwise weights of the block's channels, tap-major, channel c's in
-  // byte c % 4 of its word (dp4a's other three products are 0); the constants
+  // byte c % 4 of its word (dp4a's other three products are 0); the
+  // constants; each 0 past the true widths
   for (int i = tid; i < 9 * g.cs; i += THREADS) {
-    const int t = i / g.cs, c = i - t * g.cs;
-    reinterpret_cast<uint32_t*>(base + l.wd)[i] = static_cast<uint32_t>(static_cast<uint8_t>(wdw[(rank * g.cs + c) * 9 + t]))
-                                                   << (8 * (c % 4));
+    const int t = i / g.cs, c = i - t * g.cs, ch = rank * g.cs + c;
+    const uint32_t v = ch < g.Cx ? static_cast<uint8_t>(wdw[ch * 9 + t]) : 0u;
+    reinterpret_cast<uint32_t*>(base + l.wd)[i] = v << (8 * (c % 4));
   }
   for (int i = tid; i < g.cs; i += THREADS) {
-    a1[i] = e.a1[rank * g.cs + i];
-    b1[i] = e.b1[rank * g.cs + i];
+    const int ch = rank * g.cs + i;
+    a1[i] = ch < g.Cx ? e.a1[ch] : 0.0f;
+    b1[i] = ch < g.Cx ? e.b1[ch] : 0.0f;
   }
   for (int i = tid; i < BN; i += THREADS) {
-    a2[i] = e.a2[rank * BN + i];
-    b2[i] = e.b2[rank * BN + i];
+    const int ch = rank * BN + i;
+    a2[i] = ch < g.Co ? e.a2[ch] : 0.0f;
+    b2[i] = ch < g.Co ? e.b2[ch] : 0.0f;
   }
   if (q > 1) qtblock::cluster_arrive();  // h1 is free: the peers may write it once they have waited
   __syncthreads();
@@ -208,7 +257,8 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(BN))
     if (tid < TILE_M) {  // the row table
       const int m = tid, img = m / (g.Wo * g.tho), rem = m - img * g.Wo * g.tho, ho = rem / g.Wo, wo = rem % g.Wo;
       const bool in_tile = m < P;
-      dwoff[m] = in_tile ? ((img * g.WR + ho * S) * g.WP + wo * S) * g.cs : 0;
+      const int rw = img * g.WR + ho * S;
+      dwoff[m] = !in_tile ? 0 : narrow ? rw * g.RP + g.cs + (wo * S - 1) * g.Cx : (rw * g.WP + wo * S) * g.cs;
       outpix[m] = in_tile && n0 + img < g.N && ho0 + ho < g.Ho ? ((n0 + img) * g.Ho + ho0 + ho) * g.Wo + wo : -1;
     }
     qtconv::wait_or_trap(bar_win + 8 * buf, (i >> 1) & 1);
@@ -218,11 +268,11 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(BN))
     for (int rr = warp; rr < g.nb * g.WR; rr += THREADS / 32) {
       const int img = rr / g.WR, hi = ho0 * S - 1 + rr - img * g.WR;
       if (n0 + img >= g.N) continue;  // an image past the batch: computed, never stored
-      uint4* row = reinterpret_cast<uint4*>(win + rr * g.WP * g.cs);
+      uint4* row = reinterpret_cast<uint4*>(win + rr * g.RP);
       if (hi < 0 || hi >= g.H) {
-        for (int k = lane; k < g.WP * ucs; k += 32) row[k] = zp16;
-      } else if (lane < 2 * ucs) {
-        row[(lane < ucs ? 0 : (g.WP - 1) * ucs - ucs) + lane] = zp16;
+        for (int k = lane; k < g.RP / 16; k += 32) row[k] = zp16;
+      } else if (lane < 2 * ucs) {  // the C/q bytes before the first pixel and from the right halo pixel on
+        row[(lane < ucs ? 0 : (g.cs + g.W * (narrow ? g.Cx : g.cs)) / 16 - ucs) + lane] = zp16;
       }
     }
     __syncthreads();
@@ -259,7 +309,8 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(BN))
           int acc[4] = {0, 0, 0, 0};
 #pragma unroll
           for (int tap = 0; tap < 9; ++tap) {
-            const int xv = *reinterpret_cast<const int*>(px + ((tap / 3) * g.WP + tap % 3) * g.cs);
+            const int xv = *reinterpret_cast<const int*>(
+                px + (narrow ? (tap / 3) * g.RP + (tap % 3) * g.Cx : ((tap / 3) * g.WP + tap % 3) * g.cs));
 #pragma unroll
             for (int k = 0; k < 4; ++k) acc[k] = __dp4a(xv, static_cast<int>(wk[tap][k]), acc[k]);
           }
@@ -307,7 +358,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(BN))
 
     // the pointwise conv: the block's BN channels over all of h1 (the
     // weights' load overlapped the first tile's window and depthwise pass)
-    if (i == 0) qtconv::wait_or_trap(bar_w, 0);
+    if (i == 0 && !narrow) qtconv::wait_or_trap(bar_w, 0);
     int acc[BN / 2];
 #pragma unroll
     for (int r = 0; r < BN / 2; ++r) acc[r] = 0;
@@ -341,12 +392,22 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(BN))
       }
     }
     __syncthreads();
-    constexpr int CPR = BN / 16;  // 16-byte pieces a row
-    for (int k = tid; k < P * CPR; k += THREADS) {
-      const int m = k / CPR, piece = k - m * CPR, pix = outpix[m];
-      if (pix < 0) continue;
-      *reinterpret_cast<uint4*>(out + static_cast<long long>(pix) * g.Cout + rank * BN + 16 * piece) =
-          *reinterpret_cast<const uint4*>(base + l.stage + m * sp + 16 * piece);
+    if (g.Co == g.Cout) {
+      constexpr int CPR = BN / 16;  // 16-byte pieces a row
+      for (int k = tid; k < P * CPR; k += THREADS) {
+        const int m = k / CPR, piece = k - m * CPR, pix = outpix[m];
+        if (pix < 0) continue;
+        *reinterpret_cast<uint4*>(out + static_cast<long long>(pix) * g.Cout + rank * BN + 16 * piece) =
+            *reinterpret_cast<const uint4*>(base + l.stage + m * sp + 16 * piece);
+      }
+    } else {  // Co % 16 != 0: the block's real channels of each row in 8-byte pieces
+      const int cpr = min(BN, g.Co - rank * BN) / 8;
+      for (int k = tid; k < P * cpr; k += THREADS) {
+        const int m = k / cpr, piece = k - m * cpr, pix = outpix[m];
+        if (pix < 0) continue;
+        *reinterpret_cast<uint2*>(out + static_cast<long long>(pix) * g.Co + rank * BN + 8 * piece) =
+            *reinterpret_cast<const uint2*>(base + l.stage + m * sp + 8 * piece);
+      }
     }
   }
   if (cl) qtblock::cluster_wait();  // the last arrive
@@ -376,10 +437,10 @@ inline bool map4(CUtensorMap* map, const void* p, const int (&dims)[4], const in
   return qtconv::conv_map(map, k);
 }
 
-template <int BN, int S>
-int launch_bn(const CUtensorMap& tx, const CUtensorMap& tw, const void* wdw, void* out, const DwGeom& g,
-              const DwEpi& e, const DwPlan& p, cudaStream_t stream) {
-  auto kernel = dw_pw_sm90_kernel<BN, S>;
+template <int BN, int S, bool NARROW>
+int launch_bn(const CUtensorMap& tx, const CUtensorMap& tw, const void* x, const void* wdw, const void* wpw, void* out,
+              const DwGeom& g, const DwEpi& e, const DwPlan& p, cudaStream_t stream) {
+  auto kernel = dw_pw_sm90_kernel<BN, S, NARROW>;
   static std::atomic<bool> opted_in{false};  // the full shared memory, asked for once per instance
   cudaError_t err;
   if (!opted_in.load()) {
@@ -399,29 +460,37 @@ int launch_bn(const CUtensorMap& tx, const CUtensorMap& tw, const void* wdw, voi
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, static_cast<const int8_t*>(wdw), static_cast<int8_t*>(out), g, e);
+  err = cudaLaunchKernelEx(&cfg, kernel, tx, tw, static_cast<const int8_t*>(x), static_cast<const int8_t*>(wdw),
+                           static_cast<const int8_t*>(wpw), static_cast<int8_t*>(out), g, e);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int S>
-int launch_s(const CUtensorMap& tx, const CUtensorMap& tw, const void* wdw, void* out, const DwGeom& g,
-             const DwEpi& e, const DwPlan& p, cudaStream_t s) {
+template <int S, bool NARROW>
+int launch_s(const CUtensorMap& tx, const CUtensorMap& tw, const void* x, const void* wdw, const void* wpw, void* out,
+             const DwGeom& g, const DwEpi& e, const DwPlan& p, cudaStream_t s) {
   switch (g.no) {
-    case 16: return launch_bn<16, S>(tx, tw, wdw, out, g, e, p, s);
-    case 32: return launch_bn<32, S>(tx, tw, wdw, out, g, e, p, s);
-    case 48: return launch_bn<48, S>(tx, tw, wdw, out, g, e, p, s);
-    case 64: return launch_bn<64, S>(tx, tw, wdw, out, g, e, p, s);
-    case 96: return launch_bn<96, S>(tx, tw, wdw, out, g, e, p, s);
-    default: return launch_bn<128, S>(tx, tw, wdw, out, g, e, p, s);
+    case 16: return launch_bn<16, S, NARROW>(tx, tw, x, wdw, wpw, out, g, e, p, s);
+    case 32: return launch_bn<32, S, NARROW>(tx, tw, x, wdw, wpw, out, g, e, p, s);
+    case 48: return launch_bn<48, S, NARROW>(tx, tw, x, wdw, wpw, out, g, e, p, s);
+    case 64: return launch_bn<64, S, NARROW>(tx, tw, x, wdw, wpw, out, g, e, p, s);
+    case 96: return launch_bn<96, S, NARROW>(tx, tw, x, wdw, wpw, out, g, e, p, s);
+    default: return launch_bn<128, S, NARROW>(tx, tw, x, wdw, wpw, out, g, e, p, s);
   }
 }
 
-// B5 on its Hopper route under plan p; 0 or the CUDA error. Refuses a plan
-// that does not fit the shape.
+// B5 on its Hopper route under plan p, g.C and g.Cout the true widths
+// (multiples of 8; C % 16 != 0 only unclustered and with W C % 16 == 0);
+// 0 or the CUDA error. Refuses a plan that does not fit the shape.
 inline int launch_dw_pw(const void* x, const void* wdw, const void* wpw, void* out, DwGeom g, const DwEpi& e,
                         const DwPlan& p, void* stream) {
-  if (g.S != 1 && g.S != 2) return static_cast<int>(cudaErrorInvalidValue);
+  if ((g.S != 1 && g.S != 2) || g.C < 8 || g.C % 8 || g.Cout < 8 || g.Cout % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  g.Cx = g.C;
+  g.Co = g.Cout;
+  g.C = (g.Cx + 15) / 16 * 16;
+  g.Cout = (g.Co + 15) / 16 * 16;
+  const bool narrow = g.Cx != g.C;
   g.Ho = g.H / g.S;
   g.Wo = g.W / g.S;
   g.q = p.q;
@@ -434,21 +503,26 @@ inline int launch_dw_pw(const void* x, const void* wdw, const void* wpw, void* o
   const bool q_ok = (p.q == 1 || p.q == 2 || p.q == 4 || p.q == 8) && g.C % p.q == 0 && g.Cout % p.q == 0;
   g.cs = q_ok ? g.C / p.q : 0;
   g.no = q_ok ? g.Cout / p.q : 0;
+  g.RP = narrow ? (2 * g.cs + (g.W + 1) * g.Cx + 15) / 16 * 16 : g.WP * g.cs;
   g.h_tiles = p.tho >= 1 ? (g.Ho + p.tho - 1) / p.tho : 0;
   g.tiles = p.nb >= 1 ? g.h_tiles * ((g.N + p.nb - 1) / p.nb) : 0;
   const bool no_ok = g.no == 16 || g.no == 32 || g.no == 48 || g.no == 64 || g.no == 96 || g.no == 128;
   const bool ok = q_ok && no_ok && g.N >= 1 && g.H % g.S == 0 && g.W % g.S == 0 && g.cs % 16 == 0 && g.cs >= 16 &&
                   g.cs <= MAX_CS && p.tho >= 1 && p.nb >= 1 && g.Wo * p.tho * p.nb <= TILE_M &&
                   (p.nb == 1 || p.tho == g.Ho) && g.WP <= 256 && g.WR <= 256 && p.nb <= 256 && g.Wo <= 256 &&
-                  p.clusters >= 1 && qt::aligned16(x) && qt::aligned16(wpw) && qt::aligned16(out) &&
-                  p.smem == dw_layout(g).total && p.smem <= qt::SMEM_LIMIT;
+                  p.clusters >= 1 && qt::aligned16(x) && (narrow ? p.q == 1 && g.W * g.Cx % 16 == 0 : qt::aligned16(wpw)) &&
+                  qt::aligned(out, g.Co % 16 ? 8 : 16) && p.smem == dw_layout(g).total && p.smem <= qt::SMEM_LIMIT;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap tx, tw;
+  CUtensorMap tx = {}, tw = {};  // narrow: x by bulk copies, wpw by the block's loads
   const int xd[4] = {g.C, g.W, g.H, g.N}, xb[4] = {g.cs, g.WP, g.WR, g.nb};
-  if (!map4(&tx, x, xd, xb) || !qtconv::matrix_map(&tw, wpw, g.Cout, g.C, g.no, g.KB))
+  if (!narrow && (!map4(&tx, x, xd, xb) || !qtconv::matrix_map(&tw, wpw, g.Co, g.C, g.no, g.KB)))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return g.S == 1 ? launch_s<1>(tx, tw, wdw, out, g, e, p, s) : launch_s<2>(tx, tw, wdw, out, g, e, p, s);
+  if (narrow)
+    return g.S == 1 ? launch_s<1, true>(tx, tw, x, wdw, wpw, out, g, e, p, s)
+                    : launch_s<2, true>(tx, tw, x, wdw, wpw, out, g, e, p, s);
+  return g.S == 1 ? launch_s<1, false>(tx, tw, x, wdw, wpw, out, g, e, p, s)
+                  : launch_s<2, false>(tx, tw, x, wdw, wpw, out, g, e, p, s);
 }
 
 }  // namespace

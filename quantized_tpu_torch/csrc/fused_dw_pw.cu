@@ -46,10 +46,11 @@
 //
 // Two routes behind one entry, chosen by ops.dw_pw_plan and passed in as
 // `sm90`: the Hopper route of dw_pw_sm90.cuh (clusters splitting C and Cout,
-// TMA windows, wgmma, a TMA-stored epilogue) wherever it takes the shape
-// (C and Cout multiples of 16: every pair of MobileNet-v1 at width 1.0 and
-// all but the first at width 0.75), and this tile kernel elsewhere (C = 24
-// at width 0.75, C = 8 at width 0.25, C = 9), which refuses nothing.
+// TMA windows, wgmma, a staged epilogue) wherever it takes the shape (C and
+// Cout multiples of 8, computed at multiples of 16: every pair of
+// MobileNet-v1 at widths 1.0, 0.75 and 0.25), and this tile kernel
+// elsewhere (C = 9, rows wider than 128 output pixels, unaligned bases),
+// which refuses nothing.
 //
 // Epilogues use __fmul_rn/__fadd_rn and rintf (the build passes
 // -fmad=false): the kernel rounds exactly as its plain PyTorch version.
@@ -208,9 +209,10 @@ int launch_dw_pw(const void* x, const void* wdw, const void* wpw, void* out, DwP
 }  // namespace
 
 // Stride 1 or 2 over an image it divides. sm90 != 0: the Hopper route under
-// the plan (q, tho, nb, clusters, smem) of ops.dw_pw_plan, refused (an
-// error, never another route) where it cannot take the call; else the tile
-// kernel, any C, R output rows per block.
+// the plan (q, tho, nb, clusters, smem) of ops.dw_pw_plan, at C and Cout
+// rounded up to multiples of 16, refused (an error, never another route)
+// where it cannot take the call; else the tile kernel, any C, R output rows
+// per block.
 extern "C" int qt_fused_dw_pw(const void* x, const void* wdw, const void* wpw, const void* a1,
                               const void* b1, const void* a2, const void* b2, void* out, int N, int H,
                               int W, int C, int Cout, int stride, int R, int zp1, float lo1, float lo2,

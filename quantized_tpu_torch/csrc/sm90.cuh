@@ -209,6 +209,15 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// a TMA bulk copy (non-tensor) of `bytes` (a multiple of 16, both addresses
+// 16-byte aligned) from global into shared memory, completing on mbarrier bar
+__device__ __forceinline__ void bulk_load(uint32_t smem, const void* gmem, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   smem),
+               "l"(gmem), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
 // order this thread's generic-proxy accesses of shared memory before later
 // async-proxy ones (wgmma's operand reads, TMA)
 __device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }

@@ -17,15 +17,19 @@ Pallas copy and DMA-ring bodies of the JAX package's TPU studies
   slot refilled once its store has read it, so the spare slots hold stores
   in flight; ``compute`` "none", "add" (+1 in shared memory) or "sep" (the
   slot copied into a separate out buffer before the store);
-- :func:`bulk_copy`: TMA bulk copies through shared memory on an mbarrier,
-  ``streams`` in flight per block, issued by one thread: the raw
-  whole-array DMAs.
+- :func:`bulk_copy`: the raw whole-array DMAs, the tensor cut into
+  ``streams`` contiguous slices. :func:`bulk_plan` gives each slice its
+  share of the blocks (a few an SM); each block streams its share through a
+  ring of chunk slots in shared memory, TMA bulk loads landing on mbarriers
+  while the bulk stores of earlier chunks drain, a slot refilled once its
+  own store has read it.
 
 They serve the probes ``quantized_tpu_torch.probes.dma_ring`` and
 ``probes.fused_stages`` (the copy floor); no engine path runs them. A
 wrapper given a CPU tensor runs :func:`copy_plain`; given a CUDA tensor it
 launches its kernel or raises. ``grid_copy`` and ``ring_copy`` count their
-launches under route "sm90" (``KERNELS[name].routes``).
+launches under route "sm90" (``KERNELS[name].routes``), and so does
+``bulk_copy``.
 """
 
 from __future__ import annotations
@@ -40,15 +44,21 @@ GRID_COPY = _cuda.CudaKernel("grid_copy", "copy_probe.cu", "qt_grid_copy",
                              ["ptr", "ptr"] + ["long"] * 4 + ["int"])
 RING_COPY = _cuda.CudaKernel("ring_copy", "copy_probe.cu", "qt_ring_copy",
                              ["ptr", "ptr"] + ["long"] * 3 + ["int"] * 4)
-BULK_COPY = _cuda.CudaKernel("bulk_copy", "copy_probe.cu", "qt_bulk_copy", ["ptr", "ptr", "long", "int", "int"])
+BULK_COPY = _cuda.CudaKernel("bulk_copy", "copy_probe.cu", "qt_bulk_copy",
+                             ["ptr", "ptr"] + ["long"] * 4 + ["int"] * 2)
 
 RING_COMPUTE = {"none": 0, "add": 1, "sep": 2}
-MAX_STREAMS = 6  # csrc/copy_probe.cu MAX_STREAMS
+MAX_STREAMS = 6  # the TPU probes' concurrent DMAs (bench/dma_ring_probe2.py raw_dma)
 SMEM_PER_BLOCK = 232448  # the H100's opt-in shared memory of one block
 UNIT = 16  # bytes a load, a store and a TMA bulk copy move in one piece: plans cut whole units
 LINE_UNITS = 8  # a 128-byte line: pieces are cut in whole lines where a step allows
 COPY_PIECE_UNITS = 1024  # 16 KB: the grid copy's largest piece (the fastest on the H100, probes/dma_ring --plans)
 COPY_BLOCKS_PER_SM = 2  # the least the grid copy's plan puts on every SM
+SMEM_PER_SM = 228 * 1024  # an SM's shared memory, 1 KB of it a block for the system
+# bulk_copy's plan: 192 KB of loads in flight an SM, the fastest on the H100 (probes/dma_ring --plans)
+BULK_CHUNK_UNITS = 1024  # 16 KB a slot
+BULK_SLOTS = 4
+BULK_BLOCKS_PER_SM = 3
 
 
 def _cut(step: int, pieces: int) -> int:
@@ -115,6 +125,44 @@ def ring_plan(total: int, step_bytes: int, slots: int, prefetch: int, sep: bool,
     piece = _cut(step, blocks)
     smem = slots * (UNIT * piece * (2 if sep else 1) + 8)
     return RingPlan(units, total - units * UNIT, step, -(-units // step), piece, blocks, slots, prefetch, smem)
+
+
+class BulkPlan(NamedTuple):
+    units: int  # whole 16-byte units of the tensor
+    tail: int  # bytes past the last whole unit, copied one by one
+    slice: int  # units a stream's slice (the last may be shorter)
+    share: int  # units a block's share of a slice (the last of a slice may be shorter)
+    per_slice: int  # blocks a slice: block b streams share b % per_slice of slice b // per_slice
+    blocks: int  # slices x per_slice, at least 1 (the tail's block)
+    chunk: int  # units a ring slot, a TMA bulk copy
+    slots: int
+    smem: int  # dynamic shared memory a block: the slots and a mbarrier each
+    per_sm: int  # blocks an SM the plan was cut for
+
+    def args(self):
+        """The C entry's plan arguments: slice, share, blocks a slice, chunk, slots."""
+        return [self.slice, self.share, self.per_slice, self.chunk, self.slots]
+
+
+def bulk_plan(total: int, streams: int, sms: int, chunk: int = BULK_CHUNK_UNITS, slots: int = BULK_SLOTS,
+              blocks_per_sm: int = BULK_BLOCKS_PER_SM) -> BulkPlan:
+    """``bulk_copy``'s plan over ``total`` bytes: ``streams`` contiguous
+    slices of whole 128-byte lines (the TPU probe's DMAs), each cut into
+    shares of whole lines for its share of ``blocks_per_sm`` x ``sms``
+    blocks (no share empty in a whole slice), each block streaming its share
+    through ``slots`` slots of ``chunk`` units (a multiple of 8).
+    ``blocks_per_sm`` is lowered where the slots of that many blocks do not
+    fit an SM's shared memory."""
+    if chunk < 1 or slots < 1:
+        raise ValueError(f"need a chunk of at least one unit and a slot, got chunk {chunk}, slots {slots}")
+    units = total // UNIT
+    smem = slots * (UNIT * chunk + 8)
+    blocks_per_sm = max(1, min(blocks_per_sm, SMEM_PER_SM // (smem + 1024)))
+    sl = _cut(max(1, units), streams)
+    share = _cut(sl, max(1, blocks_per_sm * sms // streams))
+    per_slice = -(-sl // share)
+    blocks = max(1, -(-units // sl) * per_slice)
+    return BulkPlan(units, total - units * UNIT, sl, share, per_slice, blocks, chunk, slots, smem, blocks_per_sm)
 
 
 def copy_plain(x: torch.Tensor, add: bool = False) -> torch.Tensor:
@@ -200,13 +248,23 @@ def launch_ring_copy(x: torch.Tensor, plan: RingPlan, compute: str = "none") -> 
 
 
 def bulk_copy(x: torch.Tensor, streams: int = 1) -> torch.Tensor:
-    """``x`` by TMA bulk copies of 32 KB, ``streams`` in flight per block."""
+    """``x`` in ``streams`` contiguous slices, each streamed by its share of
+    the blocks through rings of TMA bulk copies (:func:`bulk_plan`)."""
     _check(x)
     if not 1 <= streams <= MAX_STREAMS:
         raise ValueError(f"streams must be in 1..{MAX_STREAMS}, got {streams}")
     if x.device.type == "cpu":
         return copy_plain(x)
+    dev = _cuda.require_cuda_tensors(x)
+    return launch_bulk_copy(x, bulk_plan(x.numel(), streams, _cuda.sm_count(dev)))
+
+
+def launch_bulk_copy(x: torch.Tensor, plan: BulkPlan) -> torch.Tensor:
+    """The bulk copy of a CUDA tensor under ``plan``; raises where its slots
+    do not fit a block's shared memory."""
     dev, out, total = _launch_args(x)
-    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
-    BULK_COPY(dev, x.data_ptr(), out.data_ptr(), total, streams, blocks)
+    if plan.smem > SMEM_PER_BLOCK:
+        raise ValueError(f"{plan.slots} slots of {UNIT * plan.chunk} bytes need {plan.smem} bytes of shared memory "
+                         f"per block, more than {SMEM_PER_BLOCK}")
+    BULK_COPY(dev, x.data_ptr(), out.data_ptr(), total, *plan.args(), route="sm90")
     return out

@@ -52,8 +52,15 @@ mainloop stopped after conv1 or conv2. B5 runs its own Hopper route
 (``csrc/dw_pw_sm90.cuh``) under the plan of :func:`dw_pw_plan`: a cluster
 of q blocks per tile of output rows splits C for the depthwise pass (the
 blocks share h1 through distributed shared memory) and Cout for the
-pointwise product; where C or Cout is not a multiple of 16, the tile kernel
-of ``csrc/fused_dw_pw.cu``; each launch is counted under its route.
+pointwise product, at C and Cout rounded up to multiples of 16: at a C
+that is not one (MobileNet-v1's first pair at widths 0.75 and 0.25) the
+kernel brings x's image rows by TMA bulk copies and reads the added
+channels' weights as zeros, so nothing is copied per call. The tile kernel
+of ``csrc/fused_dw_pw.cu`` takes what the Hopper route cannot: Wo > 128, W
++ 2 > 256, C or Cout not a multiple of 8, a Cout that no cluster splits
+into wgmma widths once rounded up (200 -> 208), such a C over more than
+128 channels or with W C % 16 != 0, an unaligned base. Each launch is
+counted under its route.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernel or raises.
@@ -219,8 +226,11 @@ def block_plan(kind: str, n: int, h: int, w: int, c: int, cm: int, cout: int, st
 # ----------------------------------------------------------------- B5's plan
 #
 # B5 has two routes (csrc/fused_dw_pw.cu): the Hopper route of
-# csrc/dw_pw_sm90.cuh, and the tile kernel of fused_dw_pw.cu where the
-# Hopper route cannot take the shape (C or Cout not a multiple of 16).
+# csrc/dw_pw_sm90.cuh, computing at C and Cout rounded up to multiples of
+# 16, and the tile kernel of fused_dw_pw.cu where the Hopper route cannot
+# take the shape (Wo > 128, W + 2 > 256, C or Cout % 8 != 0, no cluster
+# size for the rounded widths, a C % 16 != 0 needing a cluster or with
+# W C % 16 != 0).
 NUM_SMS = 132  # the H100 SXM's streaming multiprocessors
 DW_PW_TILE_M = 128  # output pixels a tile of the Hopper route: two warpgroups of 64 rows
 DW_PW_MAX_CS = 128  # depthwise channels a block: at most 16 rows of one 4-channel word a thread
@@ -232,22 +242,27 @@ def _align128(v: int) -> int:
     return -(-v // 128) * 128
 
 
-def dw_pw_sm90_smem_bytes(c: int, cout: int, q: int, w: int, stride: int, tho: int, nb: int) -> int:
-    """``dw_layout(...).total`` of dw_pw_sm90.cuh: h1 (128 rows) and the
-    block's Cout/q pointwise weight rows in swizzled K blocks (K = C
-    rounded up to 32, rows of 32, 64 or 128 bytes), two input windows of nb
-    x ((tho - 1) * s + 3) rows x (W + 2) pixels x C/q channels, the staging
-    tile (128 rows of Cout/q + 16 bytes), the depthwise weight words (9 x
-    C/q int32), four constant vectors, two row tables (2 x 128 ints each), three
-    mbarriers and 1024 bytes of alignment slack."""
+def dw_pw_sm90_smem_bytes(c: int, cout: int, q: int, w: int, stride: int, tho: int, nb: int,
+                          cx: int = 0) -> int:
+    """``dw_layout(...).total`` of dw_pw_sm90.cuh at the computed widths C
+    and Cout (multiples of 16): h1 (128 rows) and the block's Cout/q
+    pointwise weight rows in swizzled K blocks (K = C rounded up to 32,
+    rows of 32, 64 or 128 bytes), two input windows of nb x ((tho - 1) * s
+    + 3) rows, each (W + 2) pixels x C/q channels, or where x's true width
+    ``cx`` is less than C (its rows by bulk copies, q = 1) 2 C + (W + 1) cx
+    bytes rounded up to 16, the staging tile (128 rows of Cout/q + 16
+    bytes), the depthwise weight words (9 x C/q int32), four constant
+    vectors, two row tables (2 x 128 ints each), three mbarriers and 1024
+    bytes of alignment slack."""
     kp = -(-c // 32) * 32
     kb = 32 if kp <= 32 else 64 if kp <= 64 else 128
     nkb = -(-kp // kb)
     cs, no = c // q, cout // q
     wr = (tho - 1) * stride + 3
+    row = -(-(2 * cs + (w + 1) * cx) // 16) * 16 if 0 < cx < c else (w + 2) * cs
     h1 = DW_PW_TILE_M * kb * nkb
     win = _align128(h1 + no * kb * nkb)
-    stage = win + 2 * _align128(nb * wr * (w + 2) * cs)
+    stage = win + 2 * _align128(nb * wr * row)
     wd = stage + _align128(DW_PW_TILE_M * (no + 16))
     consts = wd + _align128(9 * cs * 4)
     return consts + 8 * (cs + no) + 4 * DW_PW_TILE_M * 4 + 3 * 8 + 1024
@@ -291,6 +306,8 @@ class DwPwPlan(NamedTuple):
     clusters: int  # persistent clusters: min(tiles, clusters resident at once) (tile: blocks)
     blocks: int  # q x clusters
     per_sm: int  # blocks an SM: by shared memory, and the kernel's register bound (3 up to Cout/q 64, else 2)
+    c: int  # the widths the kernel computes: C and Cout, rounded up to multiples of 16 on the Hopper route
+    cout: int
 
     def args(self):
         """The C entry's plan arguments: sm90, q, tho, nb, clusters, smem."""
@@ -303,33 +320,40 @@ class DwPwPlan(NamedTuple):
 def dw_pw_plan(n: int, h: int, w: int, c: int, cout: int, stride: int) -> DwPwPlan:
     """The launch plan of B5 on an (n, h, w, c) input.
 
-    The Hopper route where C and Cout are multiples of 16 and Wo fits a
-    128-pixel tile: tiles of whole output rows (the most that make up to 128
-    pixels, evened over the image; several whole images where one takes at
-    most half a tile); the smallest cluster size q (C/q a multiple of 16 up
-    to 128, Cout/q one of 16-128) whose shared memory fits a block, since a
-    clustered block pays distributed-shared-memory stores and two cluster
-    barriers a tile (``probes/pair_stem --plans`` times every q on the H100:
-    the smallest was the fastest or within 3% at every pair shape);
+    The Hopper route where C and Cout are multiples of 8, computing at
+    them rounded up to multiples of 16 (C 24 at width 0.75 as 32, C 8 at
+    0.25 as 16: the kernel zero-weights the rest; such a C runs
+    unclustered, its image rows, W C bytes, multiples of 16), and Wo fits a
+    128-pixel tile: tiles of whole output rows (the most that make up to
+    128 pixels, evened over the image; several whole images where one takes
+    at most half a tile); the smallest cluster size q (C/q a multiple of 16
+    up to 128, Cout/q one of 16-128) whose shared memory fits a block, since
+    a clustered block pays distributed-shared-memory stores and two cluster
+    barriers a tile (``probes/pair_stem --plans`` times every q on the
+    H100: the smallest was the fastest or within 3% at every pair shape);
     persistent clusters, as many as are resident at once
-    (``resident_clusters`` at ``per_sm`` blocks an SM). Else the tile kernel
-    (C = 24 at width 0.75, C = 8 at 0.25), its band height in ``tho``."""
+    (``resident_clusters`` at ``per_sm`` blocks an SM). Else the tile
+    kernel at the true widths, its band height in ``tho``."""
     ho, wo = h // stride, w // stride
-    if c % 16 == 0 and cout % 16 == 0 and wo <= DW_PW_TILE_M and w + 2 <= 256:
+    c_true, cout_true = c, cout
+    c, cout = _pad16(c), _pad16(cout)
+    narrow = c_true != c  # x's rows by bulk copies into one unclustered block
+    if (c_true % 8 == 0 and cout_true % 8 == 0 and wo <= DW_PW_TILE_M and w + 2 <= 256
+            and not (narrow and w * c_true % 16)):
         tho = min(ho, DW_PW_TILE_M // wo)
         tho = -(-ho // -(-ho // tho))  # the same number of bands, evened out
         nb = min(n, DW_PW_TILE_M // (wo * tho), 256) if tho == ho else 1
         tiles = -(-ho // tho) * -(-n // nb)
-        for q in BLOCK_QS:
+        for q in (1,) if narrow else BLOCK_QS:
             if c % q or cout % q or (c // q) % 16 or c // q > DW_PW_MAX_CS or cout // q not in DW_PW_NS:
                 continue
-            smem = dw_pw_sm90_smem_bytes(c, cout, q, w, stride, tho, nb)
+            smem = dw_pw_sm90_smem_bytes(c, cout, q, w, stride, tho, nb, c_true)
             if smem > SMEM_PER_BLOCK:
                 continue
             per_sm = min(3 if cout // q <= 64 else 2, SMEM_PER_SM // (smem + 1024))  # the kernel's register bound
             clusters = min(tiles, resident_clusters(q, per_sm))
-            return DwPwPlan("sm90", q, tho, nb, smem, tiles, clusters, q * clusters, per_sm)
-    return dw_pw_tile_plan(n, h, w, c, cout, stride)
+            return DwPwPlan("sm90", q, tho, nb, smem, tiles, clusters, q * clusters, per_sm, c, cout)
+    return dw_pw_tile_plan(n, h, w, c_true, cout_true, stride)
 
 
 def dw_pw_tile_plan(n: int, h: int, w: int, c: int, cout: int, stride: int) -> DwPwPlan:
@@ -338,7 +362,7 @@ def dw_pw_tile_plan(n: int, h: int, w: int, c: int, cout: int, stride: int) -> D
     ho = h // stride
     r = dw_pw_band_rows(n, ho, w, c, cout, stride)
     blocks = -(-ho // r) * n
-    return DwPwPlan("tile", 1, r, 1, dw_pw_smem_bytes(r, w, c, stride), blocks, blocks, blocks, 2)
+    return DwPwPlan("tile", 1, r, 1, dw_pw_smem_bytes(r, w, c, stride), blocks, blocks, blocks, 2, c, cout)
 
 
 # ----------------------------------------------------------------- plain versions
@@ -674,10 +698,10 @@ def fused_dw_pw_ck(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp1_st
         return fused_dw_pw_plain(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2, *args)
     dev = _cuda.require_cuda_tensors(x_q, wdw_ck, wpw_nk, a1, b1, a2, b2)
     plan = dw_pw_plan(n, h, w, c, cout, s)
+    # TMA takes x (a tensor map, or bulk copies of its rows) and, where C % 16 == 0, wpw: 16-byte aligned
+    if plan.route == "sm90" and (x_q.data_ptr() % 16 or (c % 16 == 0 and wpw_nk.data_ptr() % 16)):
+        plan = dw_pw_tile_plan(n, h, w, c, cout, s)  # an unaligned base: the tile kernel
     out = torch.empty((n, h // s, w // s, cout), dtype=torch.int8, device=dev)
-    sm90 = plan.route == "sm90" and x_q.data_ptr() % 16 == 0 and wpw_nk.data_ptr() % 16 == 0
-    if not sm90 and plan.route == "sm90":  # an unaligned base: the tile kernel
-        plan = dw_pw_tile_plan(n, h, w, c, cout, s)
     DW_PW(dev, x_q.data_ptr(), wdw_ck.data_ptr(), wpw_nk.data_ptr(), a1.data_ptr(), b1.data_ptr(),
           a2.data_ptr(), b2.data_ptr(), out.data_ptr(), n, h, w, c, cout, s, plan.tho, int(zp1_stored),
           f32(lo1), f32(lo2), *plan.args(), route=plan.route)

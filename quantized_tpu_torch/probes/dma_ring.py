@@ -22,16 +22,19 @@ its JAX counterpart):
   are forms of one TPU compile: on the card they are the same kernel, so
   their rows time the same call;
 - the raw whole-array DMAs are :func:`~quantized_tpu_torch.ops.bulk_copy`,
-  TMA bulk copies with one or two streams in flight per block;
+  the array in one or two slices (streams), each streamed by its share of
+  the blocks through rings of TMA bulk copies;
 - ``xla-add`` (XLA's fused ``x + 1``) is the plain version's ``x + 1``
   through PyTorch's elementwise ops.
 
 With ``--plans`` it times instead, by the L2-flushed
 :class:`~quantized_tpu_torch.utils.timing.Timer`, the grid copy under other
 plans than :func:`~quantized_tpu_torch.ops.copy_probe.copy_plan`'s (pieces
-of 4 to 64 KB, at bi 1 and 16) and the
-ring over S, D and bi and on two blocks an SM, each held exact first,
-beside ``Tensor.copy_``: what the plans' choices are worth on the card.
+of 4 to 64 KB, at bi 1 and 16), the
+ring over S, D and bi and on two blocks an SM, and the bulk copy under
+:func:`~quantized_tpu_torch.ops.copy_probe.bulk_plan` over its chunk size,
+slots and blocks an SM, each held exact first, beside
+``Tensor.copy_``: what the plans' choices are worth on the card.
 
 Usage, on a GPU: ``python -m quantized_tpu_torch.probes.dma_ring [batch]
 [--plans]`` (default 128, as the JAX scripts). It exits non-zero without
@@ -114,9 +117,19 @@ def plan_calls(x: torch.Tensor) -> Dict[str, Tuple[Callable[[], torch.Tensor], b
     """name: (the copy under one plan, adds 1): the grid copy at bi 1 and 16
     at pieces of 4 to 64 KB; the ring (none) over S, D and bi,
     the bytes of loads it may keep in flight being D x bi images; S 4, D 2,
-    bi 1 also with "add" and on two blocks an SM."""
+    bi 1 also with "add" and on two blocks an SM; the bulk copy (one stream)
+    at chunks of 4 to 32 KB, 2 to 8 slots and 1 to 6 blocks an SM, wherever
+    that many blocks' slots fit an SM."""
     from quantized_tpu_torch.ops import _cuda
-    from quantized_tpu_torch.ops.copy_probe import copy_plan, launch_grid_copy, launch_ring_copy, ring_plan
+    from quantized_tpu_torch.ops.copy_probe import (
+        SMEM_PER_SM,
+        bulk_plan,
+        copy_plan,
+        launch_bulk_copy,
+        launch_grid_copy,
+        launch_ring_copy,
+        ring_plan,
+    )
 
     sms = _cuda.sm_count(x.device)
     image = x.numel() // x.shape[0]
@@ -133,6 +146,13 @@ def plan_calls(x: torch.Tensor) -> Dict[str, Tuple[Callable[[], torch.Tensor], b
         plan = ring_plan(x.numel(), bi * image, slots, depth, False, blocks)
         calls[f"ring S{slots}D{depth} bi{bi} {compute} {blocks} blocks"] = (
             lambda plan=plan, compute=compute: launch_ring_copy(x, plan, compute), compute == "add")
+    for kb in (4, 8, 16, 32):
+        for slots in (2, 3, 4, 6, 8):
+            for per_sm in (1, 2, 3, 4, 6):
+                plan = bulk_plan(x.numel(), 1, sms, kb * 1024 // 16, slots, per_sm)
+                if per_sm * (plan.smem + 1024) <= SMEM_PER_SM:
+                    calls[f"bulk {kb}KB S{slots} {per_sm}/SM ({plan.blocks} blocks)"] = (
+                        lambda plan=plan: launch_bulk_copy(x, plan), False)
     return calls
 
 
@@ -152,6 +172,8 @@ def run_plans(batch: int = 32, device: DeviceLike = "cuda", out: Callable[[str],
     dst = torch.empty_like(x)
     calls["grid_copy(x, 1)"] = (lambda: ops.grid_copy(x, 1), False)
     calls["ring_copy(x, 4, 2, 1)"] = (lambda: ops.ring_copy(x, 4, 2, 1), False)
+    calls["bulk_copy(x, 1)"] = (lambda: ops.bulk_copy(x, 1), False)
+    calls["bulk_copy(x, 2)"] = (lambda: ops.bulk_copy(x, 2), False)
     calls["torch copy_"] = (lambda: dst.copy_(x), False)
     timer = Timer(x.device)
     bound = 2 * x.numel() / HBM_BYTES_PER_S * 1e3

@@ -148,13 +148,14 @@ def time_plans(batch: int = 32, out: Callable[[str], None] = print, iters: int =
             continue
         x, wdw, wpw, v = pair_inputs(rng, batch, h, c, cout, dev)
         want = ops.fused_dw_pw_plain(x, wdw, wpw, *v, s, *DW_PW_SCALARS)
-        qs = [plan.q] + [q for q in fb.BLOCK_QS if q != plan.q and c % q == 0 and cout % q == 0 and
-                         (c // q) % 16 == 0 and c // q <= fb.DW_PW_MAX_CS and cout // q in fb.DW_PW_NS]
+        cp, coutp = plan.c, plan.cout  # the widths the kernel computes (C 24 and 8: 32 and 16, unclustered)
+        qs = [plan.q] + [q for q in fb.BLOCK_QS if q != plan.q and cp == c and cp % q == 0 and coutp % q == 0 and
+                         (cp // q) % 16 == 0 and cp // q <= fb.DW_PW_MAX_CS and coutp // q in fb.DW_PW_NS]
         for q in qs:
-            smem = fb.dw_pw_sm90_smem_bytes(c, cout, q, h, s, plan.tho, plan.nb)
+            smem = fb.dw_pw_sm90_smem_bytes(cp, coutp, q, h, s, plan.tho, plan.nb, c)
             if smem > fb.SMEM_PER_BLOCK:
                 continue
-            per_sm = min(3 if cout // q <= 64 else 2, fb.SMEM_PER_SM // (smem + 1024))
+            per_sm = min(3 if coutp // q <= 64 else 2, fb.SMEM_PER_SM // (smem + 1024))
             clusters = min(plan.tiles, fb.resident_clusters(q, per_sm))
             p = plan._replace(q=q, smem=smem, clusters=clusters, blocks=q * clusters, per_sm=per_sm)
             outp = torch.empty_like(want)

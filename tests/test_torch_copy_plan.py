@@ -1,8 +1,10 @@
 """The launch plans of the copy kernels (B9), on the CPU.
 
-``copy_plan`` (``grid_copy``) and ``ring_plan`` (``ring_copy``) decide which
-bytes each block of ``csrc/copy_probe.cu`` moves. These tests replay the
-kernels' index arithmetic in NumPy (``grid_piece`` and ``ring_piece``) over
+``copy_plan`` (``grid_copy``), ``ring_plan`` (``ring_copy``) and
+``bulk_plan`` (``bulk_copy``) decide which bytes each block of
+``csrc/copy_probe.cu`` moves. These tests replay the kernels' index
+arithmetic in NumPy (``grid_piece``, ``ring_piece`` and bulk_copy_kernel's
+shares and chunks) over
 ResNet-50's layer1 activation at batches 1, 5, 32 and 128 and over byte
 counts that are not multiples of 16, at bi 1 to 16:
 
@@ -19,7 +21,15 @@ counts that are not multiples of 16, at bi 1 to 16:
   whatever bi;
 - the ring's issuing thread, replayed step by step, refills a slot only
   after the store that last read it has finished reading
-  (``cp.async.bulk.wait_group.read`` with S - D stores pending, at most 7).
+  (``cp.async.bulk.wait_group.read`` with S - D stores pending, at most 7);
+- the bulk copy cuts the tensor into ``streams`` contiguous slices of
+  whole lines, each into shares of whole lines with no block across a
+  slice, each share into chunks no larger than a slot; its slots fit a
+  block's shared memory and its blocks an SM's; it puts a block on every
+  SM at batches 1 and 32 whatever ``streams``; and its issuing thread,
+  replayed chunk by chunk, keeps ``slots`` loads in flight and refills a
+  slot only after the store that last read it has finished reading
+  (``wait_group.read 0``).
 """
 
 import numpy as np
@@ -30,8 +40,11 @@ from quantized_tpu_torch import ops
 from quantized_tpu_torch.ops.copy_probe import (
     COPY_BLOCKS_PER_SM,
     COPY_PIECE_UNITS,
+    MAX_STREAMS,
     SMEM_PER_BLOCK,
+    SMEM_PER_SM,
     UNIT,
+    bulk_plan,
     copy_plan,
     ring_plan,
     ring_slot_bytes,
@@ -179,3 +192,117 @@ def test_copy_wrappers_take_the_plain_version_on_the_cpu():
     assert torch.equal(ops.grid_copy(x, 2, True), ops.copy_plain(x, add=True))
     assert torch.equal(ops.ring_copy(x, 8, 6, 1, "sep"), x)
     assert _cuda.launch_counts() == before
+
+
+def _bulk_shares(plan):
+    """(begin, end, slice) in units of every block's share, as bulk_copy_kernel computes them."""
+    b = np.arange(plan.blocks, dtype=np.int64)
+    j = b // plan.per_slice
+    begin = j * plan.slice + (b % plan.per_slice) * plan.share
+    end = np.maximum(begin, np.minimum(np.minimum(begin + plan.share, (j + 1) * plan.slice), plan.units))
+    return begin, end, j
+
+
+@pytest.mark.parametrize("streams", range(1, MAX_STREAMS + 1))
+@pytest.mark.parametrize("images,image_bytes", SHAPES)
+def test_bulk_plan_covers_every_byte_once_in_whole_units(images, image_bytes, streams):
+    total = images * image_bytes
+    plan = bulk_plan(total, streams, SMS)
+    begin, end, j = _bulk_shares(plan)
+    _assert_cover(begin, end, plan, total)
+    assert -(-plan.units // plan.slice) <= streams  # at most `streams` contiguous slices
+    nonempty = end > begin
+    assert np.array_equal(begin[nonempty] // plan.slice, (end[nonempty] - 1) // plan.slice)  # no block crosses a slice
+    assert np.all(begin[nonempty] // plan.slice == j[nonempty])
+    whole = j < plan.units // plan.slice  # every share of a whole slice is non-empty
+    assert np.all(end[whole] > begin[whole])
+    if plan.units > 8:  # slices and shares of whole 128-byte lines: every block starts on a line
+        assert plan.slice % 8 == 0 and plan.share % 8 == 0 and np.all(begin % 8 == 0)
+    # the kernel's chunks: whole units, none larger than a slot, tiling each share
+    for b0, e0 in zip(begin[nonempty][:50], end[nonempty][:50]):
+        n = -(-(e0 - b0) // plan.chunk)
+        sizes = [min(plan.chunk, e0 - b0 - c * plan.chunk) for c in range(n)]
+        assert all(0 < u <= plan.chunk for u in sizes) and sum(sizes) == e0 - b0
+
+
+@pytest.mark.parametrize("chunk_kb,slots,per_sm", [
+    (16, 4, 2), (8, 2, 1), (8, 8, 3), (16, 8, 1), (32, 4, 1), (32, 4, 3), (16, 4, 4), (32, 6, 1),
+])
+def test_bulk_plan_fits_shared_memory(chunk_kb, slots, per_sm):
+    """A block's slots and mbarriers fit its shared memory, and the blocks
+    the plan counts on an SM fit the SM's (a plan asked for more is cut)."""
+    plan = bulk_plan(32 * LAYER1_IMAGE, 1, SMS, chunk_kb * 1024 // UNIT, slots, per_sm)
+    assert plan.smem == slots * (chunk_kb * 1024 + 8) <= SMEM_PER_BLOCK
+    assert 1 <= plan.per_sm <= per_sm and plan.per_sm * (plan.smem + 1024) <= SMEM_PER_SM
+    if per_sm * (plan.smem + 1024) <= SMEM_PER_SM:
+        assert plan.per_sm == per_sm
+
+
+@pytest.mark.parametrize("streams", range(1, MAX_STREAMS + 1))
+@pytest.mark.parametrize("batch", [1, 32])
+def test_bulk_plan_puts_a_block_on_every_sm(batch, streams):
+    """Every SM gets a block, every slice its share of the blocks: at batch
+    32 and one stream, 396 blocks (three an SM), each about 65 KB in 16 KB
+    chunks through 4 slots."""
+    plan = bulk_plan(batch * LAYER1_IMAGE, streams, SMS)
+    begin, end, _ = _bulk_shares(plan)
+    assert int((end > begin).sum()) >= SMS, plan
+    assert plan.per_slice >= SMS // streams, plan  # each slice its share of the SMs at least
+    if (batch, streams) == (32, 1):
+        assert (plan.blocks, plan.share, plan.chunk, plan.slots, plan.per_sm) == (396, 4056, 1024, 4, 3)
+
+
+def test_bulk_plan_refuses_an_empty_ring():
+    with pytest.raises(ValueError):
+        bulk_plan(32 * LAYER1_IMAGE, 1, SMS, slots=0)
+    with pytest.raises(ValueError):
+        bulk_plan(32 * LAYER1_IMAGE, 1, SMS, chunk=0)
+
+
+def _replay_bulk(slots: int, chunks: int):
+    """The issuing thread of bulk_copy_kernel, chunk by chunk: ``slots``
+    loads issued ahead, a store a chunk, ``wait_group.read 0`` before the
+    slot just stored is refilled. Returns, at each refill, (chunk, slot,
+    the chunks whose stores may still read that slot, the chunk last held
+    there, loads in flight once it is issued)."""
+    loaded = list(range(min(slots, chunks)))
+    stored = []
+    reading = []  # chunks whose stores have not finished reading, oldest first
+    refills = []
+    for i in range(chunks):
+        assert i in loaded  # the chunk being stored has been loaded
+        stored.append(i)
+        reading.append(i)
+        if i + slots < chunks:
+            reading = []  # wait_group.read 0: every store issued has read its slot
+            c = i + slots
+            slot = c % slots
+            last = max(k for k in loaded if k % slots == slot)
+            loaded.append(c)
+            refills.append((c, slot, [k for k in reading if k % slots == slot], last,
+                            len([k for k in loaded if k not in stored])))
+    return refills, stored
+
+
+@pytest.mark.parametrize("slots", [1, 2, 3, 4, 6, 8])
+def test_bulk_refills_a_slot_only_after_its_store_has_read_it(slots):
+    refills, stored = _replay_bulk(slots, 40)
+    assert stored == list(range(40))
+    assert len(refills) == 40 - slots
+    for chunk, slot, readers, last, in_flight in refills:
+        assert readers == [], (chunk, slot, readers)
+        assert last == chunk - slots and last in stored  # the slot's last chunk was stored before its refill
+        assert in_flight == slots  # loads in flight beside the stores
+
+
+def test_bulk_copy_takes_the_plain_version_on_the_cpu():
+    """A CPU tensor runs copy_plain at every stream count; no launch."""
+    from quantized_tpu_torch.ops import _cuda
+
+    x = torch.from_numpy(np.random.default_rng(4).integers(-128, 128, (3, 1001)).astype(np.int8))
+    before = _cuda.launch_counts()
+    for streams in range(1, MAX_STREAMS + 1):
+        assert torch.equal(ops.bulk_copy(x, streams), x)
+    assert _cuda.launch_counts() == before
+    with pytest.raises(ValueError):
+        ops.bulk_copy(x, MAX_STREAMS + 1)

@@ -617,8 +617,8 @@ DW_PW_SCALARS = dict(lo1=-21.0, lo2=-9.0, zp1_stored=-17)
     # and Cout = 200 (not multiples of the 64-wide tile), in bands that do not
     # divide Ho (3 rows over 11 and 20, 4 over 13)
     (32, 22, 32, 64, 2), (32, 20, 32, 64, 1), (32, 26, 48, 40, 2), (4, 14, 128, 200, 1),
-    # C % 16 != 0: 4-byte chunks (C = 24, MobileNet-v1 at width 0.75; C = 8
-    # at width 0.25) and single bytes (C = 9)
+    # C % 16 != 0: C = 24 (MobileNet-v1 at width 0.75) and C = 8 (width
+    # 0.25), x's rows by bulk copies at their true width; C = 9 with Cout = 20
     (2, 112, 24, 48, 1), (2, 28, 24, 48, 2), (2, 56, 8, 16, 1), (2, 30, 9, 20, 2),
 ])
 def test_fused_dw_pw_kernel_matches_plain(cuda_device, gen, n, h, c, cout, stride):
@@ -626,16 +626,18 @@ def test_fused_dw_pw_kernel_matches_plain(cuda_device, gen, n, h, c, cout, strid
     ho = h // stride
     if n == 32:
         assert ho % dw_pw_band_rows(n, ho, h, c, cout, stride), "the case should have a ragged last band"
-    _check_dw_pw_route(x, wdw, wpw, v, stride)
+    # the tile kernel for C % 8 != 0 and for Cout 200 (208 once rounded up: no cluster splits it into wgmma widths)
+    _check_dw_pw_route(x, wdw, wpw, v, stride, route="tile" if c % 8 or cout == 200 else "sm90")
 
 
-def _check_dw_pw_route(x, wdw, wpw, v, stride, **scalars):
-    """One call through the wrapper on the route its plan gives (the Hopper
-    route where C and Cout are multiples of 16), one launch, equal to the
-    plain version and spread over the int8 range; returns the plan."""
+def _check_dw_pw_route(x, wdw, wpw, v, stride, route="sm90", **scalars):
+    """One call through the wrapper on ``route``, the route its plan gives
+    (the Hopper route, computing at C and Cout rounded up to multiples of
+    16), one launch, equal to the plain version and spread over the int8
+    range; returns the plan."""
     n, h, w, c = x.shape
     plan = dw_pw_plan(n, h, w, c, wpw.shape[0], stride)
-    assert plan.route == ("sm90" if c % 16 == 0 and wpw.shape[0] % 16 == 0 else "tile"), plan
+    assert plan.route == route, plan
     before, routes = ops.KERNELS["fused_dw_pw"].launches, _routes("fused_dw_pw")
     scalars = {**DW_PW_SCALARS, **scalars}
     got = ops.fused_dw_pw_ck(x, wdw, wpw, *v, stride, **scalars)
@@ -661,7 +663,7 @@ DW_PW_NARROW_PAIRS = [(112, 24, 48, 1), (112, 48, 96, 2), (56, 96, 96, 1), (56, 
 @pytest.mark.parametrize("h,c,cout,stride", DW_PW_PAIRS + DW_PW_NARROW_PAIRS)
 def test_fused_dw_pw_at_every_pair_shape(cuda_device, gen, batch, h, c, cout, stride):
     """B5 at every distinct pair shape of MobileNet-v1 at widths 1.0, 0.75
-    and 0.25, on the route its plan gives (the tile for C 24 and 8)."""
+    and 0.25, all on the Hopper route (C 24 and 8 computed as 32 and 16)."""
     x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, batch, h, c, cout)
     plan = _check_dw_pw_route(x, wdw, wpw, v, stride)
     print(f"B5 {batch}x{h}x{h}x{c}->{cout}/{stride}: {plan}")
@@ -674,6 +676,11 @@ def test_fused_dw_pw_at_every_pair_shape(cuda_device, gen, batch, h, c, cout, st
     # C) and 96, the extreme stored zero points of the depthwise padding
     (3, 26, 32, 16, 1, -17), (2, 13, 64, 64, 1, 127), (3, 14, 128, 256, 2, -128), (5, 14, 512, 1024, 2, 127),
     (2, 24, 48, 96, 2, -17), (2, 18, 96, 96, 1, -128),
+    # C or Cout % 16 != 0: x's rows by bulk copies (C 24, 40, 8), weights
+    # past Cout read as 0 and 8-byte output stores (Cout 40, 24), a ragged
+    # band, two-image tiles over an odd batch (an image past the batch)
+    (3, 26, 24, 40, 1, -17), (2, 20, 40, 24, 2, 127), (3, 28, 8, 16, 2, -128), (5, 14, 24, 48, 2, 127),
+    (2, 16, 32, 40, 1, -17),
 ])
 def test_fused_dw_pw_sm90_edges(cuda_device, gen, n, h, c, cout, stride, zp1):
     x, wdw, wpw, v = _dw_pw_case(gen, cuda_device, n, h, c, cout)
@@ -695,6 +702,23 @@ def test_fused_dw_pw_unaligned_input_takes_the_tile(cuda_device, gen):
     routes = _routes("fused_dw_pw")
     got = ops.fused_dw_pw_ck(x, wdw, wpw, *v, 1, **DW_PW_SCALARS)
     assert _routes("fused_dw_pw").get("tile", 0) == routes.get("tile", 0) + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, ops.fused_dw_pw_plain(x, wdw, wpw, *v, 1, **DW_PW_SCALARS))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,route", [(16, "sm90"), (8, "tile")])
+def test_fused_dw_pw_narrow_input_alignment(cuda_device, gen, offset, route):
+    """x at C 24 starting ``offset`` bytes into its buffer: its rows' bulk
+    copies take a 16-byte aligned base, the tile kernel the rest, exactly."""
+    n, h, c, cout = 2, 14, 24, 48
+    _, wdw, wpw, v = _dw_pw_case(gen, cuda_device, n, h, c, cout)
+    buf = torch.empty(n * h * h * c + offset, dtype=torch.int8, device=cuda_device)
+    x = buf[offset:].view(n, h, h, c)
+    x.copy_(_dev(gen.integers(-128, 128, (n, h, h, c)).astype(np.int8), cuda_device))
+    routes = _routes("fused_dw_pw")
+    got = ops.fused_dw_pw_ck(x, wdw, wpw, *v, 1, **DW_PW_SCALARS)
+    assert _routes("fused_dw_pw").get(route, 0) == routes.get(route, 0) + 1
     torch.cuda.synchronize()
     assert torch.equal(got, ops.fused_dw_pw_plain(x, wdw, wpw, *v, 1, **DW_PW_SCALARS))
 
@@ -823,6 +847,38 @@ def test_copy_kernels_are_exact(cuda_device, gen, shape):
             assert torch.equal(got, plus if compute == "add" else plain), (slots, prefetch, bi, compute)
     for streams in (1, 2, 4, 6):
         assert torch.equal(ops.bulk_copy(x, streams), plain), streams
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("streams", range(1, 7))
+@pytest.mark.parametrize("shape", [(32, 56, 56, 256), (3, 1001)])
+def test_bulk_copy_on_its_hopper_route(cuda_device, gen, shape, streams):
+    """bulk_copy at every stream count: one launch on route "sm90", exact."""
+    x = _dev(gen.integers(-128, 128, shape).astype(np.int8), cuda_device)
+    before, routes = ops.KERNELS["bulk_copy"].launches, _routes("bulk_copy")
+    got = ops.bulk_copy(x, streams)
+    assert ops.KERNELS["bulk_copy"].launches == before + 1
+    assert _routes("bulk_copy").get("sm90", 0) == routes.get("sm90", 0) + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, x)
+
+
+@pytest.mark.cuda
+def test_bulk_copy_under_every_plan_of_the_sweep(cuda_device, gen):
+    """Every plan ``probes/dma_ring --plans`` times, exact on the layer1
+    activation and on a tensor of 3 x 1001 bytes (empty blocks, a tail)."""
+    from quantized_tpu_torch.ops.copy_probe import SMEM_PER_SM, bulk_plan, launch_bulk_copy
+
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for shape in [(32, 56, 56, 256), (3, 1001)]:
+        x = _dev(gen.integers(-128, 128, shape).astype(np.int8), cuda_device)
+        for kb in (4, 8, 16, 32):
+            for slots in (1, 2, 3, 4, 6, 8):
+                for per_sm in (1, 3, 6):
+                    plan = bulk_plan(x.numel(), 2, sms, kb * 64, slots, per_sm)
+                    if plan.per_sm * (plan.smem + 1024) <= SMEM_PER_SM:
+                        assert torch.equal(launch_bulk_copy(x, plan), x), plan
     torch.cuda.synchronize()
 
 

@@ -4,9 +4,9 @@ B5's plain version against the JAX package's Pallas kernel.
 
 - The plan is plain Python, so its bounds are checked here at every B5 call
   of the fused MobileNet engines at widths 1.0, 0.75 and 0.25 and batches
-  1, 32 and 128: the Hopper route exactly where C and Cout are multiples of
-  16 (every pair at width 1.0; all but the first at widths 0.75 and 0.25);
-  a block's shared memory within the H100's 232,448 bytes and equal to the
+  1, 32 and 128: the Hopper route at every pair, at C and Cout rounded up
+  to multiples of 16 (the first pair of widths 0.75 and 0.25, C 24 and 8,
+  runs padded); a block's shared memory within the H100's 232,448 bytes and equal to the
   header's layout; the smallest cluster size q splitting C into slices of
   a multiple of 16 up to 128 and Cout into a wgmma width; tiles of whole output rows
   (or whole images) covering the output once; the persistent clusters
@@ -18,7 +18,14 @@ B5's plain version against the JAX package's Pallas kernel.
   layout (the distributed-shared-memory broadcast), the pointwise product
   of its Cout slice read back through the same swizzle, and the output box
   stored with rows past the image or the batch left unwritten. Integer sums
-  are exact, so it must equal ``fused_dw_pw_plain`` to the bit.
+  are exact, so it must equal ``fused_dw_pw_plain`` to the bit. At C or
+  Cout % 16 != 0 (multiples of 8) it computes at both rounded up to 16 as
+  the kernel does: where C is not one, x's rows arrive whole into row
+  slots (pixels C bytes apart, so a word of an added channel reads the
+  next pixel's bytes, and bytes nothing writes hold garbage), the depthwise
+  weights and constants past C and the pointwise weights past C or Cout
+  read as 0, and only the first Cout channels are stored; it must equal the
+  plain version and JAX's ``fused_dw_pw`` (interpret mode).
 - ``fused_dw_pw_plain`` against ``fused_dw_pw`` of the JAX package
   (Pallas, interpret mode) where C is not a multiple of 32, int8 equal.
 """
@@ -77,7 +84,10 @@ def engine_pair_calls(width: float):
 def _check_plan(label, n, h, w, c, cout, s):
     plan = fb.dw_pw_plan(n, h, w, c, cout, s)
     ho, wo = h // s, w // s
-    assert plan.route == ("sm90" if c % 16 == 0 and cout % 16 == 0 else "tile"), (label, plan)
+    assert plan.route == "sm90", (label, plan)  # C and Cout % 16 != 0 too: the wrapper pads them
+    assert (plan.c, plan.cout) == (-(-c // 16) * 16, -(-cout // 16) * 16), (label, plan)
+    c_true, c, cout = c, plan.c, plan.cout
+    assert c_true == c or (plan.q == 1 and w * c_true % 16 == 0), (label, plan)
     assert plan.smem <= SMEM_LIMIT, (label, plan)
     if plan.route == "tile":
         assert plan.tho == fb.dw_pw_band_rows(n, ho, w, c, cout, s), (label, plan)
@@ -85,13 +95,14 @@ def _check_plan(label, n, h, w, c, cout, s):
         return plan
     q = plan.q
     assert q in (1, 2, 4, 8) and c % q == 0 and cout % q == 0, (label, plan)
+    cx = c_true  # x's width: rows by bulk copies, unclustered, where it is not C
     assert (c // q) % 16 == 0 and c // q <= fb.DW_PW_MAX_CS and cout // q in fb.DW_PW_NS, (label, plan)
     for smaller in (1, 2, 4):  # no smaller cluster takes the shape
         if smaller < q and c % smaller == 0 and cout % smaller == 0:
             assert (c // smaller > fb.DW_PW_MAX_CS or cout // smaller not in fb.DW_PW_NS or
-                    fb.dw_pw_sm90_smem_bytes(c, cout, smaller, w, s, plan.tho, plan.nb) > fb.SMEM_PER_BLOCK), \
+                    fb.dw_pw_sm90_smem_bytes(c, cout, smaller, w, s, plan.tho, plan.nb, cx) > fb.SMEM_PER_BLOCK), \
                 (label, plan, smaller)
-    assert plan.smem == fb.dw_pw_sm90_smem_bytes(c, cout, q, w, s, plan.tho, plan.nb), (label, plan)
+    assert plan.smem == fb.dw_pw_sm90_smem_bytes(c, cout, q, w, s, plan.tho, plan.nb, cx), (label, plan)
     assert plan.per_sm * (plan.smem + 1024) <= fb.SMEM_PER_SM, (label, plan)
     assert 1 <= plan.per_sm <= (3 if cout // q <= 64 else 2), (label, plan)  # the kernel's register bound
     # tiles of whole output rows: one band of tho rows, or nb whole images, at most 128 pixels
@@ -117,8 +128,8 @@ def test_plan_bounds_at_every_engine_pair(width):
         for b in PLAN_BATCHES:
             plan = _check_plan(f"w{width} {h}x{w}x{c}->{cout}/{s} batch {b}", b, h, w, c, cout, s)
             routes.append(plan.route)
-    # width 1.0: every pair on the Hopper route; 0.75 and 0.25: all but the first (C 24, 8)
-    want_tile = 0 if width == 1.0 else len(PLAN_BATCHES)
+    # every pair on the Hopper route, width 0.75's and 0.25's first (C 24, 8) padded to C 32 and 16
+    want_tile = 0
     assert routes.count("tile") == want_tile, routes
 
 
@@ -132,8 +143,10 @@ def test_plan_choices_at_the_wide_pairs():
     assert (p11.q, p11.tho, p11.nb, p11.tiles) == (8, 7, 2, 16)
     p0 = fb.dw_pw_plan(32, 112, 112, 32, 64, 1)
     assert (p0.q, p0.tho, p0.nb, p0.tiles) == (1, 1, 1, 32 * 112)
-    assert fb.dw_pw_plan(2, 8, 8, 24, 16, 1).route == "tile"
-    assert fb.dw_pw_plan(2, 8, 8, 32, 40, 1).route == "tile"  # Cout 40: no 16-multiple slice
+    narrow = fb.dw_pw_plan(2, 8, 8, 24, 16, 1)
+    assert (narrow.route, narrow.c, narrow.cout) == ("sm90", 32, 16)  # C 24 runs as 32
+    narrow = fb.dw_pw_plan(2, 8, 8, 32, 40, 1)
+    assert (narrow.route, narrow.c, narrow.cout) == ("sm90", 32, 48)  # Cout 40 as 48
 
 
 # ----------------------------------------------------------------- the rehearsal
@@ -149,10 +162,44 @@ def _requant(acc, a, b, lo):
     return fb._requant(torch.from_numpy(acc.astype(np.int32)), torch.from_numpy(a), torch.from_numpy(b), lo).numpy()
 
 
+def _zero_pad(a, rows):
+    """``a`` with zero rows appended up to ``rows``: what the kernel reads past a true width."""
+    return np.concatenate([a, np.zeros((rows - a.shape[0],) + a.shape[1:], a.dtype)])
+
+
+def _narrow_window(x, n0, ho0, s, nb, wr, cs, zp1_stored, rng):
+    """The window of a tile where x's width cx is less than C (= cs, one
+    block): each image row by one bulk copy into a row slot of 2 C + (W +
+    1) cx bytes rounded up to 16, its first pixel at byte C; the halo (the
+    first C bytes, the C bytes from the right halo pixel on, whole rows
+    outside the image) the stored zero point; bytes nothing writes hold
+    garbage. Returned as the depthwise pass reads it: pixel p's C/q
+    channels are the C bytes from C + (p - 1) cx on, the added ones the
+    next pixel's first bytes."""
+    n, h, w, cx = x.shape
+    rp = -(-(2 * cs + (w + 1) * cx) // 16) * 16
+    slots = rng.integers(-128, 128, (nb, wr, rp)).astype(np.int8)
+    for i in range(min(nb, n - n0)):  # images past the batch: not loaded, computed, never stored
+        for r in range(wr):
+            hi = ho0 * s - 1 + r
+            if 0 <= hi < h:
+                slots[i, r, cs:cs + w * cx] = x[n0 + i, hi].reshape(-1)
+                slots[i, r, :cs] = slots[i, r, cs + w * cx:2 * cs + w * cx] = zp1_stored
+            else:
+                slots[i, r] = zp1_stored
+    return np.stack([slots[:, :, cs + (px - 1) * cx:2 * cs + (px - 1) * cx] for px in range(w + 2)], axis=2)
+
+
 def dw_pw_sm90_rehearsal(x, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp1_stored, plan):
-    """dw_pw_sm90.cuh on the CPU under ``plan``, NumPy arrays in and out."""
-    n, h, w, c = x.shape
-    cout, s = wpw_nk.shape[0], stride
+    """dw_pw_sm90.cuh on the CPU under ``plan``, NumPy arrays in and out, at
+    the true widths (the kernel computes at ``plan.c`` and ``plan.cout``)."""
+    n, h, w, cx = x.shape
+    co, s = wpw_nk.shape[0], stride
+    c, cout = plan.c, plan.cout
+    narrow = cx != c  # x's rows by bulk copies, unclustered
+    assert not narrow or plan.q == 1
+    wdw_ck, a1, b1 = _zero_pad(wdw_ck, c), _zero_pad(a1, c), _zero_pad(b1, c)
+    a2, b2 = _zero_pad(a2, cout), _zero_pad(b2, cout)
     ho, wo = h // s, w // s
     q, tho, nb = plan.q, plan.tho, plan.nb
     cs, no = c // q, cout // q
@@ -163,7 +210,7 @@ def dw_pw_sm90_rehearsal(x, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp
     p = wo * tho * nb
     rng = np.random.default_rng(0)
     h1 = [rng.integers(-128, 128, 128 * kb * nkb).astype(np.int8) for _ in range(q)]  # never cleared
-    out = np.full((n, ho, wo, cout), 99, dtype=np.int8)  # every element must be stored once
+    out = np.full((n, ho, wo, co), 99, dtype=np.int8)  # every element must be stored once
     written = np.zeros(out.shape, dtype=np.int32)
     rows = np.arange(p)
     img, rem = rows // (wo * tho), rows % (wo * tho)
@@ -172,21 +219,24 @@ def dw_pw_sm90_rehearsal(x, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp
         n0, ho0 = (t // -(-ho // tho)) * nb, (t % -(-ho // tho)) * tho
         for rank in range(q):
             c0 = rank * cs
-            # the TMA box at (c0, -1, ho0 * s - 1, n0): zeros outside the tensor
-            win = np.zeros((nb, wr, wp, cs), dtype=np.int8)
-            for i in range(nb):
-                for r in range(wr):
-                    hi = ho0 * s - 1 + r
-                    if n0 + i < n and 0 <= hi < h:
-                        win[i, r, 1:w + 1] = x[n0 + i, hi, :, c0:c0 + cs]
-            # the halo of the images in the batch: the stored zero point
-            for i in range(min(nb, n - n0)):
-                for r in range(wr):
-                    hi = ho0 * s - 1 + r
-                    if hi < 0 or hi >= h:
-                        win[i, r] = zp1_stored
-                    else:
-                        win[i, r, 0] = win[i, r, wp - 1] = zp1_stored
+            if narrow:
+                win = _narrow_window(x, n0, ho0, s, nb, wr, cs, zp1_stored, rng)
+            else:
+                # the TMA box at (c0, -1, ho0 * s - 1, n0): zeros outside the tensor
+                win = np.zeros((nb, wr, wp, cs), dtype=np.int8)
+                for i in range(nb):
+                    for r in range(wr):
+                        hi = ho0 * s - 1 + r
+                        if n0 + i < n and 0 <= hi < h:
+                            win[i, r, 1:w + 1] = x[n0 + i, hi, :, c0:c0 + cs]
+                # the halo of the images in the batch: the stored zero point
+                for i in range(min(nb, n - n0)):
+                    for r in range(wr):
+                        hi = ho0 * s - 1 + r
+                        if hi < 0 or hi >= h:
+                            win[i, r] = zp1_stored
+                        else:
+                            win[i, r, 0] = win[i, r, wp - 1] = zp1_stored
             acc = np.zeros((p, cs), dtype=np.int64)
             for tap in range(9):
                 dy, dx = divmod(tap, 3)
@@ -204,15 +254,16 @@ def dw_pw_sm90_rehearsal(x, wdw_ck, wpw_nk, a1, b1, a2, b2, stride, lo1, lo2, zp
             for k in range(kp):
                 blk, cc = k // kb, k % kb
                 a[:, k] = h1[rank][blk * 128 * kb + _sw_offset(np.arange(128), cc, kb)]
-            wpad = np.zeros((no, kp), dtype=np.int64)
-            wpad[:, :c] = wpw_nk[rank * no:(rank + 1) * no]
+            wpad = np.zeros((no, kp), dtype=np.int64)  # zero past C and Cout
+            rows_real = max(0, min(no, co - rank * no))
+            wpad[:rows_real, :cx] = wpw_nk[rank * no:rank * no + rows_real]
             acc2 = (a @ wpad.T)[:p]
             stage = _requant(acc2, a2[rank * no:(rank + 1) * no], b2[rank * no:(rank + 1) * no], lo2)
-            for m in range(p):  # the output box; rows past the image or the batch are not written
+            for m in range(p):  # the output box; rows past the image or the batch, channels past Cout not written
                 nn_, hh = n0 + img[m], ho0 + oh[m]
                 if nn_ < n and hh < ho:
-                    out[nn_, hh, ow[m], rank * no:(rank + 1) * no] = stage[m]
-                    written[nn_, hh, ow[m], rank * no:(rank + 1) * no] += 1
+                    out[nn_, hh, ow[m], rank * no:rank * no + rows_real] = stage[m, :rows_real]
+                    written[nn_, hh, ow[m], rank * no:rank * no + rows_real] += 1
     assert (written == 1).all()
     return out
 
@@ -246,6 +297,39 @@ def test_sm90_rehearsal_equals_plain(rng, n, h, c, cout, stride, q):
     got = dw_pw_sm90_rehearsal(x, wdw, wpw, *vecs, stride, **SCALARS, plan=plan)
     np.testing.assert_array_equal(got, want)
     assert len(np.unique(want)) > 50  # not stuck on a clip
+
+
+@pytest.mark.parametrize("c,cout", [(24, 48), (8, 16), (24, 40), (40, 24)])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_sm90_rehearsal_of_narrow_pairs_equals_plain_and_jax(rng, c, cout, stride):
+    """C or Cout % 16 != 0 (MobileNet-v1's first pair at widths 0.75 and
+    0.25 among them): the Hopper route computing at both rounded up to 16,
+    x staged at its true width, equals the plain version and JAX's
+    ``fused_dw_pw`` to the bit."""
+    n, h = 3, 10
+    x, wdw, wpw, vecs = _dw_pw_case(rng, n, h, c, cout)
+    plan = fb.dw_pw_plan(n, h, h, c, cout, stride)
+    assert plan.route == "sm90" and (plan.c, plan.cout) == (-(-c // 16) * 16, -(-cout // 16) * 16)
+    want = ops.fused_dw_pw_plain(_t(x), _t(wdw), _t(wpw), *(_t(v) for v in vecs), stride, **SCALARS).numpy()
+    got = dw_pw_sm90_rehearsal(x, wdw, wpw, *vecs, stride, **SCALARS, plan=plan)
+    np.testing.assert_array_equal(got, want)
+    jax_out = jfb.fused_dw_pw(jnp.asarray(x), jnp.asarray(wdw.T.reshape(3, 3, c)), jnp.asarray(wpw.T),
+                              *(jnp.asarray(v) for v in vecs), stride=stride, **SCALARS, interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(jax_out))
+    assert len(np.unique(want)) > 50
+
+
+def test_tile_kernel_keeps_what_the_hopper_route_cannot_take():
+    """Wo > 128 (a 258-pixel row), C or Cout not a multiple of 8, a Cout
+    that no cluster size splits into wgmma widths once rounded up (200 ->
+    208), and a C % 16 != 0 that would need a cluster (248 -> 256) or whose
+    image rows are no multiple of 16 bytes (7 pixels of 24) stay on the
+    tile kernel, at the true widths."""
+    for n, h, w, c, cout, s in [(2, 8, 258, 32, 64, 2), (2, 8, 8, 9, 16, 1), (2, 8, 8, 16, 20, 1),
+                                (4, 14, 14, 128, 200, 1), (2, 14, 14, 248, 256, 1), (2, 7, 7, 24, 48, 1)]:
+        plan = fb.dw_pw_plan(n, h, w, c, cout, s)
+        assert (plan.route, plan.c, plan.cout) == ("tile", c, cout), plan
+        assert plan.args() == [0] * 6
 
 
 def test_rehearsal_bands_and_image_groups():
