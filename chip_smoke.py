@@ -44,10 +44,14 @@ and a non-zero exit:
    3), AlexNet's conv1 (11x11/s4 over Cin = 3), the CIFAR stem and CIFAR's
    3x3 convs over Cin 16 and 32 (strides 1 and 2), each on its Hopper route
    ("sm90", asserted), its per-tap form also at AlexNet's conv2 (5x5/p2,
-   64->192) and at 1x1 convs over Cin 24 and 9, each case with its launch
-   plan (``conv_plan``), its ptxas line and the route it took: the Hopper
-   mainloop ("sm90") for the per-tap form over Cin % 16 == 0, the general
-   tile for the rest; no PyTorch call computes a fused block or pair. K1's f32 form also runs at AlexNet's fc1-3 at
+   64->192) and at 1x1 convs over Cin 24, 8 and 9, each case with its
+   launch plan (``conv_plan``), its ptxas line and the route it took: the
+   Hopper mainloop ("sm90") for the per-tap form over Cin % 16 == 0 and for
+   the 1x1s over Cin 24 and 8 (MobileNet-v1's first pointwise conv at widths
+   0.75 and 0.25) on groups of four pixels, asserted, each beside the
+   general tile's time on the same inputs (the route they took before) and
+   ``torch._int_mm``'s; the general tile for Cin 9; no PyTorch call
+   computes a fused block or pair. K1's f32 form also runs at AlexNet's fc1-3 at
    batches 1, 8, 32 and 128, and the int4 GEMM (B6) there too, f32 and
    requant forms; B6's yardstick is ``torch._int_mm`` on the unpacked int8
    weights (which refuses M <= 16: ``library_ms`` is then None), and K1's
@@ -61,7 +65,9 @@ and a non-zero exit:
    1x1 (``torch._int_mm`` its yardstick), each on the mainloop, K2's time on the same inputs
    beside it (``int8_conv_direct_ms``; the bound counts K2's work, not B7's
    junk columns); K2's residual form (B8) at ResNet-18's conv2 + identity
-   (layer1 and layer3), f32 and s8 out; the copy kernels (B9) on the
+   (layer1 and layer3), f32 and s8 out, on the mainloop's RES instances
+   (route "sm90", asserted), each beside K2 on the same inputs without the
+   residual and the general tile on the same inputs; the copy kernels (B9) on the
    (32, 56, 56, 256) layer1 activation, ``Tensor.copy_`` their yardstick
    and 2 x its bytes their bound, ``grid_copy``, ``ring_copy`` and
    ``bulk_copy`` on their Hopper route ("sm90", asserted) with their plans
@@ -74,8 +80,8 @@ and a non-zero exit:
    (B7 refuses exactly the 7 stride-2 shapes; every K2 per-tap and B7
    launch on the mainloop), then ``torch._int_mm`` on its 1x1 stride-1
    shapes (a yardstick, no kernel of the port); "conv ops", B8 through
-   ``int8_conv_direct(..., residual=, res_grid=)`` (2 launches, equal to
-   its plain version), then a grouped conv of 2 groups (``int8_conv_xla``,
+   ``int8_conv_direct(..., residual=, res_grid=)`` (2 launches, both on the
+   mainloop, equal to its plain version), then a grouped conv of 2 groups (``int8_conv_xla``,
    plain PyTorch) against its CPU twin; "copy probe", every variant of
    ``probes/dma_ring`` checked exact, then timed, every ``grid_copy``,
    ``ring_copy`` and ``bulk_copy`` launch on the Hopper route; "fused stages", ``probes/fused_stages``:
@@ -89,8 +95,8 @@ and a non-zero exit:
    ``fuse_mobilenet_blocks``), each answering 3 requests of 32 uint8 images
    with the launch counts set to 0 just before and read just after; every
    kernel must launch exactly the stated number of times per forward, and
-   every K2 per-tap launch takes the mainloop but the one over Cin 24 of
-   MobileNet at width 0.75 (the general tile), every B3 and B4 launch
+   every K2 per-tap launch takes the mainloop (at width 0.75 the first
+   pointwise conv, over Cin 24, on groups of four pixels), every B3 and B4 launch
    takes the Hopper mainloop, every gather-K launch its Hopper route, and
    every B5 launch its Hopper route (at width 0.75 the first pair's C = 24
    computed as 32):
@@ -116,7 +122,8 @@ and a non-zero exit:
      (the stem) and 1 K1, the 13 depthwise convs on the plain grouped path;
      fused (12 pairs), 12 ``fused_dw_pw``, 1 K2 per-tap (the last pointwise
      conv, f32 out), 1 K2 gather-K and 1 K1; the same plans at width 0.75,
-     whose stem, first depthwise conv and first pair run over C = 24;
+     whose stem, first depthwise conv, first pointwise conv and first pair
+     run over C = 24;
    - AlexNet-OWT-BN (224x224, 1000 classes, observers frozen at [-4, 4];
      every 7th BN scale of bn1, bn2 and bn5 negated, so the min-pool dual
      runs): int8 (``build_int8_alexnet``), 4 K2 per-tap (conv2-5), 1 K2
@@ -175,7 +182,7 @@ MODELS = {
     "resnet18": ("resnet_quantized_float_bn", dict(dataset="imagenet", depth=18), 224, 1000),
     "cifar20": ("resnet_quantized_float_bn", dict(dataset="cifar10", depth=20), 32, 10),
     "mobilenet": ("mobilenet_quantized", dict(num_classes=1000, width_mult=1.0), 224, 1000),
-    # C = 24 at the first pair: K2's per-tap form on its general tile, B5 computing at C = 32
+    # C = 24 at the first pair: K2's per-tap form on groups of four pixels, B5 computing at C = 32
     "mobilenet w0.75": ("mobilenet_quantized", dict(num_classes=1000, width_mult=0.75), 224, 1000),
     "alexnet": ("alexnet_quantized", dict(num_classes=1000), 224, 1000),
 }
@@ -227,12 +234,12 @@ KERNEL_INFO = {
     "fused_stages_conv12": ("quantized_tpu_torch/csrc/fused_stages.cu", "bench/fused_probe.py:75"),
 }
 # what this run should show, written before it ran; printed as it starts
-PREDICTIONS = ("bulk_copy(x, 1) about 0.0227 ms at (32, 56, 56, 256) s8 (parent 0.0253), under "
-               "Tensor.copy_ in the same call and under 2 x bound (0.0306 ms), streams 2-6 within 2% of it; "
-               "fused_dw_pw w0.75 pair 0 (C 24 -> 48, 112x112) about 0.055 ms at batch 32, under half the tile "
-               "kernel's time on the same inputs, about 0.20 at batch 128; w0.25 pair 0 about 0.047 at batch 32; "
-               "the fused MobileNet w0.75 at batch 128 about 2.45 ms (parent 2.77); no other kernel or forward "
-               "moves beyond its run-to-run spread")
+PREDICTIONS = ("at batch 32: B8 layer1 56x56 64 s8 about 0.045 ms on the mainloop (parent's tile 0.0695), 1.16x K2 on "
+               "the same inputs without the residual (over the 1.15x target) and 0.64 of the "
+               "tile; layer3 14x14 256 s8 about 0.023 (tile 0.0866); K2 1x1 24->48 s8 on groups of four pixels about "
+               "0.0555 (tile 0.1194), 0.46 of the tile and a third of torch._int_mm; 8->16 about 0.021; the unfused "
+               "MobileNet w0.75 at batch 128 about 0.24 ms less device time; no other kernel or forward moves beyond "
+               "its run-to-run spread")
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
@@ -245,8 +252,6 @@ OUR_KERNELS = ("int8_conv_kernel", "conv_sm90_kernel", "gatherk_sm90_kernel", "i
                "int4_matmul_kernel", "int8_conv_flat_kernel", "grid_copy_kernel", "grid_copy_tma_kernel",
                "ring_copy_kernel", "bulk_copy_kernel")  # device kernel names
 SWEEP_MODES = ("direct", "flat", "gemm")  # the conv sweep path: K2, B7 and im2col + K1
-# K2 per-tap launches per forward on the general tile (Cin % 16 != 0); every other one takes the mainloop
-SERVE_TILE_ROUTE = {"mobilenet w0.75 serve": 1}
 BLOCK_KERNELS = ("fused_bottleneck_s1", "fused_bottleneck_ds", "fused_basicblock_s1", "fused_basicblock_ds")
 PATH_ROUTES = {}  # path: {kernel: {route: launches}} of the kernels with routes
 SWEEP_TARGET_SECS = 0.02  # per timed loop of the sweep; the probe's own default is 1 s
@@ -376,12 +381,42 @@ def _log_conv_plan(kernel, label, x, wc, ks, stride, pad, form):
             f"{plan.tiles}, blocks {plan.blocks}; ptxas: {ptxas}")
         return plan
     source = "int8_conv_flat.cu" if form == "flat" else "int8_conv.cu"
-    instance = f"conv_sm90_kernelILi{plan.kc}ELi{plan.bn}EE"
+    instance = f"conv_sm90_kernelILi{plan.kc}ELi{plan.bn}ELb{int(form == 'residual')}EE"
     ptxas = next((v for key, v in _ptxas_lines(source).items() if instance in key), "not built in this run")
-    log(f"[kernels] {kernel} {label} plan: kc {plan.kc}, bn {plan.bn}, tile {plan.two}x{plan.tho}x{plan.nb}, "
+    groups = (f"groups of {plan.pixels} pixels ({n * h * w // plan.pixels} rows of {plan.pixels * cin} B, "
+              f"{plan.pixels * wc.shape[0]} channels), " if plan.pixels > 1 else "")
+    log(f"[kernels] {kernel} {label} plan: {groups}kc {plan.kc}, bn {plan.bn}, tile {plan.two}x{plan.tho}x{plan.nb}, "
         f"stages {plan.stages}, dynamic smem {plan.smem} B, k stages {plan.k_stages}, tiles {plan.tiles}, "
         f"blocks {plan.blocks}; ptxas: {ptxas}")
     return plan
+
+
+def _conv_tile_ms(timer, x, wc, args, got, residual=None, res_grid=None):
+    """Device time of K2's general tile (the per-tap or residual form) on
+    the same inputs as a call that took the mainloop, launched here for the
+    comparison only, after checking that it computes the call's output."""
+    from quantized_tpu_torch.ops import int8_conv_pallas as cp
+
+    (kh, kw), alpha, beta, (sh, sw), (ph, pw), zp, relu, req = (args[0], args[1], args[2], (args[3],) * 2,
+                                                                 (args[4],) * 2, *args[5:])
+    n, h, w, cin = x.shape
+    cout = wc.shape[0]
+    ho, wo = cp.conv_out_hw(h, w, (kh, kw), (sh, sw), (ph, pw))
+    out, out_int8, inv, zps = cp._requant_args(req, (n, ho, wo, cout), x.device)
+    kernel, r_ptr, r_off, r_scale = cp.CONV_TAP, None, 0.0, 0.0
+    if residual is not None:
+        kernel, r_ptr = cp.CONV_RESIDUAL, residual.data_ptr()
+        r_off, r_scale = cp.f32(128 - res_grid[1]), cp.f32(res_grid[0])
+
+    def run():
+        kernel(x.device, x.data_ptr(), wc.data_ptr(), alpha.data_ptr(), beta.data_ptr(), r_ptr, None, out.data_ptr(),
+               n, h, w, cin, cout, kh, kw, sh, sw, ph, pw, ho, wo, zp, int(relu), out_int8, inv, zps, r_off, r_scale,
+               *cp._TILE_PLAN.args(False), route="tile")
+        return out
+
+    if not torch.equal(run(), got):
+        raise AssertionError("the general tile and the mainloop differ on the same inputs")
+    return timer.ms(run)
 
 
 def _log_block_plan(kernel, label, kind, x, cm, cout, stride, ds):
@@ -564,9 +599,11 @@ def phase_kernels(timer):
         ("int8_conv_direct_gatherk", "cifar 3x3 s1 32->32 s8", (16, 32, 32, 3, 1, 1, (0.05, 113)), False),
         ("int8_conv_direct_gatherk", "cifar 3x3 s2 32->64 s8", (16, 32, 64, 3, 2, 1, (0.05, 113)), False),
         ("int8_conv_direct", "alexnet conv2 5x5 s1 p2 64->192 s8", (27, 64, 192, 5, 1, 2, (0.05, 113)), False),
-        # the per-tap form over Cin % 16 != 0: MobileNet-v1 at width 0.75's first
-        # pointwise conv (4-byte chunks) and Cin 9 (single bytes)
+        # the per-tap form over Cin % 16 != 0: MobileNet-v1's first pointwise
+        # conv at widths 0.75 and 0.25 (pixel groups on the mainloop) and Cin 9
+        # (the general tile, single bytes)
         ("int8_conv_direct", "mobilenet w0.75 pw 1x1 s1 24->48 s8", (112, 24, 48, 1, 1, 0, (0.05, 113)), False),
+        ("int8_conv_direct", "mobilenet w0.25 pw 1x1 s1 8->16 s8", (112, 8, 16, 1, 1, 0, (0.05, 113)), False),
         ("int8_conv_direct", "1x1 s1 9->40 f32", (56, 9, 40, 1, 1, 0, None), False),
     ]
     for name, label, (h, cin, cout, kk, s, p, req), rep in conv_cases:
@@ -582,16 +619,29 @@ def phase_kernels(timer):
         form = "gatherk" if name == "int8_conv_direct_gatherk" else "tap"
         plan = _log_conv_plan(name, label, x, wc, (kk, kk), (s, s), (p, p), form)
         before = dict(ops.KERNELS[name].routes)
-        bs = ops.conv_border_sums(wc, (kk, kk))  # computed once per weight, as the engines do
-        record(name, f"{label} batch {b}",
-               lambda x=x, wc=wc, args=args, bs=bs: ops.int8_conv_direct_ck(x, wc, *args, border_sums=bs),
+        # computed once per weight, as the engines do
+        bs = ops.conv_border_sums(wc, (kk, kk))
+        pg = ops.pixel_group_operands(wc, ac, bc) if plan.pixels > 1 else None
+        call = (lambda x=x, wc=wc, args=args, bs=bs, pg=pg:
+                ops.int8_conv_direct_ck(x, wc, *args, border_sums=bs, pixel_groups=pg))
+        record(name, f"{label} batch {b}", call,
                lambda x=x, wc=wc, args=args: ops.int8_conv_direct_plain(x, wc, *args),
                lib, in_bytes + wc.numel() + 8 * cout + out_bytes,
                2 * b * ho * ho * kk * kk * cin * cout, rep, plain_iters=3)
         route = _route_of(name, before)
         log(f"[kernels] {name} {label}: route {route}")
-        if route != plan.route or (name == "int8_conv_direct_gatherk" and route != "sm90"):
+        if (route != plan.route or (name == "int8_conv_direct_gatherk" and route != "sm90")
+                or (cin in (24, 8) and route != "sm90")):
             raise AssertionError(f"{name} {label}: took {route}, planned {plan.route}")
+        if plan.pixels > 1:  # the narrow 1x1s: the tile's time on the same inputs, and _int_mm's
+            call_ms, tile_ms = timer.ms(call), _conv_tile_ms(timer, x, wc, args, call())
+            lib_ms = library_ms(timer, lib)
+            log(f"[kernels] {name} {label} batch {b}: ms {call_ms:.4f} on pixel groups, the general tile on the "
+                f"same inputs {tile_ms:.4f} (ratio {call_ms / tile_ms:.2f}), torch._int_mm "
+                f"{lib_ms if lib_ms is None else round(lib_ms, 4)}")
+            if label.startswith("mobilenet w0.75") and not (call_ms <= tile_ms / 2 and call_ms < lib_ms):
+                log(f"[kernels] {name} {label}: MISSED the target of at most half the tile's time and under "
+                    f"torch._int_mm")
 
     # B7: the flat-row conv at ResNet-50's stride-1 shapes, K2's time on the
     # same inputs beside it; the bound counts K2's bytes and operations (the
@@ -640,11 +690,28 @@ def phase_kernels(timer):
         ac, bc = _epilogue_params(gen, c, dev)
         args = ((3, 3), ac, bc, 1, 1, -5, True, req)
         kw = dict(residual=r, res_grid=(0.03, 117))
-        record("int8_conv_direct_residual", f"{label} batch {b}",
-               lambda x=x, wc=wc, args=args, kw=kw: ops.int8_conv_direct_ck(x, wc, *args, **kw),
+        bs = ops.conv_border_sums(wc, (3, 3))
+        _log_conv_plan("int8_conv_direct_residual", label, x, wc, (3, 3), (1, 1), (1, 1), "residual")
+        before = dict(ops.KERNELS["int8_conv_direct_residual"].routes)
+        call = (lambda x=x, wc=wc, args=args, kw=kw, bs=bs:
+                ops.int8_conv_direct_ck(x, wc, *args, **kw, border_sums=bs))
+        record("int8_conv_direct_residual", f"{label} batch {b}", call,
                lambda x=x, wc=wc, args=args, kw=kw: ops.int8_conv_direct_plain(x, wc, *args, **kw),
                None, 2 * x.numel() + wc.numel() + 8 * c + x.numel() * (1 if req else 4),
                2 * b * h * h * 9 * c * c, rep, plain_iters=3)
+        if _route_of("int8_conv_direct_residual", before) != "sm90":
+            raise AssertionError(f"int8_conv_direct_residual {label}: not on the mainloop")
+        call_ms = timer.ms(call)
+        k2_ms = timer.ms(lambda x=x, wc=wc, args=args, bs=bs: ops.int8_conv_direct_ck(x, wc, *args, border_sums=bs))
+        tile_ms = _conv_tile_ms(timer, x, wc, args, call(), **kw)
+        log(f"[kernels] int8_conv_direct_residual {label} batch {b}: ms {call_ms:.4f} on the mainloop, K2 on the "
+            f"same inputs without the residual {k2_ms:.4f} (ratio {call_ms / k2_ms:.2f}), the general tile on the "
+            f"same inputs {tile_ms:.4f} (ratio {call_ms / tile_ms:.2f})")
+        if label == "layer1 56x56 64 s8" and not (call_ms <= 1.15 * k2_ms and call_ms <= tile_ms / 2):
+            log(f"[kernels] int8_conv_direct_residual {label}: MISSED the target of at most 1.15x K2 and half "
+                f"the tile")
+        if rep:
+            results["int8_conv_direct_residual"].update(int8_conv_direct_ms=k2_ms, tile_ms=tile_ms)
 
     # B9: the copy kernels on the layer1 activation; the yardstick is
     # Tensor.copy_ into a preallocated tensor, the bound 2 x its bytes
@@ -1040,7 +1107,7 @@ def _serve(what, executor, requests, per_forward, classes):
     routes = PATH_ROUTES[what] = ops.route_counts()
     log(f"[{what}] routes {json.dumps(routes)}")
     tile = routes.get("int8_conv_direct", {}).get("tile", 0)
-    if tile != SERVE_TILE_ROUTE.get(what, 0) * len(requests):
+    if tile:  # every K2 per-tap launch of a serving path takes the mainloop
         raise AssertionError(f"{what}: {tile} K2 per-tap launches on the general tile")
     for name in BLOCK_KERNELS + ("int8_conv_direct_gatherk", "fused_dw_pw"):  # B3-B5, gather-K: a Hopper route
         if counts[name] and routes.get(name) != {"sm90": counts[name]}:
@@ -1229,8 +1296,8 @@ def phase_conv_sweep():
 def phase_conv_ops():
     """B8 through the JAX-signature op entry, ``int8_conv_direct(...,
     residual=, res_grid=)`` on HWIO weights, at ResNet-18's layer1 conv2 +
-    identity (batch 32), s8 and f32 out: 2 launches, equal to the plain
-    version."""
+    identity (batch 32), s8 and f32 out: 2 launches, both on the mainloop,
+    equal to the plain version."""
     from quantized_tpu_torch import ops
 
     gen = torch.Generator().manual_seed(4321)
@@ -1245,6 +1312,9 @@ def phase_conv_ops():
 
     counts, outs = _path_counts("conv ops", run)
     _check_launches(counts, {"int8_conv_direct_residual": 2}, 1, "conv ops")
+    routes = PATH_ROUTES["conv ops"] = ops.route_counts()
+    if routes.get("int8_conv_direct_residual") != {"sm90": 2}:
+        raise AssertionError(f"conv ops: B8 launches by route {routes.get('int8_conv_direct_residual')}")
     w_ck = ops.pack_conv_weight(w)
     for got, req in zip(outs, ((0.06, 105), None)):
         want = ops.int8_conv_direct_plain(x, w_ck, (3, 3), alpha, beta, 1, 1, -5, True, req, **kw)
@@ -1436,7 +1506,8 @@ def main() -> int:
         })
         if kname in PATH_ROUTES.get(path, {}):  # K2 and B7: their launches on the path by route
             kernels[-1]["routes"] = PATH_ROUTES[path][kname]
-        for extra in ("int8_matmul_ms", "int8_conv_direct_ms"):  # B6: K1 unpacked; B7: K2, same inputs
+        # B6: K1 unpacked; B7 and B8: K2 on the same inputs; B8: the general tile on the same inputs
+        for extra in ("int8_matmul_ms", "int8_conv_direct_ms", "tile_ms"):
             if extra in numbers:
                 kernels[-1][extra] = numbers[extra]
         if kernels[-1]["launches"] <= 0:

@@ -8,9 +8,10 @@
 // output channels (wgmma's N). Both operands are K-major s8, the only layout
 // wgmma takes for s8. One ring stage holds KC = 128, 64 or 32 bytes of K of
 // both tiles (the widest that divides Cin; Cin 16 and 48 take 32 with the
-// chunk past Cin zero-filled), loaded by TMA with the swizzle of that width,
-// which wgmma's shared-memory descriptors read (sw_desc). A tile walks K tap
-// by tap, ceil(Cin / KC) stages a tap.
+// chunk past Cin zero-filled, and a 1x1 may take a stage wider than its Cin,
+// as K2's pixel groups take Cin 96 in one stage of 128), loaded by TMA with
+// the swizzle of that width, which wgmma's shared-memory descriptors read
+// (sw_desc). A tile walks K tap by tap, ceil(Cin / KC) stages a tap.
 //
 // How A is addressed is all that differs between the two kernels, a
 // runtime choice (ConvGeom::flat) in one set of kernel instances:
@@ -46,10 +47,17 @@
 // side by side and find it in L2. A stage's wgmmas retire while the next
 // stage is waited for (wait_group 1).
 //
-// The epilogue is K2's, in K2's order: y = acc * alpha[n] + beta[n], ReLU if
+// The epilogue is K2's, in K2's order: y = acc * alpha[n] + beta[n], with
+// B8's residual (the RES instances) y = y + (r + r_off) * r_scale, ReLU if
 // asked, then f32 out, or q = clip(rint(y * inv + zps), -128, 127) -> s8,
 // every operation rounded alone (__fmul_rn, __fadd_rn, -fmad=false), so it
-// equals int8_conv_direct_plain to the bit.
+// equals int8_conv_direct_plain to the bit. The residual is read at the
+// output's own offset, four channels a load; a thread's four rows of a
+// 32-channel pass are loaded together once the pass's accumulators are
+// staged, so their latencies overlap (loading each at its row's turn cost
+// 9% at ResNet-18's layer1 on an H100, PERF.md). RES is a template flag, not
+// a runtime branch, so the other instances carry none of its loads or
+// registers.
 // Each consumer warp runs the epilogue of its own 16 accumulator rows, with
 // no barrier beyond the warp: the int32 accumulators go through the warp's
 // shared-memory rows, 32 channels at a time; the epilogue then runs on four
@@ -117,6 +125,8 @@ struct ConvEpi {
   void* out;
   int stored_zp, relu, out_int8;
   float inv, zps;
+  const int8_t* residual;  // B8 (RES): s8 of the output's shape, else null
+  float r_off, r_scale;    // B8: f32(128 - r_zp), f32(r_scale)
 };
 
 // mbarrier wait that turns a lost TMA into a kernel error instead of a hang
@@ -186,7 +196,17 @@ __device__ __forceinline__ long long row_pixel(const ConvGeom& g, int mt, int r,
   return (static_cast<long long>(n) * g.Ho + h) * g.Wo + w;
 }
 
-template <int KC, int BN>
+// this thread's four residual bytes of a row (0 past Cout), packed little-endian
+__device__ __forceinline__ uint32_t residual_word(const ConvEpi& ep, int cout, long long pix, int n, bool vec) {
+  if (pix < 0 || n >= cout) return 0u;
+  const int8_t* r = ep.residual + pix * cout + n;
+  if (vec) return __ldg(reinterpret_cast<const unsigned int*>(r));
+  uint32_t v = 0u;
+  for (int e = 0; e < 4 && n + e < cout; ++e) v |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(r + e))) << (8 * e);
+  return v;
+}
+
+template <int KC, int BN, bool RES>
 __global__ void __launch_bounds__(THREADS, 2)
     conv_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw, ConvGeom g,
                      ConvEpi ep, int stages) {
@@ -304,6 +324,7 @@ __global__ void __launch_bounds__(THREADS, 2)
     //    on consecutive channels of a row, out to the output where the
     //    channel count keeps the pieces aligned, else element by element
     const bool vec = (g.Cout & 3) == 0;
+    const bool rvec = vec && (reinterpret_cast<uintptr_t>(ep.residual) & 3) == 0;  // RES: 4-byte residual loads
     constexpr int GROUPS = PASS / 4, ROWS = 16 * GROUPS / 32;  // four-channel groups a row; rows a thread
 #pragma unroll
     for (int pass = 0; pass < BN / PASS; ++pass) {
@@ -333,6 +354,15 @@ __global__ void __launch_bounds__(THREADS, 2)
         }
       }
       __syncwarp();
+      // B8: the residual of all four of this thread's rows, in flight together
+      uint32_t r0 = 0u, r1 = 0u, r2 = 0u, r3 = 0u;
+      if constexpr (RES) {
+        static_assert(ROWS == 4, "four rows a thread");
+        r0 = residual_word(ep, g.Cout, rows[lane / GROUPS].pix, n, rvec);
+        r1 = residual_word(ep, g.Cout, rows[lane / GROUPS + 4].pix, n, rvec);
+        r2 = residual_word(ep, g.Cout, rows[lane / GROUPS + 8].pix, n, rvec);
+        r3 = residual_word(ep, g.Cout, rows[lane / GROUPS + 12].pix, n, rvec);
+      }
       // one row at a time: the accumulators of the later passes are still
       // live, and holding several rows here made ptxas spill at 128
       // channels under the two-blocks-an-SM register cap
@@ -340,6 +370,13 @@ __global__ void __launch_bounds__(THREADS, 2)
       for (int it = 0; it < ROWS; ++it) {
         const int r = lane / GROUPS + it * (32 / GROUPS);
         const RowInfo ri = rows[r];
+        uint32_t res_row = 0u;  // B8: this row's residual
+        if constexpr (RES) {
+          res_row = r0;
+          r0 = r1;
+          r1 = r2;
+          r2 = r3;
+        }
         if (ri.pix < 0 || n >= g.Cout) continue;
         const int4 a4 = *reinterpret_cast<const int4*>(stage_out + r * OUT_PITCH + 4 * (n - n0 - pass * PASS));
         int a[4] = {a4.x, a4.y, a4.z, a4.w};
@@ -352,6 +389,10 @@ __global__ void __launch_bounds__(THREADS, 2)
                                     __ldg(sat + ri.o01) + __ldg(sat + ri.o10) - __ldg(sat + ri.o00));
           }
           y[e] = __fadd_rn(__fmul_rn(static_cast<float>(a[e]), al[e]), be[e]);
+          if constexpr (RES) {
+            const float rv = static_cast<float>(static_cast<int8_t>(res_row >> (8 * e)));
+            y[e] = __fadd_rn(y[e], __fmul_rn(__fadd_rn(rv, ep.r_off), ep.r_scale));
+          }
           if (ep.relu) y[e] = fmaxf(y[e], 0.0f);
         }
         const long long o = ri.pix * g.Cout + n;
@@ -454,10 +495,10 @@ struct ConvPlan {
   int kc, bn, two, tho, nb, stages, blocks, smem;
 };
 
-template <int KC, int BN>
+template <int KC, int BN, bool RES>
 int launch_instance(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom& g, const ConvEpi& ep,
                     const ConvPlan& p, cudaStream_t stream) {
-  auto kernel = conv_sm90_kernel<KC, BN>;
+  auto kernel = conv_sm90_kernel<KC, BN, RES>;
   static std::atomic<bool> opted_in{false};  // the full shared memory, asked for once per instance
   cudaError_t err;
   if (!opted_in.load()) {
@@ -469,13 +510,14 @@ int launch_instance(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int launch_kc_bn(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom& g, const ConvEpi& ep,
-                        const ConvPlan& p, cudaStream_t s) {
-#define QT_CONV_BN(KC)                                                 \
-  switch (p.bn) {                                                      \
-    case 32: return launch_instance<KC, 32>(ta, tw, g, ep, p, s);      \
-    case 64: return launch_instance<KC, 64>(ta, tw, g, ep, p, s);      \
-    default: return launch_instance<KC, 128>(ta, tw, g, ep, p, s);     \
+template <bool RES>
+int launch_kc_bn(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom& g, const ConvEpi& ep,
+                 const ConvPlan& p, cudaStream_t s) {
+#define QT_CONV_BN(KC)                                                    \
+  switch (p.bn) {                                                         \
+    case 32: return launch_instance<KC, 32, RES>(ta, tw, g, ep, p, s);    \
+    case 64: return launch_instance<KC, 64, RES>(ta, tw, g, ep, p, s);    \
+    default: return launch_instance<KC, 128, RES>(ta, tw, g, ep, p, s);   \
   }
   switch (p.kc) {
     case 32: QT_CONV_BN(32)
@@ -490,11 +532,12 @@ inline int launch_kc_bn(const CUtensorMap& ta, const CUtensorMap& tw, const Conv
 // (B7: the zero-point-padded image, H, W = Hp, Wp; K2: a 1x1 stride-1 conv
 // without padding, whose rows are its output pixels), else as 4-D boxes of
 // the NHWC input (K2). Both bases 16-byte aligned, Cin % 16 == 0; 0 or the
-// CUDA error. Refuses a plan that does not fit the shape.
-inline int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& ep, const ConvPlan& p,
-                       void* stream) {
+// CUDA error. Refuses a plan that does not fit the shape. RES: B8, with
+// ep.residual, on its own kernel instances.
+template <bool RES = false>
+int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& ep, const ConvPlan& p, void* stream) {
   const bool ok = (p.kc == 32 || p.kc == 64 || p.kc == 128) && (p.bn == 32 || p.bn == 64 || p.bn == 128) &&
-                  g.Cin % 16 == 0 && (p.kc == 128 ? g.Cin % 128 == 0 : p.kc == 64 ? g.Cin % 64 == 0 : true) &&
+                  g.Cin % 16 == 0 && (p.kc == 32 || g.Cin % p.kc == 0 || (g.KH * g.KW == 1 && g.Cin < p.kc)) &&
                   p.stages >= 2 && p.stages <= MAX_STAGES && p.blocks >= 1 &&
                   p.smem == smem_bytes(p.kc, p.bn, p.stages) && p.smem <= qt::SMEM_LIMIT && g.N >= 1 &&
                   g.Cout >= 1 && g.Ho >= 1 && g.Wo >= 1 && qt::aligned16(x) && qt::aligned16(w) &&
@@ -503,7 +546,8 @@ inline int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& 
                           : g.SH >= 1 && g.SH <= 8 && g.SW >= 1 && g.SW <= 8 && p.two >= 1 && p.tho >= 1 &&
                                 p.nb >= 1 && p.two * p.tho * p.nb <= TILE_M && p.two * g.SW <= 256 &&
                                 p.tho * g.SH <= 256 && p.nb <= 256 &&
-                                (ep.border_sums != nullptr || ep.stored_zp == 0 || (g.PH == 0 && g.PW == 0)));
+                                (ep.border_sums != nullptr || ep.stored_zp == 0 || (g.PH == 0 && g.PW == 0))) &&
+                  (ep.residual != nullptr) == RES;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   g.two = p.two;
   g.tho = p.tho;
@@ -543,7 +587,7 @@ inline int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& 
   CUtensorMap ta, tw;
   if (!conv_map(&ta, k) || !matrix_map(&tw, w, g.Cout, g.KH * g.KW * g.Cin, p.bn, p.kc))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_kc_bn(ta, tw, g, ep, p, static_cast<cudaStream_t>(stream));
+  return launch_kc_bn<RES>(ta, tw, g, ep, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

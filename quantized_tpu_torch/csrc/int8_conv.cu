@@ -30,25 +30,35 @@
 // MobileNet-v1 at width 0.75, Cin = 24), else 1 (the CIFAR stem, Cin = 3).
 // The per-tap and gather-K forms differ only in which Pallas body they stand
 // for and which launch count they add to; the residual form is the RES
-// instance of this tile, so the residual's loads and registers stay out of
-// the others. The product is mma.sync m16n8k32 on the int8 tensor cores
-// (int8_mma.cuh), with no load/compute overlap: at ResNet-50's 1x1 64->256
-// it took 3.4x torch._int_mm's time on the same product.
+// instance of this tile (and of the mainloop), so the residual's loads and
+// registers stay out of the others. The product is mma.sync m16n8k32 on the
+// int8 tensor cores (int8_mma.cuh), with no load/compute overlap: at
+// ResNet-50's 1x1 64->256 it took 3.4x torch._int_mm's time on the same
+// product.
 //
 // Three routes behind one entry, qt_int8_conv, chosen by ops.conv_plan and
 // passed in as `sm90`:
-// - 1: the per-tap form over Cin % 16 == 0 with 16-byte-aligned bases
-//   (every per-tap conv of ResNet-50/18, MobileNet-v1 at width 1.0 and
-//   AlexNet) runs the Hopper conv mainloop of conv_sm90.cuh: wgmma tiles of
-//   128 pixels x up to 128 channels, A and W by TMA through a ring,
+// - 1: the per-tap and residual (B8) forms over Cin % 16 == 0 with
+//   16-byte-aligned bases (every per-tap conv of ResNet-50/18, MobileNet-v1
+//   and AlexNet) run the Hopper conv mainloop of conv_sm90.cuh: wgmma tiles
+//   of 128 pixels x up to 128 channels, A and W by TMA through a ring,
 //   persistent blocks, the zero-filled padding corrected by the weights' tap
-//   sums (conv_sm90.cuh's header says how);
+//   sums (conv_sm90.cuh's header says how); B8 on its RES instances. A 1x1
+//   stride-1 unpadded conv over Cin % 16 != 0 with Cin % 4 == 0
+//   (MobileNet-v1's first pointwise conv at widths 0.75 and 0.25: Cin 24
+//   and 8) arrives here as the same function on groups of four pixels: the
+//   wrapper passes 4 pixels as one row of 4 * Cin bytes, diag(W, W, W, W)
+//   and alpha, beta tiled four times, so the output's (M / 4, 4 * Cout)
+//   rows are its (M, Cout); a stage of up to 128 bytes takes the whole row
+//   (the bytes past it arrive as zeros);
 // - 2: the gather-K form (Cout <= 64, a 16-byte-aligned input: every stem
 //   and CIFAR's 16- and 32-channel convs) runs its own Hopper route,
 //   gatherk_sm90.cuh: the input window and the weights in shared memory, A
 //   built from the window, wgmma, a bulk-copied epilogue;
-// - 0: the residual form (B8), the per-tap form over Cin % 16 != 0 and
-//   unaligned inputs run the tile below, which refuses nothing.
+// - 0: the tile below, which refuses nothing, takes the rest: unaligned
+//   inputs, strides past 8, and Cin % 16 != 0 but for those 1x1s (Cin 9,
+//   a 3x3 over Cin 40 or 24, a count of pixels not a multiple of 4; no zoo
+//   model's served forward launches it).
 //
 // The epilogue uses __fmul_rn/__fadd_rn (and the build passes -fmad=false),
 // so it rounds exactly as the plain PyTorch version does.
@@ -180,9 +190,9 @@ int launch_any_cin(const ConvArgs& a, const ConvShape& s, int stored_zp, const C
 
 // K2 in all its forms (per-tap, gather-K, and B8 where residual is not
 // null: (N, Ho, Wo, Cout) s8, r_off = f32(128 - r_zp), r_scale =
-// f32(r_scale)), any Cin. sm90 == 1: the per-tap form on the Hopper
-// mainloop under the plan (kc, bn, two, tho, nb, stages, blocks, smem) of
-// ops.conv_plan, with border_sums ((KH + 1) * (KW + 1), Cout) int32, the
+// f32(r_scale)), any Cin. sm90 == 1: the per-tap or residual form on the
+// Hopper mainloop under the plan (kc, bn, two, tho, nb, stages, blocks,
+// smem) of ops.conv_plan, with border_sums ((KH + 1) * (KW + 1), Cout) int32, the
 // summed-area table of the tap sums (ops.conv_border_sums), where a padded
 // tap reads a nonzero stored zero point; sm90 == 2: the gather-K form on its
 // Hopper route under the plan (kc: the swizzle row, bn, two, tho, nb,
@@ -204,13 +214,15 @@ extern "C" int qt_int8_conv(const void* x, const void* w, const void* alpha, con
     return qtgk::launch_gatherk(x, w, g, ep, qtgk::GkPlan{kc, bn, two, tho, nb, blocks, smem}, stream);
   }
   if (sm90) {
-    if (residual != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     // a 1x1 stride-1 conv without padding is a product of its input's rows: flat rows, whole 128-row tiles
     const int flat = KH == 1 && KW == 1 && SH == 1 && SW == 1 && PH == 0 && PW == 0;
     const qtconv::ConvGeom g{N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo, flat};
     const qtconv::ConvEpi ep{static_cast<const float*>(alpha), static_cast<const float*>(beta),
-                             static_cast<const int*>(border_sums), out, stored_zp, relu, out_int8, inv, zps};
-    return qtconv::launch_conv(x, w, g, ep, qtconv::ConvPlan{kc, bn, two, tho, nb, stages, blocks, smem}, stream);
+                             static_cast<const int*>(border_sums), out, stored_zp, relu, out_int8, inv, zps,
+                             static_cast<const int8_t*>(residual), r_off, r_scale};
+    const qtconv::ConvPlan p{kc, bn, two, tho, nb, stages, blocks, smem};
+    return residual != nullptr ? qtconv::launch_conv<true>(x, w, g, ep, p, stream)
+                               : qtconv::launch_conv<false>(x, w, g, ep, p, stream);
   }
   const ConvArgs a{x, w, alpha, beta, residual, out};
   const ConvShape s{N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo};

@@ -36,7 +36,13 @@ from torch import nn
 
 from quantized_tpu_torch.ops.int4 import int4_matmul_nk, unpack_int4_conv_channels
 from quantized_tpu_torch.ops.int8_conv import int8_conv_gemm_ck, int8_conv_xla_ck, pack_conv_weight
-from quantized_tpu_torch.ops.int8_conv_pallas import conv_border_sums, int8_conv_direct_ck, use_gather_k
+from quantized_tpu_torch.ops.int8_conv_pallas import (
+    conv_border_sums,
+    int8_conv_direct_ck,
+    pixel_group,
+    pixel_group_operands,
+    use_gather_k,
+)
 from quantized_tpu_torch.ops.int8_matmul import f32, int8_matmul_nk
 
 Grid = Tuple[float, int]
@@ -114,6 +120,13 @@ class IntConv2d(nn.Module):
                      and not use_gather_k(cin, (kh, kw)))
         self.register_buffer("border_sums", conv_border_sums(self.weights_ck(), (kh, kw)) if uses_sums else None,
                              persistent=False)
+        # and runs a 1x1 over Cin % 16 != 0 on pixel groups: diag(W, ..., W)
+        # and the tiled alpha, beta (ops.pixel_group_operands), built here once
+        g = pixel_group(cin, (kh, kw), self.stride, self.padding)
+        groups_op = (groups == 1 and backend == "pallas" and g > 1 and self.int4_shape is None)
+        operands = pixel_group_operands(self.w_ck, self.alpha, self.beta, g) if groups_op else (None,) * 3
+        for name, t in zip(("pg_w_ck", "pg_alpha", "pg_beta"), operands):
+            self.register_buffer(name, t, persistent=False)
 
     def weights_ck(self) -> torch.Tensor:
         """The int8 kernel as the kernels take it, (Cout, Kh*Kw*Cin/groups);
@@ -168,9 +181,13 @@ class IntConv2d(nn.Module):
             return int8_conv_xla_ck(x_q, self.w_ck, self.kernel_size, alpha, beta, self.stride,
                                     self.padding, self.stored_zp, relu, out_requant, self.groups)
         if self.backend == "pallas":
+            pixel_groups = None  # with out_prescale, the call tiles its own alpha and beta
+            if self.pg_w_ck is not None and out_prescale is None:
+                pixel_groups = (self.pg_w_ck, self.pg_alpha, self.pg_beta)
             return int8_conv_direct_ck(x_q, self.weights_ck(), self.kernel_size, alpha, beta, stride=self.stride,
                                        padding=self.padding, stored_zp=self.stored_zp, relu=relu,
-                                       out_requant=out_requant, border_sums=self.border_sums)
+                                       out_requant=out_requant, border_sums=self.border_sums,
+                                       pixel_groups=pixel_groups)
         return int8_conv_gemm_ck(x_q, self.weights_ck(), self.kernel_size, alpha, beta, stride=self.stride,
                                  padding=self.padding, stored_zp=self.stored_zp, relu=relu,
                                  out_requant=out_requant)

@@ -3,8 +3,9 @@ fused-residual form B8, the fused bottlenecks B3, BasicBlocks B4 and
 depthwise-separable pairs B5, the int4 GEMM B6, the flat-row conv B7, the
 copy probes B9, the fused bottleneck's stage probes), the launch plans of
 the Hopper GEMM (``gemm_plan``: K1, B6), conv mainloop (``conv_plan``: K2's
-per-tap form, B7) and block mainloop (``block_plan``: B3, B4), their plain
-PyTorch versions, the int4 packing, and the tensor plumbing around them."""
+per-tap and residual forms, its pixel-group 1x1s, B7) and block mainloop
+(``block_plan``: B3, B4), their plain PyTorch versions, the int4 packing,
+and the tensor plumbing around them."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches, route_counts
 from quantized_tpu_torch.ops.copy_probe import bulk_copy, copy_plain, grid_copy, ring_copy
@@ -60,7 +61,10 @@ from quantized_tpu_torch.ops.int8_conv_pallas import (
     int8_conv_flat,
     int8_conv_flat_ck,
     int8_conv_flat_plain,
+    int8_conv_pixel_groups_plain,
     int8_conv_zero_filled_plain,
+    pixel_group,
+    pixel_group_operands,
 )
 from quantized_tpu_torch.ops.int8_matmul import (
     gemm_plan,

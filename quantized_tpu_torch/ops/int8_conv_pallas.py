@@ -11,14 +11,20 @@ consumer's grid.
 K2 is one C entry (``csrc/int8_conv.cu``), counted under three names that
 stand for the Pallas bodies, chosen like them: per-tap, gather-K for small
 Cin (``cin <= 32`` with more than one tap) and the residual form (always
-per-tap in JAX). Its per-tap form over Cin % 16 == 0 with 16-byte-aligned
-operands runs the Hopper conv mainloop (``csrc/conv_sm90.cuh``: wgmma, a TMA
-ring, persistent blocks) under the launch plan of :func:`conv_plan`; the
-mainloop reads the padding as zeros, so it adds back ``stored_zp * tapsum``
-over each pixel's outside taps (:func:`conv_tapsum`; the kernel reads them
-from their summed-area table, :func:`conv_border_sums`, computed once per
-weight by :class:`~quantized_tpu_torch.engine.int_layers.IntConv2d`;
-:func:`int8_conv_zero_filled_plain` is that arithmetic in PyTorch). Its
+per-tap in JAX). Its per-tap and residual forms over Cin % 16 == 0 with
+16-byte-aligned operands run the Hopper conv mainloop
+(``csrc/conv_sm90.cuh``: wgmma, a TMA ring, persistent blocks; the residual
+on kernel instances of its own) under the launch plan of :func:`conv_plan`;
+the mainloop reads the padding as zeros, so it adds back ``stored_zp *
+tapsum`` over each pixel's outside taps (:func:`conv_tapsum`; the kernel
+reads them from their summed-area table, :func:`conv_border_sums`, computed
+once per weight by :class:`~quantized_tpu_torch.engine.int_layers.IntConv2d`;
+:func:`int8_conv_zero_filled_plain` is that arithmetic in PyTorch). A 1x1
+stride-1 unpadded conv over Cin % 16 != 0 but Cin % 4 == 0 runs the same
+mainloop on pixel groups (:func:`pixel_group`: four pixels a row of 4 * Cin
+bytes, ``diag(W, W, W, W)``, the epilogue's vectors tiled four times;
+:func:`pixel_group_operands`, built once per layer by ``IntConv2d``;
+:func:`int8_conv_pixel_groups_plain` is that product in PyTorch). Its
 gather-K form over Cout <= 64 with a 16-byte-aligned input runs a Hopper
 route of its own (``csrc/gatherk_sm90.cuh``: each tile's input window in
 shared memory by cp.async, the zero point in its padding, the weights
@@ -26,11 +32,10 @@ resident, A built from the window as Kh runs of Kw * Cin bytes a pixel,
 wgmma, a bulk-copied epilogue; :func:`gatherk_a_plain` is that K layout in
 PyTorch). Every other call runs the general tile, which takes any Cin,
 gathering 16-byte chunks where Cin is a multiple of 16, 4-byte chunks where
-it is a multiple of 4 (MobileNet at width 0.75) and single bytes otherwise
-(Cin 9). B7 (``csrc/int8_conv_flat.cu``) runs
-stride-1 convs over the zero-point-padded image's flattened rows, every tap
-one read at a constant offset, on the same mainloop where Cin % 16 == 0 and
-on its own tile elsewhere. Each kernel counts its launches by route
+it is a multiple of 4 and single bytes otherwise (Cin 9). B7
+(``csrc/int8_conv_flat.cu``) runs stride-1 convs over the zero-point-padded
+image's flattened rows, every tap one read at a constant offset, on the
+same mainloop where Cin % 16 == 0 and on its own tile elsewhere. Each kernel counts its launches by route
 (``KERNELS[name].routes``: ``"sm90"`` or ``"tile"``). The kernels take the weights packed (Cout,
 Kh*Kw*Cin), which :class:`~quantized_tpu_torch.engine.int_layers.IntConv2d`
 stores once at build time; :func:`int8_conv_direct` and
@@ -112,6 +117,7 @@ class ConvPlan(NamedTuple):
     tiles: int  # output tiles: pixel tiles x ceil(Cout / bn)
     blocks: int  # persistent blocks: min(tiles, 2 x SMs)
     mode: int = 1  # the C entry's Hopper route: 1 the conv mainloop, 2 the gather-K route
+    pixels: int = 1  # pixels a GEMM row: 4 on the pixel-group route (the other fields are then the groups' GEMM's)
 
     @property
     def tma_shape(self) -> bool:
@@ -139,6 +145,28 @@ def conv_smem_bytes(kc: int, bn: int, stages: int) -> int:
 
 
 _TILE_PLAN = ConvPlan("tile", *([0] * 10))
+# pixels a GEMM row where a 1x1's Cin is not a multiple of 16 but four times it is: four, not two, as the
+# wider rows halve the tiles (24 -> 48 at batch 32 on an H100: 0.056 ms against 0.059 for pairs, PERF.md)
+PIXEL_GROUP = 4
+
+
+def pixel_group(cin: int, kernel_size, stride=1, padding=0) -> int:
+    """Pixels a GEMM row of K2's mainloop: ``PIXEL_GROUP`` for a 1x1
+    stride-1 unpadded conv whose Cin is not a multiple of 16 (TMA's row
+    pitch) but whose groups of four pixels are (Cin 24 and 8: MobileNet-v1's
+    first pointwise conv at widths 0.75 and 0.25), else 1. Such a conv is a
+    product of its input's rows, and g consecutive rows of Cin bytes are one
+    row of g * Cin bytes times ``diag(W, ..., W)``."""
+    plain_1x1 = (_pair(kernel_size), _pair(stride), _pair(padding)) == ((1, 1), (1, 1), (0, 0))
+    return PIXEL_GROUP if plain_1x1 and cin % 16 and (PIXEL_GROUP * cin) % 16 == 0 else 1
+
+
+def pixel_group_operands(w_ck: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                         g: int = PIXEL_GROUP) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The pixel-group route's operands: the block-diagonal ``diag(W, ..., W)``
+    (g * Cout, g * Cin) int8 and alpha, beta tiled g times."""
+    return torch.block_diag(*[w_ck] * g).contiguous(), alpha.repeat(g), beta.repeat(g)
+
 
 GATHERK_MAX_COUT = 64  # the gather-K route keeps every output channel in one wgmma tile
 GATHERK_THREADS = 256
@@ -214,12 +242,17 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, kernel_size: Tuple[in
     """The launch plan of K2 (``form`` "tap", "gatherk" or "residual") or B7
     ("flat") on an (n, h, w, cin) input, before padding.
 
-    - route: the mainloop for the per-tap form and B7 where Cin % 16 == 0
-      (TMA's 16-byte row pitch) and, for K2, strides up to 8 (TMA's traversal
-      stride); for gather-K its own route (:func:`_gatherk_plan`: kc is the
-      swizzle row, 32, 64 or 128 bytes, bn the Cout tile, stages its two
-      input windows, up to three blocks an SM where they fit); the general
-      tile for the residual form and the rest;
+    - route: the mainloop for the per-tap and residual forms (one plan for
+      both) and B7 where Cin % 16 == 0 (TMA's 16-byte row pitch) and, for
+      K2, strides up to 8 (TMA's traversal stride); for K2's 1x1 stride-1
+      unpadded convs where :func:`pixel_group` groups the pixels and N * H *
+      W is a multiple of the group, the plan of the groups' product
+      (``pixels`` 4: N * H * W / 4 rows of 4 * Cin bytes, 4 * Cout
+      channels, one ring stage a tile where 4 * Cin <= 128: the stage
+      reaches past the row, zero-filled); for gather-K its own route
+      (:func:`_gatherk_plan`: kc is the swizzle row, 32, 64 or 128 bytes, bn
+      the Cout tile, stages its two input windows, up to three blocks an SM
+      where they fit); the general tile for the rest;
     - kc: 128, 64 or 32 K bytes a stage, the widest dividing Cin (32 for Cin
       16 or 48: the chunk past Cin arrives as zeros);
     - K2's tile: whole output rows (up to 128 columns), as many as make up to
@@ -243,7 +276,16 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int, kernel_size: Tuple[in
         ho, wo = conv_out_hw(h, w, (kh, kw), (sh, sw), (ph, pw))
     if form == "gatherk":
         return _gatherk_plan(n, h, w, cin, cout, kh, kw, sh, sw, ho, wo, sms)
-    if cin % 16 or not (form == "flat" or (form == "tap" and sh <= 8 and sw <= 8)):
+    g = 1 if form == "flat" else pixel_group(cin, (kh, kw), (sh, sw), (ph, pw))
+    if g > 1 and (n * h * w) % g == 0:
+        plan = conv_plan(1, 1, n * h * w // g, g * cin, g * cout, (1, 1), form=form, sms=sms)
+        # one stage a tile, reaching past the row: pairs at 24 -> 48 took 0.067 ms in two stages and 0.059 in
+        # one on an H100 (PERF.md)
+        if plan.k_stages > 1 and g * cin <= CONV_KCS[0]:
+            kc = min(k for k in CONV_KCS if k >= g * cin)
+            plan = plan._replace(kc=kc, k_stages=1, stages=2, smem=conv_smem_bytes(kc, plan.bn, 2))
+        return plan._replace(pixels=g)
+    if cin % 16 or not (form == "flat" or (sh <= 8 and sw <= 8)):
         return _TILE_PLAN
     kc = next(k for k in CONV_KCS if cin % k == 0 or k == CONV_KCS[-1])
     k_stages = kh * kw * -(-cin // kc)
@@ -347,11 +389,15 @@ def int8_conv_zero_filled_plain(
     relu: bool = False,
     out_requant: Optional[Grid] = None,
     tapsum: Optional[torch.Tensor] = None,
+    *,
+    residual: Optional[torch.Tensor] = None,
+    res_grid: Optional[Grid] = None,
 ) -> torch.Tensor:
-    """K2 in the Hopper mainloop's arithmetic: the padded taps read 0 (as
-    TMA fills them), then ``stored_zp * sum of tapsum`` over each pixel's
-    outside taps is added to the int32 accumulator, then K2's epilogue. It
-    equals :func:`int8_conv_direct_plain` exactly."""
+    """K2 (B8 given ``residual``) in the Hopper mainloop's arithmetic: the
+    padded taps read 0 (as TMA fills them), then ``stored_zp * sum of
+    tapsum`` over each pixel's outside taps is added to the int32
+    accumulator, then K2's epilogue with the residual. It equals
+    :func:`int8_conv_direct_plain` exactly."""
     kh, kw = _pair(kernel_size)
     n, h, w, _ = x_q.shape
     acc = int8_conv_acc(x_q, w_ck, (kh, kw), stride, padding, 0)
@@ -359,7 +405,33 @@ def int8_conv_zero_filled_plain(
         tapsum = conv_tapsum(w_ck, kh * kw)
     outside = outside_taps(h, w, (kh, kw), stride, padding, x_q.device)
     border = (outside.to(torch.float64) @ tapsum.to(torch.float64)).to(torch.int32)  # exact: |sum| < 2**31
-    return _epilogue(acc + int(stored_zp) * border, alpha, beta, relu, out_requant)
+    return _epilogue(acc + int(stored_zp) * border, alpha, beta, relu, out_requant, residual, res_grid)
+
+
+def int8_conv_pixel_groups_plain(
+    x_q: torch.Tensor,
+    w_g: torch.Tensor,
+    alpha_g: torch.Tensor,
+    beta_g: torch.Tensor,
+    relu: bool = False,
+    out_requant: Optional[Grid] = None,
+    *,
+    residual: Optional[torch.Tensor] = None,
+    res_grid: Optional[Grid] = None,
+) -> torch.Tensor:
+    """A 1x1 stride-1 unpadded conv (K2, or B8 given ``residual``) in the
+    pixel-group route's arithmetic: the (N, H, W, Cin) input read as N * H *
+    W / g rows of g * Cin bytes, times :func:`pixel_group_operands`' ``w_g``
+    (g * Cout, g * Cin) with exact int32 accumulation, K2's epilogue on the
+    tiled ``alpha_g``, ``beta_g``, and the (rows, g * Cout) result read back
+    as (N, H, W, Cout). It equals :func:`int8_conv_direct_plain` exactly."""
+    n, h, w, cin = x_q.shape
+    g = w_g.shape[1] // cin
+    rows = n * h * w // g
+    acc = exact_int_matmul(x_q.reshape(rows, g * cin), w_g)
+    r = None if residual is None else residual.reshape(rows, -1)
+    y = _epilogue(acc, alpha_g, beta_g, relu, out_requant, r, res_grid)
+    return y.reshape(n, h, w, -1)
 
 
 def _check_conv(x_q, w_ck, kh, kw, alpha, beta):
@@ -397,14 +469,16 @@ def int8_conv_direct_ck(
     residual: Optional[torch.Tensor] = None,
     res_grid: Optional[Grid] = None,
     border_sums: Optional[torch.Tensor] = None,
+    pixel_groups: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """K2 on packed (Cout, Kh*Kw*Cin) weights. NHWC f32 out, or int8 on
     ``out_requant``'s grid. ``residual`` (N, Ho, Wo, Cout) int8 on
     ``res_grid`` = (scale, zero point) is added before ReLU (B8).
     ``border_sums``: :func:`conv_border_sums` of the weights, which the
     Hopper route needs where a padded tap reads a nonzero stored zero point;
-    the engines pass it, computed once, and other callers may leave it to
-    this call."""
+    ``pixel_groups``: :func:`pixel_group_operands` of the weights and of
+    these alpha and beta, which the pixel-group route takes. The engines pass
+    both, computed once; other callers may leave them to this call."""
     kh, kw = _pair(kernel_size)
     n, h, w, cin = x_q.shape
     cout = w_ck.shape[0]
@@ -431,6 +505,20 @@ def int8_conv_direct_ck(
         kernel, r_ptr, r_off, r_scale = CONV_RESIDUAL, residual.data_ptr(), f32(128 - res_grid[1]), f32(res_grid[0])
     plan = conv_plan(n, h, w, cin, cout, (kh, kw), (sh, sw), (ph, pw), form, _cuda.sm_count(dev))
     sm90 = plan.tma_shape and x_q.data_ptr() % 16 == 0 and w_ck.data_ptr() % 16 == 0
+    shape = (n, h, w, cin, cout, kh, kw, sh, sw, ph, pw, ho, wo)
+    if sm90 and plan.pixels > 1:  # the same product on pixel groups: rows of g pixels, diag(W, ..., W)
+        g = plan.pixels
+        if pixel_groups is None:
+            pixel_groups = pixel_group_operands(w_ck, alpha, beta, g)
+        w_ck, alpha, beta = pixel_groups
+        if w_ck.shape != (g * cout, g * cin) or alpha.shape != (g * cout,) or beta.shape != (g * cout,):
+            raise ValueError(f"pixel_groups {[tuple(t.shape) for t in pixel_groups]} are not the operands of "
+                             f"{g} pixels a row over ({cout}, {cin})")
+        _cuda.require_cuda_tensors(x_q, w_ck, alpha, beta)
+        if w_ck.data_ptr() % 16:
+            raise ValueError("pixel_groups' weight must start on a 16-byte boundary")
+        rows = n * h * w // g
+        shape = (1, 1, rows, g * cin, g * cout, 1, 1, 1, 1, 0, 0, 1, rows)
     t_ptr = None
     if sm90 and plan.mode == 1 and (ph or pw) and stored_zp != 0:
         if border_sums is None:
@@ -441,8 +529,8 @@ def int8_conv_direct_ck(
         _cuda.require_cuda_tensors(x_q, border_sums)
         t_ptr = border_sums.data_ptr()
     kernel(dev, x_q.data_ptr(), w_ck.data_ptr(), alpha.data_ptr(), beta.data_ptr(), r_ptr, t_ptr, out.data_ptr(),
-           n, h, w, cin, cout, kh, kw, sh, sw, ph, pw, ho, wo, int(stored_zp), int(relu), out_int8, inv, zps,
-           r_off, r_scale, *plan.args(sm90), route="sm90" if sm90 else "tile")
+           *shape, int(stored_zp), int(relu), out_int8, inv, zps, r_off, r_scale, *plan.args(sm90),
+           route="sm90" if sm90 else "tile")
     return out
 
 

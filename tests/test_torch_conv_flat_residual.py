@@ -13,7 +13,10 @@ CPU backend contracts a multiply and an add of the Pallas epilogue into one
 fused multiply-add: such an element lies exactly on a .5 tie of the port's
 separately rounded value and lands 1 step away. Each differing element is
 checked to be that tie, and they stay under 1e-3 of the elements. f32
-outputs within 1e-3.
+outputs within 1e-3. The Hopper mainloop's residual arithmetic
+(``int8_conv_zero_filled_plain(..., residual=)``: zero-filled padding,
+``stored_zp * tapsum`` added back, then the residual epilogue) is held to
+the same bounds against JAX and to K2's plain version bit for bit.
 
 B9: the copy wrappers' plain versions against JAX's ``xla_add`` (its +1
 wraps at 127), the probes' tables and refusals on the CPU.
@@ -137,16 +140,17 @@ def test_flat_gather_k_rule_is_the_pallas_one():
 RES_GRID, RES_REQ = (0.03, 117), (0.06, 105)
 
 
-def _residual_case(rng, n, h, c, cout):
+def _residual_case(rng, n, h, c, cout, stride=1):
     x, w, alpha, beta = _rand_case(rng, n, h, c, cout, 3)
-    r = rng.integers(-128, 128, (n, h, h, cout)).astype(np.int8)
+    ho = (h + 2 - 3) // stride + 1
+    r = rng.integers(-128, 128, (n, ho, ho, cout)).astype(np.int8)
     return x, w, alpha, beta, r
 
 
-def _requant_preimage(x, w, alpha, beta, r, relu):
+def _requant_preimage(x, w, alpha, beta, r, relu, stride=1):
     """The port's value before the requant's rounding, each float32
     operation rounded on its own."""
-    y = ops.int8_conv_direct_plain(_t(x), ops.pack_conv_weight(_t(w)), (3, 3), _t(alpha), _t(beta), 1, 1, -5,
+    y = ops.int8_conv_direct_plain(_t(x), ops.pack_conv_weight(_t(w)), (3, 3), _t(alpha), _t(beta), stride, 1, -5,
                                    relu, None, residual=_t(r), res_grid=RES_GRID)
     return (y * f32(1.0 / RES_REQ[0]) + f32(RES_REQ[1] - 128)).numpy()
 
@@ -175,6 +179,33 @@ def test_residual_plain_matches_jax_pallas(rng, n, h, c, cout):
     assert len(np.unique(np.asarray(want))) > 100
     want32 = j_int8_conv_direct(*jargs, residual=jnp.asarray(r), relu=False, interpret=True, **kw)
     _assert_close(ops.int8_conv_direct(*targs, residual=_t(r), relu=False, **kw), want32, "f32")
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("n,h,c,cout", [(2, 9, 32, 30), (2, 10, 64, 64)])
+def test_mainloop_residual_arithmetic_matches_jax_pallas(rng, n, h, c, cout, stride):
+    """B8 as the Hopper mainloop computes it (the padding read as zeros,
+    ``stored_zp * tapsum`` added back over the outside taps, then the
+    residual epilogue) at strides 1 and 2, padding 1 with the stored zero
+    point -5, Cout 30 (not a multiple of 4: the kernel's byte-wise residual
+    loads) and 64: equal to K2's plain version bit for bit, to JAX's
+    residual form s8 but for XLA's FMA ties and f32 within 1e-3."""
+    x, w, alpha, beta, r = _residual_case(rng, n, h, c, cout, stride)
+    jargs = (jnp.asarray(x), jnp.asarray(w), jnp.asarray(alpha), jnp.asarray(beta))
+    w_ck = ops.pack_conv_weight(_t(w))
+    kw = dict(residual=_t(r), res_grid=RES_GRID)
+    for req, relu in ((RES_REQ, True), (None, False), (None, True)):
+        got = ops.int8_conv_zero_filled_plain(_t(x), w_ck, (3, 3), _t(alpha), _t(beta), stride, 1, -5, relu, req,
+                                              **kw)
+        want = ops.int8_conv_direct_plain(_t(x), w_ck, (3, 3), _t(alpha), _t(beta), stride, 1, -5, relu, req, **kw)
+        assert got.dtype == want.dtype and torch.equal(got, want), (req, relu)
+        jax_out = j_int8_conv_direct(*jargs, residual=jnp.asarray(r), stride=stride, padding=1, stored_zp=-5,
+                                     relu=relu, out_requant=req, res_grid=RES_GRID, interpret=True)
+        if req is None:
+            _assert_close(got, jax_out, f"f32, relu {relu}")
+        else:
+            _assert_equal_but_fma_ties(got, jax_out, _requant_preimage(x, w, alpha, beta, r, relu, stride), "s8")
+            assert len(np.unique(np.asarray(jax_out))) > 50
 
 
 def test_residual_plain_within_one_step_of_the_unfused_composition(rng):

@@ -10,8 +10,12 @@ memory stays within the H100's 232,448 bytes; each tap's ring stages cover
 its Cin bytes exactly once in whole 32-byte wgmma steps; a tile holds at
 most 128 output pixels and the tiles cover the output; TMA's box limits
 (256 elements a dimension, a traversal stride up to 8) hold; the route is
-the mainloop exactly where Cin % 16 == 0, and the layer carries the tap
-sums exactly where the mainloop needs them.
+the mainloop exactly where Cin % 16 == 0 or a 1x1's pixel groups are, the
+residual form (B8) takes the per-tap form's plan, and the layer carries
+the tap sums and the pixel groups' operands exactly where the mainloop
+needs them. The pixel-group route's arithmetic
+(``int8_conv_pixel_groups_plain``: four pixels a row times
+``diag(W, W, W, W)``) equals K2's plain version and JAX bit for bit.
 
 The twin equals K2's plain version bit for bit (int32 sums are exact, and
 the epilogue is the same code). Against JAX, the bounds of
@@ -44,6 +48,7 @@ from quantized_tpu_torch.ops.int8_conv_pallas import (
     conv_smem_bytes,
     gatherk_smem_bytes,
     outside_taps,
+    pixel_group,
     use_gather_k,
 )
 from quantized_tpu_torch.ops.int8_matmul import SMEM_LIMIT
@@ -61,7 +66,24 @@ def _t(a):
 
 def _check_plan(label, n, h, w, cin, cout, ks, stride, pad, form):
     plan = conv_plan(n, h, w, cin, cout, ks, stride, pad, form)
-    assert plan.tma_shape == (cin % 16 == 0), (label, plan)
+    g = 1 if form == "flat" else pixel_group(cin, ks, stride, pad)
+    grouped = g > 1 and (n * h * w) % g == 0
+    assert plan.tma_shape == (cin % 16 == 0 or grouped), (label, plan)
+    if form == "tap":
+        assert conv_plan(n, h, w, cin, cout, ks, stride, pad, "residual") == plan, label  # B8: the same plan
+    if grouped:  # the groups' product: N * H * W / g flat rows of g * Cin bytes, g * Cout channels
+        assert plan.pixels == g and ks == (1, 1), (label, plan)
+        rows, k = n * h * w // g, g * cin
+        wide = _check_plan(label, 1, 1, rows, k, g * cout, (1, 1), (1, 1), (0, 0), form)
+        if k <= 128:  # one stage a tile, reaching past the row (zero-filled)
+            assert plan.k_stages == 1 and plan.kc == min(kc for kc in (32, 64, 128) if kc >= k), (label, plan)
+            assert plan.stages == 2 and plan.smem == conv_smem_bytes(plan.kc, plan.bn, 2), (label, plan)
+            assert plan._replace(kc=wide.kc, k_stages=wide.k_stages, stages=wide.stages, smem=wide.smem,
+                                 pixels=1) == wide, (label, plan)
+        else:
+            assert plan == wide._replace(pixels=g), (label, plan)
+        return plan
+    assert plan.pixels == 1, (label, plan)
     if not plan.tma_shape:
         return plan
     (kh, kw), (sh, sw) = ks, stride
@@ -123,12 +145,13 @@ def test_plan_bounds_at_the_conv_sweep_shapes(name, h, cin, cout, k, stride):
 
 
 def test_plan_routes():
-    """The general tile for gather-K, the residual form and Cin % 16 != 0
-    (MobileNet at width 0.75: Cin 24, and Cin 9); the mainloop for Cin 16
-    and 48 (a chunk of 32 bytes, zero-filled past Cin); a stride past TMA's
-    8 takes the tile."""
-    assert conv_plan(2, 56, 56, 64, 64, (3, 3), (1, 1), (1, 1), "residual").route == "tile"
-    assert conv_plan(2, 112, 112, 24, 48, (1, 1)).route == "tile"
+    """The mainloop for the residual form (the per-tap form's plan) and for
+    a 1x1 over Cin 24 on pixel groups (MobileNet at width 0.75); the general
+    tile for Cin 9; the mainloop for Cin 16 and 48 (a chunk of 32 bytes,
+    zero-filled past Cin); a stride past TMA's 8 takes the tile."""
+    residual = conv_plan(2, 56, 56, 64, 64, (3, 3), (1, 1), (1, 1), "residual")
+    assert residual.route == "sm90" and residual == conv_plan(2, 56, 56, 64, 64, (3, 3), (1, 1), (1, 1))
+    assert (conv_plan(2, 112, 112, 24, 48, (1, 1)).route, conv_plan(2, 112, 112, 24, 48, (1, 1)).pixels) == ("sm90", 4)
     assert conv_plan(2, 14, 14, 9, 40, (1, 1)).route == "tile"
     assert conv_plan(2, 9, 9, 24, 40, (3, 3), (1, 1), (1, 1), "flat").route == "tile"
     for cin in (16, 48):
@@ -143,6 +166,73 @@ def test_plan_routes():
     assert (early.two, early.tho, early.nb, early.bn) == (56, 2, 1, 128)
     one = conv_plan(32, 56, 56, 64, 256, (1, 1))  # a plain 1x1: 128 flat rows a tile
     assert (one.two, one.tho, one.nb, one.tiles) == (128, 1, 1, 32 * 56 * 56 // 128 * 2)
+
+
+@pytest.mark.parametrize("engine", ["resnet50", "resnet18"])
+def test_residual_plan_is_the_tap_plan_at_every_resnet_conv(engine):
+    """B8 on the mainloop under the per-tap form's plan at every per-tap
+    conv geometry of the engine, at batches 1, 8, 32 and 128 (JAX's
+    residual form is per-tap at every Cin)."""
+    calls = [c for c in engine_conv_calls(engine) if not use_gather_k(c.cin, c.kernel_size)]
+    assert len(calls) == (52 if engine == "resnet50" else 19)
+    for c in calls:
+        for b in BATCHES:
+            args = (b, c.h, c.w, c.cin, c.cout, c.kernel_size, c.stride, c.padding)
+            plan = conv_plan(*args, "residual")
+            assert plan.route == "sm90" and plan == conv_plan(*args, "tap"), (engine, c.h, c.cin, c.cout, b)
+
+
+@pytest.mark.parametrize("cin,cout", [(24, 48), (8, 16)])
+def test_pixel_group_plans(cin, cout):
+    """MobileNet-v1's first pointwise conv at widths 0.75 and 0.25 (1x1
+    over Cin 24 and 8 at 112x112) at batches 1-128, f32 or s8 alike: the
+    mainloop on groups of four pixels, 4 * Cin bytes a row in one stage of
+    128 or 32 bytes (zero past 4 * Cin), the residual form on the same plan."""
+    for b in BATCHES:
+        plan = _check_plan(f"{cin}->{cout} batch {b}", b, 112, 112, cin, cout, (1, 1), (1, 1), (0, 0), "tap")
+        assert (plan.route, plan.pixels, plan.kc, plan.k_stages) == ("sm90", 4, 4 * cin + 32 * (cin == 24), 1), plan
+        assert plan.tiles == -(-b * 112 * 112 // 4 // CONV_TILE_M) * -(-4 * cout // plan.bn), plan
+
+
+def test_pixel_groups_only_where_the_conv_is_a_product_of_rows():
+    """The tile for Cin 9 (no group of four pixels is a multiple of 16
+    bytes), a count of pixels not a multiple of 4, a 3x3 over Cin 40 or 24,
+    a padded or strided 1x1, and B7 (its padded rows are read as they
+    are); Cin 40 in groups of 160 bytes takes five stages of 32."""
+    assert pixel_group(24, (1, 1)) == pixel_group(8, (1, 1)) == pixel_group(40, (1, 1)) == 4
+    assert pixel_group(9, (1, 1)) == pixel_group(16, (1, 1)) == pixel_group(24, (3, 3)) == 1
+    assert pixel_group(24, (1, 1), 2) == pixel_group(24, (1, 1), 1, 1) == 1
+    wide = _check_plan("40->48", 2, 14, 14, 40, 48, (1, 1), (1, 1), (0, 0), "tap")
+    assert (wide.pixels, wide.kc, wide.k_stages) == (4, 32, 5)
+    for args in [(2, 14, 14, 9, 40, (1, 1)), (1, 5, 5, 24, 48, (1, 1)), (2, 7, 7, 8, 16, (1, 1)),
+                 (2, 9, 9, 40, 40, (3, 3), (1, 1), (1, 1)), (2, 9, 9, 24, 40, (3, 3), (1, 1), (1, 1)),
+                 (2, 14, 14, 24, 48, (1, 1), (2, 2)), (2, 14, 14, 24, 48, (1, 1), (1, 1), (1, 1))]:
+        for form in ("tap", "residual"):
+            assert conv_plan(*args, form=form).route == "tile", (args, form)
+    assert conv_plan(2, 14, 14, 24, 48, (1, 1), form="flat").route == "tile"
+
+
+def test_pixel_groups_at_every_narrow_mobilenet_conv():
+    """MobileNet-v1 at width 0.75: every per-tap call on the mainloop at
+    every batch, the 1x1 over Cin 24 on pixel groups, with the layer passing
+    its group operands (``diag(W, W, W, W)`` and alpha, beta tiled four
+    times), built once."""
+    calls = [c for c in engine_conv_calls("mobilenet w0.75") if not use_gather_k(c.cin, c.kernel_size)]
+    narrow = [c for c in calls if c.cin % 16]
+    assert len(calls) == 13 and [(c.cin, c.cout, c.h) for c in narrow] == [(24, 48, 112)]
+    for c in calls:
+        for b in BATCHES:
+            plan = _check_plan(f"w0.75 {c.cin}->{c.cout} batch {b}", b, c.h, c.w, c.cin, c.cout, c.kernel_size,
+                               c.stride, c.padding, "tap")
+            assert plan.route == "sm90" and plan.pixels == (4 if c.cin % 16 else 1), (c.cin, b, plan)
+        assert (c.pixel_groups is not None) == (c.cin % 16 != 0), c.cin
+    w_g, a_g, b_g = narrow[0].pixel_groups
+    want = ops.pixel_group_operands(narrow[0].w_ck, narrow[0].alpha, narrow[0].beta)
+    assert all(torch.equal(got, ref) for got, ref in zip((w_g, a_g, b_g), want))
+    assert tuple(w_g.shape) == (192, 96) and torch.equal(a_g, narrow[0].alpha.repeat(4))
+    for i in range(4):  # W on the diagonal, zeros elsewhere
+        blocks = w_g[48 * i:48 * (i + 1)].reshape(48, 4, 24)
+        assert torch.equal(blocks[:, i], narrow[0].w_ck) and not blocks[:, [j for j in range(4) if j != i]].any()
 
 
 def test_outside_taps_is_the_border_map():
@@ -198,6 +288,36 @@ def test_zero_filled_twin_equals_k2_plain(rng, k, stride, pad, stored_zp):
         assert torch.equal(given, want)
         if req is not None:
             assert len(torch.unique(want)) > 20  # not stuck on a clip
+
+
+@pytest.mark.parametrize("cin,cout", [(24, 48), (8, 16)])
+def test_pixel_groups_plain_equals_k2_plain_and_jax(rng, cin, cout):
+    """The pixel-group product (four pixels a row of 4 * Cin bytes times
+    ``diag(W, W, W, W)``, alpha and beta tiled four times) against K2's plain version
+    and JAX's ``int8_conv_direct`` (Pallas, interpret mode): against K2's
+    plain version bit for bit, f32 and s8, also with a residual (B8);
+    against JAX s8 bit for bit and f32 within F32_ATOL (XLA's CPU backend
+    contracts ``acc * alpha + beta`` into one FMA: 1 ulp apart)."""
+    x, w, alpha, beta = _case(rng, 2, 6, cin, cout, 1)
+    w_ck = ops.pack_conv_weight(_t(w))
+    operands = ops.pixel_group_operands(w_ck, _t(alpha), _t(beta))
+    r = _t(rng.integers(-128, 128, (2, 6, 6, cout)).astype(np.int8))
+    for req in (None, (0.05, 113)):
+        got = ops.int8_conv_pixel_groups_plain(_t(x), *operands, True, req)
+        want = ops.int8_conv_direct_plain(_t(x), w_ck, (1, 1), _t(alpha), _t(beta), 1, 0, -5, True, req)
+        assert got.dtype == want.dtype and torch.equal(got, want), req
+        jax_out = np.asarray(j_int8_conv_direct(jnp.asarray(x), jnp.asarray(w), jnp.asarray(alpha),
+                                                jnp.asarray(beta), stride=1, padding=0, stored_zp=-5, relu=True,
+                                                out_requant=req, interpret=True))
+        if req is not None:
+            np.testing.assert_array_equal(got.numpy(), jax_out)
+            assert len(np.unique(jax_out)) > 20
+        else:
+            np.testing.assert_allclose(got.numpy(), jax_out, atol=F32_ATOL, rtol=0)
+        kw = dict(residual=r, res_grid=(0.03, 117))
+        got_r = ops.int8_conv_pixel_groups_plain(_t(x), *operands, True, req, **kw)
+        assert torch.equal(got_r, ops.int8_conv_direct_plain(_t(x), w_ck, (1, 1), _t(alpha), _t(beta), 1, 0, -5,
+                                                             True, req, **kw)), req
 
 
 # the cases of tests/test_pallas_conv.py (n, h, cin, cout, k, stride, out_requant)

@@ -1004,7 +1004,7 @@ def _check_conv_route(x, w_ck, args, route, name="int8_conv_direct", spread=Fals
     got = fn(x, w_ck, *args, **kw)
     assert ops.KERNELS[name].launches == before + 1
     assert _routes(name).get(route, 0) == routes.get(route, 0) + 1, (route, _routes(name))
-    want = plain(x, w_ck, *args)
+    want = plain(x, w_ck, *args, **{k: v for k, v in kw.items() if k in ("residual", "res_grid")})
     torch.cuda.synchronize()
     if got.dtype == torch.int8:
         assert torch.equal(got, want)
@@ -1042,8 +1042,10 @@ def test_conv_sm90_border_correction_at_extreme_zero_points(cuda_device, gen, st
 
 @pytest.mark.cuda
 def test_conv_stays_on_the_tile_where_the_mainloop_cannot_take_it(cuda_device, gen):
-    """An unaligned input (Cin 64, 3x3), Cin 24 (MobileNet at width 0.75),
-    the gather-K stem and the residual form take the general tile, exactly."""
+    """An unaligned input (Cin 64, 3x3), a 1x1 over Cin 9 (no pixel group
+    of it is a multiple of 16 bytes), a 3x3 over Cin 40, the gather-K stem
+    over an unaligned input and the residual form over Cin 24 (3x3) take the
+    general tile, exactly."""
     n, h, cin, cout = 2, 9, 64, 40
     buf = torch.empty(n * h * h * cin + 8, dtype=torch.int8, device=cuda_device)
     x = buf[8:].view(n, h, h, cin)
@@ -1051,21 +1053,98 @@ def test_conv_stays_on_the_tile_where_the_mainloop_cannot_take_it(cuda_device, g
     assert x.data_ptr() % 16 != 0
     _, w_ck, alpha, beta = _conv_case(gen, cuda_device, n, h, cin, cout, 3)
     _check_conv_route(x, w_ck, ((3, 3), alpha, beta, 1, 1, -5, True, (0.05, 113)), "tile")
-    x24, w24, a24, b24 = _conv_case(gen, cuda_device, 2, 14, 24, 48, 1)
-    _check_conv_route(x24, w24, ((1, 1), a24, b24, 1, 0, -5, True, (0.05, 113)), "tile")
+    x9, w9, a9, b9 = _conv_case(gen, cuda_device, 2, 14, 9, 40, 1)
+    _check_conv_route(x9, w9, ((1, 1), a9, b9, 1, 0, -5, True, (0.05, 113)), "tile")
+    x40, w40, a40, b40 = _conv_case(gen, cuda_device, 2, 9, 40, 40, 3)
+    _check_conv_route(x40, w40, ((3, 3), a40, b40, 1, 1, -5, True, None), "tile")
     _, ws, as_, bs = _conv_case(gen, cuda_device, 2, 30, 12, 64, 4)  # the gather-K form over an unaligned input
     sbuf = torch.empty(2 * 30 * 30 * 12 + 4, dtype=torch.int8, device=cuda_device)
     xs = sbuf[4:].view(2, 30, 30, 12)
     xs.copy_(_dev(gen.integers(-128, 128, (2, 30, 30, 12)).astype(np.int8), cuda_device))
     _check_conv_route(xs, ws, ((4, 4), as_, bs, 1, 0, -5, True, (0.05, 113)), "tile",
                       name="int8_conv_direct_gatherk")
-    xr, wr, ar, br = _conv_case(gen, cuda_device, 2, 14, 64, 64, 3)
+    xr, wr, ar, br = _conv_case(gen, cuda_device, 2, 14, 24, 64, 3)
     r = _dev(gen.integers(-128, 128, (2, 14, 14, 64)).astype(np.int8), cuda_device)
     kw = dict(residual=r, res_grid=(0.03, 117))
     before = _routes("int8_conv_direct_residual").get("tile", 0)
     got = ops.int8_conv_direct_ck(xr, wr, (3, 3), ar, br, 1, 1, -5, True, (0.06, 105), **kw)
     assert _routes("int8_conv_direct_residual")["tile"] == before + 1
     assert torch.equal(got, ops.int8_conv_direct_plain(xr, wr, (3, 3), ar, br, 1, 1, -5, True, (0.06, 105), **kw))
+
+
+# n, h, cin, cout, stride, stored_zp: ResNet-18's conv2 + identity at layer1
+# and layer3, Cout 40 and 30 (30: byte-wise residual loads), stride 2, and
+# the extreme stored zero points in the padding
+RESIDUAL_SM90_CASES = [
+    (2, 56, 64, 64, 1, -5), (2, 14, 256, 256, 1, -5), (2, 9, 64, 40, 1, 127), (3, 10, 32, 30, 2, -128),
+    (2, 14, 128, 40, 2, -5),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("req", [None, (0.06, 105)])
+@pytest.mark.parametrize("n,h,cin,cout,s,zp", RESIDUAL_SM90_CASES)
+def test_residual_conv_sm90_route_matches_plain(cuda_device, gen, n, h, cin, cout, s, zp, req):
+    """B8 on the Hopper mainloop (its RES instances), route "sm90"
+    asserted, f32 and s8 out, against its plain version; the border sums
+    passed as the engines pass them and left to the wrapper."""
+    x, w_ck, alpha, beta = _sm90_case(gen, cuda_device, n, h, cin, cout, 3)
+    ho = (h + 2 - 3) // s + 1
+    r = _dev(gen.integers(-128, 128, (n, ho, ho, cout)).astype(np.int8), cuda_device)
+    plan = ops.conv_plan(n, h, h, cin, cout, (3, 3), (s, s), (1, 1), "residual")
+    assert plan.route == "sm90" and plan == ops.conv_plan(n, h, h, cin, cout, (3, 3), (s, s), (1, 1))
+    args = ((3, 3), alpha, beta, s, 1, zp, True, req)
+    kw = dict(residual=r, res_grid=(0.03, 117))
+    given = _check_conv_route(x, w_ck, args, "sm90", name="int8_conv_direct_residual", spread=True,
+                              border_sums=ops.conv_border_sums(w_ck, (3, 3)), **kw)
+    assert torch.equal(given, _check_conv_route(x, w_ck, args, "sm90", name="int8_conv_direct_residual", **kw))
+    # the same conv without the residual differs: the residual was added
+    assert not torch.equal(given, ops.int8_conv_direct_ck(x, w_ck, *args))
+
+
+# n, h, cin, cout: MobileNet-v1's first pointwise conv at widths 0.75 and
+# 0.25 (Cin 24 and 8 at 112x112), ragged last tiles and Cout 40
+PIXEL_GROUP_CASES = [(2, 112, 24, 48), (2, 112, 8, 16), (4, 9, 24, 40), (1, 14, 8, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("req", [None, (0.05, 113)])
+@pytest.mark.parametrize("n,h,cin,cout", PIXEL_GROUP_CASES)
+def test_conv_pixel_groups_on_the_mainloop(cuda_device, gen, n, h, cin, cout, req):
+    """A 1x1 over Cin 24 or 8 on groups of four pixels (route "sm90"), the
+    group operands built by the wrapper and passed as the layer passes
+    them, and the residual form on the same route; each against its plain
+    version."""
+    x, w_ck, alpha, beta = _sm90_case(gen, cuda_device, n, h, cin, cout, 1)
+    plan = ops.conv_plan(n, h, h, cin, cout, (1, 1))
+    assert (plan.route, plan.pixels) == ("sm90", 4)
+    args = ((1, 1), alpha, beta, 1, 0, -5, True, req)
+    built = _check_conv_route(x, w_ck, args, "sm90", spread=True)
+    given = _check_conv_route(x, w_ck, args, "sm90",
+                              pixel_groups=ops.pixel_group_operands(w_ck, alpha, beta))
+    assert torch.equal(built, given)
+    r = _dev(gen.integers(-128, 128, (n, h, h, cout)).astype(np.int8), cuda_device)
+    _check_conv_route(x, w_ck, args, "sm90", name="int8_conv_direct_residual", residual=r, res_grid=(0.03, 117))
+    _check_conv_route(x[:1, :7, :7].contiguous(), w_ck, args, "tile")  # 49 pixels: not whole groups of 4
+
+
+@pytest.mark.cuda
+def test_residual_conv_raises_where_its_hopper_plan_cannot_launch(cuda_device, gen, monkeypatch):
+    """A call that the plan puts on the mainloop and the C entry refuses
+    (here a plan whose shared memory is not its ring's) raises, and nothing
+    is launched on the tile in its place."""
+    from quantized_tpu_torch.ops import int8_conv_pallas
+
+    x, w_ck, alpha, beta = _conv_case(gen, cuda_device, 2, 14, 64, 64, 3)
+    r = _dev(gen.integers(-128, 128, (2, 14, 14, 64)).astype(np.int8), cuda_device)
+    real = int8_conv_pallas.conv_plan
+    monkeypatch.setattr(int8_conv_pallas, "conv_plan",
+                        lambda *a, **k: real(*a, **k)._replace(smem=real(*a, **k).smem + 16))
+    before = ops.KERNELS["int8_conv_direct_residual"].launches
+    with pytest.raises(RuntimeError):
+        ops.int8_conv_direct_ck(x, w_ck, (3, 3), alpha, beta, 1, 1, -5, True, (0.06, 105), residual=r,
+                                res_grid=(0.03, 117))
+    assert ops.KERNELS["int8_conv_direct_residual"].launches == before
 
 
 # n, h, cin, cout, k, stride, pad: the gather-K form's five shape families at

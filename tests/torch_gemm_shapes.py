@@ -63,6 +63,9 @@ class ConvCall(NamedTuple):
     stored_zp: int
     w_ck: torch.Tensor  # the packed weights
     border_sums: Optional[torch.Tensor]  # what the layer passes (IntConv2d.border_sums)
+    alpha: Optional[torch.Tensor] = None
+    beta: Optional[torch.Tensor] = None
+    pixel_groups: Optional[tuple] = None  # what the layer passes (IntConv2d.pg_w_ck, pg_alpha, pg_beta)
 
 
 # name: (registered model, its config); each served at 224x224
@@ -103,11 +106,11 @@ def engine_conv_calls(name: str):
     calls = []
 
     def record(x_q, w_ck, kernel_size, alpha, beta, stride, padding, stored_zp, relu, out_requant,
-               border_sums=None, **_):
+               border_sums=None, pixel_groups=None, **_):
         n, h, w, cin = x_q.shape
         ho, wo = conv_out_hw(h, w, kernel_size, stride, padding)
         calls.append(ConvCall(name, h, w, cin, w_ck.shape[0], tuple(kernel_size), tuple(stride), tuple(padding),
-                              int(stored_zp), w_ck, border_sums))
+                              int(stored_zp), w_ck, border_sums, alpha, beta, pixel_groups))
         dtype = torch.float32 if out_requant is None else torch.int8
         return torch.zeros((n, ho, wo, w_ck.shape[0]), dtype=dtype)
 
