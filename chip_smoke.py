@@ -148,10 +148,29 @@ and a non-zero exit:
    turns (a, b, b, a) per model and batch, a profile of where the device
    time goes and the peak memory of each, and the device time of each
    unfused MobileNet's 13 plain depthwise convs;
-7. the card's nvidia-smi line, then the kernels line: one JSON object with
+7. autotune: ResNet-50 and MobileNet-v1 w1.0 at batch 128 (``bench.py``'s
+   batch) built on "pallas", then ``engine.autotune_resident`` with every
+   race on (conv backends, maxpool, stem, fc, blocks or pairs), measured
+   afresh into a temporary cache, one printed line per race with every
+   candidate's time; the tuned engine against the untuned one step by step
+   (bit-equal where every conv kept K2's function, within 1 step on under
+   1% where gemm or a fused kernel won, logits within 0.35 where a bf16
+   form won, else LOGIT_ATOL); ``apply_cached_backends`` on a fresh engine
+   (the same forms, bit-equal logits); one tuned forward with the launch
+   counts set to 0 just before and read just after ("resnet50 autotuned",
+   "mobilenet autotuned"), every launch on its Hopper route (each C entry
+   runs the route its wrapper passes, or refuses the call); an engine with every
+   conv on "bf16", logits within 0.35 and timed, and MobileNet's depthwise
+   convs on it and on the plain grouped path;
+   then the tuned, fused and unfused forwards (and ResNet-50's float twin,
+   ``models.get_model("resnet")``, fp32 with TF32 off) timed in turns by
+   ``engine.model_throughput``, img/s and the tuned/float ratio printed
+   with the card's name and power limit; the phase's seconds;
+8. the card's nvidia-smi line, then the kernels line: one JSON object with
    each kernel's numbers; ``launches`` is the count on the path that runs
-   the kernel (``path``: a serving path's 3 forwards, or an op path);
-8. last line: ``{"ok": true, "device": {...}}``.
+   the kernel (``path``: a serving path's 3 forwards, or an op path), and
+   ``launches_autotuned`` its count in one tuned forward of each model;
+9. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -234,12 +253,13 @@ KERNEL_INFO = {
     "fused_stages_conv12": ("quantized_tpu_torch/csrc/fused_stages.cu", "bench/fused_probe.py:75"),
 }
 # what this run should show, written before it ran; printed as it starts
-PREDICTIONS = ("at batch 32: B8 layer1 56x56 64 s8 about 0.045 ms on the mainloop (parent's tile 0.0695), 1.16x K2 on "
-               "the same inputs without the residual (over the 1.15x target) and 0.64 of the "
-               "tile; layer3 14x14 256 s8 about 0.023 (tile 0.0866); K2 1x1 24->48 s8 on groups of four pixels about "
-               "0.0555 (tile 0.1194), 0.46 of the tile and a third of torch._int_mm; 8->16 about 0.021; the unfused "
-               "MobileNet w0.75 at batch 128 about 0.24 ms less device time; no other kernel or forward moves beyond "
-               "its run-to-run spread")
+PREDICTIONS = ("autotune phase, batch 128, as the first run of this tree measured it within 3%: 14 of ResNet-50's 15 "
+               "fusable blocks 'fused' (layer4.0, the last downsample block, 'unfused': 0.37 against 0.64 ms), the "
+               "stem 'raw-pallas', 7 of the 17 conv signatures on 'gemm' (1x1s), none on bf16, the fc 'pallas'; the "
+               "tuned ResNet-50 about 7.5 ms (fused 7.9, unfused 17.9, float fp32 55.3: tuned/float about 7.3); "
+               "MobileNet: the 9 depthwise signatures on 'bf16', all 12 pairs 'fused', tuned 2.3 ms (fused 2.9); "
+               "the tuned ResNet-50's device idle share under 0.06; "
+               "the float twin's BN and ReLU passes a third or more of its device time")
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
@@ -970,10 +990,10 @@ def _check_int8(got, want, what, exact: bool):
     return step, share
 
 
-def _check_logits(got, want, what):
+def _check_logits(got, want, what, atol=LOGIT_ATOL):
     err = (got.cpu() - want.cpu()).abs().max().item()
-    log(f"[compare] {what} logits: max abs diff {err:.6g} (tolerance {LOGIT_ATOL})")
-    if not err <= LOGIT_ATOL:
+    log(f"[compare] {what} logits: max abs diff {err:.6g} (tolerance {atol})")
+    if not err <= atol:
         raise AssertionError(f"{what}: logits differ by {err}")
 
 
@@ -994,38 +1014,64 @@ def _compare_stages(outs_a, outs_b, what):
                 raise AssertionError(f"{what} {key}: f32 outputs differ by {err}")
 
 
-def _compare_blocks(ref, other, u8, what):
-    """Every int8 block of ``other`` fed ``ref``'s input to that block:
-    within 1 step, on under 1% of the elements (the two backends round their
-    requant in a different order); then the logits end to end."""
+def _within_one_step(step):
+    """A gemm or fused step against K2's: within 1 step, on under 1% of the
+    elements (they round their requant in another order)."""
+    return "1 step"
+
+
+def _check_step(tally, kind, got, want, what):
+    """One int8 step against the reference's, by its kind: "exact" bit-equal,
+    "1 step" as :func:`_within_one_step` says, "bf16" only reported. The
+    tally counts the exact steps and keeps the worst (step, share) of the
+    others."""
+    if kind == "exact":
+        _check_int8(got, want, what, exact=True)
+        tally["exact"] += 1
+    elif kind == "1 step":
+        tally["1 step"] = max(tally["1 step"], _check_int8(got, want, what, exact=False))
+    else:
+        diff = (got.to(torch.int32) - want.to(torch.int32)).abs()
+        tally["bf16"] = max(tally["bf16"], (diff.max().item(), (diff > 0).float().mean().item()))
+
+
+def _log_tally(what, tally):
+    log(f"[compare] {what} int8 steps on shared inputs: {tally['exact']} bit-equal; worst within-1-step "
+        f"{tally['1 step']}, worst bf16 {tally['bf16']} (step(s), differing share)")
+
+
+def _compare_blocks(ref, other, u8, what, kind=_within_one_step, logit_atol=LOGIT_ATOL):
+    """Every int8 block of ``other`` (and its stem) fed ``ref``'s input to
+    it, checked by ``kind(step)`` (:func:`_check_step`); then the logits end
+    to end within ``logit_atol``."""
     from quantized_tpu_torch.engine.int8_resident import u8_to_stored
 
-    worst = (0, 0.0)
+    tally = {"exact": 0, "1 step": (0, 0.0), "bf16": (0, 0.0)}
     with torch.inference_mode():
         x = u8_to_stored(u8, ref.stem.grid)
         h, stem = _first_block_input(ref, x)
-        worst = max(worst, _check_int8(_first_block_input(other, x)[1], stem, f"{what} stem", exact=False))
+        _check_step(tally, kind(other.stem), _first_block_input(other, x)[1], stem, f"{what} stem")
         for i in range(1, ref.num_stages + 1):
             ref_stage, other_stage = getattr(ref, f"layer{i}"), getattr(other, f"layer{i}")
             for k in range(ref_stage.num_blocks):
                 nxt = getattr(ref_stage, str(k))(h)
                 if nxt.dtype == torch.int8:
-                    got = getattr(other_stage, str(k))(h)
-                    worst = max(worst, _check_int8(got, nxt, f"{what} layer{i}.{k}", exact=False))
+                    step = getattr(other_stage, str(k))
+                    _check_step(tally, kind(step), step(h), nxt, f"{what} layer{i}.{k}")
                 h = nxt
-        log(f"[compare] {what} int8 blocks on shared inputs: worst {worst[0]} step(s), "
-            f"largest differing share {worst[1]:.6f}")
-        _check_logits(other.run_u8(u8), ref.run_u8(u8), what)
+        _log_tally(what, tally)
+        _check_logits(other.run_u8(u8), ref.run_u8(u8), what, logit_atol)
 
 
-def _compare_pairs(ref, other, u8, what):
-    """MobileNet: every fused pair of ``other`` fed ``ref``'s input to it,
-    against ``ref``'s two convs: within 1 step on under 1% of the elements;
-    then the logits end to end."""
+def _compare_pairs(ref, other, u8, what, kind=_within_one_step, logit_atol=LOGIT_ATOL):
+    """MobileNet: every step of ``other`` (a conv, or a fused pair against
+    ``ref``'s two convs) fed ``ref``'s input to it, checked by ``kind(step)``
+    (:func:`_check_step`); then the logits end to end within
+    ``logit_atol``."""
     from quantized_tpu_torch.engine import FusedInt8DwPw
     from quantized_tpu_torch.engine.int8_resident import u8_to_stored
 
-    worst, convs, i = (0, 0.0), _mobilenet_steps(ref), 0
+    tally, convs, i = {"exact": 0, "1 step": (0, 0.0), "bf16": (0, 0.0)}, _mobilenet_steps(ref), 0
     with torch.inference_mode():
         h = u8_to_stored(u8, ref.input_grid)
         for name, stage in _mobilenet_steps(other):
@@ -1034,11 +1080,10 @@ def _compare_pairs(ref, other, u8, what):
             for _, conv in convs[i:i + span]:
                 nxt = conv(nxt)
             if nxt.dtype == torch.int8:
-                worst = max(worst, _check_int8(stage(h), nxt, f"{what} {name}", exact=False))
+                _check_step(tally, kind(getattr(other, name)), stage(h), nxt, f"{what} {name}")
             h, i = nxt, i + span
-        log(f"[compare] {what} int8 stages on shared inputs: worst {worst[0]} step(s), "
-            f"largest differing share {worst[1]:.6f}")
-        _check_logits(other.run_u8(u8), ref.run_u8(u8), what)
+        _log_tally(what, tally)
+        _check_logits(other.run_u8(u8), ref.run_u8(u8), what, logit_atol)
 
 
 def _observe(model, side: int):
@@ -1409,8 +1454,9 @@ def _profile(executor, dev_batch, ms, what, n_prof=3):
 
 
 def _depthwise_ms(key, engine, dev_batch, timer):
-    """Device time of the unfused MobileNet's depthwise convs (the plain
-    grouped path) on their inputs of one batch-128 forward."""
+    """Device time of an unfused MobileNet's depthwise convs (on their
+    backend: the plain grouped path on "pallas") on their inputs of one
+    batch-128 forward."""
     from quantized_tpu_torch.engine.int8_resident import u8_to_stored
 
     with torch.inference_mode():
@@ -1426,8 +1472,9 @@ def _depthwise_ms(key, engine, dev_batch, timer):
                 conv.run_q(x, relu=True, out_requant=grid)
 
         ms = timer.ms(run, iters=5, warmup=1)
-    log(f"[throughput] {key} unfused: its {len(calls)} plain depthwise convs take {ms:.3f} ms of device "
-        f"time per batch-{THROUGHPUT_BATCH} forward")
+    backends = sorted({conv.backend for conv, _, _ in calls})
+    log(f"[throughput] {key} unfused: its {len(calls)} depthwise convs on {'/'.join(backends)} take {ms:.3f} ms "
+        f"of device time per batch-{THROUGHPUT_BATCH} forward")
 
 
 def phase_throughput(key, executors, card, timer, batch=THROUGHPUT_BATCH):
@@ -1464,6 +1511,191 @@ def phase_throughput(key, executors, card, timer, batch=THROUGHPUT_BATCH):
         _depthwise_ms(key, executors["unfused"].model, dev, timer)
 
 
+AUTOTUNE_BATCH = THROUGHPUT_BATCH  # bench.py:21
+BF16_LOGIT_ATOL = 0.35  # a bf16 engine's logits against the int8 one's (tests/test_autotune_bf16.py:47)
+AUTOTUNE_MODELS = ("resnet50", "mobilenet")
+
+
+def _conv_forms(engine):
+    """{module name: backend} of every conv, the stem and the fc, and the
+    kind of every other forward step (a fused block or pair)."""
+    from quantized_tpu_torch.engine.int8_resident import Int8SpaceToDepthStem
+    from quantized_tpu_torch.engine.int_layers import IntConv2d, IntLinear
+
+    forms = {}
+    for name, m in engine.named_modules():
+        if isinstance(m, Int8SpaceToDepthStem):
+            forms[name] = m.backend
+        elif isinstance(m, (IntConv2d, IntLinear)) and not name.startswith("stem."):
+            forms[name] = m.backend
+        elif type(m).__name__.startswith("Fused"):
+            forms[name] = type(m).__name__
+    return forms
+
+
+def _same_as_untuned(conv) -> bool:
+    """A conv whose tuned form computes what the untuned "pallas" engine's
+    does, bit for bit: K2, or the exact grouped path of a depthwise conv."""
+    return conv.backend == "pallas" or (conv.groups != 1 and conv.backend in ("gemm", "xla"))
+
+
+def _step_convs(step):
+    from quantized_tpu_torch.engine.int_layers import IntConv2d
+
+    return [m for m in step.modules() if isinstance(m, IntConv2d)]
+
+
+def _tuned_kind(step):
+    """How a step of the tuned engine is held against the untuned one's
+    (every conv on "pallas", nothing fused): bit-equal where every conv of
+    the step kept K2's function, "bf16" (reported) where a bf16 form won,
+    else within 1 step (gemm or a fused kernel)."""
+    from quantized_tpu_torch.engine.int8_resident import Int8SpaceToDepthStem
+
+    if isinstance(step, Int8SpaceToDepthStem):  # K2 on either form: the same taps, exact
+        form = step.backend.removeprefix("raw-")
+        return "bf16" if form.startswith("bf16") else "exact" if form == "pallas" else "1 step"
+    convs = _step_convs(step)
+    if any(c.backend.startswith("bf16") for c in convs):
+        return "bf16"
+    if not type(step).__name__.startswith("Fused") and all(_same_as_untuned(c) for c in convs):
+        return "exact"
+    return "1 step"
+
+
+def _compare_tuned(key, untuned, tuned, u8):
+    """The tuned engine against the untuned one step by step
+    (:func:`_tuned_kind`), then the logits: within BF16_LOGIT_ATOL where a
+    bf16 form won anywhere, else LOGIT_ATOL."""
+    any_bf16 = any(str(f).startswith(("bf16", "raw-bf16")) for f in _conv_forms(tuned).values())
+    compare = _compare_pairs if key.startswith("mobilenet") else _compare_blocks
+    compare(untuned, tuned, u8, f"{key} autotuned", _tuned_kind, BF16_LOGIT_ATOL if any_bf16 else LOGIT_ATOL)
+
+
+def _check_hopper_routes(key, engine, u8):
+    """Launch counts and routes of one tuned forward: every launch of every
+    kernel on its Hopper route."""
+    from quantized_tpu_torch import ops
+
+    counts, _ = _path_counts(f"{key} autotuned", lambda: engine.run_u8(u8))
+    routes = PATH_ROUTES[f"{key} autotuned"] = ops.route_counts()
+    log(f"[{key} autotuned] routes {json.dumps(routes)}")
+    for name, n in counts.items():
+        if n and routes.get(name) != {"sm90": n}:
+            raise AssertionError(f"{key} autotuned: {name} launched {n} times, by route {routes.get(name)}")
+    return counts
+
+
+def _check_cache_roundtrip(key, tuned, u8, cache):
+    """A fresh engine with the written cache applied: the same forms and
+    bit-equal logits, without measuring."""
+    from quantized_tpu_torch.engine import apply_cached_backends
+
+    fresh = _build(key, "pallas", "cuda")
+    if not apply_cached_backends(fresh, u8, cache_path=cache, tune_extended=True):
+        raise AssertionError(f"{key}: the cache did not cover every signature")
+    if _conv_forms(fresh) != _conv_forms(tuned):
+        raise AssertionError(f"{key}: the cache gave other forms than the tuner picked")
+    with torch.inference_mode():
+        same = torch.equal(fresh.run_u8(u8), tuned.run_u8(u8))
+    if not same:
+        raise AssertionError(f"{key}: the cached engine's logits differ from the tuned engine's")
+    log(f"[autotune] {key}: apply_cached_backends gives the same {len(_conv_forms(fresh))} forms and "
+        f"bit-equal logits")
+
+
+def _bf16_engine(key, untuned, u8, sample, timer):
+    """An engine built with every conv on "bf16": logits against the int8
+    engine's within BF16_LOGIT_ATOL, the forward's time, and for MobileNet
+    the depthwise convs' time beside the plain grouped path's."""
+    from quantized_tpu_torch.engine import model_throughput
+
+    engine = _build(key, "bf16", "cuda")
+    with torch.inference_mode():
+        err = (engine.run_u8(sample) - untuned.run_u8(sample)).abs().max().item()
+    ips = model_throughput(engine, u8, target_secs=0.2, probe_loops=2)
+    log(f"[autotune] {key} every conv on bf16: logits max abs diff {err:.6g} against the int8 engine "
+        f"(tolerance {BF16_LOGIT_ATOL}); batch {u8.shape[0]}: {u8.shape[0] / ips * 1e3:.3f} ms, {ips:.1f} img/s")
+    if not err <= BF16_LOGIT_ATOL:
+        raise AssertionError(f"{key} every conv on bf16: logits differ by {err}")
+    if key.startswith("mobilenet"):
+        _depthwise_ms(f"{key} bf16", engine, u8, timer)
+
+
+def phase_autotune(card, timer):
+    """ResNet-50 and MobileNet-v1 w1.0 at batch 128 through the autotuner:
+    every race on and measured afresh into a temporary cache, the tuned
+    engine against the untuned one, the cache applied to a fresh engine, the
+    tuned forward's routes, then the tuned, fused and unfused forwards (and
+    the float ResNet-50, TF32 off) timed in turns."""
+    import tempfile
+
+    from quantized_tpu_torch.engine import (
+        autotune_resident,
+        fuse_mobilenet_blocks,
+        fuse_resident_blocks,
+        model_throughput,
+    )
+    from quantized_tpu_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD
+    from quantized_tpu_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(11)
+    u8 = torch.randint(0, 256, (AUTOTUNE_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8).cuda()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in AUTOTUNE_MODELS:
+            untuned = _build(key, "pallas", "cuda")
+            tuned = copy.deepcopy(untuned)
+            cache = str(Path(tmp) / f"{key}.json")
+            t = time.perf_counter()
+            table = autotune_resident(tuned, u8, cache_path=cache, tune_extended=True, tune_fused=True)
+            tally = {}
+            for verdict in table.values():
+                tally[verdict] = tally.get(verdict, 0) + 1
+            log(f"[autotune] {key}: {len(table)} signatures raced in {time.perf_counter() - t:.1f} s, verdicts "
+                f"{json.dumps(tally)}; forms {json.dumps(_conv_forms(tuned))}")
+            _compare_tuned(key, untuned, tuned, u8)
+            _check_cache_roundtrip(key, tuned, u8, cache)
+            counts[f"{key} autotuned"] = _check_hopper_routes(key, tuned, u8)
+            _bf16_engine(key, untuned, u8, u8[:8], timer)
+            if key.startswith("mobilenet"):
+                _depthwise_ms(f"{key} plain grouped path", untuned, u8, timer)
+
+            fused = copy.deepcopy(untuned)
+            (fuse_mobilenet_blocks if key.startswith("mobilenet") else fuse_resident_blocks)(fused)
+            engines = {"autotuned": (tuned, u8), "fused": (fused, u8), "unfused": (untuned, u8)}
+            if key == "resnet50":
+                name, cfg, _, _ = MODELS[key]
+                float_model = get_model("resnet")(generator=torch.Generator().manual_seed(0), **cfg).eval().cuda()
+                x = (u8.float() / 255.0 - torch.tensor(IMAGENET_MEAN, device="cuda")) / torch.tensor(
+                    IMAGENET_STD, device="cuda")
+                engines["float (fp32, TF32 off)"] = (float_model, x)
+            ips = {name: [] for name in engines}
+            for name in list(engines) + list(reversed(engines)):
+                model, x = engines[name]
+                ips[name].append(model_throughput(model, x, target_secs=0.25, probe_loops=2))
+            for name, runs in ips.items():
+                mean = sum(runs) / len(runs)
+                log(f"[autotune] {key} {name}: batch {AUTOTUNE_BATCH} uint8 224x224 on the device, "
+                    f"{AUTOTUNE_BATCH / mean * 1e3:.3f} ms/batch, {mean:.1f} img/s "
+                    f"({', '.join(f'{v:.1f}' for v in runs)}); card {card}")
+            for name in ("autotuned", "float (fp32, TF32 off)"):
+                if name in engines:
+                    model, x = engines[name]
+                    forward = model.run_u8 if x.dtype == torch.uint8 else model
+                    with torch.inference_mode():
+                        _profile(forward, x, AUTOTUNE_BATCH / (sum(ips[name]) / len(ips[name])) * 1e3,
+                                 f"{key} {name} batch {AUTOTUNE_BATCH}")
+            if key == "resnet50":
+                ratio = (sum(ips["autotuned"]) / sum(ips["float (fp32, TF32 off)"]))
+                log(f"[autotune] resnet50 tuned / float img/s: {ratio:.3f}; card {card}")
+            del untuned, tuned, fused, engines
+            torch.cuda.empty_cache()
+    log(f"[autotune] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main() -> int:
     require_environment()
     from quantized_tpu_torch import ops
@@ -1492,6 +1724,9 @@ def main() -> int:
         phase_throughput(key, executors[key], card, timer)
     for batch in ALEXNET_BATCHES:
         phase_throughput("alexnet", executors["alexnet"], card, timer, batch=batch)
+    del executors
+    torch.cuda.empty_cache()
+    path_counts.update(phase_autotune(card, timer))
 
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():
@@ -1503,6 +1738,7 @@ def main() -> int:
             "plain_ms": numbers["plain_ms"], "bound_ms": numbers["bound_ms"],
             "bound_by": numbers["bound_by"], "library_ms": numbers["library_ms"],
             "event_ms": numbers["event_ms"], "path": path, "case": numbers["case"],
+            "launches_autotuned": {key: path_counts[f"{key} autotuned"][kname] for key in AUTOTUNE_MODELS},
         })
         if kname in PATH_ROUTES.get(path, {}):  # K2 and B7: their launches on the path by route
             kernels[-1]["routes"] = PATH_ROUTES[path][kname]

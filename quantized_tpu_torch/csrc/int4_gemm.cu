@@ -110,13 +110,17 @@ __global__ void __launch_bounds__(qt::THREADS)
 // requant = 0: out (M, N) f32, relu?(acc * alpha + beta).
 // requant = 1: out (M, N) s8 on the (1/inv, zps + 128) grid; lo = zps when
 // ReLU is folded, else -128 (relu is then unused).
+// sm90: the route (ops.gemm_route; 1: the Hopper GEMM, 0: the first tile),
+// refused where it is not the one the shape and bases take;
 // (tile, split, steps, stages, smem): the plan of gemm_plan(..., packed=True).
 extern "C" int qt_int4_matmul(const void* a, const void* w, const void* alpha, const void* beta,
                               void* out, int M, int N, int Kh, int Ka, int relu, int requant,
-                              float inv, float zps, float lo, int tile, int split, int steps, int stages,
-                              int smem, void* stream) {
+                              float inv, float zps, float lo, int sm90, int tile, int split, int steps,
+                              int stages, int smem, void* stream) {
   if (Ka != 2 * Kh && Ka != 2 * Kh - 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (qt90::tma_ok(a, w, Kh, Ka, true)) {
+  const int tma = qt90::tma_ok(a, w, Kh, Ka, true);
+  if (sm90 != tma) return static_cast<int>(cudaErrorInvalidValue);
+  if (tma) {
     const qt90::Epilogue ep{static_cast<const float*>(alpha), static_cast<const float*>(beta), out, relu,
                             requant, inv, zps, lo};
     return qt90::launch_gemm<true>(a, w, ep, M, N, Kh, Ka, tile, split, steps, stages, smem, stream);

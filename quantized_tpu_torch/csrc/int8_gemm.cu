@@ -70,11 +70,15 @@ __global__ void __launch_bounds__(qt::THREADS)
   });
 }
 
+// sm90: the route the caller counts this launch by (1: the Hopper GEMM, 0:
+// the first tile); a route the shape and bases do not take is refused.
 template <bool REQUANT>
 int launch(const void* a, const void* w, const void* alpha, const void* beta, void* out, int M, int N,
-           int K, int relu, float inv, float zps, float lo, int tile, int split, int steps, int stages,
-           int smem, void* stream) {
-  if (qt90::tma_ok(a, w, K, K, false)) {
+           int K, int relu, float inv, float zps, float lo, int sm90, int tile, int split, int steps,
+           int stages, int smem, void* stream) {
+  const int tma = qt90::tma_ok(a, w, K, K, false);
+  if (sm90 != tma) return static_cast<int>(cudaErrorInvalidValue);
+  if (tma) {
     const qt90::Epilogue ep{static_cast<const float*>(alpha), static_cast<const float*>(beta), out, relu,
                             REQUANT, inv, zps, lo};
     return qt90::launch_gemm<false>(a, w, ep, M, N, K, K, tile, split, steps, stages, smem, stream);
@@ -90,19 +94,20 @@ int launch(const void* a, const void* w, const void* alpha, const void* beta, vo
 }  // namespace
 
 // f32 out: relu?(acc * alpha + beta). A (M,K) s8, W (N,K) s8, out (M,N) f32.
+// sm90: the route (ops.gemm_route), refused where it is not the one taken;
 // (tile, split, steps, stages, smem): the plan of gemm_plan.
 extern "C" int qt_int8_matmul(const void* a, const void* w, const void* alpha, const void* beta,
-                              void* out, int M, int N, int K, int relu, int tile, int split, int steps,
-                              int stages, int smem, void* stream) {
-  return launch<false>(a, w, alpha, beta, out, M, N, K, relu, 0.0f, 0.0f, 0.0f, tile, split, steps, stages,
-                       smem, stream);
+                              void* out, int M, int N, int K, int relu, int sm90, int tile, int split,
+                              int steps, int stages, int smem, void* stream) {
+  return launch<false>(a, w, alpha, beta, out, M, N, K, relu, 0.0f, 0.0f, 0.0f, sm90, tile, split, steps,
+                       stages, smem, stream);
 }
 
 // s8 out on the (1/inv, zps + 128) grid; lo = zps when ReLU is folded, else -128.
 extern "C" int qt_int8_matmul_requant(const void* a, const void* w, const void* alpha,
                                       const void* beta, void* out, int M, int N, int K,
-                                      float inv, float zps, float lo, int tile, int split, int steps,
-                                      int stages, int smem, void* stream) {
-  return launch<true>(a, w, alpha, beta, out, M, N, K, 0, inv, zps, lo, tile, split, steps, stages, smem,
-                      stream);
+                                      float inv, float zps, float lo, int sm90, int tile, int split,
+                                      int steps, int stages, int smem, void* stream) {
+  return launch<true>(a, w, alpha, beta, out, M, N, K, 0, inv, zps, lo, sm90, tile, split, steps, stages,
+                      smem, stream);
 }

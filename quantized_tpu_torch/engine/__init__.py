@@ -1,7 +1,10 @@
 """Integer engine of the port: the int layers, the conversion from a
 calibrated fake-quant model, the int8-resident ResNet, MobileNet-v1 and
-AlexNet (int8 or int4 weights), the fused forms and the executor."""
+AlexNet (int8 or int4 weights), the fused forms, the per-layer backend
+autotuner, the executor and the throughput hook."""
 
+from quantized_tpu_torch.engine.autotune import apply_cached_backends, autotune_resident
+from quantized_tpu_torch.engine.bench_hook import model_throughput
 from quantized_tpu_torch.engine.executor import IntExecutor
 from quantized_tpu_torch.engine.fused import (
     FusedInt8BasicBlock,

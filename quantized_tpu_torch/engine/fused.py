@@ -20,9 +20,9 @@ stages: every depthwise -> pointwise pair whose two output grids are frozen
 runs as one kernel (``fused_dw_pw``, kernel B5); the last pair, whose
 pointwise conv emits f32 for the pool, stays as two convs. Its constants are
 derived the same way, so the port's fused pairs equal the JAX package's.
-
-The autotuner's fused-vs-unfused race (which passes ``decide``) is not
-ported yet.
+The autotuner (``engine/autotune.py``) races each block and pair fused
+against unfused and fuses the winners through :func:`fuse_block` and
+``fuse_mobilenet_blocks(decide=)``.
 """
 
 from __future__ import annotations

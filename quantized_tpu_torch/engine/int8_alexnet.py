@@ -114,9 +114,10 @@ def build_int8_alexnet(model: nn.Module, weight_bits: int = 8, backend: str = "p
     """Convert a calibrated ``alexnet_quantized`` (frozen observers) into an
     :class:`Int8AlexNet` on ``device``. ``weight_bits`` is 8, or 4 for int4
     weight-only (conv2-5 packed channel-split, conv1's Cin = 3 unpacked, the
-    three dense layers packed split-half). ``backend`` is ``"pallas"`` or
-    ``"gemm"`` for the convs; the JAX package's default ``"xla"`` has no
-    counterpart here."""
+    three dense layers packed split-half). ``backend`` is any of
+    ``int_layers.CONV_BACKENDS`` for the convs (``"pallas"``, the port's
+    default; the JAX package's default ``"xla"`` is an exact plain
+    reference here)."""
     dev = resolve_device(device)
     int4 = weight_bits == 4
     convs: List[IntConv2d] = []

@@ -77,9 +77,12 @@ def build_int8_mobilenet(model: nn.Module, weight_bits: int = 8, backend: str = 
     """Convert a calibrated ``mobilenet_quantized`` (frozen observers) into
     an :class:`Int8MobileNet` on ``device``, with int8 weights or, at
     ``weight_bits=4``, int4 (packed where the Cin per group is even; the fc
-    stays unpacked). ``backend`` is ``"pallas"`` or ``"gemm"`` for the stem
-    and the pointwise convs (the depthwise convs take the grouped path on
-    either); the JAX package's default ``"xla"`` has no counterpart here."""
+    stays unpacked). ``backend`` is any of ``int_layers.CONV_BACKENDS``:
+    ``"pallas"`` (the port's default) or ``"gemm"`` run the stem and the
+    pointwise convs on the kernels and the depthwise convs on the exact
+    grouped path; ``"xla"``, ``"bf16"`` and their split forms run every
+    conv, the depthwise ones included, on that plain path (the JAX
+    package's default, ``"xla"``, is an exact reference here)."""
     dev = resolve_device(device)
     seq = [(model.conv1, model.bn1)]
     for i in range(model.num_blocks):

@@ -11,17 +11,25 @@ built on conv1's grid.
 
 Both geometries: the ImageNet nets (Bottleneck depths 50/101/152 and
 BasicBlock depths 18/34) and the CIFAR nets (BasicBlock, no maxpool).
-Every conv runs on kernel K2 (backend ``"pallas"``, the default here) or on
-im2col + K1 (``"gemm"``); the fc head runs on K1. A 7x7/s2 ImageNet stem
-runs in the space-to-depth form, a 4x4 stride-1 conv over Cin = 12, and the
-CIFAR stem as a plain 3x3 conv over Cin = 3; K2 runs both in its gather-K
-form. ``engine/fused.fuse_resident_blocks`` turns a built engine into its
-fused form: every block but the last runs as one fused kernel (B3 for a
+Every conv runs on kernel K2 (backend ``"pallas"``, the default here), on
+im2col + K1 (``"gemm"``) or on one of the plain backends of
+``engine/int_layers.py`` (``"xla"``, ``"bf16"``, their ``-split`` forms, and
+``"s4"`` on packed int4 weights); ``engine/autotune.py`` picks one per conv.
+The fc head runs on K1. A 7x7/s2 ImageNet stem runs in the space-to-depth
+form (``space_to_depth=True``, the default), a 4x4 stride-1 conv over Cin =
+12, or as the raw 7x7 conv; the CIFAR stem as a plain 3x3 conv over Cin =
+3; K2 runs all three in its gather-K form. On the xla and bf16 backends a
+downsample block's shortcut leg is int16 at 1/S16_FINE of an output step,
+as in the JAX package; on "pallas" and "gemm" it stays f32. The int8
+maxpool has two bit-equal forms, ``"interleave"`` and ``"rw"``, pinned per
+shape in ``_POOL_IMPL_TABLE`` by the autotuner.
+``engine/fused.fuse_resident_blocks`` turns a built engine into its fused
+form: every block but the last runs as one fused kernel (B3 for a
 bottleneck, B4 for a BasicBlock), with the int16 shortcut leg in the
 downsample ones. ``weight_bits=4`` builds the int4 weight-only engine: every
 conv with an even Cin keeps packed int4 weights, unpacked for K2 on each
 call; the stem (Cin = 3) and the fc head stay int8 storage. The RangeBN
-flavor and the int16 residual leg of the unfused blocks are not ported yet.
+flavor is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ from quantized_tpu_torch._device import DeviceLike, resolve_device
 from quantized_tpu_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from quantized_tpu_torch.engine.convert import _convert_conv, _convert_linear, observer_grid
 from quantized_tpu_torch.engine.int_layers import (
+    S16_FINE,
     IntConv2d,
     IntLinear,
     dequantize_stored,
@@ -73,7 +82,10 @@ def _residual_tail(block, last: IntConv2d, h: torch.Tensor, x_q: torch.Tensor) -
         shift = zp_out - 128
         acc = last.run_q(h, relu=False, out_prescale=(s_out, float(shift)))
         if block.downsample is not None:
-            idq = block.downsample.run_q(x_q, relu=False, out_prescale=(s_out, 0.0))
+            # int16 at 1/S16_FINE of a step on the xla and bf16 backends
+            idq = block.downsample.run_q(x_q, relu=False, out_prescale=(s_out, 0.0), prescale_s16=True)
+            if idq.dtype == torch.int16:
+                idq = idq.to(torch.float32) * f32(1.0 / S16_FINE)
         else:
             idq = _prescaled_identity(x_q, block.conv1.grid, s_out)
         return _residual_requant_prescaled(acc, idq, shift)
@@ -143,7 +155,12 @@ class Int8SpaceToDepthStem(nn.Module):
     blocks, (B, 115, 115, 12), and the 7x7 kernel is remapped onto a 4x4
     kernel over 12 channels (zeros where no tap lands). Exact: the same taps
     meet the same pixels, padded taps contribute 0, and the epilogue is
-    unchanged because the tap sum does not depend on its order."""
+    unchanged because the tap sum does not depend on its order.
+
+    The raw 7x7 conv stays beside it (``raw``). :meth:`set_backend` picks the
+    form: any backend of the 4x4 conv (``"bf16"`` is the JAX stem's: the f32
+    conv and a separate requant, the 4x4 conv's ``"bf16-split"``), or
+    ``"raw-<backend>"``, the raw conv on that backend."""
 
     def __init__(self, stem: IntConv2d):
         super().__init__()
@@ -157,12 +174,21 @@ class Int8SpaceToDepthStem(nn.Module):
                 block = (kr % 2) * 2 + (kc % 2)
                 w[kr // 2, kc // 2, block * cin:(block + 1) * cin, :] = w_src[kr, kc]
         self.conv = IntConv2d(w, stem.alpha, stem.beta, stem.act_scale, stem.act_zero_point,
-                              stride=(1, 1), padding=(0, 0), backend=stem.backend)
+                              stride=(1, 1), padding=(0, 0))
+        self.raw = stem
         self.cin = cin
+        self.set_backend(stem.backend)
 
     @property
     def grid(self) -> Grid:
         return self.conv.grid
+
+    def set_backend(self, backend: str) -> None:
+        if backend.startswith("raw-"):
+            self.raw.set_backend(backend[len("raw-"):])
+        else:
+            self.conv.set_backend("bf16-split" if backend == "bf16" else backend)
+        self.backend = backend
 
     def _s2d(self, x_q: torch.Tensor) -> torch.Tensor:
         n = x_q.shape[0]
@@ -172,15 +198,40 @@ class Int8SpaceToDepthStem(nn.Module):
         return xs.permute(0, 1, 3, 2, 4, 5).reshape(n, h2, w2, 4 * self.cin)
 
     def run_q(self, x_q: torch.Tensor, relu: bool, out_requant: Grid) -> torch.Tensor:
+        if self.backend.startswith("raw-"):
+            return self.raw.run_q(x_q, relu=relu, out_requant=out_requant)
         return self.conv.run_q(self._s2d(x_q), relu=relu, out_requant=out_requant)
 
 
-def maxpool_3x3_s2_int8(x_q: torch.Tensor) -> torch.Tensor:
-    """3x3/stride-2/pad-1 maxpool on stored int8, in the JAX package's
-    ``interleave`` form: per axis, out[j] = max(x[2j-1], x[2j], x[2j+1]),
-    with x[2j] and x[2j+1] the phases of an (n//2, 2) reshape and x[2j-1]
-    the odd phase shifted by one (padded with -128, the stored uint8 zero)."""
+# The maxpool form per input shape (N, H, W, C), pinned by the autotuner
+# (engine/autotune.py); an unseen shape takes "rw" from this many elements
+# up, "interleave" below, as in the JAX package.
+_POOL_IMPL_TABLE: dict = {}
+_POOL_HEURISTIC_RW_MIN_ELEMS = 100_000_000
+POOL_IMPLS = ("rw", "interleave")
+
+
+def maxpool_3x3_s2_int8(x_q: torch.Tensor, impl: Optional[str] = None) -> torch.Tensor:
+    """3x3/stride-2/pad-1 maxpool on stored int8, padded with -128 (the
+    stored uint8 zero). Two bit-equal forms:
+
+    - ``"rw"`` (the JAX package's ``reduce_window``): the padded tensor's
+      3x3 windows at stride 2 as an ``unfold`` view, reduced by ``amax``;
+    - ``"interleave"``: per axis, out[j] = max(x[2j-1], x[2j], x[2j+1]), with
+      x[2j] and x[2j+1] the phases of an (n//2, 2) reshape and x[2j-1] the
+      odd phase shifted by one (even H and W only).
+
+    ``impl=None`` takes the autotuner's table, then the size rule."""
     n, h, w, c = x_q.shape
+    if impl is None:
+        impl = _POOL_IMPL_TABLE.get((n, h, w, c))
+    if impl is None:
+        impl = "rw" if x_q.numel() >= _POOL_HEURISTIC_RW_MIN_ELEMS else "interleave"
+    if impl == "rw":
+        xp = torch.nn.functional.pad(x_q, (0, 0, 1, 1, 1, 1), value=-128)
+        return xp.unfold(1, 3, 2).unfold(2, 3, 2).amax(dim=(-2, -1))
+    if impl != "interleave":
+        raise ValueError(f"maxpool form {impl!r} is not one of {POOL_IMPLS}")
     if h % 2 or w % 2:
         raise ValueError(f"the interleave maxpool needs even H and W, got {(h, w)}")
     ho, wo = h // 2, w // 2
@@ -253,16 +304,20 @@ def _block_convs(block) -> Sequence[Tuple[str, str]]:
 
 
 def build_int8_resident(model: nn.Module, weight_bits: int = 8, backend: str = "pallas",
-                        device: DeviceLike = "cuda") -> Int8ResNet:
+                        device: DeviceLike = "cuda", space_to_depth: bool = True) -> Int8ResNet:
     """Convert a calibrated fake-quant ResNet (float-BN flavor, either
-    geometry) into an :class:`Int8ResNet` on ``device``. A 7x7/s2 ImageNet
-    stem runs in the space-to-depth form; the block kind follows the
-    block's conv count.
+    geometry) into an :class:`Int8ResNet` on ``device``. With
+    ``space_to_depth`` a 7x7/s2 ImageNet stem runs in the space-to-depth
+    form (:class:`Int8SpaceToDepthStem`); the block kind follows the block's
+    conv count.
 
     ``weight_bits`` is 8, or 4 for int4 weight-only (the convs packed where
-    Cin is even; the fc head stays unpacked). ``backend`` is ``"pallas"``
-    (every conv on the direct conv kernel) or ``"gemm"`` (im2col + the int8
-    GEMM); the JAX package's default ``"xla"`` has no counterpart here."""
+    Cin is even; the fc head stays unpacked). ``backend`` is any of
+    ``int_layers.CONV_BACKENDS`` for every conv: ``"pallas"`` (the direct
+    conv kernel, the port's default; the JAX package's default ``"xla"`` is
+    an exact plain reference here), ``"gemm"`` (im2col + the int8 GEMM),
+    ``"bf16"`` and the split forms (``"s4"`` needs every conv packed, which
+    the stem's Cin = 3 is not)."""
     dev = resolve_device(device)
     if not isinstance(model, (ResNetImageNet, ResNetCifar)):
         raise TypeError(f"the port builds ImageNet- and CIFAR-geometry ResNets, got {type(model).__name__}")
@@ -301,7 +356,7 @@ def build_int8_resident(model: nn.Module, weight_bits: int = 8, backend: str = "
         idx += n
 
     stem = conv_of(model, "conv1", "bn1")
-    if is_imagenet and stem.kernel_size == (7, 7) and stem.stride == (2, 2):
+    if space_to_depth and is_imagenet and stem.kernel_size == (7, 7) and stem.stride == (2, 2):
         stem = Int8SpaceToDepthStem(stem)
     if not isinstance(model.fc, QLinear):
         raise TypeError("model.fc must be QLinear")

@@ -16,26 +16,55 @@ Kh*Kw*Cin) int8 operand, as the JAX package's ``weights()`` does (no int8
 copy is kept); a dense layer holds (N, K/2) split-half bytes and runs them
 on kernel B6.
 
-Backends of :class:`IntConv2d`: ``"pallas"`` runs the direct conv (kernel
-K2, ``ops/int8_conv_pallas.py``), ``"gemm"`` runs im2col + the int8 GEMM
-(kernel K1). A grouped (depthwise) conv takes the exact grouped path of
-``int8_conv_xla`` on every backend, as in the JAX package, which routes
-only ``groups == 1`` to Pallas or gemm. :class:`IntLinear` runs K1, or B6
-on int4 weights. The XLA, bf16 and native-S4 forms of the JAX package,
-``y_clip`` and the int16 residual leg of the unfused blocks
-(``prescale_s16``) are not ported yet; the fused downsample block
-(``engine/fused.py``) carries that leg in its kernel.
+Backends of :class:`IntConv2d` (:data:`CONV_BACKENDS`, switched by
+:meth:`IntConv2d.set_backend`):
+
+- ``"pallas"``: the direct conv, kernel K2 (``ops/int8_conv_pallas.py``);
+- ``"gemm"``: im2col + the int8 GEMM, kernel K1;
+- ``"xla"``: the exact plain ``int8_conv_xla`` (the JAX package's XLA s8
+  conv, which the port leaves to plain PyTorch: on the GPU an im2col and a
+  float64 product, so a reference, not a fast path);
+- ``"bf16"``: the dequantized conv on bf16 operands with an f32
+  accumulator and the epilogue in f32 (``ops.int8_conv.bf16_conv``: cuDNN
+  on the GPU), its bf16 weights built when the layer takes a bf16 backend
+  (at construction when built with one) and released when it leaves them;
+- ``"s4"``: the two-half conv on packed int4 bytes (``ops.int4.int4_conv_s4``,
+  packed layers only);
+- ``"xla-split"``, ``"bf16-split"``, ``"s4-split"``: the same conv with an
+  f32 output and the requant as a separate pass.
+
+A grouped (depthwise) conv takes the exact grouped path of ``int8_conv_xla``
+on ``"pallas"`` and ``"gemm"``, as in the JAX package, which routes only
+``groups == 1`` to Pallas or gemm; its other backends take ``groups`` too.
+The int16 shortcut leg (``prescale_s16``, :data:`S16_FINE`) runs on the
+xla and bf16 backends, as in the JAX package; the fused downsample blocks
+(``engine/fused.py``) carry it in their kernels. :class:`IntLinear` runs K1
+(``"pallas"``; ``"pallas:bm,bn,bk"`` is accepted and runs K1 on its own
+launch plan, ``ops.gemm_plan``, since the block sizes are TPU VMEM tiles with
+no counterpart there, so the fc autotuner races ``"xla"`` against
+``"pallas"`` only) or ``int8_matmul_xla`` (``"xla"``), and B6 on int4
+weights. ``y_clip`` (the RangeBN flavor) is not ported yet.
+
+``_SHAPE_RECORDER``, when the autotuner sets it to a dict, collects each
+layer's input shape by ``id`` during one forward.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from quantized_tpu_torch.ops.int4 import int4_matmul_nk, unpack_int4_conv_channels
-from quantized_tpu_torch.ops.int8_conv import int8_conv_gemm_ck, int8_conv_xla_ck, pack_conv_weight
+from quantized_tpu_torch.ops.int4 import int4_conv_s4, int4_matmul_nk, unpack_int4_conv_channels
+from quantized_tpu_torch.ops.int8_conv import (
+    bf16_conv,
+    clip_s16_checked,
+    int8_conv_gemm_ck,
+    int8_conv_xla_ck,
+    pack_conv_weight,
+)
 from quantized_tpu_torch.ops.int8_conv_pallas import (
     conv_border_sums,
     int8_conv_direct_ck,
@@ -43,14 +72,24 @@ from quantized_tpu_torch.ops.int8_conv_pallas import (
     pixel_group_operands,
     use_gather_k,
 )
-from quantized_tpu_torch.ops.int8_matmul import f32, int8_matmul_nk
+from quantized_tpu_torch.ops.int8_matmul import f32, int8_matmul_nk, int8_matmul_xla_nk
 
 Grid = Tuple[float, int]
-CONV_BACKENDS = ("pallas", "gemm")
+CONV_BACKENDS = ("pallas", "gemm", "xla", "xla-split", "bf16", "bf16-split", "s4", "s4-split")
 # Fine grain of the int16 shortcut leg: one count is 1/S16_FINE of the
-# consumer's output step. Only the fused downsample block carries the leg so
-# far; the unfused "pallas" downsample leg stays f32, as in the JAX package.
+# consumer's output step (error at most 1/(2*S16_FINE) of a step, range
+# +-1024 steps). The unfused downsample leg emits it on the xla and bf16
+# backends and stays f32 on "pallas" and "gemm", as in the JAX package.
 S16_FINE = 32.0
+# the autotuner's shape recorder: {id(layer): input shape} while it is a dict
+_SHAPE_RECORDER: Optional[dict] = None
+
+
+def _check_backend(backend: str, packed: bool) -> None:
+    if backend not in CONV_BACKENDS:
+        raise ValueError(f"backend {backend!r} is not one of {CONV_BACKENDS}")
+    if backend.startswith("s4") and not packed:
+        raise ValueError(f"backend {backend!r} needs packed int4 weights")
 
 
 def quantize_input_stored(x: torch.Tensor, scale: float, zero_point: int) -> torch.Tensor:
@@ -91,8 +130,7 @@ class IntConv2d(nn.Module):
         if groups != 1 and (int4_shape is not None or tuple(w_q.shape[2:]) != (1, groups)):
             raise ValueError(f"only depthwise grouped convs are ported (one input and one output channel "
                              f"per group, int8 weights), got groups={groups} over a {tuple(w_q.shape)} kernel")
-        if backend not in CONV_BACKENDS:
-            raise ValueError(f"backend {backend!r} is not one of {CONV_BACKENDS}")
+        _check_backend(backend, int4_shape is not None)
         self.kernel_size = tuple(w_q.shape[:2])
         # int4 weight-only: the channel-split packed bytes, (Cout, Kh*Kw, Cin/2)
         self.int4_shape = None if int4_shape is None else tuple(int(d) for d in int4_shape)
@@ -111,22 +149,55 @@ class IntConv2d(nn.Module):
         self.padding = tuple(padding)
         self.groups = groups
         self.relu = relu
+        # operands of K2's Hopper route, and the bf16 backends' weights and
+        # bias: held while the layer is on such a backend
+        for name in ("border_sums", "pg_w_ck", "pg_alpha", "pg_beta", "w_bf16", "bias_f"):
+            self.register_buffer(name, None, persistent=False)
+        self.set_backend(backend)
+
+    def set_backend(self, backend: str) -> None:
+        """Switch the execution path, building the operands it needs and
+        releasing those of the path it leaves (a tuned engine holds only
+        its winners' operands)."""
+        _check_backend(backend, self.int4_shape is not None)
         self.backend = backend
-        # K2's Hopper route reads padded taps as zeros and adds back stored_zp
-        # times the weights' tap sums (ops.conv_border_sums), computed here once
+        if backend == "pallas" and self.groups == 1:
+            self._pallas_operands()
+        else:
+            self.border_sums = self.pg_w_ck = self.pg_alpha = self.pg_beta = None
+        if not backend.startswith("bf16"):
+            self.w_bf16 = self.bias_f = None
+        elif self.w_bf16 is None:
+            self._bf16_operands()
+
+    def _pallas_operands(self) -> None:
+        """K2's Hopper route reads padded taps as zeros and adds back stored_zp
+        times the weights' tap sums (ops.conv_border_sums), and runs a 1x1 over
+        Cin % 16 != 0 on pixel groups: diag(W, ..., W) and the tiled alpha,
+        beta (ops.pixel_group_operands); both built once."""
         kh, kw = self.kernel_size
-        cin = w_q.shape[2] if self.int4_shape is None else self.int4_shape[2]
-        uses_sums = (groups == 1 and backend == "pallas" and any(self.padding) and cin % 16 == 0
-                     and not use_gather_k(cin, (kh, kw)))
-        self.register_buffer("border_sums", conv_border_sums(self.weights_ck(), (kh, kw)) if uses_sums else None,
-                             persistent=False)
-        # and runs a 1x1 over Cin % 16 != 0 on pixel groups: diag(W, ..., W)
-        # and the tiled alpha, beta (ops.pixel_group_operands), built here once
+        cin = self.w_ck.shape[1] // (kh * kw) if self.int4_shape is None else self.int4_shape[2]
+        if (self.border_sums is None and any(self.padding) and cin % 16 == 0
+                and not use_gather_k(cin, (kh, kw))):
+            self.border_sums = conv_border_sums(self.weights_ck(), (kh, kw))
         g = pixel_group(cin, (kh, kw), self.stride, self.padding)
-        groups_op = (groups == 1 and backend == "pallas" and g > 1 and self.int4_shape is None)
-        operands = pixel_group_operands(self.w_ck, self.alpha, self.beta, g) if groups_op else (None,) * 3
-        for name, t in zip(("pg_w_ck", "pg_alpha", "pg_beta"), operands):
-            self.register_buffer(name, t, persistent=False)
+        if self.pg_w_ck is None and g > 1 and self.int4_shape is None:
+            self.pg_w_ck, self.pg_alpha, self.pg_beta = pixel_group_operands(self.w_ck, self.alpha, self.beta, g)
+
+    def _bf16_operands(self) -> None:
+        """The bf16 weights ``w * alpha / s_act`` (Cout, Cin/groups, Kh, Kw),
+        channels-last, and the f32 bias ``beta - alpha * (128 - zp) * colsum``,
+        in float32 in the JAX package's order of operations (on the host: a
+        GPU divides by a scalar through its reciprocal)."""
+        w_f = self.weights().detach().cpu().numpy().astype(np.float32)  # HWIO
+        alpha, beta = (t.detach().cpu().numpy() for t in (self.alpha, self.beta))
+        s_w = alpha / np.float32(self.act_scale)
+        colsum = np.sum(w_f, axis=(0, 1, 2))
+        bias_f = beta - alpha * np.float32(128 - self.act_zero_point) * colsum
+        w_bf16 = torch.from_numpy(w_f * s_w).to(torch.bfloat16).permute(3, 2, 0, 1)
+        dev = self.alpha.device
+        self.w_bf16 = w_bf16.contiguous(memory_format=torch.channels_last).to(dev)
+        self.bias_f = torch.from_numpy(bias_f).to(dev)
 
     def weights_ck(self) -> torch.Tensor:
         """The int8 kernel as the kernels take it, (Cout, Kh*Kw*Cin/groups);
@@ -154,12 +225,54 @@ class IntConv2d(nn.Module):
         x_q = quantize_input_stored(x, self.act_scale, self.act_zero_point)
         return self.run_q(x_q, relu=self.relu)
 
+    def w_packed_hwio(self) -> torch.Tensor:
+        """Packed int4 weights in the JAX layout, (Kh, Kw, Cin/2, Cout)."""
+        kh, kw = self.kernel_size
+        cout = self.w_int4.shape[0]
+        return self.w_int4.reshape(cout, kh, kw, -1).permute(1, 2, 3, 0)
+
+    def _run_bf16(self, x_q: torch.Tensor, relu: bool, out_requant: Optional[Grid],
+                  out_prescale: Optional[Tuple[float, float]] = None, round_s16: bool = False) -> torch.Tensor:
+        """The bf16 path on the same stored-int8 grids (the JAX package's
+        ``_run_bf16``): the input dequantized to bf16 (the stored zero point
+        to exactly 0.0, so the conv pads with zeros), the f32 conv of
+        :func:`~quantized_tpu_torch.ops.int8_conv.bf16_conv`, then the epilogue
+        in f32: a requant with 1/s folded into the bias, a prescaled f32 or
+        int16 leg, or f32 ``relu?(y + bias)``."""
+        xb = ((x_q.to(torch.float32) + f32(128 - self.act_zero_point)) * f32(self.act_scale)).to(torch.bfloat16)
+        y = bf16_conv(xb, self.w_bf16, self.stride, self.padding, self.groups)
+        if out_requant is not None:
+            out_scale, out_zp = out_requant
+            inv = f32(1.0 / out_scale)
+            lo = f32(out_zp - 128) if relu else -128.0
+            q = torch.round(y * inv + (self.bias_f * inv + f32(out_zp - 128)))
+            return torch.clamp(q, lo, 127.0).to(torch.int8)
+        if out_prescale is not None:
+            scale, shift = out_prescale
+            inv = f32(1.0 / scale)
+            if round_s16:
+                inv = f32(inv * S16_FINE)
+                val = y * inv + (self.bias_f * inv + f32(shift * S16_FINE))
+                return clip_s16_checked(torch.round(val))
+            return y * inv + (self.bias_f * inv + f32(shift))
+        y = y + self.bias_f
+        return torch.clamp_min(y, 0.0) if relu else y
+
+    def _run_xla(self, x_q, alpha, beta, relu, out_requant, round_s16=False) -> torch.Tensor:
+        return int8_conv_xla_ck(x_q, self.weights_ck(), self.kernel_size, alpha, beta, self.stride, self.padding,
+                                self.stored_zp, relu, out_requant, self.groups, round_s16)
+
+    def _run_s4(self, x_q, alpha, beta, relu, out_requant) -> torch.Tensor:
+        return int4_conv_s4(x_q, self.w_packed_hwio(), alpha, beta, self.stride, self.padding, self.stored_zp,
+                            relu=relu, out_requant=out_requant, groups=self.groups)
+
     def run_q(
         self,
         x_q: torch.Tensor,
         relu: Optional[bool] = None,
         out_requant: Optional[Grid] = None,
         out_prescale: Optional[Tuple[float, float]] = None,
+        prescale_s16: bool = False,
     ) -> torch.Tensor:
         """Quantized-input entry: ``x_q`` stored int8 on ``self.grid``.
         Returns f32, or int8 on ``out_requant``'s grid with ReLU applied
@@ -167,20 +280,41 @@ class IntConv2d(nn.Module):
 
         ``out_prescale=(scale, shift)`` returns f32 ``y / scale + shift`` (no
         ReLU, no requant), the division folded into alpha/beta as the JAX
-        package folds it."""
+        package folds it. With ``prescale_s16`` the xla and bf16 backends
+        return int16 ``round((y / scale + shift) * S16_FINE)`` instead (half
+        the bytes of the f32 leg, within 1/(2*S16_FINE) of an output step);
+        the other backends return f32, and the caller dispatches on dtype."""
         relu = self.relu if relu is None else relu
+        if _SHAPE_RECORDER is not None:
+            _SHAPE_RECORDER[id(self)] = tuple(x_q.shape)
+        backend = self.backend
         alpha, beta = self.alpha, self.beta
+        round_s16 = False
         if out_prescale is not None:
             if out_requant is not None or relu:
                 raise ValueError("out_prescale excludes out_requant and relu")
             scale, shift = out_prescale
             inv = f32(1.0 / scale)
+            if prescale_s16 and backend.startswith(("xla", "bf16")):
+                inv, shift, round_s16 = f32(inv * S16_FINE), shift * S16_FINE, True
             alpha = alpha * inv
             beta = beta * inv + f32(shift)
-        if self.groups != 1:
-            return int8_conv_xla_ck(x_q, self.w_ck, self.kernel_size, alpha, beta, self.stride,
-                                    self.padding, self.stored_zp, relu, out_requant, self.groups)
-        if self.backend == "pallas":
+        if backend.endswith("-split") and out_requant is not None:
+            # the conv with an f32 epilogue, then the requant as its own pass
+            if backend == "bf16-split":
+                y = self._run_bf16(x_q, relu, None)
+            elif backend == "s4-split":
+                y = self._run_s4(x_q, alpha, beta, relu, None)
+            else:
+                y = self._run_xla(x_q, alpha, beta, relu, None)
+            return quantize_input_stored(y, *out_requant)
+        if backend.startswith("bf16"):
+            return self._run_bf16(x_q, relu, out_requant, out_prescale, round_s16)
+        if backend.startswith("s4"):
+            return self._run_s4(x_q, alpha, beta, relu, out_requant)
+        if backend.startswith("xla") or self.groups != 1:
+            return self._run_xla(x_q, alpha, beta, relu, out_requant, round_s16)
+        if backend == "pallas":
             pixel_groups = None  # with out_prescale, the call tiles its own alpha and beta
             if self.pg_w_ck is not None and out_prescale is None:
                 pixel_groups = (self.pg_w_ck, self.pg_alpha, self.pg_beta)
@@ -194,9 +328,9 @@ class IntConv2d(nn.Module):
 
 
 class IntLinear(nn.Module):
-    """Integer dense layer; weights (K, N) = (in, out) int8 on kernel K1, or
-    (K/2, N) split-half packed int4 on kernel B6 when ``int4=True``; held
-    K-major as (N, K) or (N, K/2)."""
+    """Integer dense layer; weights (K, N) = (in, out) int8 on kernel K1 (or
+    ``int8_matmul_xla`` on backend ``"xla"``), or (K/2, N) split-half packed
+    int4 on kernel B6 when ``int4=True``; held K-major as (N, K) or (N, K/2)."""
 
     def __init__(
         self,
@@ -216,6 +350,16 @@ class IntLinear(nn.Module):
         self.act_zero_point = int(act_zero_point)
         self.relu = relu
         self.int4 = int4
+        self.backend = "pallas"
+
+    def set_backend(self, backend: str) -> None:
+        """``"pallas"`` (K1), ``"pallas:bm,bn,bk"`` (K1 on its own plan: the
+        blocks are the JAX kernel's TPU tiles) or ``"xla"``."""
+        if backend not in ("pallas", "xla"):
+            blocks = backend[len("pallas:"):].split(",") if backend.startswith("pallas:") else []
+            if len(blocks) != 3 or not all(b.strip().isdigit() for b in blocks):
+                raise ValueError(f"fc backend {backend!r} is not 'pallas', 'pallas:bm,bn,bk' or 'xla'")
+        self.backend = backend
 
     @property
     def w_q(self) -> torch.Tensor:
@@ -234,7 +378,12 @@ class IntLinear(nn.Module):
         """Quantized-input entry: f32 out, or int8 on ``out_requant``'s grid
         (a separate quantize pass, as in the JAX package, on int4 weights too)."""
         relu = self.relu if relu is None else relu
-        matmul = int4_matmul_nk if self.int4 else int8_matmul_nk
+        if _SHAPE_RECORDER is not None:
+            _SHAPE_RECORDER[id(self)] = tuple(x_q.shape)
+        if self.int4:
+            matmul = int4_matmul_nk
+        else:
+            matmul = int8_matmul_xla_nk if self.backend == "xla" else int8_matmul_nk
         y = matmul(x_q, self.w_nk, self.alpha, self.beta, relu=relu)
         if out_requant is not None:
             return quantize_input_stored(y, *out_requant)

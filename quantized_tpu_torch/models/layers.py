@@ -7,6 +7,10 @@ onto these modules key for key: NHWC activations, HWIO conv kernels
 with ``scale`` / ``bias`` / ``mean`` / ``var`` (flax ``nnx.BatchNorm``'s
 names).
 
+The float ``Conv2d`` and ``Linear`` are the fp32 twins of ``QConv2d`` and
+``QLinear`` (the float ResNet, ``models/resnet.py``): plain convs and
+products, on cuDNN and cuBLAS on the GPU.
+
 ``module.train()`` is the observer-update mode: each observer quantizes
 with the current batch statistic and folds it into its running range;
 ``module.eval()`` quantizes on the frozen range. The gradient paths
@@ -53,6 +57,48 @@ def he_fan_out_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
     return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+
+class Conv2d(nn.Module):
+    """Float conv, NHWC/HWIO (JAX ``Conv2d``): ``kernel`` (Kh, Kw, Cin/groups,
+    Cout) and an optional ``bias``."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Ints, stride: Ints = 1,
+                 padding: Ints = 0, dilation: Ints = 1, groups: int = 1, use_bias: bool = True, *,
+                 generator: torch.Generator):
+        super().__init__()
+        kh, kw = _pair(kernel_size)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = (kh, kw)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self.groups = groups
+        self.kernel = nn.Parameter(
+            he_fan_out_(torch.empty(kh, kw, in_channels // groups, out_channels), generator))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = conv2d_nhwc(x, self.kernel, self.stride, self.padding, self.dilation, self.groups)
+        return y if self.bias is None else y + self.bias
+
+
+class Linear(nn.Module):
+    """Float dense layer (JAX ``Linear``); ``weight`` is (out, in)."""
+
+    def __init__(self, in_features: int, out_features: int, use_bias: bool = True, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        bound = 1.0 / (in_features ** 0.5)
+        self.weight = nn.Parameter(_uniform((out_features, in_features), bound, generator))
+        self.bias = nn.Parameter(_uniform((out_features,), bound, generator)) if use_bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x @ self.weight.T
+        return y if self.bias is None else y + self.bias
 
 
 class QuantMeasure(nn.Module):

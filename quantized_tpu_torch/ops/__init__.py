@@ -5,7 +5,9 @@ copy probes B9, the fused bottleneck's stage probes), the launch plans of
 the Hopper GEMM (``gemm_plan``: K1, B6), conv mainloop (``conv_plan``: K2's
 per-tap and residual forms, its pixel-group 1x1s, B7) and block mainloop
 (``block_plan``: B3, B4), their plain PyTorch versions, the int4 packing,
-and the tensor plumbing around them."""
+the plain forms the JAX package leaves to XLA (``int8_matmul_xla``,
+``int8_conv_xla`` with its int16 emission, the native-S4 int4 forms, the
+bf16 conv), and the tensor plumbing around them."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches, route_counts
 from quantized_tpu_torch.ops.copy_probe import bulk_copy, copy_plain, grid_copy, ring_copy
@@ -31,9 +33,12 @@ from quantized_tpu_torch.ops.fused_block import (
     fused_stage_plain,
 )
 from quantized_tpu_torch.ops.int4 import (
+    int4_conv_s4,
     int4_matmul,
     int4_matmul_nk,
     int4_matmul_plain,
+    int4_matmul_s4,
+    int4_matmul_unpacked_xla,
     pack_int4,
     pack_int4_conv,
     pack_int4_conv_channels,
@@ -43,6 +48,8 @@ from quantized_tpu_torch.ops.int4 import (
     unpack_int4_nk,
 )
 from quantized_tpu_torch.ops.int8_conv import (
+    bf16_conv,
+    clip_s16_checked,
     grouped_conv_acc,
     im2col_int8,
     int8_conv_gemm,
@@ -50,6 +57,7 @@ from quantized_tpu_torch.ops.int8_conv import (
     int8_conv_xla,
     pack_conv_weight,
     pad_stored_zp,
+    s16_saturated_total,
 )
 from quantized_tpu_torch.ops.int8_conv_pallas import (
     conv_border_sums,
@@ -74,5 +82,7 @@ from quantized_tpu_torch.ops.int8_matmul import (
     int8_matmul_requant,
     int8_matmul_requant_nk,
     int8_matmul_requant_plain,
+    int8_matmul_xla,
+    int8_matmul_xla_nk,
     matmul_epilogue_params,
 )

@@ -113,9 +113,10 @@ class CudaKernel:
     """One C entry point of a ``csrc`` source and its launch count.
 
     ``launches`` goes up by one for each launch that the CUDA runtime
-    accepted, and nowhere else; where the entry has several routes (K2 and
-    B7: the Hopper mainloop or the general tile), ``routes[route]`` counts
-    the same launches by the route the caller asked the entry to take."""
+    accepted, and nowhere else; where the entry has several routes (K1, B6,
+    K2 and B7: the Hopper mainloop or the general tile), ``routes[route]``
+    counts the same launches by the route the caller passed the entry, which
+    runs that route or refuses the call."""
 
     def __init__(self, name: str, source: str, symbol: str, arg_kinds: Sequence[str]):
         self.name = name

@@ -18,11 +18,15 @@ multiplies that zero weight.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the CUDA kernel (``csrc/int4_gemm.cu``, planned by
-``gemm_plan(..., packed=True)``) or raises. The
-XLA native-S4 forms of the JAX package (``int4_conv_s4``,
-``int4_matmul_s4``, ``int4_matmul_unpacked_xla``) are not ported: they go
-with the XLA backends and the autotuner. :func:`int4_matmul_plain`
-computes the same function as ``int4_matmul_s4``.
+``gemm_plan(..., packed=True)``) or raises.
+
+The JAX package's native-S4 forms, which it leaves to XLA, are plain
+functions here, candidates of the autotuner and no kernels:
+:func:`int4_conv_s4` (the "s4" conv backends: two convs over the input's
+channel halves, one a nibble plane of the packed bytes),
+:func:`int4_matmul_s4` (two GEMMs over A's halves) and
+:func:`int4_matmul_unpacked_xla` (unpack, then kernel K1). Each product is
+exact, so each equals the JAX form bit for bit.
 """
 
 from __future__ import annotations
@@ -34,7 +38,11 @@ import torch
 from quantized_tpu_torch.ops import _cuda
 from quantized_tpu_torch.ops.int8_matmul import (
     GEMM_PLAN_ARGS,
+    acc_epilogue,
+    exact_int_matmul,
     gemm_plan,
+    gemm_route,
+    int8_matmul,
     int8_matmul_plain,
     int8_matmul_requant_plain,
     requant_scalars,
@@ -173,9 +181,10 @@ def int4_matmul_nk(a, w_packed_nk, alpha, beta, relu: bool = False, out_scale: O
         out = torch.empty((m, n), dtype=torch.int8, device=dev)
         inv, zps, lo = requant_scalars(out_scale, out_zp, relu)
     plan = gemm_plan(m, n, k, packed=True, sms=_cuda.sm_count(dev))
+    route = gemm_route(plan, a, w_packed_nk)
     _INT4_MATMUL(dev, a.data_ptr(), w_packed_nk.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
                  out.data_ptr(), m, n, khalf, k, int(relu), int(out_scale is not None), inv, zps, lo,
-                 *plan.args())
+                 int(route == "sm90"), *plan.args(), route=route)
     return out
 
 
@@ -183,3 +192,47 @@ def int4_matmul(a, w_packed, alpha, beta, relu: bool = False, out_scale: Optiona
                 out_zp: Optional[int] = None) -> torch.Tensor:
     """JAX-layout entry: ``w_packed`` is (K/2, N)."""
     return int4_matmul_nk(a, w_packed.T.contiguous(), alpha, beta, relu, out_scale, out_zp)
+
+
+def int4_conv_s4(x_q: torch.Tensor, w_packed: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
+                 stride=(1, 1), padding=(0, 0), stored_zp: int = -128, relu: bool = False,
+                 out_requant: Optional[Tuple[float, int]] = None, groups: int = 1) -> torch.Tensor:
+    """The JAX package's ``int4_conv_s4`` on channel-split packed weights
+    (Kh, Kw, Cg/2, Cout): the conv of each group's low input half with the
+    low nibble plane plus the conv of its high half with the high plane, each
+    exact (:func:`~quantized_tpu_torch.ops.int8_conv.grouped_conv_acc`), then
+    ``int8_conv_xla``'s epilogue."""
+    from quantized_tpu_torch.ops.int8_conv import conv_epilogue, grouped_conv_acc, pack_conv_weight
+
+    kh, kw, cg2, _ = w_packed.shape
+    n, h, w, cin = x_q.shape
+    if cin != groups * 2 * cg2:
+        raise ValueError(f"packed int4 kernel {tuple(w_packed.shape)} does not take {cin} channels "
+                         f"in {groups} group(s)")
+    xg = x_q.reshape(n, h, w, groups, 2 * cg2)
+    acc = None
+    for half, plane in zip((xg[..., :cg2], xg[..., cg2:]), _nibbles(w_packed)):
+        part = grouped_conv_acc(half.reshape(n, h, w, groups * cg2), pack_conv_weight(plane), (kh, kw), stride,
+                                padding, stored_zp, groups)
+        acc = part if acc is None else acc + part
+    return conv_epilogue(acc, alpha, beta, relu, out_requant)
+
+
+def int4_matmul_s4(a, w_packed, alpha, beta, relu: bool = False, out_scale: Optional[float] = None,
+                   out_zp: Optional[int] = None) -> torch.Tensor:
+    """The JAX package's ``int4_matmul_s4`` on split-half packed weights
+    (K/2, N): ``A[:, :K/2] @ lo + A[:, K/2:] @ hi``, each product exact, then
+    B6's epilogue (f32, or s8 on the (out_scale, out_zp) grid)."""
+    w_nk = w_packed.T
+    _check(a, w_nk, alpha, beta, out_scale, out_zp)
+    a = _pad_odd_k(a, w_nk.shape[1])
+    khalf = w_nk.shape[1]
+    lo, hi = _nibbles(w_nk)
+    acc = exact_int_matmul(a[:, :khalf], lo) + exact_int_matmul(a[:, khalf:], hi)
+    return acc_epilogue(acc, alpha, beta, relu, None if out_scale is None else (out_scale, out_zp))
+
+
+def int4_matmul_unpacked_xla(a, w_packed, alpha, beta, relu: bool = False) -> torch.Tensor:
+    """The JAX package's ``int4_matmul_unpacked_xla``: unpack the (K/2, N)
+    bytes, then the int8 GEMM (kernel K1 on the GPU)."""
+    return int8_matmul(a, unpack_int4(w_packed), alpha, beta, relu=relu)

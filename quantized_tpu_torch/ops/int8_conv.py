@@ -1,7 +1,9 @@
 """Int8 convolution helpers: zero-point padding, im2col, the im2col + K1
 GEMM path (``int8_conv_gemm``) and the plain reference ``int8_conv_xla``,
 which also runs the grouped convs (depthwise or any other grouping) that
-the JAX package leaves to XLA.
+the JAX package leaves to XLA, with its int16 emission (``round_s16``:
+:func:`clip_s16_checked`, whose saturations ``QTPU_DEBUG_S16`` counts), and
+the float conv of the bf16 backends (:func:`bf16_conv`).
 
 Layouts are the JAX package's: NHWC int8 activations (stored u - 128), HWIO
 int8 kernels. Padded taps hold the *stored zero-point* so they contribute
@@ -11,16 +13,18 @@ pixel.
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 
 from quantized_tpu_torch.ops.int8_matmul import (
+    acc_epilogue,
     exact_int_matmul,
     int8_matmul_nk,
     int8_matmul_requant_nk,
-    requant_scalars,
 )
 
 Ints = Union[int, Tuple[int, int]]
@@ -146,28 +150,82 @@ def grouped_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, s
     return acc
 
 
+def conv_epilogue(acc: torch.Tensor, alpha, beta, relu: bool = False,
+                  out_requant: Optional[Tuple[float, int]] = None, round_s16: bool = False) -> torch.Tensor:
+    """``int8_conv_xla``'s epilogue of an int32 accumulator: f32 ``relu?(acc
+    * alpha + beta)``; int8 on ``out_requant``'s grid with 1/s folded into
+    alpha and beta, the -128 shift into the zero point and ReLU into the clip
+    floor; or, with ``round_s16`` (alpha and beta prescaled by the caller),
+    the f32 value rounded to int16 by :func:`clip_s16_checked`."""
+    y = acc_epilogue(acc, alpha, beta, relu, out_requant)
+    return clip_s16_checked(torch.round(y)) if round_s16 and out_requant is None else y
+
+
 def int8_conv_xla_ck(x_q, w_ck, kernel_size, alpha, beta, stride: Ints = 1, padding: Ints = 0,
                      stored_zp: int = -128, relu: bool = False,
-                     out_requant: Optional[Tuple[float, int]] = None, groups: int = 1) -> torch.Tensor:
+                     out_requant: Optional[Tuple[float, int]] = None, groups: int = 1,
+                     round_s16: bool = False) -> torch.Tensor:
     """``int8_conv_xla`` on packed (Cout, Kh*Kw*Cin/groups) weights."""
     if groups == 1:
         acc = int8_conv_acc(x_q, w_ck, kernel_size, stride, padding, stored_zp)
     else:
         acc = grouped_conv_acc(x_q, w_ck, kernel_size, stride, padding, stored_zp, groups)
-    if out_requant is not None:
-        inv, zps, lo = requant_scalars(out_requant[0], out_requant[1], relu)
-        q = torch.round(acc.to(torch.float32) * (alpha * inv) + (beta * inv + zps))
-        return torch.clamp(q, lo, 127.0).to(torch.int8)
-    y = acc.to(torch.float32) * alpha + beta
-    return torch.clamp_min(y, 0.0) if relu else y
+    return conv_epilogue(acc, alpha, beta, relu, out_requant, round_s16)
 
 
 def int8_conv_xla(x_q, w_q, alpha, beta, stride: Ints = 1, padding: Ints = 0,
                   stored_zp: int = -128, relu: bool = False,
-                  out_requant: Optional[Tuple[float, int]] = None, groups: int = 1) -> torch.Tensor:
+                  out_requant: Optional[Tuple[float, int]] = None, groups: int = 1,
+                  round_s16: bool = False) -> torch.Tensor:
     """Plain reference with ``int8_conv_xla``'s epilogue (the fused-requant
     form folds 1/s into alpha/beta and ReLU into the clip floor). ``groups``
     takes any grouping that divides C and Cout (:func:`grouped_conv_acc`);
-    ``round_s16`` and ``y_clip`` are not ported yet."""
+    ``round_s16`` emits int16 (the shortcut leg of the unfused downsample
+    blocks). ``y_clip`` (the RangeBN flavor) is not ported yet."""
     return int8_conv_xla_ck(x_q, pack_conv_weight(w_q), tuple(w_q.shape[:2]), alpha, beta, stride,
-                            padding, stored_zp, relu, out_requant, groups)
+                            padding, stored_zp, relu, out_requant, groups, round_s16)
+
+
+# Saturation count of the int16 shortcut legs: +-32767 counts are +-1024
+# output steps at S16_FINE = 32, never reached by a calibrated leg, but a
+# binding clip would break the leg's 1/(2*S16_FINE)-step error bound. Under
+# QTPU_DEBUG_S16 every int16 emission counts its clipped elements (one
+# device-to-host read per call) and logs them.
+_s16_saturated_total = 0
+
+
+def s16_saturated_total() -> int:
+    """Saturated elements counted since the process started (under QTPU_DEBUG_S16)."""
+    return _s16_saturated_total
+
+
+def _s16_sat_report(n) -> None:
+    global _s16_saturated_total
+    n = int(n)
+    if n:
+        _s16_saturated_total += n
+        logging.getLogger(__name__).error(
+            "s16 residual-leg saturation: %d element(s) clipped at +-32767; the fine-grained leg's error "
+            "bound is violated: lower S16_FINE for this layer or widen its calibration", n)
+
+
+def clip_s16_checked(q: torch.Tensor) -> torch.Tensor:
+    """``clip(q, +-32767)`` as int16, counting the clipped elements under
+    QTPU_DEBUG_S16."""
+    if os.environ.get("QTPU_DEBUG_S16"):
+        _s16_sat_report((q.abs() > 32767.0).sum().item())
+    return torch.clamp(q, -32767.0, 32767.0).to(torch.int16)
+
+
+def bf16_conv(xb: torch.Tensor, w_oihw: torch.Tensor, stride: Ints, padding: Ints, groups: int = 1) -> torch.Tensor:
+    """f32 NHWC conv of bf16 NHWC activations and bf16 (Cout, Cin/groups,
+    Kh, Kw) weights, zero-padded: an f32 conv of the bf16 values that may
+    use TF32 (every bf16 value is exact in TF32 and every product in f32, so
+    this is the JAX package's bf16-operand, f32-accumulator conv up to
+    summation order). The NHWC input is a ``channels_last`` NCHW tensor
+    after its permute, so a GPU conv library reads it in place."""
+    x = xb.permute(0, 3, 1, 2)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                                    deterministic=torch.backends.cudnn.deterministic, allow_tf32=True):
+        y = F.conv2d(x.float(), w_oihw.float(), stride=_pair(stride), padding=_pair(padding), groups=groups)
+    return y.permute(0, 2, 3, 1)

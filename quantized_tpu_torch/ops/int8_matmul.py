@@ -15,7 +15,12 @@ stores that copy once, at build time, and calls the ``*_nk`` wrappers.
 
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the CUDA kernel (``csrc/int8_gemm.cu``) or raises, with
-the launch plan of :func:`gemm_plan`.
+the launch plan of :func:`gemm_plan` and the route of :func:`gemm_route`,
+which the C entry refuses where its shape and bases take the other one, and
+counts the launch by that route.
+
+:func:`int8_matmul_xla` is the JAX package's XLA form of the same product
+(no kernel of its own: the fc autotuner races it against K1).
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import torch
 
 from quantized_tpu_torch.ops import _cuda
 
-GEMM_PLAN_ARGS = ["int"] * 5  # the C entries' trailing plan arguments: GemmPlan.args()
+GEMM_PLAN_ARGS = ["int"] * 6  # the C entries' trailing arguments: the route (1: "sm90"), GemmPlan.args()
 _MATMUL = _cuda.CudaKernel(
     "int8_matmul", "int8_gemm.cu", "qt_int8_matmul",
     ["ptr"] * 5 + ["int"] * 4 + GEMM_PLAN_ARGS,
@@ -115,6 +120,13 @@ def gemm_plan(m: int, n: int, k: int, packed: bool = False, sms: int = H100_SMS)
     return GemmPlan(tile, split, steps, stages, gemm_smem_bytes(tile, packed, split, stages), blocks, tma_shape)
 
 
+def gemm_route(plan: GemmPlan, a: torch.Tensor, w: torch.Tensor) -> str:
+    """The route of a launch (``qt90::tma_ok``, which the C entry checks it
+    against): the Hopper GEMM ("sm90") where the shape suits TMA and both
+    operands start on 16 bytes, else the general tile."""
+    return "sm90" if plan.tma_shape and a.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0 else "tile"
+
+
 def f32(v: float) -> float:
     """The float32 value of a Python scalar, as ``jnp.float32(v)`` makes it."""
     return float(np.float32(v))
@@ -155,26 +167,30 @@ def exact_int_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
     return a.to(torch.int32) @ w_nk.to(torch.int32).T
 
 
-def _epilogue_f32(acc: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor, relu: bool) -> torch.Tensor:
-    y = acc.to(torch.float32) * alpha + beta
-    return torch.clamp_min(y, 0.0) if relu else y
+def acc_epilogue(acc: torch.Tensor, alpha, beta, relu: bool = False,
+                 out_requant: Optional[Tuple[float, int]] = None) -> torch.Tensor:
+    """The fused epilogue of an int32 accumulator, in the JAX kernels' order:
+    f32 ``relu?(acc * alpha + beta)``, or, on ``out_requant=(s, zp)``, s8
+    ``clip(round(acc * (alpha * inv) + (beta * inv + zp - 128)), lo, 127)``
+    with 1/s folded into alpha and beta, the -128 shift into the zero point
+    and ReLU into the clip floor ``lo``."""
+    if out_requant is None:
+        y = acc.to(torch.float32) * alpha + beta
+        return torch.clamp_min(y, 0.0) if relu else y
+    inv, zps, lo = requant_scalars(out_requant[0], out_requant[1], relu)
+    q = torch.round(acc.to(torch.float32) * (alpha * inv) + (beta * inv + zps))
+    return torch.clamp(q, lo, 127.0).to(torch.int8)
 
 
 def int8_matmul_plain(a, w_nk, alpha, beta, relu: bool = False) -> torch.Tensor:
     """Plain version of K1's f32 form: ``relu?(A @ W^T * alpha + beta)``."""
-    return _epilogue_f32(exact_int_matmul(a, w_nk), alpha, beta, relu)
+    return acc_epilogue(exact_int_matmul(a, w_nk), alpha, beta, relu)
 
 
 def int8_matmul_requant_plain(a, w_nk, alpha, beta, out_scale: float, out_zp: int,
                               relu: bool = True) -> torch.Tensor:
-    """Plain version of K1's requant form, in ``_requant_kernel``'s order:
-    1/s folds into alpha/beta, the -128 shift into the zero-point, ReLU into
-    the clip floor."""
-    inv, zps, lo = requant_scalars(out_scale, out_zp, relu)
-    alpha2 = alpha * inv
-    beta2 = beta * inv + zps
-    q = torch.round(exact_int_matmul(a, w_nk).to(torch.float32) * alpha2 + beta2)
-    return torch.clamp(q, lo, 127.0).to(torch.int8)
+    """Plain version of K1's requant form (``_requant_kernel``'s order)."""
+    return acc_epilogue(exact_int_matmul(a, w_nk), alpha, beta, relu, (out_scale, out_zp))
 
 
 def _check(a, w_nk, alpha, beta):
@@ -198,8 +214,9 @@ def int8_matmul_nk(a, w_nk, alpha, beta, relu: bool = False) -> torch.Tensor:
     (m, k), n = a.shape, w_nk.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     plan = gemm_plan(m, n, k, sms=_cuda.sm_count(dev))
+    route = gemm_route(plan, a, w_nk)
     _MATMUL(dev, a.data_ptr(), w_nk.data_ptr(), alpha.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            m, n, k, int(relu), *plan.args())
+            m, n, k, int(relu), int(route == "sm90"), *plan.args(), route=route)
     return out
 
 
@@ -214,8 +231,9 @@ def int8_matmul_requant_nk(a, w_nk, alpha, beta, out_scale: float, out_zp: int,
     inv, zps, lo = requant_scalars(out_scale, out_zp, relu)
     out = torch.empty((m, n), dtype=torch.int8, device=dev)
     plan = gemm_plan(m, n, k, sms=_cuda.sm_count(dev))
+    route = gemm_route(plan, a, w_nk)
     _MATMUL_REQUANT(dev, a.data_ptr(), w_nk.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-                    out.data_ptr(), m, n, k, inv, zps, lo, *plan.args())
+                    out.data_ptr(), m, n, k, inv, zps, lo, int(route == "sm90"), *plan.args(), route=route)
     return out
 
 
@@ -228,3 +246,26 @@ def int8_matmul_requant(a, b, alpha, beta, out_scale: float, out_zp: int,
                         relu: bool = True) -> torch.Tensor:
     """JAX-layout entry: ``b`` is (K, N)."""
     return int8_matmul_requant_nk(a, b.T.contiguous(), alpha, beta, out_scale, out_zp, relu)
+
+
+INT_MM_MIN_M = 17  # torch._int_mm refuses M <= 16 on the GPU
+
+
+def int8_matmul_xla_nk(a, w_nk, alpha, beta, relu: bool = False) -> torch.Tensor:
+    """The JAX package's ``int8_matmul_xla``: the exact int32 product and the
+    f32 epilogue ``relu?(acc * alpha + beta)``, no kernel of the port. On the
+    GPU the product is ``torch._int_mm`` where it takes the shape (M > 16, K
+    and N multiples of 8), else the exact float64 product of
+    :func:`exact_int_matmul`; on the CPU the int32 product."""
+    _check(a, w_nk, alpha, beta)
+    (m, k), n = a.shape, w_nk.shape[0]
+    if a.is_cuda and m >= INT_MM_MIN_M and k % 8 == 0 and n % 8 == 0:
+        acc = torch._int_mm(a.contiguous(), w_nk.T)
+    else:
+        acc = exact_int_matmul(a, w_nk)
+    return acc_epilogue(acc, alpha, beta, relu)
+
+
+def int8_matmul_xla(a, b, alpha, beta, relu: bool = False) -> torch.Tensor:
+    """JAX-layout entry of :func:`int8_matmul_xla_nk`: ``b`` is (K, N)."""
+    return int8_matmul_xla_nk(a, b.T, alpha, beta, relu)

@@ -178,7 +178,7 @@ def run_plans(out=print) -> Dict[str, Dict]:
     import torch
 
     from quantized_tpu_torch.ops.int4 import _INT4_MATMUL
-    from quantized_tpu_torch.ops.int8_matmul import _MATMUL
+    from quantized_tpu_torch.ops.int8_matmul import _MATMUL, gemm_route
     from quantized_tpu_torch.utils.timing import Timer
 
     dev = torch.device("cuda")
@@ -196,13 +196,14 @@ def run_plans(out=print) -> Dict[str, Dict]:
 
             def launch(plan):
                 _INT4_MATMUL(dev, a.data_ptr(), w.data_ptr(), alpha.data_ptr(), beta.data_ptr(), y.data_ptr(),
-                             m, n, w.shape[1], k, 1, 0, 0.0, 0.0, 0.0, *plan.args())
+                             m, n, w.shape[1], k, 1, 0, 0.0, 0.0, 0.0, int(gemm_route(plan, a, w) == "sm90"),
+                             *plan.args())
         else:
             w = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).to(dev)
 
             def launch(plan):
                 _MATMUL(dev, a.data_ptr(), w.data_ptr(), alpha.data_ptr(), beta.data_ptr(), y.data_ptr(),
-                        m, n, k, 1, *plan.args())
+                        m, n, k, 1, int(gemm_route(plan, a, w) == "sm90"), *plan.args())
         base, plans = plan_alternatives(m, n, k, packed)
         times = {}
         for plan in plans:

@@ -1208,3 +1208,86 @@ def test_flat_conv_route(cuda_device, gen, n, h, cin, cout, k, req, gather_k):
     route = "sm90" if cin % 16 == 0 else "tile"
     _check_conv_route(x, w_ck, ((k, k), alpha, beta, 1, k // 2, -5, True, req), route, name="int8_conv_flat",
                       gather_k=gather_k)
+
+
+# ----------------------------------------------------------------- the plain backends and the autotuner
+
+def _cifar20_engine(backend, device):
+    from quantized_tpu_torch.engine import build_int8_resident
+    from quantized_tpu_torch.entry import _calibrated_model
+
+    model = _calibrated_model("resnet_quantized_float_bn", device="cpu", generator=torch.Generator().manual_seed(0),
+                              dataset="cifar10", depth=20)
+    return build_int8_resident(model, backend=backend, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["bf16", "bf16-split"])
+def test_bf16_engine_on_the_gpu_is_close_to_its_cpu_twin(cuda_device, backend):
+    """A CIFAR ResNet-20 with every conv on a bf16 backend (cuDNN on the
+    GPU) against the same engine on the CPU: logits within the JAX bf16
+    bound, 0.35 (tests/test_autotune_bf16.py), and the argmax equal."""
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 32, 32, 3), dtype=np.uint8))
+    gpu, cpu = _cifar20_engine(backend, cuda_device), _cifar20_engine(backend, "cpu")
+    with torch.inference_mode():
+        got, want = gpu.run_u8(u8.to(cuda_device)).cpu(), cpu.run_u8(u8)
+    assert (got - want).abs().max().item() <= 0.35
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [8, 16, 17, 128])
+def test_int8_matmul_xla_on_the_gpu_equals_k1(cuda_device, gen, m):
+    """``int8_matmul_xla`` (``torch._int_mm`` past M = 16, the exact float64
+    product below) equals K1 and the CPU result."""
+    k, n = 2048, 1000
+    a = _dev(gen.integers(-128, 128, (m, k)).astype(np.int8), cuda_device)
+    w = _dev(gen.integers(-127, 128, (n, k)).astype(np.int8), cuda_device)
+    alpha = _dev(gen.uniform(1e-5, 3e-5, n).astype(np.float32), cuda_device)
+    beta = _dev(gen.uniform(-0.5, 0.5, n).astype(np.float32), cuda_device)
+    got = ops.int8_matmul_xla_nk(a, w, alpha, beta, relu=True)
+    assert torch.equal(got, ops.int8_matmul_nk(a, w, alpha, beta, relu=True))
+    assert torch.equal(got.cpu(), ops.int8_matmul_xla_nk(a.cpu(), w.cpu(), alpha.cpu(), beta.cpu(), relu=True))
+
+
+@pytest.mark.cuda
+def test_maxpool_forms_and_s4_conv_on_the_gpu(cuda_device, gen):
+    """The maxpool's "rw" form equals "interleave" on int8 CUDA tensors; the
+    two-half int4 conv equals its CPU result and the unpacked conv."""
+    from quantized_tpu_torch.engine.int8_resident import maxpool_3x3_s2_int8
+
+    x = _dev(gen.integers(-128, 128, (4, 56, 56, 64)).astype(np.int8), cuda_device)
+    assert torch.equal(maxpool_3x3_s2_int8(x, "rw"), maxpool_3x3_s2_int8(x, "interleave"))
+    q = _dev(gen.integers(-7, 8, (3, 3, 32, 48)).astype(np.int8), "cpu")
+    packed = ops.pack_int4_conv_channels(q).to(cuda_device)
+    xq = _dev(gen.integers(-128, 128, (2, 14, 14, 32)).astype(np.int8), cuda_device)
+    alpha = _dev(gen.uniform(1e-4, 3e-4, 48).astype(np.float32), cuda_device)
+    beta = _dev(gen.uniform(-0.5, 0.5, 48).astype(np.float32), cuda_device)
+    args = (alpha, beta, (1, 1), (1, 1), -5, True, (0.05, 113))
+    got = ops.int4_conv_s4(xq, packed, *args)
+    assert torch.equal(got.cpu(), ops.int4_conv_s4(xq.cpu(), packed.cpu(), *(a.cpu() if torch.is_tensor(a) else a
+                                                                           for a in args)))
+    assert torch.equal(got, ops.int8_conv_xla(xq, q.to(cuda_device), *args))
+
+
+@pytest.mark.cuda
+def test_autotuner_on_the_gpu(cuda_device, tmp_path):
+    """Every race of a CIFAR ResNet-20 at batch 8 measured on the card
+    (conv backends, fc, blocks): the tuned engine's logits within 0.35 of
+    the untuned one's; the written cache, applied to a fresh engine, gives
+    the same forms and bit-equal logits."""
+    from quantized_tpu_torch.engine import apply_cached_backends, autotune_resident
+
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (8, 32, 32, 3), dtype=np.uint8)).to(cuda_device)
+    untuned, tuned = _cifar20_engine("pallas", cuda_device), _cifar20_engine("pallas", cuda_device)
+    cache = str(tmp_path / "autotune.json")
+    table = autotune_resident(tuned, u8, cache_path=cache, verbose=False)  # every race on: a CUDA device
+    assert any(k.startswith("block:") for k in table) and any(k.startswith("fc:") for k in table)
+    fresh = _cifar20_engine("pallas", cuda_device)
+    assert apply_cached_backends(fresh, u8, cache_path=cache)
+    forms = [(n, getattr(m, "backend", type(m).__name__)) for n, m in tuned.named_modules()]
+    assert forms == [(n, getattr(m, "backend", type(m).__name__)) for n, m in fresh.named_modules()]
+    with torch.inference_mode():
+        got, want = tuned.run_u8(u8), untuned.run_u8(u8)
+        assert torch.equal(fresh.run_u8(u8), got)
+    assert (got - want).abs().max().item() <= 0.35

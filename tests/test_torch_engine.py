@@ -170,8 +170,10 @@ def test_observer_grid_equal():
 def test_int_layers_refuse_unported_options():
     w = torch.zeros((3, 3, 4, 8), dtype=torch.int8)
     ab = torch.zeros(8)
-    with pytest.raises(ValueError):
-        til.IntConv2d(w, ab, ab, 0.1, 128, backend="xla")
+    with pytest.raises(ValueError):  # "xla" and "bf16" are ported; an unknown form is not
+        til.IntConv2d(w, ab, ab, 0.1, 128, backend="cudnn")
+    with pytest.raises(ValueError):  # the native-S4 forms need packed int4 weights
+        til.IntConv2d(w, ab, ab, 0.1, 128, backend="s4")
     with pytest.raises(ValueError):
         til.IntConv2d(w, ab, ab, 0.1, 128, groups=2)
     conv = til.IntConv2d(w, ab, ab, 0.1, 128)

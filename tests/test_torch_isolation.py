@@ -17,7 +17,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "quantized_tpu"))
-print(json.dumps({"imported": len(names), "bad": bad}))
+print(json.dumps({"imported": len(names), "names": names, "bad": bad}))
 """
 
 
@@ -27,6 +27,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["imported"] >= 20, result
     assert result["bad"] == [], result
+    # the autotuned bench path: the tuner, the throughput hook, the float ResNet
+    assert {"quantized_tpu_torch.engine.autotune", "quantized_tpu_torch.engine.bench_hook",
+            "quantized_tpu_torch.models.resnet"} <= set(result["names"]), result
 
 
 _SMOKE_PROBE = r"""
