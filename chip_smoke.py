@@ -73,7 +73,13 @@ and a non-zero exit:
    ``bulk_copy`` on their Hopper route ("sm90", asserted) with their plans
    (``copy_plan``, ``ring_plan``, ``bulk_plan``) printed. B3 and B4 also run at C = 24 (Cm 16 and 24,
    Cout 32 and 40, strides 1 and 2), which their wrappers pad to multiples
-   of 16, each equal to its plain version;
+   of 16, each equal to its plain version. The CLIP instances of K2 and K1
+   (the RangeBN observer clamp, ``y_clip``) run at the RangeBN ResNet-50's
+   shapes: K2's 3x3 s1 64 (s8) and 1x1 64->256 (f32 and s8) on the
+   mainloop, the s2d stem on the gather-K route, K1's im2col requant and a
+   1x1 f32 im2col product, each equal to its plain version with the clamp,
+   on route "sm90+clip" (asserted), and timed beside the unclamped instance
+   on the same inputs;
 4. the op paths, each with the launch counts set to 0 just before and read
    just after: "conv sweep", the per-shape sweep of ``probes/sweep_conv``
    over ResNet-50's 24 conv shapes at batch 32 on K2, B7 and im2col + K1
@@ -134,7 +140,19 @@ and a non-zero exit:
      be constant;
    - ResNet-50 int4 weight-only (``build_int8_resident(...,
      weight_bits=4)``): 52 K2 per-tap, 1 K2 gather-K, 1 K1 (the fc stays
-     int8 storage); ``fuse_resident_blocks`` fuses 0 blocks of it.
+     int8 storage); ``fuse_resident_blocks`` fuses 0 blocks of it;
+   - "resnet50 rangebn": the RangeBN ResNet-50 (``resnet_quantized``,
+     ImageNet, depth 50) from seed 0, two train-mode passes on seeded
+     images on the CPU, its RangeBN input observers then narrowed to 40% so
+     the clamp binds: 52 K2 per-tap, 1 gather-K and 1 K1, every conv launch
+     on a CLIP instance ("sm90+clip"), the fc on "sm90"; its logits move when
+     the clamps are removed, and ``fuse_resident_blocks`` fuses 0 of its
+     blocks; the same engine on "gemm" (33 K1 requant, 21 K1 f32, all but
+     the fc clamped) block by block within 1 step of "pallas";
+     ``convert_to_int(backend="pallas")`` (K2's clamped f32 form, the raw
+     stem on the gather-K route) against its CPU twin; the strict engine
+     (``convert_to_int_strict``, plain PyTorch) on a batch of 8, its first 2
+     logits within 2 fc steps of its CPU twin's.
    Each engine is held on 2 of the images against the same engine built on
    the CPU (plain versions): int8 stages equal, logits within F32_ATOL of
    their magnitude. The gemm and fused engines are also held, block by
@@ -142,7 +160,7 @@ and a non-zero exit:
    engine: int8 within 1 step on under 1% of a block, logits within
    LOGIT_ATOL (the fused downsample blocks carry the int16 shortcut leg);
 6. throughput: batch-128 uint8 224x224 forwards of ResNet-50 (unfused,
-   fused and int4), ResNet-18 and MobileNet-v1 at widths 1.0 and 0.75
+   fused, int4 and the RangeBN flavor unfused), ResNet-18 and MobileNet-v1 at widths 1.0 and 0.75
    (unfused and fused), and
    AlexNet int8 and int4 at batches 1, 8 and 128, timed with CUDA events in
    turns (a, b, b, a) per model and batch, a profile of where the device
@@ -168,8 +186,10 @@ and a non-zero exit:
    with the card's name and power limit; the phase's seconds;
 8. the card's nvidia-smi line, then the kernels line: one JSON object with
    each kernel's numbers; ``launches`` is the count on the path that runs
-   the kernel (``path``: a serving path's 3 forwards, or an op path), and
-   ``launches_autotuned`` its count in one tuned forward of each model;
+   the kernel (``path``: a serving path's 3 forwards, or an op path),
+   ``launches_autotuned`` its count in one tuned forward of each model,
+   ``launches_rangebn`` on the RangeBN path's 3 forwards, and ``clip`` (K1,
+   K2) its CLIP instances' numbers beside the unclamped instance's;
 9. last line: ``{"ok": true, "device": {...}}``.
 """
 
@@ -204,6 +224,8 @@ MODELS = {
     # C = 24 at the first pair: K2's per-tap form on groups of four pixels, B5 computing at C = 32
     "mobilenet w0.75": ("mobilenet_quantized", dict(num_classes=1000, width_mult=0.75), 224, 1000),
     "alexnet": ("alexnet_quantized", dict(num_classes=1000), 224, 1000),
+    # the reference's own flavor, RangeBN: every conv carries the folded observer clamp
+    "resnet50 rangebn": ("resnet_quantized", dict(dataset="imagenet", depth=50), 224, 1000),
 }
 # launches per forward of each path (every kernel not named: 0), and the
 # blocks (or MobileNet pairs) that fusing fuses
@@ -227,6 +249,13 @@ GEMM_PLAN = {"int8_matmul_requant": 33, "int8_matmul": 21}  # ResNet-50 on the "
 ALEXNET_PLANS = {8: {"int8_conv_direct": 4, "int8_conv_direct_gatherk": 1, "int8_matmul": 3},
                  4: {"int8_conv_direct": 4, "int8_conv_direct_gatherk": 1, "int4_matmul": 3}}
 RESNET50_INT4_PLAN = {"int8_conv_direct": 52, "int8_conv_direct_gatherk": 1, "int8_matmul": 1}
+# the RangeBN ResNet-50: its launches and routes per forward, every conv on a
+# CLIP instance of its Hopper route (the fc carries no clamp)
+RANGEBN_NARROW = 0.4  # its RangeBN input observers narrowed to 40% of their range, so the clamp binds
+RANGEBN_ROUTES = {"int8_conv_direct": {"sm90+clip": 52}, "int8_conv_direct_gatherk": {"sm90+clip": 1},
+                  "int8_matmul": {"sm90": 1}}
+RANGEBN_GEMM_ROUTES = {"int8_matmul_requant": {"sm90+clip": 33}, "int8_matmul": {"sm90+clip": 20, "sm90": 1}}
+RANGEBN_STRICT_BATCH = 8
 ALEXNET_BATCHES = (1, 8, 128)  # the JAX package's small-batch int4 regime, and the throughput batch
 
 KERNEL_INFO = {
@@ -363,7 +392,7 @@ def _ptxas_lines(source):
     return lines
 
 
-def _log_gemm_plan(kernel, label, a, w, n, packed):
+def _log_gemm_plan(kernel, label, a, w, n, packed, clip=False):
     """The Hopper GEMM's plan of a product and its kernel instance's ptxas
     line (the ring is dynamic shared memory, the plan's ``smem``). The C
     entry takes TMA where the plan's shape does and both bases are 16-byte
@@ -374,17 +403,18 @@ def _log_gemm_plan(kernel, label, a, w, n, packed):
     plan = gemm_plan(m, n, k, packed=packed)
     tma = plan.tma_shape and a.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     source = "int4_gemm.cu" if packed else "int8_gemm.cu"
-    instance = f"gemm_sm90_kernelILi{plan.tile}ELb{int(packed)}E"
+    instance = f"gemm_sm90_kernelILi{plan.tile}ELb{int(packed)}ELb{int(clip)}EE"
     ptxas = next((v for key, v in _ptxas_lines(source).items() if instance in key), "not built in this run")
     log(f"[kernels] {kernel} {label} {m}x{k}x{n} plan: tile {plan.tile}, split {plan.split} "
         f"(cluster {plan.split}x1x1), steps {plan.steps}, stages {plan.stages}, dynamic smem {plan.smem} B, "
         f"blocks {plan.blocks}, {'TMA' if tma else 'general tile'}; ptxas: {ptxas}")
 
 
-def _log_conv_plan(kernel, label, x, wc, ks, stride, pad, form):
+def _log_conv_plan(kernel, label, x, wc, ks, stride, pad, form, clip=False):
     """The conv mainloop's plan of a call (``conv_plan``; the gather-K
-    form's own route for form "gatherk") and its instance's ptxas line; the
-    route is asserted by the caller from the counts."""
+    form's own route for form "gatherk") and its instance's ptxas line (the
+    CLIP instance's with ``clip``); the route is asserted by the caller from
+    the counts."""
     from quantized_tpu_torch.ops import conv_plan
 
     n, h, w, cin = x.shape
@@ -394,14 +424,14 @@ def _log_conv_plan(kernel, label, x, wc, ks, stride, pad, form):
         return plan
     if plan.mode == 2:
         ch = 16 if cin % 16 == 0 else 4 if cin % 4 == 0 else 1
-        instance = f"gatherk_sm90_kernelILi{ch}ELi{plan.bn}EE"
+        instance = f"gatherk_sm90_kernelILi{ch}ELi{plan.bn}ELb{int(clip)}EE"
         ptxas = next((v for key, v in _ptxas_lines("int8_conv.cu").items() if instance in key), "not built in this run")
         log(f"[kernels] {kernel} {label} plan: gather-K route, swizzle row {plan.kc} B, bn {plan.bn}, tile "
             f"{plan.two}x{plan.tho}x{plan.nb}, dynamic smem {plan.smem} B, wgmma steps {plan.k_stages}, tiles "
             f"{plan.tiles}, blocks {plan.blocks}; ptxas: {ptxas}")
         return plan
     source = "int8_conv_flat.cu" if form == "flat" else "int8_conv.cu"
-    instance = f"conv_sm90_kernelILi{plan.kc}ELi{plan.bn}ELb{int(form == 'residual')}EE"
+    instance = f"conv_sm90_kernelILi{plan.kc}ELi{plan.bn}ELb{int(form == 'residual')}ELb{int(clip)}EE"
     ptxas = next((v for key, v in _ptxas_lines(source).items() if instance in key), "not built in this run")
     groups = (f"groups of {plan.pixels} pixels ({n * h * w // plan.pixels} rows of {plan.pixels * cin} B, "
               f"{plan.pixels * wc.shape[0]} channels), " if plan.pixels > 1 else "")
@@ -431,7 +461,7 @@ def _conv_tile_ms(timer, x, wc, args, got, residual=None, res_grid=None):
     def run():
         kernel(x.device, x.data_ptr(), wc.data_ptr(), alpha.data_ptr(), beta.data_ptr(), r_ptr, None, out.data_ptr(),
                n, h, w, cin, cout, kh, kw, sh, sw, ph, pw, ho, wo, zp, int(relu), out_int8, inv, zps, r_off, r_scale,
-               *cp._TILE_PLAN.args(False), route="tile")
+               *cp._TILE_PLAN.args(False), None, None, route="tile")
         return out
 
     if not torch.equal(run(), got):
@@ -560,6 +590,7 @@ def phase_kernels(timer):
         if representative:
             entry.update(case=case, ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
+        return ms, plain_ms, b_ms, b_by
 
     def _block_case(name, case, kind, x, cm, cout, s, ds, kernel, plain, nbytes, nops, rep):
         """B3 or B4: its plan, then the kernel against its plain version and
@@ -662,6 +693,80 @@ def phase_kernels(timer):
             if label.startswith("mobilenet w0.75") and not (call_ms <= tile_ms / 2 and call_ms < lib_ms):
                 log(f"[kernels] {name} {label}: MISSED the target of at most half the tile's time and under "
                     f"torch._int_mm")
+
+    # the CLIP instances of K2 and K1 (the RangeBN observer clamp, y_clip) at
+    # the RangeBN ResNet-50's serving shapes, each against its plain version
+    # with the clamp and timed beside the unclamped instance on the same
+    # inputs; the bound is the unclamped call's (the same work). The bounds
+    # bind on a large share of the outputs, and channel 3's cross (hi < lo).
+    def clip_bounds(n, span):
+        lo = -(torch.rand(n, generator=gen) * 0.75 + 0.25) * span
+        hi = (torch.rand(n, generator=gen) * 0.75 + 0.25) * span
+        lo[3], hi[3] = 0.2 * span, -0.1 * span
+        return torch.stack([lo, hi]).to(dev)
+
+    def clip_case(name, label, call, plain, unclamped, nbytes, nops, route):
+        before = dict(ops.KERNELS[name].routes)
+        ms, plain_ms, b_ms, b_by = record(name, label, call, plain, None, nbytes, nops, False, plain_iters=3)
+        took = _route_of(name, before)
+        if took != route:
+            raise AssertionError(f"{name} {label}: took {took}, expected {route}")
+        if torch.equal(call(), unclamped()):
+            raise AssertionError(f"{name} {label}: the clamp changed nothing")
+        base_ms = timer.ms(unclamped)
+        log(f"[kernels] {name} {label}: CLIP instance ms {ms:.4f}, the unclamped instance on the same inputs "
+            f"{base_ms:.4f} (ratio {ms / base_ms:.3f}), bound_ms {b_ms:.4f} ({b_by})")
+        results[name].setdefault("clip", []).append(dict(case=label, ms=ms, unclamped_ms=base_ms, plain_ms=plain_ms,
+                                                         bound_ms=b_ms, bound_by=b_by))
+
+    clip_convs = [
+        # name, label, (h, cin, cout, k, stride, pad, requant), the clamp's span
+        ("int8_conv_direct", "layer1 3x3 s1 64->64 s8", (56, 64, 64, 3, 1, 1, (0.05, 113)), 2.0),
+        ("int8_conv_direct", "layer1 1x1 s1 64->256 f32", (56, 64, 256, 1, 1, 0, None), 0.6),
+        ("int8_conv_direct", "layer1 1x1 s1 64->256 s8", (56, 64, 256, 1, 1, 0, (0.05, 113)), 0.6),
+        ("int8_conv_direct_gatherk", "stem s2d 4x4 s1 12->64 s8", (115, 12, 64, 4, 1, 0, (0.05, 113)), 1.0),
+    ]
+    for name, label, (h, cin, cout, kk, s, p, req), span in clip_convs:
+        x = _rand_int8(gen, (b, h, h, cin))
+        wc = _rand_int8(gen, (cout, kk * kk * cin), low=-127)
+        ac, bc = _epilogue_params(gen, cout, dev)
+        yc = clip_bounds(cout, span)
+        args = ((kk, kk), ac, bc, s, p, -5, True, req)
+        ho = (h + 2 * p - kk) // s + 1
+        bs = ops.conv_border_sums(wc, (kk, kk))
+        # the kernel's bounds, formed once per layer and grid as the engines form them
+        cb = ops.kernel_clip(yc, cout, req, True)
+        _log_conv_plan(name, f"clip {label}", x, wc, (kk, kk), (s, s), (p, p),
+                       "gatherk" if name == "int8_conv_direct_gatherk" else "tap", clip=True)
+        clip_case(name, f"clip {label} batch {b}",
+                  lambda x=x, wc=wc, args=args, bs=bs, cb=cb: ops.int8_conv_direct_ck(x, wc, *args, border_sums=bs,
+                                                                                    clip=cb),
+                  lambda x=x, wc=wc, args=args, cb=cb: ops.int8_conv_direct_plain(x, wc, *args, clip=cb),
+                  lambda x=x, wc=wc, args=args, bs=bs: ops.int8_conv_direct_ck(x, wc, *args, border_sums=bs),
+                  x.numel() + wc.numel() + 8 * cout + b * ho * ho * cout * (1 if req else 4),
+                  2 * b * ho * ho * kk * kk * cin * cout, "sm90+clip")
+    # K1 on the "gemm" backend: layer1's 3x3 conv through im2col (s8), and
+    # conv3's 1x1 64->256 (f32, the prescaled leg's form)
+    for label, (m, k, n), req, span in (("im2col 3x3 64->64 s8", IM2COL, (0.05, 113), 2.0),
+                                        ("im2col 1x1 64->256 f32", (b * 56 * 56, 64, 256), None, 0.6)):
+        a, w = _rand_int8(gen, (m, k)), _rand_int8(gen, (n, k), low=-127)
+        ak, bk = _epilogue_params(gen, n, dev)
+        yc = clip_bounds(n, span)
+        kname = "int8_matmul" if req is None else "int8_matmul_requant"
+        _log_gemm_plan(kname, f"clip {label}", a, w, n, packed=False, clip=True)
+        cb = ops.kernel_clip(yc, n, req, True)
+        if req is None:
+            call = lambda a=a, w=w, ak=ak, bk=bk, cb=cb: ops.int8_matmul_nk(a, w, ak, bk, True, clip=cb)
+            plain = lambda a=a, w=w, ak=ak, bk=bk, cb=cb: ops.int8_matmul_plain(a, w, ak, bk, True, clip=cb)
+            unclamped = lambda a=a, w=w, ak=ak, bk=bk: ops.int8_matmul_nk(a, w, ak, bk, True)
+        else:
+            call = (lambda a=a, w=w, ak=ak, bk=bk, cb=cb, req=req:
+                    ops.int8_matmul_requant_nk(a, w, ak, bk, *req, True, clip=cb))
+            plain = (lambda a=a, w=w, ak=ak, bk=bk, cb=cb, req=req:
+                     ops.int8_matmul_requant_plain(a, w, ak, bk, *req, True, clip=cb))
+            unclamped = lambda a=a, w=w, ak=ak, bk=bk, req=req: ops.int8_matmul_requant_nk(a, w, ak, bk, *req, True)
+        clip_case(kname, f"clip {label} {m}x{k}x{n}", call, plain, unclamped,
+                  *gemm_work(m, n, k, s8_out=req is not None), "sm90+clip")
 
     # B7: the flat-row conv at ResNet-50's stride-1 shapes, K2's time on the
     # same inputs beside it; the bound counts K2's bytes and operations (the
@@ -1133,9 +1238,12 @@ def _check_launches(counts, per_forward, forwards, what):
             raise AssertionError(f"{what}: {name} launched {n} times, expected {want}")
 
 
-def _serve(what, executor, requests, per_forward, classes):
+def _serve(what, executor, requests, per_forward, classes, route="sm90"):
     """Answer the requests with the launch counts set to 0 just before and
-    read just after; returns the counts."""
+    read just after; returns the counts. ``route``: the Hopper route every
+    K2 per-tap and gather-K launch must take ("sm90+clip", the CLIP
+    instances, on a clamped engine; "sm90", and so no CLIP instance, on
+    any other)."""
     from quantized_tpu_torch import ops
 
     torch.cuda.synchronize()
@@ -1151,13 +1259,14 @@ def _serve(what, executor, requests, per_forward, classes):
     _check_launches(counts, per_forward, len(requests), what)
     routes = PATH_ROUTES[what] = ops.route_counts()
     log(f"[{what}] routes {json.dumps(routes)}")
-    tile = routes.get("int8_conv_direct", {}).get("tile", 0)
-    if tile:  # every K2 per-tap launch of a serving path takes the mainloop
-        raise AssertionError(f"{what}: {tile} K2 per-tap launches on the general tile")
+    off = {r: n for r, n in routes.get("int8_conv_direct", {}).items() if r != route}
+    if off:  # every K2 per-tap launch of a serving path takes the mainloop
+        raise AssertionError(f"{what}: K2 per-tap launches off the route {route}: {off}")
     for name in BLOCK_KERNELS + ("int8_conv_direct_gatherk", "fused_dw_pw"):  # B3-B5, gather-K: a Hopper route
-        if counts[name] and routes.get(name) != {"sm90": counts[name]}:
+        want = route if name == "int8_conv_direct_gatherk" else "sm90"
+        if counts[name] and routes.get(name) != {want: counts[name]}:
             raise AssertionError(f"{what}: {name} launches by route {routes.get(name)}, all {counts[name]} "
-                                 f"expected on the Hopper route")
+                                 f"expected on the route {want}")
     for logits in answers:
         if tuple(logits.shape) != (requests[0].shape[0], classes) or not torch.isfinite(logits).all():
             raise AssertionError(f"{what}: bad logits, shape {tuple(logits.shape)}")
@@ -1289,6 +1398,125 @@ def phase_resnet50_int4():
     counts = {what: _serve(what, executor, requests, RESNET50_INT4_PLAN, 1000)}
     _compare_stages(_stage_outputs(engine, sample.cuda()),
                     _stage_outputs(_build("resnet50", "pallas", "cpu", weight_bits=4), sample), f"{what} gpu vs cpu")
+    return executor, counts
+
+
+def _rangebn_model():
+    """The RangeBN ResNet-50 (ImageNet, depth 50, full width) from seed 0:
+    two train-mode passes on seeded images set the RangeBN statistics and
+    every observer, then the RangeBN input observers are narrowed to
+    RANGEBN_NARROW of their range, so the clamp binds (as the JAX package's
+    clamp test, ``tests/test_engine.py:371``, narrows them). On the CPU."""
+    from quantized_tpu_torch.entry import _calibrated_model
+    from quantized_tpu_torch.models.layers import RangeBN
+
+    name, cfg, side, _ = MODELS["resnet50 rangebn"]
+    model = _observe(_calibrated_model(name, device="cpu", generator=torch.Generator().manual_seed(0), **cfg), side)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, RangeBN):
+                m.quantize_input.running_min.mul_(RANGEBN_NARROW)
+                m.quantize_input.running_max.mul_(RANGEBN_NARROW)
+    return model
+
+
+def _per_forward_routes(what, routes, per_forward, forwards):
+    if routes != {k: {r: n * forwards for r, n in v.items()} for k, v in per_forward.items()}:
+        raise AssertionError(f"{what}: routes {routes}, expected {per_forward} per forward")
+
+
+def phase_rangebn():
+    """The RangeBN ResNet-50 (``resnet_quantized``): ``build_int8_resident(...,
+    backend="pallas")`` served through ``IntExecutor``, every conv on a CLIP
+    instance (52 K2 per-tap, 1 gather-K, the fc on K1), held against its CPU
+    twin stage by stage, the clamp shown load-bearing (the logits move when
+    it is removed) and no block fused; then the same engine on "gemm" (K1's
+    clamped requant and f32 forms) against "pallas" within 1 step,
+    ``convert_to_int(backend="pallas")`` (K2's clamped f32 form) against its
+    CPU twin, and the strict engine on a batch of RANGEBN_STRICT_BATCH
+    against its CPU twin. Returns the executor and the paths' counts."""
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.engine import IntExecutor, build_int8_resident, convert_to_int, fuse_resident_blocks
+    from quantized_tpu_torch.engine.int_layers import IntConv2d
+    from quantized_tpu_torch.engine.strict import convert_to_int_strict
+
+    key = "resnet50 rangebn"
+    side, classes = MODELS[key][2:]
+    t0 = time.perf_counter()
+    model = _rangebn_model()
+    log(f"[{key}] calibrated (two train-mode passes on the CPU, RangeBN observers at {RANGEBN_NARROW}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    engine = build_int8_resident(copy.deepcopy(model), backend="pallas", device="cuda")
+    convs = [m for m in engine.modules() if isinstance(m, IntConv2d)]
+    if not convs or any(m.y_clip is None for m in convs):
+        raise AssertionError(f"{key}: a conv carries no clamp")
+    n_fused = fuse_resident_blocks(copy.deepcopy(engine))
+    if n_fused != 0:
+        raise AssertionError(f"{key}: fuse_resident_blocks fused {n_fused} clamped blocks")
+    log(f"[{key}] {len(convs)} convs (the stem's s2d and raw forms among them), every one clamped; "
+        f"fuse_resident_blocks fuses {n_fused} blocks")
+    executor = IntExecutor(engine, ingest="u8", device="cuda")
+    requests = _requests(side)
+    sample = requests[0][:2]
+    executor.warmup(sample)
+    what = f"{key} serve"
+    counts = {what: _serve(what, executor, requests, PLANS["resnet50"][0], classes, route="sm90+clip")}
+    _per_forward_routes(what, PATH_ROUTES[what], RANGEBN_ROUTES, len(requests))
+    cpu_engine = build_int8_resident(copy.deepcopy(model), backend="pallas", device="cpu")
+    _compare_stages(_stage_outputs(engine, sample.cuda()), _stage_outputs(cpu_engine, sample), f"{key} gpu vs cpu")
+    stripped = copy.deepcopy(engine)
+    for m in stripped.modules():
+        if isinstance(m, IntConv2d):
+            m.y_clip = None
+    with torch.inference_mode():
+        kept, gone = engine.run_u8(sample.cuda()), stripped.run_u8(sample.cuda())
+    moved = (kept - gone).abs().max().item()
+    log(f"[{key}] logits with the clamps removed move by up to {moved:.4g} (logits up to "
+        f"{kept.abs().max().item():.4g})")
+    if not moved > 10 * F32_ATOL * max(1.0, kept.abs().max().item()):
+        raise AssertionError(f"{key}: removing the clamps moved the logits by {moved} only")
+    del stripped, cpu_engine
+
+    what = f"{key} gemm"
+    gemm = build_int8_resident(copy.deepcopy(model), backend="gemm", device="cuda")
+    with torch.inference_mode():
+        counts[what], _ = _path_counts(what, lambda: gemm.run_u8(sample.cuda()))
+    routes = PATH_ROUTES[what] = ops.route_counts()
+    _check_launches(counts[what], GEMM_PLAN, 1, what)
+    _per_forward_routes(what, routes, RANGEBN_GEMM_ROUTES, 1)
+    _compare_blocks(engine, gemm, sample.cuda(), f"{what} vs pallas")
+    del gemm
+
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn((2, side, side, 3), generator=gen)
+    what = f"{key} convert_to_int"
+    cvt = convert_to_int(copy.deepcopy(model), backend="pallas", device="cuda")
+    with torch.inference_mode():
+        counts[what], got = _path_counts(what, lambda: cvt(x.cuda()))
+        routes = PATH_ROUTES[what] = ops.route_counts()
+        want = convert_to_int(copy.deepcopy(model), backend="pallas", device="cpu")(x)
+    _check_launches(counts[what], PLANS["resnet50"][0], 1, what)
+    _per_forward_routes(what, routes, RANGEBN_ROUTES, 1)
+    _compare_stages({"logits": got}, {"logits": want}, f"{what} gpu vs cpu")
+    del cvt
+
+    what = f"{key} strict"
+    xs = torch.randn((RANGEBN_STRICT_BATCH, side, side, 3), generator=gen)
+    strict = convert_to_int_strict(copy.deepcopy(model).cuda())  # converted where it lies, served on the card
+    t1 = time.perf_counter()
+    with torch.inference_mode():
+        counts[what], got = _path_counts(what, lambda: strict(xs.cuda()))
+        log(f"[{what}] batch {RANGEBN_STRICT_BATCH} on the GPU in {time.perf_counter() - t1:.2f} s (plain "
+            f"PyTorch, exact int32 products)")
+        want = convert_to_int_strict(copy.deepcopy(model), device="cpu")(xs[:2])
+    fc_step = strict.fc.act_scale
+    err = (got[:2].cpu() - want).abs().max().item()
+    log(f"[{what}] logits {tuple(got.shape)}, finite {bool(torch.isfinite(got).all())}; the first 2 against the "
+        f"CPU twin: max abs diff {err:.4g} (tolerance 2 fc steps, {2 * fc_step:.4g}), argmax equal "
+        f"{bool((got[:2].cpu().argmax(-1) == want.argmax(-1)).all())}")
+    if (tuple(got.shape) != (RANGEBN_STRICT_BATCH, classes) or not torch.isfinite(got).all() or not err < 2 * fc_step
+            or not (got[:2].cpu().argmax(-1) == want.argmax(-1)).all()):
+        raise AssertionError(f"{what}: the GPU strict engine and its CPU twin disagree ({err})")
     return executor, counts
 
 
@@ -1720,6 +1948,8 @@ def main() -> int:
     path_counts.update(counts)
     executors["resnet50"]["int4"], counts = phase_resnet50_int4()
     path_counts.update(counts)
+    executors["resnet50"]["rangebn"], counts = phase_rangebn()
+    path_counts.update(counts)
     for key in ("resnet50", "resnet18", "mobilenet", "mobilenet w0.75"):
         phase_throughput(key, executors[key], card, timer)
     for batch in ALEXNET_BATCHES:
@@ -1739,7 +1969,10 @@ def main() -> int:
             "bound_by": numbers["bound_by"], "library_ms": numbers["library_ms"],
             "event_ms": numbers["event_ms"], "path": path, "case": numbers["case"],
             "launches_autotuned": {key: path_counts[f"{key} autotuned"][kname] for key in AUTOTUNE_MODELS},
+            "launches_rangebn": path_counts["resnet50 rangebn serve"][kname],
         })
+        if "clip" in numbers:  # the CLIP instances beside the unclamped ones on the same inputs
+            kernels[-1]["clip"] = numbers["clip"]
         if kname in PATH_ROUTES.get(path, {}):  # K2 and B7: their launches on the path by route
             kernels[-1]["routes"] = PATH_ROUTES[path][kname]
         # B6: K1 unpacked; B7 and B8: K2 on the same inputs; B8: the general tile on the same inputs

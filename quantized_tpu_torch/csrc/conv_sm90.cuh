@@ -57,7 +57,19 @@
 // staged, so their latencies overlap (loading each at its row's turn cost
 // 9% at ResNet-18's layer1 on an H100, PERF.md). RES is a template flag, not
 // a runtime branch, so the other instances carry none of its loads or
-// registers.
+// registers. So is CLIP, the RangeBN observer clamp of a clamped conv: its
+// instances read per-channel bounds clip_lo / clip_hi and clamp y to them
+// before ReLU (f32 out: the bounds read for each row, 16 bytes a load), or
+// the rounded value to them in place of [-128, 127] (s8 out:
+// integer-valued bounds in [-128, 127] that the wrapper forms as
+// int8_conv_xla forms them, so a channel whose hi < lo takes hi, and whose
+// lo holds the ReLU floor, so ReLU is skipped; a channel's two bounds in one
+// register, once a pass). The clamp costs the epilogue of a small-K tile
+// 10-23% (PERF.md, on an H100): four floats a bound spilled the
+// 128-channel instances (1.36-1.39x the unclamped instance at ResNet-50's
+// 1x1 64->256), and byte-packed bounds clamped by __vmaxs4 / __vmins4
+// (1.30-1.43x) or s16x2 values clamped by max/min.s16x2 (1.26x) cost more
+// than this form (1.15-1.23x there, 1.10x at the 3x3 s1 64).
 // Each consumer warp runs the epilogue of its own 16 accumulator rows, with
 // no barrier beyond the warp: the int32 accumulators go through the warp's
 // shared-memory rows, 32 channels at a time; the epilogue then runs on four
@@ -127,6 +139,8 @@ struct ConvEpi {
   float inv, zps;
   const int8_t* residual;  // B8 (RES): s8 of the output's shape, else null
   float r_off, r_scale;    // B8: f32(128 - r_zp), f32(r_scale)
+  const float* clip_lo;    // CLIP: (Cout,) bounds of y (f32 out) or of the rounded value (s8 out), else null
+  const float* clip_hi;
 };
 
 // mbarrier wait that turns a lost TMA into a kernel error instead of a hang
@@ -196,6 +210,28 @@ __device__ __forceinline__ long long row_pixel(const ConvGeom& g, int mt, int r,
   return (static_cast<long long>(n) * g.Ho + h) * g.Wo + w;
 }
 
+// CLIP, f32 out: the bounds of this thread's four channels (the last one
+// repeated past Cout), by loads kept where they are written (volatile: not
+// hoisted out of the row loop, where they would hold eight registers across
+// its iterations)
+__device__ __forceinline__ void load_bounds(const ConvEpi& ep, int cout, int n, bool cvec, float (&lo)[4],
+                                            float (&hi)[4]) {
+  if (cvec && n + 3 < cout) {
+    asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(lo[0]), "=f"(lo[1]), "=f"(lo[2]), "=f"(lo[3]) : "l"(ep.clip_lo + n));
+    asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(hi[0]), "=f"(hi[1]), "=f"(hi[2]), "=f"(hi[3]) : "l"(ep.clip_hi + n));
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float* plo = ep.clip_lo + min(n + e, cout - 1);
+    const float* phi = ep.clip_hi + min(n + e, cout - 1);
+    asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(lo[e]) : "l"(plo));
+    asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(hi[e]) : "l"(phi));
+  }
+}
+
 // this thread's four residual bytes of a row (0 past Cout), packed little-endian
 __device__ __forceinline__ uint32_t residual_word(const ConvEpi& ep, int cout, long long pix, int n, bool vec) {
   if (pix < 0 || n >= cout) return 0u;
@@ -206,7 +242,7 @@ __device__ __forceinline__ uint32_t residual_word(const ConvEpi& ep, int cout, l
   return v;
 }
 
-template <int KC, int BN, bool RES>
+template <int KC, int BN, bool RES, bool CLIP>
 __global__ void __launch_bounds__(THREADS, 2)
     conv_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw, ConvGeom g,
                      ConvEpi ep, int stages) {
@@ -325,6 +361,8 @@ __global__ void __launch_bounds__(THREADS, 2)
     //    channel count keeps the pieces aligned, else element by element
     const bool vec = (g.Cout & 3) == 0;
     const bool rvec = vec && (reinterpret_cast<uintptr_t>(ep.residual) & 3) == 0;  // RES: 4-byte residual loads
+    const bool cvec = vec && (reinterpret_cast<uintptr_t>(ep.clip_lo) & 15) == 0 &&  // CLIP: 16-byte bound loads
+                      (reinterpret_cast<uintptr_t>(ep.clip_hi) & 15) == 0;
     constexpr int GROUPS = PASS / 4, ROWS = 16 * GROUPS / 32;  // four-channel groups a row; rows a thread
 #pragma unroll
     for (int pass = 0; pass < BN / PASS; ++pass) {
@@ -354,6 +392,22 @@ __global__ void __launch_bounds__(THREADS, 2)
         }
       }
       __syncwarp();
+      // CLIP, s8 out: each of the four channels' integer bounds in one
+      // register, lo in the low half and hi in the high half, once a pass
+      // (four floats a bound spilled the 128-channel instances under the
+      // two-blocks-an-SM register cap)
+      int cb[4] = {0, 0, 0, 0};
+      if constexpr (CLIP) {
+        if (ep.out_int8) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = min(n + e, g.Cout - 1);
+            const uint32_t lo = static_cast<uint32_t>(__float2int_rn(__ldg(ep.clip_lo + c)));
+            const uint32_t hi = static_cast<uint32_t>(__float2int_rn(__ldg(ep.clip_hi + c)));
+            cb[e] = static_cast<int>((hi << 16) | (lo & 0xffffu));
+          }
+        }
+      }
       // B8: the residual of all four of this thread's rows, in flight together
       uint32_t r0 = 0u, r1 = 0u, r2 = 0u, r3 = 0u;
       if constexpr (RES) {
@@ -381,6 +435,10 @@ __global__ void __launch_bounds__(THREADS, 2)
         const int4 a4 = *reinterpret_cast<const int4*>(stage_out + r * OUT_PITCH + 4 * (n - n0 - pass * PASS));
         int a[4] = {a4.x, a4.y, a4.z, a4.w};
         float y[4];
+        float cl[4], ch[4];  // CLIP, f32 out: the bounds of y, read for each row (no registers across the rows)
+        if constexpr (CLIP) {
+          if (!ep.out_int8) load_bounds(ep, g.Cout, n, cvec, cl, ch);
+        }
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           if (ri.o00 >= 0) {  // the zero-filled taps held stored_zp in K2's function
@@ -393,7 +451,11 @@ __global__ void __launch_bounds__(THREADS, 2)
             const float rv = static_cast<float>(static_cast<int8_t>(res_row >> (8 * e)));
             y[e] = __fadd_rn(y[e], __fmul_rn(__fadd_rn(rv, ep.r_off), ep.r_scale));
           }
-          if (ep.relu) y[e] = fmaxf(y[e], 0.0f);
+          if constexpr (CLIP) {
+            if (!ep.out_int8) y[e] = fminf(fmaxf(y[e], cl[e]), ch[e]);
+          }
+          // with s8 out a CLIP instance's lo holds the ReLU floor (zps <= lo), so ReLU changes nothing there
+          if (ep.relu && !(CLIP && ep.out_int8)) y[e] = fmaxf(y[e], 0.0f);
         }
         const long long o = ri.pix * g.Cout + n;
         if (ep.out_int8) {
@@ -402,7 +464,10 @@ __global__ void __launch_bounds__(THREADS, 2)
           for (int e = 0; e < 4; ++e) {
             // rint, then the clip to [-128, 127]: round half to even to int32, then clamp
             const int v = __float2int_rn(__fadd_rn(__fmul_rn(y[e], ep.inv), ep.zps));
-            q[e] = static_cast<int8_t>(min(max(v, -128), 127));
+            if constexpr (CLIP)  // the channel's bounds in place of [-128, 127]
+              q[e] = static_cast<int8_t>(min(max(v, static_cast<int>(static_cast<int16_t>(cb[e]))), cb[e] >> 16));
+            else
+              q[e] = static_cast<int8_t>(min(max(v, -128), 127));
           }
           int8_t* out = static_cast<int8_t*>(ep.out) + o;
           if (vec) {
@@ -495,10 +560,10 @@ struct ConvPlan {
   int kc, bn, two, tho, nb, stages, blocks, smem;
 };
 
-template <int KC, int BN, bool RES>
+template <int KC, int BN, bool RES, bool CLIP>
 int launch_instance(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom& g, const ConvEpi& ep,
                     const ConvPlan& p, cudaStream_t stream) {
-  auto kernel = conv_sm90_kernel<KC, BN, RES>;
+  auto kernel = conv_sm90_kernel<KC, BN, RES, CLIP>;
   static std::atomic<bool> opted_in{false};  // the full shared memory, asked for once per instance
   cudaError_t err;
   if (!opted_in.load()) {
@@ -510,14 +575,14 @@ int launch_instance(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool RES>
+template <bool RES, bool CLIP>
 int launch_kc_bn(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom& g, const ConvEpi& ep,
                  const ConvPlan& p, cudaStream_t s) {
-#define QT_CONV_BN(KC)                                                    \
-  switch (p.bn) {                                                         \
-    case 32: return launch_instance<KC, 32, RES>(ta, tw, g, ep, p, s);    \
-    case 64: return launch_instance<KC, 64, RES>(ta, tw, g, ep, p, s);    \
-    default: return launch_instance<KC, 128, RES>(ta, tw, g, ep, p, s);   \
+#define QT_CONV_BN(KC)                                                          \
+  switch (p.bn) {                                                               \
+    case 32: return launch_instance<KC, 32, RES, CLIP>(ta, tw, g, ep, p, s);    \
+    case 64: return launch_instance<KC, 64, RES, CLIP>(ta, tw, g, ep, p, s);    \
+    default: return launch_instance<KC, 128, RES, CLIP>(ta, tw, g, ep, p, s);   \
   }
   switch (p.kc) {
     case 32: QT_CONV_BN(32)
@@ -533,9 +598,11 @@ int launch_kc_bn(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom& g
 // without padding, whose rows are its output pixels), else as 4-D boxes of
 // the NHWC input (K2). Both bases 16-byte aligned, Cin % 16 == 0; 0 or the
 // CUDA error. Refuses a plan that does not fit the shape. RES: B8, with
-// ep.residual, on its own kernel instances.
-template <bool RES = false>
+// ep.residual, on its own kernel instances; CLIP: the clamp, with
+// ep.clip_lo / clip_hi, on its own (not with RES: no engine needs both).
+template <bool RES = false, bool CLIP = false>
 int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& ep, const ConvPlan& p, void* stream) {
+  static_assert(!(RES && CLIP), "the residual and the clamp have no instances together");
   const bool ok = (p.kc == 32 || p.kc == 64 || p.kc == 128) && (p.bn == 32 || p.bn == 64 || p.bn == 128) &&
                   g.Cin % 16 == 0 && (p.kc == 32 || g.Cin % p.kc == 0 || (g.KH * g.KW == 1 && g.Cin < p.kc)) &&
                   p.stages >= 2 && p.stages <= MAX_STAGES && p.blocks >= 1 &&
@@ -547,7 +614,8 @@ int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& ep, con
                                 p.nb >= 1 && p.two * p.tho * p.nb <= TILE_M && p.two * g.SW <= 256 &&
                                 p.tho * g.SH <= 256 && p.nb <= 256 &&
                                 (ep.border_sums != nullptr || ep.stored_zp == 0 || (g.PH == 0 && g.PW == 0))) &&
-                  (ep.residual != nullptr) == RES;
+                  (ep.residual != nullptr) == RES && (ep.clip_lo != nullptr) == CLIP &&
+                  (ep.clip_hi != nullptr) == CLIP;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   g.two = p.two;
   g.tho = p.tho;
@@ -587,7 +655,7 @@ int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& ep, con
   CUtensorMap ta, tw;
   if (!conv_map(&ta, k) || !matrix_map(&tw, w, g.Cout, g.KH * g.KW * g.Cin, p.bn, p.kc))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_kc_bn<RES>(ta, tw, g, ep, p, static_cast<cudaStream_t>(stream));
+  return launch_kc_bn<RES, CLIP>(ta, tw, g, ep, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

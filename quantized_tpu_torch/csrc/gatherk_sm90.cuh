@@ -42,7 +42,12 @@
 //   rounding per operation (__fmul_rn, __fadd_rn, -fmad=false; rint and
 //   the clip by adding 1.5 * 2^23 to the clipped value, sm90.cuh
 //   clip_round_byte), so every output equals int8_conv_direct_plain to the
-//   bit. It goes through a
+//   bit. The CLIP instances (a clamped conv: the RangeBN observer clamp)
+//   clamp y to per-channel bounds before ReLU (f32 out), or the value to be
+//   rounded to integer-valued bounds in place of ReLU and [-128, 127] (s8
+//   out: their lo holds the ReLU floor; the clip first commutes with the
+//   rounding, as in clip_round_byte). It goes
+//   through a
 //   shared staging tile, one row a pixel (16 bytes apart beyond its Cout
 //   outputs, so the fragments' stores of eight rows fall in distinct banks),
 //   from which every thread copies 16-byte pieces (8 or 4 where a pixel's
@@ -74,6 +79,8 @@ struct GkEpi {
   void* out;
   int stored_zp, relu, out_int8;
   float inv, zps;
+  const float* clip_lo;  // CLIP: (Cout,) bounds of y (f32 out) or of the rounded value (s8 out), else null
+  const float* clip_hi;
 };
 
 // Offsets in the dynamic shared memory (after aligning its base to 1024):
@@ -206,7 +213,7 @@ __device__ __forceinline__ void build_a(const GkGeom& g, const uint8_t* win, uin
   }
 }
 
-template <int CH, int BN>
+template <int CH, int BN, bool CLIP>
 __global__ void __launch_bounds__(THREADS, 3)
     gatherk_sm90_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, GkGeom g, GkEpi ep) {
   extern __shared__ uint8_t smem_raw[];
@@ -305,15 +312,28 @@ __global__ void __launch_bounds__(THREADS, 3)
         const int n = 8 * j + 2 * tq + e;
         if (n >= g.Cout) continue;
         const float al = alpha[n], be = beta[n];
+        float cl = 0.0f, ch = 0.0f;
+        if constexpr (CLIP) {
+          cl = __ldg(ep.clip_lo + n);
+          ch = __ldg(ep.clip_hi + n);
+        }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int m = row0 + 8 * h;
           if (m >= rows) continue;
           float y = __fadd_rn(__fmul_rn(static_cast<float>(acc[4 * j + 2 * h + e]), al), be);
-          if (ep.relu) y = fmaxf(y, 0.0f);
+          if constexpr (CLIP) {
+            if (!ep.out_int8) y = fminf(fmaxf(y, cl), ch);
+          }
+          if (ep.relu && !(CLIP && ep.out_int8)) y = fmaxf(y, 0.0f);  // s8 CLIP: the floor is in clip_lo
           if (ep.out_int8) {  // clip(rint(y * inv + zps), -128, 127), the clip first (sm90.cuh)
-            base[l.stage + m * sp + n] =
-                static_cast<uint8_t>(qt90::clip_round_byte(__fadd_rn(__fmul_rn(y, ep.inv), ep.zps), -128.0f));
+            const float v = __fadd_rn(__fmul_rn(y, ep.inv), ep.zps);
+            uint32_t q;
+            if constexpr (CLIP)
+              q = __float_as_uint(__fadd_rn(fminf(fmaxf(v, cl), ch), qt90::ROUND_MAGIC));
+            else
+              q = qt90::clip_round_byte(v, -128.0f);
+            base[l.stage + m * sp + n] = static_cast<uint8_t>(q);
           } else {
             *reinterpret_cast<float*>(base + l.stage + m * sp + 4 * n) = y;
           }
@@ -352,10 +372,10 @@ struct GkPlan {
   int kb, bn, two, tho, nb, blocks, smem;
 };
 
-template <int CH, int BN>
+template <int CH, int BN, bool CLIP>
 int launch_instance(const void* x, const void* w, const GkGeom& g, const GkEpi& ep, int blocks, int smem,
                     cudaStream_t stream) {
-  auto kernel = gatherk_sm90_kernel<CH, BN>;
+  auto kernel = gatherk_sm90_kernel<CH, BN, CLIP>;
   static std::atomic<bool> opted_in{false};  // the full shared memory, asked for once per instance
   if (!opted_in.load()) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, qt::SMEM_LIMIT);
@@ -366,14 +386,21 @@ int launch_instance(const void* x, const void* w, const GkGeom& g, const GkEpi& 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int CH>
+template <int CH, bool CLIP>
 int launch_bn(const void* x, const void* w, const GkGeom& g, const GkEpi& ep, int bn, int blocks, int smem,
               cudaStream_t s) {
   switch (bn) {
-    case 16: return launch_instance<CH, 16>(x, w, g, ep, blocks, smem, s);
-    case 32: return launch_instance<CH, 32>(x, w, g, ep, blocks, smem, s);
-    default: return launch_instance<CH, 64>(x, w, g, ep, blocks, smem, s);
+    case 16: return launch_instance<CH, 16, CLIP>(x, w, g, ep, blocks, smem, s);
+    case 32: return launch_instance<CH, 32, CLIP>(x, w, g, ep, blocks, smem, s);
+    default: return launch_instance<CH, 64, CLIP>(x, w, g, ep, blocks, smem, s);
   }
+}
+
+template <int CH>
+int launch_clip(const void* x, const void* w, const GkGeom& g, const GkEpi& ep, int bn, int blocks, int smem,
+                cudaStream_t s) {
+  return ep.clip_lo != nullptr ? launch_bn<CH, true>(x, w, g, ep, bn, blocks, smem, s)
+                               : launch_bn<CH, false>(x, w, g, ep, bn, blocks, smem, s);
 }
 
 // The gather-K form on its Hopper route under plan p; 0 or the CUDA error.
@@ -399,15 +426,15 @@ inline int launch_gatherk(const void* x, const void* w, GkGeom g, const GkEpi& e
                   p.bn == bn_want && p.two >= 1 && p.tho >= 1 && p.nb >= 1 && p.two * p.tho * p.nb <= TILE_M &&
                   (p.nb == 1 || (p.two == g.Wo && p.tho == g.Ho)) && units <= THREADS &&
                   (ch != 1 || g.KW * g.Cin >= 4) && p.blocks >= 1 && qt::aligned16(x) &&
-                  p.smem == gk_layout(g, p.bn, 1).total;
+                  p.smem == gk_layout(g, p.bn, 1).total && (ep.clip_lo == nullptr) == (ep.clip_hi == nullptr);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = gk_layout(g, p.bn, ep.out_int8 ? 1 : 4).total;
   if (smem > qt::SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (ch) {
-    case 16: return launch_bn<16>(x, w, g, ep, p.bn, p.blocks, smem, s);
-    case 4: return launch_bn<4>(x, w, g, ep, p.bn, p.blocks, smem, s);
-    default: return launch_bn<1>(x, w, g, ep, p.bn, p.blocks, smem, s);
+    case 16: return launch_clip<16>(x, w, g, ep, p.bn, p.blocks, smem, s);
+    case 4: return launch_clip<4>(x, w, g, ep, p.bn, p.blocks, smem, s);
+    default: return launch_clip<1>(x, w, g, ep, p.bn, p.blocks, smem, s);
   }
 }
 

@@ -116,13 +116,20 @@ struct Epilogue {
   void* out;
   int relu, requant;
   float inv, zps, lo;
+  // the clamp of a clamped conv (K1's CLIP instances only), per weight row:
+  // bounds of y before ReLU (f32 out), or integer-valued bounds of the
+  // rounded value in place of [lo, 127] (s8 out)
+  const float* clip_lo;
+  const float* clip_hi;
 };
 
 // Grid (split, ceil(N/64), ceil(M/BT)), clusters of (split, 1, 1); block
 // (s, y, z) multiplies weight rows 64y.. by batch rows BT*z.. over K stages
 // [s*steps, min((s+1)*steps, nk)). PACKED: W is (N, kspan) split-half packed
 // int4 and A is (M, 2*kspan); else W is (N, kspan) s8 and A (M, kspan).
-template <int BT, bool PACKED>
+// CLIP: the epilogue clamps with ep.clip_lo / clip_hi, on instances of its
+// own, so the others carry none of its loads.
+template <int BT, bool PACKED, bool CLIP = false>
 __global__ void __launch_bounds__(THREADS) gemm_sm90_kernel(const __grid_constant__ CUtensorMap tw,
                                                             const __grid_constant__ CUtensorMap ta, Epilogue ep,
                                                             int M, int N, int kspan, int steps, int stages) {
@@ -163,7 +170,7 @@ __global__ void __launch_bounds__(THREADS) gemm_sm90_kernel(const __grid_constan
   // the epilogue's constants, loaded while the ring fills; accumulator
   // v = 4j + e holds (row 16*warp + g + 8*(e >> 1), column 8j + 2t + (e & 1))
   const int nr[2] = {n0 + 16 * warp + g, n0 + 16 * warp + g + 8};
-  float al[2], be[2];
+  float al[2], be[2], cl[2], ch[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int n = min(nr[h], N - 1);
@@ -173,6 +180,10 @@ __global__ void __launch_bounds__(THREADS) gemm_sm90_kernel(const __grid_constan
     } else {
       al[h] = ep.alpha[n];
       be[h] = ep.beta[n];
+    }
+    if constexpr (CLIP) {
+      cl[h] = ep.clip_lo[n];
+      ch[h] = ep.clip_hi[n];
     }
   }
 
@@ -264,6 +275,7 @@ __global__ void __launch_bounds__(THREADS) gemm_sm90_kernel(const __grid_constan
       const int h = (v >> 1) & 1, m = m0 + 8 * (v >> 2) + 2 * t + (v & 1), n = nr[h];
       if (m < M && n < N) {
         float y = __fadd_rn(__fmul_rn(static_cast<float>(acc[v]), al[h]), be[h]);
+        if constexpr (CLIP) y = fminf(fmaxf(y, cl[h]), ch[h]);
         if (ep.relu) y = fmaxf(y, 0.0f);
         out[(size_t)m * N + n] = y;
       }
@@ -275,8 +287,12 @@ __global__ void __launch_bounds__(THREADS) gemm_sm90_kernel(const __grid_constan
 #pragma unroll
   for (int v = 0; v < R; ++v) {
     const int h = (v >> 1) & 1;
-    tile[(8 * (v >> 2) + 2 * t + (v & 1)) * OUT_PITCH + 16 * warp + g + 8 * h] =
-        qt::requant(acc[v], al[h], be[h], ep.lo);
+    int8_t q;
+    if constexpr (CLIP)
+      q = qt::requant(acc[v], al[h], be[h], cl[h], ch[h]);
+    else
+      q = qt::requant(acc[v], al[h], be[h], ep.lo);
+    tile[(8 * (v >> 2) + 2 * t + (v & 1)) * OUT_PITCH + 16 * warp + g + 8 * h] = q;
   }
   __syncthreads();
   int8_t* out = static_cast<int8_t*>(ep.out);
@@ -344,10 +360,10 @@ inline bool tma_ok(const void* a, const void* w, int kspan, int ka, bool packed)
          qt::aligned16(w);
 }
 
-template <int BT, bool PACKED>
+template <int BT, bool PACKED, bool CLIP>
 int launch_tile(const CUtensorMap& tw, const CUtensorMap& ta, const Epilogue& ep, int M, int N, int kspan,
                 int split, int steps, int stages, int smem, cudaStream_t stream) {
-  auto kernel = gemm_sm90_kernel<BT, PACKED>;
+  auto kernel = gemm_sm90_kernel<BT, PACKED, CLIP>;
   static std::atomic<bool> opted_in{false};  // the full shared memory, asked for once per instance
   cudaError_t err;
   if (!opted_in.load()) {
@@ -373,8 +389,9 @@ int launch_tile(const CUtensorMap& tw, const CUtensorMap& ta, const Epilogue& ep
 }
 
 // One launch of the plan (tile, split, steps, stages, smem) from gemm_plan;
-// 0 or the CUDA error. The caller has checked tma_ok.
-template <bool PACKED>
+// 0 or the CUDA error. The caller has checked tma_ok. CLIP: the clamped
+// epilogue (ep.clip_lo / clip_hi set).
+template <bool PACKED, bool CLIP = false>
 int launch_gemm(const void* a, const void* w, const Epilogue& ep, int M, int N, int kspan, int ka, int tile,
                 int split, int steps, int stages, int smem, void* stream) {
   const int nk = (kspan + BK - 1) / BK;
@@ -387,11 +404,11 @@ int launch_gemm(const void* a, const void* w, const Epilogue& ep, int M, int N, 
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile) {
-    case 8: return launch_tile<8, PACKED>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
-    case 16: return launch_tile<16, PACKED>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
-    case 32: return launch_tile<32, PACKED>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
-    case 64: return launch_tile<64, PACKED>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
-    case 128: return launch_tile<128, PACKED>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 8: return launch_tile<8, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 16: return launch_tile<16, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 32: return launch_tile<32, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 64: return launch_tile<64, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 128: return launch_tile<128, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -60,6 +60,16 @@
 //   a 3x3 over Cin 40 or 24, a count of pixels not a multiple of 4; no zoo
 //   model's served forward launches it).
 //
+// A clamped conv (the RangeBN flavor: the input observer of the folded
+// RangeBN clips the conv's output, engine.convert._rangebn_y_clip) passes
+// per-channel bounds clip_lo / clip_hi, on every route: the f32 form clamps
+// y to them before ReLU, the s8 form clamps the rounded value to them in
+// place of ReLU and [-128, 127] (integer-valued bounds in [-128, 127], whose
+// lo holds the ReLU floor, formed as int8_conv_xla(y_clip=) forms them:
+// ops.int8_matmul.requant_clip_bounds). Each route runs them on CLIP
+// instances of its own, so the unclamped instances carry none of it; the
+// residual form takes no clamp.
+//
 // The epilogue uses __fmul_rn/__fadd_rn (and the build passes -fmad=false),
 // so it rounds exactly as the plain PyTorch version does.
 
@@ -82,12 +92,13 @@ struct ConvEpilogue {
 };
 
 // CH: bytes per gathered A chunk; Cin % CH == 0, so a chunk stays inside a tap.
-// RES: add the residual in the epilogue (B8).
-template <int CH, bool RES>
+// RES: add the residual in the epilogue (B8). CLIP: the clamp.
+template <int CH, bool RES, bool CLIP>
 __global__ void __launch_bounds__(qt::THREADS)
     int8_conv_kernel(const int8_t* __restrict__ X, const int8_t* __restrict__ W,
                      const float* __restrict__ alpha, const float* __restrict__ beta,
-                     const int8_t* __restrict__ residual, void* __restrict__ out, ConvShape s, int stored_zp,
+                     const int8_t* __restrict__ residual, const float* __restrict__ clip_lo,
+                     const float* __restrict__ clip_hi, void* __restrict__ out, ConvShape s, int stored_zp,
                      ConvEpilogue e, bool wvec) {
   using T = typename qt::Chunk<CH>::T;
   __shared__ __align__(16) int8_t As[qt::BM * qt::LDS];
@@ -149,10 +160,16 @@ __global__ void __launch_bounds__(qt::THREADS)
     float y = __fadd_rn(__fmul_rn(static_cast<float>(a), alpha[n]), beta[n]);
     if constexpr (RES)
       y = __fadd_rn(y, __fmul_rn(__fadd_rn(static_cast<float>(residual[o]), e.r_off), e.r_scale));
-    if (e.relu) y = fmaxf(y, 0.0f);
+    if constexpr (CLIP) {
+      if (!e.out_int8) y = fminf(fmaxf(y, clip_lo[n]), clip_hi[n]);
+    }
+    if (e.relu && !(CLIP && e.out_int8)) y = fmaxf(y, 0.0f);  // s8 CLIP: the floor is in clip_lo
     if (e.out_int8) {
       float q = rintf(__fadd_rn(__fmul_rn(y, e.inv), e.zps));
-      q = fminf(fmaxf(q, -128.0f), 127.0f);
+      if constexpr (CLIP)
+        q = fminf(fmaxf(q, clip_lo[n]), clip_hi[n]);
+      else
+        q = fminf(fmaxf(q, -128.0f), 127.0f);
       static_cast<int8_t*>(out)[o] = static_cast<int8_t>(static_cast<int>(q));
     } else {
       static_cast<float*>(out)[o] = y;
@@ -161,28 +178,29 @@ __global__ void __launch_bounds__(qt::THREADS)
 }
 
 struct ConvArgs {
-  const void *x, *w, *alpha, *beta, *residual;
+  const void *x, *w, *alpha, *beta, *residual, *clip_lo, *clip_hi;
   void* out;
 };
 
-template <int CH, bool RES>
+template <int CH, bool RES, bool CLIP>
 int launch(const ConvArgs& a, const ConvShape& s, int stored_zp, const ConvEpilogue& e, void* stream) {
   const int M = s.N * s.Ho * s.Wo, K = s.KH * s.KW * s.Cin;
   const bool wvec = (K % 16 == 0) && qt::aligned16(a.w);
   const dim3 grid((M + qt::BM - 1) / qt::BM, (s.Cout + qt::BN - 1) / qt::BN);
-  int8_conv_kernel<CH, RES><<<grid, qt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  int8_conv_kernel<CH, RES, CLIP><<<grid, qt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a.x), static_cast<const int8_t*>(a.w), static_cast<const float*>(a.alpha),
-      static_cast<const float*>(a.beta), static_cast<const int8_t*>(a.residual), a.out, s, stored_zp, e, wvec);
+      static_cast<const float*>(a.beta), static_cast<const int8_t*>(a.residual),
+      static_cast<const float*>(a.clip_lo), static_cast<const float*>(a.clip_hi), a.out, s, stored_zp, e, wvec);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the widest chunk that divides Cin and keeps x's loads aligned
-template <bool RES>
+template <bool RES, bool CLIP>
 int launch_any_cin(const ConvArgs& a, const ConvShape& s, int stored_zp, const ConvEpilogue& e, void* stream) {
   switch (qt::chunk_bytes(s.Cin, a.x)) {
-    case 16: return launch<16, RES>(a, s, stored_zp, e, stream);
-    case 4: return launch<4, RES>(a, s, stored_zp, e, stream);
-    default: return launch<1, RES>(a, s, stored_zp, e, stream);
+    case 16: return launch<16, RES, CLIP>(a, s, stored_zp, e, stream);
+    case 4: return launch<4, RES, CLIP>(a, s, stored_zp, e, stream);
+    default: return launch<1, RES, CLIP>(a, s, stored_zp, e, stream);
   }
 }
 
@@ -197,20 +215,24 @@ int launch_any_cin(const ConvArgs& a, const ConvShape& s, int stored_zp, const C
 // tap reads a nonzero stored zero point; sm90 == 2: the gather-K form on its
 // Hopper route under the plan (kc: the swizzle row, bn, two, tho, nb,
 // blocks, smem; stages unused). Either is refused (an error, never another
-// route) where it cannot take the call.
+// route) where it cannot take the call. clip_lo, clip_hi: the clamp's
+// (Cout,) f32 bounds (of y with f32 out, integer-valued bounds of the
+// rounded value with s8 out), or both null; not with a residual.
 extern "C" int qt_int8_conv(const void* x, const void* w, const void* alpha, const void* beta,
                             const void* residual, const void* border_sums, void* out, int N, int H, int W, int Cin,
                             int Cout, int KH, int KW, int SH, int SW, int PH, int PW, int Ho, int Wo, int stored_zp,
                             int relu, int out_int8, float inv, float zps, float r_off, float r_scale, int sm90,
                             int kc, int bn, int two, int tho, int nb, int stages, int blocks, int smem,
-                            void* stream) {
+                            const void* clip_lo, const void* clip_hi, void* stream) {
+  const bool clip = clip_lo != nullptr;
+  if (clip != (clip_hi != nullptr) || (clip && residual != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (sm90 == 2) {
     if (residual != nullptr) return static_cast<int>(cudaErrorInvalidValue);
     qtgk::GkGeom g{};
     g.N = N, g.H = H, g.W = W, g.Cin = Cin, g.Cout = Cout, g.KH = KH, g.KW = KW;
     g.SH = SH, g.SW = SW, g.PH = PH, g.PW = PW, g.Ho = Ho, g.Wo = Wo;
     const qtgk::GkEpi ep{static_cast<const float*>(alpha), static_cast<const float*>(beta), out, stored_zp, relu,
-                         out_int8, inv, zps};
+                         out_int8, inv, zps, static_cast<const float*>(clip_lo), static_cast<const float*>(clip_hi)};
     return qtgk::launch_gatherk(x, w, g, ep, qtgk::GkPlan{kc, bn, two, tho, nb, blocks, smem}, stream);
   }
   if (sm90) {
@@ -219,14 +241,17 @@ extern "C" int qt_int8_conv(const void* x, const void* w, const void* alpha, con
     const qtconv::ConvGeom g{N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo, flat};
     const qtconv::ConvEpi ep{static_cast<const float*>(alpha), static_cast<const float*>(beta),
                              static_cast<const int*>(border_sums), out, stored_zp, relu, out_int8, inv, zps,
-                             static_cast<const int8_t*>(residual), r_off, r_scale};
+                             static_cast<const int8_t*>(residual), r_off, r_scale,
+                             static_cast<const float*>(clip_lo), static_cast<const float*>(clip_hi)};
     const qtconv::ConvPlan p{kc, bn, two, tho, nb, stages, blocks, smem};
-    return residual != nullptr ? qtconv::launch_conv<true>(x, w, g, ep, p, stream)
-                               : qtconv::launch_conv<false>(x, w, g, ep, p, stream);
+    if (residual != nullptr) return qtconv::launch_conv<true, false>(x, w, g, ep, p, stream);
+    return clip ? qtconv::launch_conv<false, true>(x, w, g, ep, p, stream)
+                : qtconv::launch_conv<false, false>(x, w, g, ep, p, stream);
   }
-  const ConvArgs a{x, w, alpha, beta, residual, out};
+  const ConvArgs a{x, w, alpha, beta, residual, clip_lo, clip_hi, out};
   const ConvShape s{N, H, W, Cin, Cout, KH, KW, SH, SW, PH, PW, Ho, Wo};
   const ConvEpilogue e{r_off, r_scale, relu, out_int8, inv, zps};
-  if (residual != nullptr) return launch_any_cin<true>(a, s, stored_zp, e, stream);
-  return launch_any_cin<false>(a, s, stored_zp, e, stream);
+  if (residual != nullptr) return launch_any_cin<true, false>(a, s, stored_zp, e, stream);
+  return clip ? launch_any_cin<false, true>(a, s, stored_zp, e, stream)
+              : launch_any_cin<false, false>(a, s, stored_zp, e, stream);
 }

@@ -24,6 +24,13 @@
 // (K % 16 != 0, e.g. the stems' K = 27, 147 and 363, or an unaligned base)
 // keep the first tile below, which refuses nothing.
 //
+// A clamped conv (the RangeBN flavor's observer clamp, on the "gemm"
+// backend) passes per-column bounds clip_lo / clip_hi: the f32 form clamps y
+// to them before ReLU, the requant form clamps the rounded value to them
+// (integer-valued, formed by the wrapper as int8_conv_xla forms them) in
+// place of [lo, 127]. They run on CLIP instances of both routes, so the
+// unclamped instances carry none of it.
+//
 // The epilogue uses __fmul_rn/__fadd_rn (and the build passes -fmad=false)
 // so no multiply-add is contracted into an FMA: the kernel rounds exactly as
 // its plain PyTorch version does, and int8 outputs agree bit for bit.
@@ -33,10 +40,11 @@
 
 namespace {
 
-template <bool REQUANT>
+template <bool REQUANT, bool CLIP>
 __global__ void __launch_bounds__(qt::THREADS)
     int8_matmul_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ W,
                        const float* __restrict__ alpha, const float* __restrict__ beta,
+                       const float* __restrict__ clip_lo, const float* __restrict__ clip_hi,
                        void* __restrict__ out, int M, int N, int K, int relu, float inv, float zps,
                        float lo) {
   __shared__ __align__(16) int8_t As[qt::BM * qt::LDS];
@@ -60,10 +68,14 @@ __global__ void __launch_bounds__(qt::THREADS)
       const float alpha2 = __fmul_rn(alpha[n], inv);
       const float beta2 = __fadd_rn(__fmul_rn(beta[n], inv), zps);
       float q = rintf(__fadd_rn(__fmul_rn(af, alpha2), beta2));
-      q = fminf(fmaxf(q, lo), 127.0f);
+      if constexpr (CLIP)
+        q = fminf(fmaxf(q, clip_lo[n]), clip_hi[n]);
+      else
+        q = fminf(fmaxf(q, lo), 127.0f);
       static_cast<int8_t*>(out)[(size_t)m * N + n] = static_cast<int8_t>(static_cast<int>(q));
     } else {
       float y = __fadd_rn(__fmul_rn(af, alpha[n]), beta[n]);
+      if constexpr (CLIP) y = fminf(fmaxf(y, clip_lo[n]), clip_hi[n]);
       if (relu) y = fmaxf(y, 0.0f);
       static_cast<float*>(out)[(size_t)m * N + n] = y;
     }
@@ -72,42 +84,61 @@ __global__ void __launch_bounds__(qt::THREADS)
 
 // sm90: the route the caller counts this launch by (1: the Hopper GEMM, 0:
 // the first tile); a route the shape and bases do not take is refused.
-template <bool REQUANT>
-int launch(const void* a, const void* w, const void* alpha, const void* beta, void* out, int M, int N,
-           int K, int relu, float inv, float zps, float lo, int sm90, int tile, int split, int steps,
-           int stages, int smem, void* stream) {
+// CLIP: the clamped epilogue, clip_lo / clip_hi not null.
+template <bool REQUANT, bool CLIP>
+int launch(const void* a, const void* w, const void* alpha, const void* beta, const void* clip_lo,
+           const void* clip_hi, void* out, int M, int N, int K, int relu, float inv, float zps, float lo, int sm90,
+           int tile, int split, int steps, int stages, int smem, void* stream) {
   const int tma = qt90::tma_ok(a, w, K, K, false);
   if (sm90 != tma) return static_cast<int>(cudaErrorInvalidValue);
   if (tma) {
     const qt90::Epilogue ep{static_cast<const float*>(alpha), static_cast<const float*>(beta), out, relu,
-                            REQUANT, inv, zps, lo};
-    return qt90::launch_gemm<false>(a, w, ep, M, N, K, K, tile, split, steps, stages, smem, stream);
+                            REQUANT, inv, zps, lo, static_cast<const float*>(clip_lo),
+                            static_cast<const float*>(clip_hi)};
+    return qt90::launch_gemm<false, CLIP>(a, w, ep, M, N, K, K, tile, split, steps, stages, smem, stream);
   }
   const dim3 grid((M + qt::BM - 1) / qt::BM, (N + qt::BN - 1) / qt::BN);
-  int8_matmul_kernel<REQUANT><<<grid, qt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  int8_matmul_kernel<REQUANT, CLIP><<<grid, qt::THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(a), static_cast<const int8_t*>(w),
-      static_cast<const float*>(alpha), static_cast<const float*>(beta), out, M, N, K, relu, inv,
-      zps, lo);
+      static_cast<const float*>(alpha), static_cast<const float*>(beta), static_cast<const float*>(clip_lo),
+      static_cast<const float*>(clip_hi), out, M, N, K, relu, inv, zps, lo);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool REQUANT>
+int launch_any(const void* a, const void* w, const void* alpha, const void* beta, const void* clip_lo,
+               const void* clip_hi, void* out, int M, int N, int K, int relu, float inv, float zps, float lo,
+               int sm90, int tile, int split, int steps, int stages, int smem, void* stream) {
+  if ((clip_lo == nullptr) != (clip_hi == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (clip_lo != nullptr)
+    return launch<REQUANT, true>(a, w, alpha, beta, clip_lo, clip_hi, out, M, N, K, relu, inv, zps, lo, sm90, tile,
+                                 split, steps, stages, smem, stream);
+  return launch<REQUANT, false>(a, w, alpha, beta, nullptr, nullptr, out, M, N, K, relu, inv, zps, lo, sm90, tile,
+                                split, steps, stages, smem, stream);
 }
 
 }  // namespace
 
-// f32 out: relu?(acc * alpha + beta). A (M,K) s8, W (N,K) s8, out (M,N) f32.
-// sm90: the route (ops.gemm_route), refused where it is not the one taken;
-// (tile, split, steps, stages, smem): the plan of gemm_plan.
+// f32 out: relu?(clip?(acc * alpha + beta)). A (M,K) s8, W (N,K) s8, out
+// (M,N) f32. sm90: the route (ops.gemm_route), refused where it is not the
+// one taken; (tile, split, steps, stages, smem): the plan of gemm_plan;
+// clip_lo, clip_hi: (N,) f32 bounds of y, or both null.
 extern "C" int qt_int8_matmul(const void* a, const void* w, const void* alpha, const void* beta,
                               void* out, int M, int N, int K, int relu, int sm90, int tile, int split,
-                              int steps, int stages, int smem, void* stream) {
-  return launch<false>(a, w, alpha, beta, out, M, N, K, relu, 0.0f, 0.0f, 0.0f, sm90, tile, split, steps,
-                       stages, smem, stream);
+                              int steps, int stages, int smem, const void* clip_lo, const void* clip_hi,
+                              void* stream) {
+  return launch_any<false>(a, w, alpha, beta, clip_lo, clip_hi, out, M, N, K, relu, 0.0f, 0.0f, 0.0f, sm90, tile,
+                           split, steps, stages, smem, stream);
 }
 
-// s8 out on the (1/inv, zps + 128) grid; lo = zps when ReLU is folded, else -128.
+// s8 out on the (1/inv, zps + 128) grid; lo = zps when ReLU is folded, else
+// -128; clip_lo, clip_hi: (N,) integer-valued f32 bounds in place of [lo,
+// 127], or both null.
 extern "C" int qt_int8_matmul_requant(const void* a, const void* w, const void* alpha,
                                       const void* beta, void* out, int M, int N, int K,
                                       float inv, float zps, float lo, int sm90, int tile, int split,
-                                      int steps, int stages, int smem, void* stream) {
-  return launch<true>(a, w, alpha, beta, out, M, N, K, 0, inv, zps, lo, sm90, tile, split, steps, stages,
-                      smem, stream);
+                                      int steps, int stages, int smem, const void* clip_lo,
+                                      const void* clip_hi, void* stream) {
+  return launch_any<true>(a, w, alpha, beta, clip_lo, clip_hi, out, M, N, K, 0, inv, zps, lo, sm90, tile, split,
+                          steps, stages, smem, stream);
 }

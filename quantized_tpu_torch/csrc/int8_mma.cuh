@@ -150,9 +150,10 @@ __device__ __forceinline__ uint4 zero16() { return make_uint4(0u, 0u, 0u, 0u); }
 __device__ __forceinline__ uint4 fill16(int stored) { return Chunk<16>::fill(zp_bytes(stored)); }
 
 // clip(rint(acc*a + b), lo, 127) -> s8, one float32 rounding per operation
-__device__ __forceinline__ int8_t requant(int acc, float a, float b, float lo) {
+// hi: 127, or a clamped conv's per-channel bound (integer-valued, as lo)
+__device__ __forceinline__ int8_t requant(int acc, float a, float b, float lo, float hi = 127.0f) {
   float q = rintf(__fadd_rn(__fmul_rn(static_cast<float>(acc), a), b));
-  q = fminf(fmaxf(q, lo), 127.0f);
+  q = fminf(fmaxf(q, lo), hi);
   return static_cast<int8_t>(static_cast<int>(q));
 }
 

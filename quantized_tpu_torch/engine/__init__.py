@@ -1,10 +1,12 @@
 """Integer engine of the port: the int layers, the conversion from a
-calibrated fake-quant model, the int8-resident ResNet, MobileNet-v1 and
-AlexNet (int8 or int4 weights), the fused forms, the per-layer backend
-autotuner, the executor and the throughput hook."""
+calibrated fake-quant model (the module surgery ``convert_to_int`` and the
+strict engine), the int8-resident ResNet (float-BN and RangeBN flavors),
+MobileNet-v1 and AlexNet (int8 or int4 weights), the fused forms, the
+per-layer backend autotuner, the executor and the throughput hook."""
 
 from quantized_tpu_torch.engine.autotune import apply_cached_backends, autotune_resident
-from quantized_tpu_torch.engine.bench_hook import model_throughput
+from quantized_tpu_torch.engine.bench_hook import model_throughput, resnet50_int8_throughput
+from quantized_tpu_torch.engine.convert import convert_to_int
 from quantized_tpu_torch.engine.executor import IntExecutor
 from quantized_tpu_torch.engine.fused import (
     FusedInt8BasicBlock,
@@ -25,4 +27,11 @@ from quantized_tpu_torch.engine.int8_resident import (
     Int8ResNet,
     build_int8_resident,
 )
-from quantized_tpu_torch.engine.int_layers import IntConv2d, IntLinear
+from quantized_tpu_torch.engine.int_layers import Identity, IntConv2d, IntLinear
+from quantized_tpu_torch.engine.strict import (
+    StrictIntConv2d,
+    StrictIntLinear,
+    convert_to_int_strict,
+    quantize_strict_stored,
+    strict_act_qparams,
+)

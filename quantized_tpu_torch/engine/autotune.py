@@ -42,6 +42,11 @@ Where the port departs from the JAX tuner, and why:
 - **The stem race** runs the space-to-depth stem on ``"pallas"``, ``"gemm"``
   and ``"bf16"`` and the raw 7x7 conv on ``"pallas"`` and ``"bf16-split"``
   (:data:`STEM_BACKENDS`; the JAX tuner's s8 forms are K2's here).
+- **A clamped conv (the RangeBN flavor) races its clamped forms**: every
+  backend of ``IntConv2d`` carries ``y_clip``, K2 and K1 on their CLIP
+  instances, where the JAX tuner's "pallas" and "gemm" candidates run its
+  XLA conv. A clamped block is not fusable (``engine/fused.fusable``), so
+  no block race runs for it.
 - **A candidate that raises is not caught**: every candidate of the port
   runs every shape, so a raise is a fault to see, not a device limit.
 - **The cache** defaults to ``quantized_tpu_torch/autotune_cache.json``,

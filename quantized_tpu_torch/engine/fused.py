@@ -6,7 +6,8 @@
 runs the whole block in one kernel (``ops/fused_block.py``): bottlenecks on
 ``fused_bottleneck_s1`` / ``fused_bottleneck_ds`` (kernel B3), BasicBlocks on
 ``fused_basicblock_s1`` / ``fused_basicblock_ds`` (kernel B4). The last block
-emits f32 for the pool and stays unfused. The epilogue constants
+emits f32 for the pool and stays unfused, and so does a block that carries
+the RangeBN observer clamp (:func:`fusable`). The epilogue constants
 are derived here exactly as the JAX package derives them (``alpha / f32(s)``,
 a division, where the unfused ``run_q`` multiplies by ``f32(1/s)``), so the
 port's fused blocks equal the JAX package's fused blocks; against the
@@ -204,7 +205,14 @@ class FusedInt8BasicBlockDS(_FusedBasicBlockBase):
 
 
 def fusable(blk) -> bool:
+    """Whether B3 or B4 computes the block. Not a block any of whose convs
+    (its downsample included) carries the RangeBN clamp ``y_clip``: the
+    fused kernels have no clamp. (The JAX package's ``fusable`` does not
+    look, and its fused blocks drop the clamp; ROADMAP C4.)"""
     if not isinstance(blk, (Int8Bottleneck, Int8BasicBlock)) or blk.out_grid is None:
+        return False
+    convs = [blk.conv1, blk.conv2, getattr(blk, "conv3", None), blk.downsample]
+    if any(c is not None and c.y_clip is not None for c in convs):
         return False
     if isinstance(blk, Int8Bottleneck):
         if not _is_1x1_s1(blk.conv1) or not _is_1x1_s1(blk.conv3):

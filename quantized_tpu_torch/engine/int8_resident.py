@@ -28,8 +28,11 @@ form: every block but the last runs as one fused kernel (B3 for a
 bottleneck, B4 for a BasicBlock), with the int16 shortcut leg in the
 downsample ones. ``weight_bits=4`` builds the int4 weight-only engine: every
 conv with an even Cin keeps packed int4 weights, unpacked for K2 on each
-call; the stem (Cin = 3) and the fc head stay int8 storage. The RangeBN
-flavor is not ported yet.
+call; the stem (Cin = 3) and the fc head stay int8 storage. Both flavors
+build: float BN, and RangeBN (``resnet_quantized``), whose every conv
+carries the folded observer clamp ``y_clip`` (the stem's rides both of its
+forms). ``engine/fused.fusable`` leaves a clamped block unfused: the fused
+kernels carry no clamp.
 """
 
 from __future__ import annotations
@@ -160,7 +163,10 @@ class Int8SpaceToDepthStem(nn.Module):
     The raw 7x7 conv stays beside it (``raw``). :meth:`set_backend` picks the
     form: any backend of the 4x4 conv (``"bf16"`` is the JAX stem's: the f32
     conv and a separate requant, the 4x4 conv's ``"bf16-split"``), or
-    ``"raw-<backend>"``, the raw conv on that backend."""
+    ``"raw-<backend>"``, the raw conv on that backend. The stem's
+    ``y_clip`` (RangeBN) rides the 4x4 conv too; on ``"bf16"`` and
+    ``"xla-split"`` the JAX stem clamps the f32 conv output before its ReLU
+    (an ``IntConv2d``'s split forms clamp after it), and so does this one."""
 
     def __init__(self, stem: IntConv2d):
         super().__init__()
@@ -174,7 +180,7 @@ class Int8SpaceToDepthStem(nn.Module):
                 block = (kr % 2) * 2 + (kc % 2)
                 w[kr // 2, kc // 2, block * cin:(block + 1) * cin, :] = w_src[kr, kc]
         self.conv = IntConv2d(w, stem.alpha, stem.beta, stem.act_scale, stem.act_zero_point,
-                              stride=(1, 1), padding=(0, 0))
+                              stride=(1, 1), padding=(0, 0), y_clip=stem.y_clip)
         self.raw = stem
         self.cin = cin
         self.set_backend(stem.backend)
@@ -200,6 +206,9 @@ class Int8SpaceToDepthStem(nn.Module):
     def run_q(self, x_q: torch.Tensor, relu: bool, out_requant: Grid) -> torch.Tensor:
         if self.backend.startswith("raw-"):
             return self.raw.run_q(x_q, relu=relu, out_requant=out_requant)
+        if self.conv.y_clip is not None and self.backend in ("bf16", "xla-split"):
+            y = self.conv.run_q(self._s2d(x_q), relu=False)  # clamped f32
+            return quantize_input_stored(torch.clamp_min(y, 0.0) if relu else y, *out_requant)
         return self.conv.run_q(self._s2d(x_q), relu=relu, out_requant=out_requant)
 
 
@@ -305,8 +314,8 @@ def _block_convs(block) -> Sequence[Tuple[str, str]]:
 
 def build_int8_resident(model: nn.Module, weight_bits: int = 8, backend: str = "pallas",
                         device: DeviceLike = "cuda", space_to_depth: bool = True) -> Int8ResNet:
-    """Convert a calibrated fake-quant ResNet (float-BN flavor, either
-    geometry) into an :class:`Int8ResNet` on ``device``. With
+    """Convert a calibrated fake-quant ResNet (float-BN or RangeBN flavor,
+    either geometry) into an :class:`Int8ResNet` on ``device``. With
     ``space_to_depth`` a 7x7/s2 ImageNet stem runs in the space-to-depth
     form (:class:`Int8SpaceToDepthStem`); the block kind follows the block's
     conv count.

@@ -43,7 +43,21 @@ xla and bf16 backends, as in the JAX package; the fused downsample blocks
 launch plan, ``ops.gemm_plan``, since the block sizes are TPU VMEM tiles with
 no counterpart there, so the fc autotuner races ``"xla"`` against
 ``"pallas"`` only) or ``int8_matmul_xla`` (``"xla"``), and B6 on int4
-weights. ``y_clip`` (the RangeBN flavor) is not ported yet.
+weights.
+
+``y_clip`` (2, Cout), the RangeBN flavor's observer clamp folded into the
+conv (``engine.convert._rangebn_y_clip``), clamps ``acc * alpha + beta``
+before ReLU, as ``int8_conv_xla(y_clip=)`` does: its prescaled form rides
+``out_prescale``, the requant takes it as per-channel integer bounds, the
+split forms clamp the f32 output before their requant pass and the bf16
+forms map it through their own epilogue, all as in the JAX package. Where
+the JAX package sends a clamped conv on ``"pallas"``, ``"gemm"`` or ``"s4"``
+to its XLA conv (which XLA fuses with the clamp), the port keeps
+``"pallas"`` and ``"gemm"`` on K2 and K1, whose CLIP instances compute the
+same function (the port's ``"xla"`` is a plain reference, not a fast
+path); ``"s4"`` goes to ``"xla"`` as in the JAX package. The kernels'
+bounds are formed once per output grid and kept (``_clip_operands``).
+:class:`Identity` takes the place of a folded BN.
 
 ``_SHAPE_RECORDER``, when the autotuner sets it to a dict, collects each
 layer's input shape by ``id`` during one forward.
@@ -72,7 +86,14 @@ from quantized_tpu_torch.ops.int8_conv_pallas import (
     pixel_group_operands,
     use_gather_k,
 )
-from quantized_tpu_torch.ops.int8_matmul import f32, int8_matmul_nk, int8_matmul_xla_nk
+from quantized_tpu_torch.ops.int8_matmul import (
+    clip_minmax,
+    f32,
+    int8_matmul_nk,
+    int8_matmul_xla_nk,
+    kernel_clip,
+    requant_clip_bounds,
+)
 
 Grid = Tuple[float, int]
 CONV_BACKENDS = ("pallas", "gemm", "xla", "xla-split", "bf16", "bf16-split", "s4", "s4-split")
@@ -90,6 +111,9 @@ def _check_backend(backend: str, packed: bool) -> None:
         raise ValueError(f"backend {backend!r} is not one of {CONV_BACKENDS}")
     if backend.startswith("s4") and not packed:
         raise ValueError(f"backend {backend!r} needs packed int4 weights")
+
+
+Identity = nn.Identity  # takes the place of a BN folded into its conv (the JAX package's Identity)
 
 
 def quantize_input_stored(x: torch.Tensor, scale: float, zero_point: int) -> torch.Tensor:
@@ -125,6 +149,7 @@ class IntConv2d(nn.Module):
         relu: bool = False,
         backend: str = "pallas",
         int4_shape: Optional[Tuple[int, int, int, int]] = None,
+        y_clip: Optional[torch.Tensor] = None,  # (2, Cout) f32: the RangeBN observer clamp
     ):
         super().__init__()
         if groups != 1 and (int4_shape is not None or tuple(w_q.shape[2:]) != (1, groups)):
@@ -143,6 +168,13 @@ class IntConv2d(nn.Module):
             self.register_buffer("w_int4", w_q.permute(3, 0, 1, 2).reshape(cout, kh * kw, cin // 2).contiguous())
         self.register_buffer("alpha", alpha.to(torch.float32).contiguous())
         self.register_buffer("beta", beta.to(torch.float32).contiguous())
+        if y_clip is not None and tuple(y_clip.shape) != (2, self.alpha.shape[0]):
+            raise ValueError(f"y_clip must be (2, {self.alpha.shape[0]}), got {tuple(y_clip.shape)}")
+        if y_clip is not None:
+            with torch.inference_mode(False):  # a tensor that counts its in-place changes: see _clip_operands
+                y_clip = y_clip.to(torch.float32, copy=True).contiguous()
+        self.register_buffer("y_clip", y_clip)
+        self._clip_cache, self._clip_src = {}, None  # see _clip_operands
         self.act_scale = float(act_scale)
         self.act_zero_point = int(act_zero_point)
         self.stride = tuple(stride)
@@ -232,13 +264,15 @@ class IntConv2d(nn.Module):
         return self.w_int4.reshape(cout, kh, kw, -1).permute(1, 2, 3, 0)
 
     def _run_bf16(self, x_q: torch.Tensor, relu: bool, out_requant: Optional[Grid],
-                  out_prescale: Optional[Tuple[float, float]] = None, round_s16: bool = False) -> torch.Tensor:
+                  out_prescale: Optional[Tuple[float, float]] = None, round_s16: bool = False,
+                  y_clip=None) -> torch.Tensor:
         """The bf16 path on the same stored-int8 grids (the JAX package's
         ``_run_bf16``): the input dequantized to bf16 (the stored zero point
         to exactly 0.0, so the conv pads with zeros), the f32 conv of
         :func:`~quantized_tpu_torch.ops.int8_conv.bf16_conv`, then the epilogue
         in f32: a requant with 1/s folded into the bias, a prescaled f32 or
-        int16 leg, or f32 ``relu?(y + bias)``."""
+        int16 leg, or f32 ``relu?(y + bias)``. ``y_clip``, the clamp's bounds
+        of ``y + bias``, goes through each branch's own map, as in JAX."""
         xb = ((x_q.to(torch.float32) + f32(128 - self.act_zero_point)) * f32(self.act_scale)).to(torch.bfloat16)
         y = bf16_conv(xb, self.w_bf16, self.stride, self.padding, self.groups)
         if out_requant is not None:
@@ -246,21 +280,51 @@ class IntConv2d(nn.Module):
             inv = f32(1.0 / out_scale)
             lo = f32(out_zp - 128) if relu else -128.0
             q = torch.round(y * inv + (self.bias_f * inv + f32(out_zp - 128)))
+            if y_clip is not None:
+                return clip_minmax(q, *requant_clip_bounds(y_clip, out_scale, out_zp, relu)).to(torch.int8)
             return torch.clamp(q, lo, 127.0).to(torch.int8)
         if out_prescale is not None:
             scale, shift = out_prescale
             inv = f32(1.0 / scale)
             if round_s16:
-                inv = f32(inv * S16_FINE)
-                val = y * inv + (self.bias_f * inv + f32(shift * S16_FINE))
-                return clip_s16_checked(torch.round(val))
-            return y * inv + (self.bias_f * inv + f32(shift))
+                inv, shift = f32(inv * S16_FINE), shift * S16_FINE
+            val = y * inv + (self.bias_f * inv + f32(shift))
+            if y_clip is not None:
+                val = clip_minmax(val, y_clip[0] * inv + f32(shift), y_clip[1] * inv + f32(shift))
+            return clip_s16_checked(torch.round(val)) if round_s16 else val
         y = y + self.bias_f
+        if y_clip is not None:
+            y = clip_minmax(y, *y_clip)
         return torch.clamp_min(y, 0.0) if relu else y
 
-    def _run_xla(self, x_q, alpha, beta, relu, out_requant, round_s16=False) -> torch.Tensor:
+    def _run_xla(self, x_q, alpha, beta, relu, out_requant, round_s16=False, y_clip=None) -> torch.Tensor:
         return int8_conv_xla_ck(x_q, self.weights_ck(), self.kernel_size, alpha, beta, self.stride, self.padding,
-                                self.stored_zp, relu, out_requant, self.groups, round_s16)
+                                self.stored_zp, relu, out_requant, self.groups, round_s16, y_clip)
+
+    def _clip_operands(self, inv: Optional[float], shift: float, out_requant: Optional[Grid], relu: bool):
+        """The clamp for one call: its bounds in the epilogue's domain (raised
+        by the prescale ``y * inv + shift`` where ``inv`` is given) and the
+        bounds the kernels take (``kernel_clip``: the requant's integer
+        bounds with an s8 output). Formed once per output grid and ``relu``
+        and kept, so a served forward adds no passes over them. The kept
+        bounds are dropped when ``y_clip`` is replaced (assignment, ``.to``)
+        or changed in place (``load_state_dict``, ``mul_``: its version
+        counter moves); an inference tensor counts no changes, so with one
+        the bounds are formed on every call."""
+        src = self.y_clip
+        version = None if src.is_inference() else src._version
+        if self._clip_src is None or self._clip_src[0] is not src or self._clip_src[1] != version:
+            self._clip_cache, self._clip_src = {}, (src, version)
+        key = (inv, shift, out_requant, bool(relu))
+        hit = self._clip_cache.get(key)
+        if hit is None:
+            adj = (src[0], src[1])
+            if inv is not None:
+                adj = (adj[0] * inv + f32(shift), adj[1] * inv + f32(shift))
+            hit = (adj, kernel_clip(adj, src.shape[1], out_requant, relu))
+            if version is not None:
+                self._clip_cache[key] = hit
+        return hit
 
     def _run_s4(self, x_q, alpha, beta, relu, out_requant) -> torch.Tensor:
         return int4_conv_s4(x_q, self.w_packed_hwio(), alpha, beta, self.stride, self.padding, self.stored_zp,
@@ -290,6 +354,7 @@ class IntConv2d(nn.Module):
         backend = self.backend
         alpha, beta = self.alpha, self.beta
         round_s16 = False
+        inv, shift = None, 0.0
         if out_prescale is not None:
             if out_requant is not None or relu:
                 raise ValueError("out_prescale excludes out_requant and relu")
@@ -299,21 +364,30 @@ class IntConv2d(nn.Module):
                 inv, shift, round_s16 = f32(inv * S16_FINE), shift * S16_FINE, True
             alpha = alpha * inv
             beta = beta * inv + f32(shift)
+        y_clip = y_clip_raw = clip = None
+        if self.y_clip is not None:
+            y_clip_raw = (self.y_clip[0], self.y_clip[1])
+            y_clip, clip = self._clip_operands(inv, shift, out_requant, relu)
+            if backend.startswith("s4"):  # as in the JAX package: the XLA conv carries the clamp
+                backend = "xla-split" if backend.endswith("-split") else "xla"
         if backend.endswith("-split") and out_requant is not None:
             # the conv with an f32 epilogue, then the requant as its own pass
+            # (the clamp on the f32 output, before the requant pass)
             if backend == "bf16-split":
                 y = self._run_bf16(x_q, relu, None)
             elif backend == "s4-split":
                 y = self._run_s4(x_q, alpha, beta, relu, None)
             else:
                 y = self._run_xla(x_q, alpha, beta, relu, None)
+            if y_clip_raw is not None:
+                y = clip_minmax(y, *y_clip_raw)
             return quantize_input_stored(y, *out_requant)
         if backend.startswith("bf16"):
-            return self._run_bf16(x_q, relu, out_requant, out_prescale, round_s16)
+            return self._run_bf16(x_q, relu, out_requant, out_prescale, round_s16, y_clip_raw)
         if backend.startswith("s4"):
             return self._run_s4(x_q, alpha, beta, relu, out_requant)
         if backend.startswith("xla") or self.groups != 1:
-            return self._run_xla(x_q, alpha, beta, relu, out_requant, round_s16)
+            return self._run_xla(x_q, alpha, beta, relu, out_requant, round_s16, y_clip)
         if backend == "pallas":
             pixel_groups = None  # with out_prescale, the call tiles its own alpha and beta
             if self.pg_w_ck is not None and out_prescale is None:
@@ -321,10 +395,10 @@ class IntConv2d(nn.Module):
             return int8_conv_direct_ck(x_q, self.weights_ck(), self.kernel_size, alpha, beta, stride=self.stride,
                                        padding=self.padding, stored_zp=self.stored_zp, relu=relu,
                                        out_requant=out_requant, border_sums=self.border_sums,
-                                       pixel_groups=pixel_groups)
+                                       pixel_groups=pixel_groups, clip=clip)
         return int8_conv_gemm_ck(x_q, self.weights_ck(), self.kernel_size, alpha, beta, stride=self.stride,
                                  padding=self.padding, stored_zp=self.stored_zp, relu=relu,
-                                 out_requant=out_requant)
+                                 out_requant=out_requant, clip=clip)
 
 
 class IntLinear(nn.Module):

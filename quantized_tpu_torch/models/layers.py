@@ -13,8 +13,9 @@ products, on cuDNN and cuBLAS on the GPU.
 
 ``module.train()`` is the observer-update mode: each observer quantizes
 with the current batch statistic and folds it into its running range;
-``module.eval()`` quantizes on the frozen range. The gradient paths
-(grad quantization, bi-precision) and RangeBN wait for the training slice.
+``module.eval()`` quantizes on the frozen range; :class:`RangeBN` folds the
+batch's range statistics into its running buffers there. The gradient paths
+(grad quantization, bi-precision) wait for the training slice.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from quantized_tpu_torch.quantcore import observers
+from quantized_tpu_torch.quantcore import observers, rangebn
 from quantized_tpu_torch.quantcore.ste import fake_quant
 
 Ints = Union[int, Tuple[int, int]]
@@ -213,3 +214,49 @@ class QLinear(nn.Module):
         if self.bias is not None:
             y = y + fake_quant(self.bias, num_bits=self.num_bits_weight)
         return y
+
+
+class RangeBN(nn.Module):
+    """Range batch-norm over the last axis (JAX ``RangeBN``), forward only.
+
+    Names as in the JAX model's state: ``running_mean``, ``running_var``
+    (which holds the range-derived *scale*, not a variance), ``weight``
+    (gamma, drawn from U[0, 1) with ``generator``), ``bias`` (beta, zeros)
+    and the input observer ``quantize_input``. The input is quantized on the
+    observer first; in train mode the batch's statistic normalizes it and
+    folds into the running buffers (the inverted EMA, the new value weighted
+    ``1 - momentum``), in eval mode the running buffers normalize it. 2-D
+    inputs are treated as (B, 1, 1, C)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1, affine: bool = True,
+                 num_chunks: int = rangebn.RANGE_BN_NUM_CHUNKS, eps: float = 1e-5, num_bits: int = 8, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.num_features = num_features
+        self.momentum = momentum
+        self.num_chunks = num_chunks
+        self.eps = eps
+        self.num_bits = num_bits
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.zeros(num_features))
+        if affine:
+            self.weight = nn.Parameter(torch.rand(num_features, generator=generator))
+            self.bias = nn.Parameter(torch.zeros(num_features))
+        else:
+            self.weight = self.bias = None
+        self.quantize_input = QuantMeasure(num_bits)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.quantize_input(x)
+        squeeze_2d = x.ndim == 2
+        if squeeze_2d:
+            x = x[:, None, None, :]
+        if self.training:
+            mean, scale = rangebn.range_bn_stats(x, self.num_chunks)
+            with torch.no_grad():
+                self.running_mean.copy_(observers.ema_update(self.running_mean, mean.detach(), self.momentum))
+                self.running_var.copy_(observers.ema_update(self.running_var, scale.detach(), self.momentum))
+        else:
+            mean, scale = self.running_mean, self.running_var
+        out = rangebn.range_bn_apply(x, mean, scale, self.weight, self.bias, eps=self.eps, num_bits=self.num_bits)
+        return out[:, 0, 0, :] if squeeze_2d else out

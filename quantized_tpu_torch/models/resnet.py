@@ -8,7 +8,7 @@ from quantized_tpu_torch.models import layers
 from quantized_tpu_torch.models.resnet_common import LayerKit, build_resnet
 
 
-def _bn(c):
+def _bn(c, generator=None):
     # torch's BN momentum 0.1 is a running weight of 0.9
     return layers.BatchNorm(c, momentum=0.9, epsilon=1e-5)
 

@@ -24,7 +24,7 @@ from torch import nn
 class LayerKit:
     """Constructors used by the skeleton. Signatures:
     conv(cin, cout, kernel_size, stride, padding, use_bias, generator=...),
-    bn(c), linear(cin, cout, generator=...)."""
+    bn(c, generator=...), linear(cin, cout, generator=...)."""
 
     conv: Callable[..., nn.Module]
     bn: Callable[..., nn.Module]
@@ -41,7 +41,7 @@ class Downsample(nn.Module):
     def __init__(self, kit: LayerKit, cin: int, cout: int, stride: int, *, generator):
         super().__init__()
         self.conv = kit.conv(cin, cout, 1, stride=stride, padding=0, use_bias=False, generator=generator)
-        self.bn = kit.bn(cout)
+        self.bn = kit.bn(cout, generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.bn(self.conv(x))
@@ -54,9 +54,9 @@ class BasicBlock(nn.Module):
                  downsample: Optional[Downsample] = None, *, generator):
         super().__init__()
         self.conv1 = _conv3x3(kit, inplanes, planes, stride, generator)
-        self.bn1 = kit.bn(planes)
+        self.bn1 = kit.bn(planes, generator=generator)
         self.conv2 = _conv3x3(kit, planes, planes, 1, generator)
-        self.bn2 = kit.bn(planes)
+        self.bn2 = kit.bn(planes, generator=generator)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -74,11 +74,11 @@ class Bottleneck(nn.Module):
         super().__init__()
         g = generator
         self.conv1 = kit.conv(inplanes, planes, 1, stride=1, padding=0, use_bias=False, generator=g)
-        self.bn1 = kit.bn(planes)
+        self.bn1 = kit.bn(planes, generator=g)
         self.conv2 = _conv3x3(kit, planes, planes, stride, g)
-        self.bn2 = kit.bn(planes)
+        self.bn2 = kit.bn(planes, generator=g)
         self.conv3 = kit.conv(planes, planes * 4, 1, stride=1, padding=0, use_bias=False, generator=g)
-        self.bn3 = kit.bn(planes * 4)
+        self.bn3 = kit.bn(planes * 4, generator=g)
         self.downsample = downsample
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -129,7 +129,7 @@ class ResNetImageNet(nn.Module):
         super().__init__()
         g = generator
         self.conv1 = kit.conv(3, 64, 7, stride=2, padding=3, use_bias=False, generator=g)
-        self.bn1 = kit.bn(64)
+        self.bn1 = kit.bn(64, generator=g)
         inplanes = 64
         self.layer1, inplanes = _make_stage(kit, block_cls, inplanes, 64, layers[0], 1, g)
         self.layer2, inplanes = _make_stage(kit, block_cls, inplanes, 128, layers[1], 2, g)
@@ -154,7 +154,7 @@ class ResNetCifar(nn.Module):
         g = generator
         n = (depth - 2) // 6
         self.conv1 = kit.conv(3, 16, 3, stride=1, padding=1, use_bias=False, generator=g)
-        self.bn1 = kit.bn(16)
+        self.bn1 = kit.bn(16, generator=g)
         inplanes = 16
         self.layer1, inplanes = _make_stage(kit, BasicBlock, inplanes, 16, n, 1, g)
         self.layer2, inplanes = _make_stage(kit, BasicBlock, inplanes, 32, n, 2, g)

@@ -6,8 +6,11 @@ the Hopper GEMM (``gemm_plan``: K1, B6), conv mainloop (``conv_plan``: K2's
 per-tap and residual forms, its pixel-group 1x1s, B7) and block mainloop
 (``block_plan``: B3, B4), their plain PyTorch versions, the int4 packing,
 the plain forms the JAX package leaves to XLA (``int8_matmul_xla``,
-``int8_conv_xla`` with its int16 emission, the native-S4 int4 forms, the
-bf16 conv), and the tensor plumbing around them."""
+``int8_conv_xla`` with its int16 emission and the RangeBN clamp, the
+native-S4 int4 forms, the bf16 conv), and the tensor plumbing around them.
+K1 and K2 (every route) take the clamp ``y_clip`` on CLIP instances of
+their own, in the form ``kernel_clip`` gives (``requant_clip_bounds``: the
+requant's integer bounds)."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches, route_counts
 from quantized_tpu_torch.ops.copy_probe import bulk_copy, copy_plain, grid_copy, ring_copy
@@ -84,5 +87,7 @@ from quantized_tpu_torch.ops.int8_matmul import (
     int8_matmul_requant_plain,
     int8_matmul_xla,
     int8_matmul_xla_nk,
+    kernel_clip,
     matmul_epilogue_params,
+    requant_clip_bounds,
 )

@@ -21,10 +21,13 @@ import torch
 import torch.nn.functional as F
 
 from quantized_tpu_torch.ops.int8_matmul import (
+    Clip,
     acc_epilogue,
+    clip_pair,
     exact_int_matmul,
     int8_matmul_nk,
     int8_matmul_requant_nk,
+    kernel_clip,
 )
 
 Ints = Union[int, Tuple[int, int]]
@@ -75,25 +78,30 @@ def int8_conv_gemm_ck(
     stored_zp: int = -128,
     relu: bool = False,
     out_requant: Optional[Tuple[float, int]] = None,
+    clip: Optional[Clip] = None,
 ) -> torch.Tensor:
-    """im2col + K1 on packed weights. NHWC f32 out, or int8 on ``out_requant``."""
+    """im2col + K1 on packed weights. NHWC f32 out, or int8 on
+    ``out_requant``; the clamp ``clip`` in the form K1 takes it
+    (``ops.int8_matmul.kernel_clip``)."""
     xp = pad_stored_zp(x_q, padding, stored_zp)
     patches = im2col_int8(xp, kernel_size, stride)
     n, ho, wo, k = patches.shape
     a = patches.reshape(n * ho * wo, k)
     if out_requant is None:
-        y = int8_matmul_nk(a, w_ck, alpha, beta, relu=relu)
+        y = int8_matmul_nk(a, w_ck, alpha, beta, relu=relu, clip=clip)
     else:
-        y = int8_matmul_requant_nk(a, w_ck, alpha, beta, out_requant[0], out_requant[1], relu=relu)
+        y = int8_matmul_requant_nk(a, w_ck, alpha, beta, out_requant[0], out_requant[1], relu=relu, clip=clip)
     return y.reshape(n, ho, wo, w_ck.shape[0])
 
 
 def int8_conv_gemm(x_q, w_q, alpha, beta, stride: Ints = 1, padding: Ints = 0,
                    stored_zp: int = -128, relu: bool = False,
-                   out_requant: Optional[Tuple[float, int]] = None) -> torch.Tensor:
-    """JAX-layout entry (``w_q`` HWIO)."""
+                   out_requant: Optional[Tuple[float, int]] = None, y_clip=None) -> torch.Tensor:
+    """JAX-layout entry (``w_q`` HWIO); ``y_clip`` as ``int8_conv_xla``
+    takes it."""
     return int8_conv_gemm_ck(x_q, pack_conv_weight(w_q), tuple(w_q.shape[:2]), alpha, beta,
-                             stride, padding, stored_zp, relu, out_requant)
+                             stride, padding, stored_zp, relu, out_requant,
+                             kernel_clip(y_clip, w_q.shape[3], out_requant, relu))
 
 
 def int8_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, stride: Ints,
@@ -151,39 +159,45 @@ def grouped_conv_acc(x_q: torch.Tensor, w_ck: torch.Tensor, kernel_size: Ints, s
 
 
 def conv_epilogue(acc: torch.Tensor, alpha, beta, relu: bool = False,
-                  out_requant: Optional[Tuple[float, int]] = None, round_s16: bool = False) -> torch.Tensor:
-    """``int8_conv_xla``'s epilogue of an int32 accumulator: f32 ``relu?(acc
-    * alpha + beta)``; int8 on ``out_requant``'s grid with 1/s folded into
-    alpha and beta, the -128 shift into the zero point and ReLU into the clip
-    floor; or, with ``round_s16`` (alpha and beta prescaled by the caller),
-    the f32 value rounded to int16 by :func:`clip_s16_checked`."""
-    y = acc_epilogue(acc, alpha, beta, relu, out_requant)
+                  out_requant: Optional[Tuple[float, int]] = None, round_s16: bool = False,
+                  y_clip: Optional[Clip] = None) -> torch.Tensor:
+    """``int8_conv_xla``'s epilogue of an int32 accumulator: f32
+    ``relu?(clip?(acc * alpha + beta))``; int8 on ``out_requant``'s grid
+    with 1/s folded into alpha and beta, the -128 shift into the zero point
+    and ReLU into the clip floor, ``y_clip`` as per-channel integer bounds
+    on the rounded value (``ops.int8_matmul.requant_clip_bounds``); or, with
+    ``round_s16`` (alpha, beta and the bounds prescaled by the caller), the
+    f32 value rounded to int16 by :func:`clip_s16_checked`."""
+    y = acc_epilogue(acc, alpha, beta, relu, out_requant, kernel_clip(y_clip, acc.shape[-1], out_requant, relu))
     return clip_s16_checked(torch.round(y)) if round_s16 and out_requant is None else y
 
 
 def int8_conv_xla_ck(x_q, w_ck, kernel_size, alpha, beta, stride: Ints = 1, padding: Ints = 0,
                      stored_zp: int = -128, relu: bool = False,
                      out_requant: Optional[Tuple[float, int]] = None, groups: int = 1,
-                     round_s16: bool = False) -> torch.Tensor:
+                     round_s16: bool = False, y_clip=None) -> torch.Tensor:
     """``int8_conv_xla`` on packed (Cout, Kh*Kw*Cin/groups) weights."""
     if groups == 1:
         acc = int8_conv_acc(x_q, w_ck, kernel_size, stride, padding, stored_zp)
     else:
         acc = grouped_conv_acc(x_q, w_ck, kernel_size, stride, padding, stored_zp, groups)
-    return conv_epilogue(acc, alpha, beta, relu, out_requant, round_s16)
+    return conv_epilogue(acc, alpha, beta, relu, out_requant, round_s16, clip_pair(y_clip, w_ck.shape[0]))
 
 
 def int8_conv_xla(x_q, w_q, alpha, beta, stride: Ints = 1, padding: Ints = 0,
                   stored_zp: int = -128, relu: bool = False,
                   out_requant: Optional[Tuple[float, int]] = None, groups: int = 1,
-                  round_s16: bool = False) -> torch.Tensor:
+                  round_s16: bool = False, y_clip=None) -> torch.Tensor:
     """Plain reference with ``int8_conv_xla``'s epilogue (the fused-requant
     form folds 1/s into alpha/beta and ReLU into the clip floor). ``groups``
     takes any grouping that divides C and Cout (:func:`grouped_conv_acc`);
     ``round_s16`` emits int16 (the shortcut leg of the unfused downsample
-    blocks). ``y_clip`` (the RangeBN flavor) is not ported yet."""
+    blocks); ``y_clip=(ylo, yhi)``, per-channel bounds of ``acc * alpha +
+    beta`` (the RangeBN observer clamp, a pair or a (2, Cout) tensor),
+    clamps the f32 value before ReLU, or the requant's rounded value to
+    their integer images."""
     return int8_conv_xla_ck(x_q, pack_conv_weight(w_q), tuple(w_q.shape[:2]), alpha, beta, stride,
-                            padding, stored_zp, relu, out_requant, groups, round_s16)
+                            padding, stored_zp, relu, out_requant, groups, round_s16, y_clip)
 
 
 # Saturation count of the int16 shortcut legs: +-32767 counts are +-1024

@@ -43,6 +43,16 @@ stores once at build time; :func:`int8_conv_direct` and
 tiling arguments (``nb``, ``block_h``/``block_m``, ``block_n``,
 ``interpret``).
 
+K2 takes the RangeBN flavor's observer clamp (the clamp of
+``int8_conv_xla(y_clip=)``, which the JAX package sends to XLA rather than
+to its kernel): :func:`int8_conv_direct` as ``y_clip``, the packed-weight
+wrapper and the plain version once, as ``clip``, in the form the kernel
+reads (``ops.int8_matmul.kernel_clip``): the f32 output is clamped to
+``y_clip`` before ReLU, the s8 output's rounded value to the integer bounds
+of ``ops.int8_matmul.requant_clip_bounds`` alone, whose lo holds the ReLU
+floor. Every route has CLIP instances of its own, counted under
+``"<route>+clip"``; the residual form takes no clamp.
+
 A wrapper given CPU tensors runs the plain PyTorch version; given CUDA
 tensors it launches the kernel or raises. The whole-block kernels are in
 ``ops/fused_block.py``.
@@ -58,13 +68,24 @@ import torch.nn.functional as F
 
 from quantized_tpu_torch.ops import _cuda
 from quantized_tpu_torch.ops.int8_conv import Ints, _pair, int8_conv_acc, pack_conv_weight, pad_stored_zp
-from quantized_tpu_torch.ops.int8_matmul import H100_SMS, SMEM_LIMIT, exact_int_matmul, f32
+from quantized_tpu_torch.ops.int8_matmul import (
+    CLIP_ARGS,
+    H100_SMS,
+    SMEM_LIMIT,
+    Clip,
+    clip_args,
+    clip_minmax,
+    clip_pair,
+    exact_int_matmul,
+    f32,
+    kernel_clip,
+)
 
 CONV_PLAN_ARGS = ["int"] * 9  # the C entries' trailing plan arguments: ConvPlan.args()
 # one C entry (qt_int8_conv) behind the three counted forms: x, w, alpha,
 # beta, residual (None but for B8), border sums, out; the shape; the epilogue's
-# scalars; the plan
-_CONV_ARGS = ["ptr"] * 7 + ["int"] * 16 + ["float"] * 4 + CONV_PLAN_ARGS
+# scalars; the plan; the clamp's bounds (None but for a clamped conv)
+_CONV_ARGS = ["ptr"] * 7 + ["int"] * 16 + ["float"] * 4 + CONV_PLAN_ARGS + CLIP_ARGS
 CONV_TAP = _cuda.CudaKernel("int8_conv_direct", "int8_conv.cu", "qt_int8_conv", _CONV_ARGS)
 CONV_GATHERK = _cuda.CudaKernel("int8_conv_direct_gatherk", "int8_conv.cu", "qt_int8_conv", _CONV_ARGS)
 CONV_RESIDUAL = _cuda.CudaKernel("int8_conv_direct_residual", "int8_conv.cu", "qt_int8_conv", _CONV_ARGS)
@@ -340,19 +361,27 @@ def outside_taps(h: int, w: int, kernel_size, stride, padding, device=None) -> t
 
 
 def _epilogue(acc: torch.Tensor, alpha, beta, relu: bool, out_requant: Optional[Grid],
-              residual: Optional[torch.Tensor] = None, res_grid: Optional[Grid] = None) -> torch.Tensor:
+              residual: Optional[torch.Tensor] = None, res_grid: Optional[Grid] = None,
+              clip: Optional[Clip] = None) -> torch.Tensor:
     """``int8_conv_direct``'s epilogue on an int32 accumulator, one float32
     rounding per operation: ``acc * alpha + beta``, the dequantized residual
-    ``(r + (128 - r_zp)) * r_scale``, ReLU, then f32 out or the requant."""
+    ``(r + (128 - r_zp)) * r_scale``, ReLU, then f32 out or the requant.
+    ``clip`` (the RangeBN observer clamp, ``ops.int8_matmul.kernel_clip``)
+    clips the f32 value before ReLU, or the requant's rounded value to its
+    integer bounds in place of ReLU and [-128, 127]."""
     y = acc.to(torch.float32) * alpha + beta
     if residual is not None:
         r_scale, r_zp = res_grid
         y = y + (residual.to(torch.float32) + f32(128 - r_zp)) * f32(r_scale)
-    if relu:
+    if clip is not None and out_requant is None:
+        y = clip_minmax(y, *clip)
+    if relu and not (clip is not None and out_requant is not None):
         y = torch.clamp_min(y, 0.0)
     if out_requant is None:
         return y
     q = torch.round(y * f32(1.0 / out_requant[0]) + f32(out_requant[1] - 128))
+    if clip is not None:
+        return clip_minmax(q, *clip).to(torch.int8)
     return torch.clamp(q, -128.0, 127.0).to(torch.int8)
 
 
@@ -370,11 +399,13 @@ def int8_conv_direct_plain(
     *,
     residual: Optional[torch.Tensor] = None,
     res_grid: Optional[Grid] = None,
+    clip=None,
 ) -> torch.Tensor:
     """Plain version of K2 (and of B8, given ``residual``): exact int32
-    accumulator, then the epilogue in ``int8_conv_direct``'s order."""
+    accumulator, then the epilogue in ``int8_conv_direct``'s order, with the
+    clamp ``clip`` (the kernel's form) where given."""
     acc = int8_conv_acc(x_q, w_ck, kernel_size, stride, padding, stored_zp)
-    return _epilogue(acc, alpha, beta, relu, out_requant, residual, res_grid)
+    return _epilogue(acc, alpha, beta, relu, out_requant, residual, res_grid, clip_pair(clip, w_ck.shape[0]))
 
 
 def int8_conv_zero_filled_plain(
@@ -470,29 +501,37 @@ def int8_conv_direct_ck(
     res_grid: Optional[Grid] = None,
     border_sums: Optional[torch.Tensor] = None,
     pixel_groups: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    clip=None,
 ) -> torch.Tensor:
     """K2 on packed (Cout, Kh*Kw*Cin) weights. NHWC f32 out, or int8 on
     ``out_requant``'s grid. ``residual`` (N, Ho, Wo, Cout) int8 on
     ``res_grid`` = (scale, zero point) is added before ReLU (B8).
+    ``clip=(lo, hi)`` (a pair of (Cout,) f32 tensors or a (2, Cout)
+    tensor: the RangeBN observer clamp in the kernel's form,
+    ``ops.int8_matmul.kernel_clip``) clamps the epilogue as
+    :func:`_epilogue` does, on the kernel's CLIP instances (not with
+    ``residual``: no engine needs both).
     ``border_sums``: :func:`conv_border_sums` of the weights, which the
     Hopper route needs where a padded tap reads a nonzero stored zero point;
     ``pixel_groups``: :func:`pixel_group_operands` of the weights and of
-    these alpha and beta, which the pixel-group route takes. The engines pass
-    both, computed once; other callers may leave them to this call."""
+    these alpha and beta, which the pixel-group route takes."""
     kh, kw = _pair(kernel_size)
     n, h, w, cin = x_q.shape
     cout = w_ck.shape[0]
     _check_conv(x_q, w_ck, kh, kw, alpha, beta)
     ho, wo = conv_out_hw(h, w, (kh, kw), stride, padding)
+    clip = clip_pair(clip, cout)
     if residual is not None:
         if res_grid is None:
             raise ValueError("residual requires res_grid=(scale, zero_point)")
         if residual.shape != (n, ho, wo, cout):
             raise ValueError(f"residual {tuple(residual.shape)} is not the output's shape {(n, ho, wo, cout)}")
+        if clip is not None:
+            raise ValueError("the clamp (y_clip) does not combine with residual")
         _cuda.check_dtype(residual, torch.int8, "residual")
     if x_q.device.type == "cpu":
         return int8_conv_direct_plain(x_q, w_ck, (kh, kw), alpha, beta, stride, padding, stored_zp, relu,
-                                      out_requant, residual=residual, res_grid=res_grid)
+                                      out_requant, residual=residual, res_grid=res_grid, clip=clip)
     tensors = (x_q, w_ck, alpha, beta) + (() if residual is None else (residual,))
     dev = _cuda.require_cuda_tensors(*tensors)
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
@@ -506,8 +545,11 @@ def int8_conv_direct_ck(
     plan = conv_plan(n, h, w, cin, cout, (kh, kw), (sh, sw), (ph, pw), form, _cuda.sm_count(dev))
     sm90 = plan.tma_shape and x_q.data_ptr() % 16 == 0 and w_ck.data_ptr() % 16 == 0
     shape = (n, h, w, cin, cout, kh, kw, sh, sw, ph, pw, ho, wo)
+    bounds = clip
     if sm90 and plan.pixels > 1:  # the same product on pixel groups: rows of g pixels, diag(W, ..., W)
         g = plan.pixels
+        if bounds is not None:
+            bounds = (bounds[0].repeat(g), bounds[1].repeat(g))
         if pixel_groups is None:
             pixel_groups = pixel_group_operands(w_ck, alpha, beta, g)
         w_ck, alpha, beta = pixel_groups
@@ -530,7 +572,8 @@ def int8_conv_direct_ck(
         t_ptr = border_sums.data_ptr()
     kernel(dev, x_q.data_ptr(), w_ck.data_ptr(), alpha.data_ptr(), beta.data_ptr(), r_ptr, t_ptr, out.data_ptr(),
            *shape, int(stored_zp), int(relu), out_int8, inv, zps, r_off, r_scale, *plan.args(sm90),
-           route="sm90" if sm90 else "tile")
+           *clip_args(bounds, w_ck.shape[0], dev),
+           route=("sm90" if sm90 else "tile") + ("" if bounds is None else "+clip"))
     return out
 
 
@@ -547,13 +590,15 @@ def int8_conv_direct(
     *,
     residual: Optional[torch.Tensor] = None,
     res_grid: Optional[Grid] = None,
+    y_clip=None,
 ) -> torch.Tensor:
     """JAX-layout entry (``w_q`` HWIO); packs the weights on each call. JAX
     takes ``residual`` fifth; here it and ``res_grid`` are keywords, so the
-    port's callers keep their positional ``stride``."""
+    port's callers keep their positional ``stride``. ``y_clip`` is the
+    clamp of ``int8_conv_xla(y_clip=)``, which JAX's kernel does not take."""
     return int8_conv_direct_ck(x_q, pack_conv_weight(w_q), tuple(w_q.shape[:2]), alpha, beta,
-                               stride, padding, stored_zp, relu, out_requant,
-                               residual=residual, res_grid=res_grid)
+                               stride, padding, stored_zp, relu, out_requant, residual=residual,
+                               res_grid=res_grid, clip=kernel_clip(y_clip, w_q.shape[3], out_requant, relu))
 
 
 # ----------------------------------------------------------------- B7, the flat-row conv

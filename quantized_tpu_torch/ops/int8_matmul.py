@@ -19,6 +19,16 @@ the launch plan of :func:`gemm_plan` and the route of :func:`gemm_route`,
 which the C entry refuses where its shape and bases take the other one, and
 counts the launch by that route.
 
+``y_clip=(ylo, yhi)``, per-column bounds of ``acc * alpha + beta`` (the
+folded RangeBN observer clamp, ``engine.convert._rangebn_y_clip``), is
+``int8_conv_xla``'s clamp, which the JAX-layout entries take. The ``*_nk``
+wrappers and the plain versions take it once, as ``clip``, in the form the
+kernel reads (:func:`kernel_clip`): the f32 form clamps y to ``y_clip``
+before ReLU; the requant form clamps the rounded value to the integer
+bounds of :func:`requant_clip_bounds` alone, whose lo holds the ReLU floor.
+Such a launch runs the kernel's CLIP instances and counts under its route
+with ``+clip`` (``"sm90+clip"``).
+
 :func:`int8_matmul_xla` is the JAX package's XLA form of the same product
 (no kernel of its own: the fc autotuner races it against K1).
 """
@@ -34,13 +44,14 @@ import torch
 from quantized_tpu_torch.ops import _cuda
 
 GEMM_PLAN_ARGS = ["int"] * 6  # the C entries' trailing arguments: the route (1: "sm90"), GemmPlan.args()
+CLIP_ARGS = ["ptr"] * 2  # the C entries' last arguments: the clamp's per-column lo and hi, or null
 _MATMUL = _cuda.CudaKernel(
     "int8_matmul", "int8_gemm.cu", "qt_int8_matmul",
-    ["ptr"] * 5 + ["int"] * 4 + GEMM_PLAN_ARGS,
+    ["ptr"] * 5 + ["int"] * 4 + GEMM_PLAN_ARGS + CLIP_ARGS,
 )
 _MATMUL_REQUANT = _cuda.CudaKernel(
     "int8_matmul_requant", "int8_gemm.cu", "qt_int8_matmul_requant",
-    ["ptr"] * 5 + ["int"] * 3 + ["float"] * 3 + GEMM_PLAN_ARGS,
+    ["ptr"] * 5 + ["int"] * 3 + ["float"] * 3 + GEMM_PLAN_ARGS + CLIP_ARGS,
 )
 
 # The launch plan of the Hopper GEMM (csrc/gemm_sm90.cuh), shared by K1 and
@@ -158,6 +169,62 @@ def requant_scalars(out_scale: float, out_zp: int, relu: bool) -> Tuple[float, f
     return inv, zps, lo
 
 
+Clip = Tuple[torch.Tensor, torch.Tensor]
+
+
+def clip_pair(y_clip, n: int) -> Optional[Clip]:
+    """``y_clip`` as two (n,) float32 tensors (lo, hi), from a pair or a
+    (2, n) tensor; None stays None."""
+    if y_clip is None:
+        return None
+    lo, hi = y_clip[0], y_clip[1]
+    if lo.shape != (n,) or hi.shape != (n,):
+        raise ValueError(f"y_clip bounds must have shape ({n},), got {tuple(lo.shape)} and {tuple(hi.shape)}")
+    _cuda.check_dtype(lo, torch.float32, "y_clip")
+    _cuda.check_dtype(hi, torch.float32, "y_clip")
+    return lo, hi
+
+
+def clip_minmax(v: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """``jnp.clip(v, lo, hi)``: the max with lo, then the min with hi (so
+    where hi < lo the result is hi)."""
+    return torch.minimum(torch.maximum(v, lo), hi)
+
+
+def requant_clip_bounds(y_clip: Clip, out_scale: float, out_zp: int, relu: bool) -> Clip:
+    """The requant's per-channel integer bounds under the clamp ``y_clip``,
+    as ``int8_conv_xla`` forms them: ``lo = max(floor, rint(ylo * inv +
+    zps))`` (floor: zps with ReLU, else -128) and ``hi = min(127, rint(yhi *
+    inv + zps))``, each then held to [-128, 127], which moves only a bound
+    that no int8 value reaches (the JAX cast of such a value is not
+    defined). The clamp of a rounded value to them is ``clip_minmax``."""
+    inv, zps, floor = requant_scalars(out_scale, out_zp, relu)
+    lo = torch.clamp(torch.clamp_min(torch.round(y_clip[0] * inv + zps), floor), -128.0, 127.0)
+    hi = torch.clamp(torch.round(y_clip[1] * inv + zps), -128.0, 127.0)
+    return lo.contiguous(), hi.contiguous()
+
+
+def kernel_clip(y_clip, n: int, out_requant: Optional[Tuple[float, int]], relu: bool) -> Optional[Clip]:
+    """The clamp ``y_clip`` in the form K1's and K2's kernels and their
+    plain versions take it, ``clip``: ``y_clip`` itself for an f32 output,
+    :func:`requant_clip_bounds` on ``out_requant``'s grid for an s8 one."""
+    y_clip = clip_pair(y_clip, n)
+    if y_clip is None or out_requant is None:
+        return y_clip
+    return requant_clip_bounds(y_clip, out_requant[0], out_requant[1], relu)
+
+
+def clip_args(bounds: Optional[Clip], n: int, dev: torch.device):
+    """The C entries' clamp pointers (lo, hi), or (None, None)."""
+    if bounds is None:
+        return None, None
+    lo, hi = clip_pair(bounds, n)
+    _cuda.require_cuda_tensors(lo, hi)
+    if lo.device != dev:
+        raise ValueError(f"clamp bounds on {lo.device}, the operands on {dev}")
+    return lo.data_ptr(), hi.data_ptr()
+
+
 def exact_int_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
     """int32 ``a @ w_nk.T`` for int8 operands, exactly: int32 on the CPU;
     float64 on a GPU, which has no integer matmul (|acc| <= 128*127*K stays
@@ -168,29 +235,37 @@ def exact_int_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
 
 
 def acc_epilogue(acc: torch.Tensor, alpha, beta, relu: bool = False,
-                 out_requant: Optional[Tuple[float, int]] = None) -> torch.Tensor:
+                 out_requant: Optional[Tuple[float, int]] = None, clip: Optional[Clip] = None) -> torch.Tensor:
     """The fused epilogue of an int32 accumulator, in the JAX kernels' order:
-    f32 ``relu?(acc * alpha + beta)``, or, on ``out_requant=(s, zp)``, s8
-    ``clip(round(acc * (alpha * inv) + (beta * inv + zp - 128)), lo, 127)``
-    with 1/s folded into alpha and beta, the -128 shift into the zero point
-    and ReLU into the clip floor ``lo``."""
+    f32 ``relu?(clip?(acc * alpha + beta))``, or, on ``out_requant=(s,
+    zp)``, s8 ``clip(round(acc * (alpha * inv) + (beta * inv + zp - 128)),
+    lo, 127)`` with 1/s folded into alpha and beta, the -128 shift into the
+    zero point and ReLU into the clip floor ``lo``; under ``clip`` (the
+    requant's integer bounds, :func:`kernel_clip`) the rounded value is
+    clipped to those bounds alone."""
     if out_requant is None:
         y = acc.to(torch.float32) * alpha + beta
+        if clip is not None:
+            y = clip_minmax(y, *clip)
         return torch.clamp_min(y, 0.0) if relu else y
     inv, zps, lo = requant_scalars(out_requant[0], out_requant[1], relu)
     q = torch.round(acc.to(torch.float32) * (alpha * inv) + (beta * inv + zps))
+    if clip is not None:
+        return clip_minmax(q, *clip).to(torch.int8)
     return torch.clamp(q, lo, 127.0).to(torch.int8)
 
 
-def int8_matmul_plain(a, w_nk, alpha, beta, relu: bool = False) -> torch.Tensor:
-    """Plain version of K1's f32 form: ``relu?(A @ W^T * alpha + beta)``."""
-    return acc_epilogue(exact_int_matmul(a, w_nk), alpha, beta, relu)
+def int8_matmul_plain(a, w_nk, alpha, beta, relu: bool = False, clip=None) -> torch.Tensor:
+    """Plain version of K1's f32 form: ``relu?(clip?(A @ W^T * alpha + beta))``."""
+    return acc_epilogue(exact_int_matmul(a, w_nk), alpha, beta, relu, clip=clip_pair(clip, w_nk.shape[0]))
 
 
 def int8_matmul_requant_plain(a, w_nk, alpha, beta, out_scale: float, out_zp: int,
-                              relu: bool = True) -> torch.Tensor:
-    """Plain version of K1's requant form (``_requant_kernel``'s order)."""
-    return acc_epilogue(exact_int_matmul(a, w_nk), alpha, beta, relu, (out_scale, out_zp))
+                              relu: bool = True, clip=None) -> torch.Tensor:
+    """Plain version of K1's requant form (``_requant_kernel``'s order);
+    ``clip``: the integer bounds of :func:`requant_clip_bounds`."""
+    return acc_epilogue(exact_int_matmul(a, w_nk), alpha, beta, relu, (out_scale, out_zp),
+                        clip_pair(clip, w_nk.shape[0]))
 
 
 def _check(a, w_nk, alpha, beta):
@@ -205,27 +280,30 @@ def _check(a, w_nk, alpha, beta):
     _cuda.check_dtype(beta, torch.float32, "beta")
 
 
-def int8_matmul_nk(a, w_nk, alpha, beta, relu: bool = False) -> torch.Tensor:
-    """f32 ``relu?(A @ W^T * alpha + beta)``; A (M, K) s8, W (N, K) s8."""
+def int8_matmul_nk(a, w_nk, alpha, beta, relu: bool = False, clip=None) -> torch.Tensor:
+    """f32 ``relu?(clip?(A @ W^T * alpha + beta))``; A (M, K) s8, W (N, K) s8."""
     _check(a, w_nk, alpha, beta)
     if a.device.type == "cpu":
-        return int8_matmul_plain(a, w_nk, alpha, beta, relu)
+        return int8_matmul_plain(a, w_nk, alpha, beta, relu, clip)
     dev = _cuda.require_cuda_tensors(a, w_nk, alpha, beta)
     (m, k), n = a.shape, w_nk.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     plan = gemm_plan(m, n, k, sms=_cuda.sm_count(dev))
     route = gemm_route(plan, a, w_nk)
     _MATMUL(dev, a.data_ptr(), w_nk.data_ptr(), alpha.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            m, n, k, int(relu), int(route == "sm90"), *plan.args(), route=route)
+            m, n, k, int(relu), int(route == "sm90"), *plan.args(), *clip_args(clip, n, dev),
+            route=route if clip is None else route + "+clip")
     return out
 
 
 def int8_matmul_requant_nk(a, w_nk, alpha, beta, out_scale: float, out_zp: int,
-                           relu: bool = True) -> torch.Tensor:
-    """s8 output on the (out_scale, out_zp) grid (stored u - 128)."""
+                           relu: bool = True, clip=None) -> torch.Tensor:
+    """s8 output on the (out_scale, out_zp) grid (stored u - 128). ``clip``:
+    the integer bounds of :func:`requant_clip_bounds` for this grid, which
+    the kernel clamps to in place of [lo, 127]."""
     _check(a, w_nk, alpha, beta)
     if a.device.type == "cpu":
-        return int8_matmul_requant_plain(a, w_nk, alpha, beta, out_scale, out_zp, relu)
+        return int8_matmul_requant_plain(a, w_nk, alpha, beta, out_scale, out_zp, relu, clip)
     dev = _cuda.require_cuda_tensors(a, w_nk, alpha, beta)
     (m, k), n = a.shape, w_nk.shape[0]
     inv, zps, lo = requant_scalars(out_scale, out_zp, relu)
@@ -233,19 +311,21 @@ def int8_matmul_requant_nk(a, w_nk, alpha, beta, out_scale: float, out_zp: int,
     plan = gemm_plan(m, n, k, sms=_cuda.sm_count(dev))
     route = gemm_route(plan, a, w_nk)
     _MATMUL_REQUANT(dev, a.data_ptr(), w_nk.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-                    out.data_ptr(), m, n, k, inv, zps, lo, int(route == "sm90"), *plan.args(), route=route)
+                    out.data_ptr(), m, n, k, inv, zps, lo, int(route == "sm90"), *plan.args(),
+                    *clip_args(clip, n, dev), route=route if clip is None else route + "+clip")
     return out
 
 
-def int8_matmul(a, b, alpha, beta, relu: bool = False) -> torch.Tensor:
+def int8_matmul(a, b, alpha, beta, relu: bool = False, y_clip=None) -> torch.Tensor:
     """JAX-layout entry: ``b`` is (K, N)."""
-    return int8_matmul_nk(a, b.T.contiguous(), alpha, beta, relu)
+    return int8_matmul_nk(a, b.T.contiguous(), alpha, beta, relu, clip_pair(y_clip, b.shape[1]))
 
 
 def int8_matmul_requant(a, b, alpha, beta, out_scale: float, out_zp: int,
-                        relu: bool = True) -> torch.Tensor:
+                        relu: bool = True, y_clip=None) -> torch.Tensor:
     """JAX-layout entry: ``b`` is (K, N)."""
-    return int8_matmul_requant_nk(a, b.T.contiguous(), alpha, beta, out_scale, out_zp, relu)
+    return int8_matmul_requant_nk(a, b.T.contiguous(), alpha, beta, out_scale, out_zp, relu,
+                                  kernel_clip(y_clip, b.shape[1], (out_scale, out_zp), relu))
 
 
 INT_MM_MIN_M = 17  # torch._int_mm refuses M <= 16 on the GPU

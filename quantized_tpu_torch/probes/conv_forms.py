@@ -14,7 +14,7 @@ version on the card, and the tile's to the call's; times are
 :class:`~quantized_tpu_torch.utils.timing.Timer`'s device time (L2 flushed)
 beside the bound (``probes/gemm_sweep`` ``bound_ms``), with the route the
 call took. It also prints the ptxas line of every residual kernel instance
-of this build (``Lb1E`` in the mangled name: the RES flag).
+of this build (``Lb1ELb0E`` in the mangled name: the RES flag, without CLIP).
 
 Usage, on a GPU: ``python -m quantized_tpu_torch.probes.conv_forms [batch]``
 (default 32). It exits non-zero without one.
@@ -72,7 +72,7 @@ def _tile(x, w, ks, alpha, beta, pad, zp, relu, req, residual=None):
     def run():
         kernel(x.device, x.data_ptr(), w.data_ptr(), alpha.data_ptr(), beta.data_ptr(), r_ptr, None, out.data_ptr(),
                n, h, wd, cin, cout, ks[0], ks[1], 1, 1, pad, pad, ho, wo, zp, int(relu), out_int8, inv, zps, r_off,
-               r_scale, *([0] * len(cp.CONV_PLAN_ARGS)), route="tile")
+               r_scale, *([0] * len(cp.CONV_PLAN_ARGS)), None, None, route="tile")
         return out
     return run
 
@@ -96,7 +96,7 @@ def res_ptxas(out: Callable[[str], None] = print):
     for line in _cuda.BUILD_LOGS.get("int8_conv.cu", "").splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name and "conv_sm90_kernel" in name and "Lb1E" in name and ("Used" in line or "spill" in line):
+        elif name and "conv_sm90_kernel" in name and "ELb1ELb0EE" in name and ("Used" in line or "spill" in line):
             out(f"ptxas {name.split('conv_sm90_kernel')[1].split('EEEv')[0]}: {line.strip()}")
 
 

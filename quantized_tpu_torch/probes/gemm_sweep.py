@@ -203,7 +203,7 @@ def run_plans(out=print) -> Dict[str, Dict]:
 
             def launch(plan):
                 _MATMUL(dev, a.data_ptr(), w.data_ptr(), alpha.data_ptr(), beta.data_ptr(), y.data_ptr(),
-                        m, n, k, 1, int(gemm_route(plan, a, w) == "sm90"), *plan.args())
+                        m, n, k, 1, int(gemm_route(plan, a, w) == "sm90"), *plan.args(), None, None)
         base, plans = plan_alternatives(m, n, k, packed)
         times = {}
         for plan in plans:

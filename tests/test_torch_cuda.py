@@ -1291,3 +1291,154 @@ def test_autotuner_on_the_gpu(cuda_device, tmp_path):
         got, want = tuned.run_u8(u8), untuned.run_u8(u8)
         assert torch.equal(fresh.run_u8(u8), got)
     assert (got - want).abs().max().item() <= 0.35
+
+
+# ----------------------------------------------------------------- the RangeBN clamp (CLIP instances)
+
+def _clip_bounds(gen, cout, y, device):
+    """Per-channel clamp bounds that bind on a large share of the values of
+    ``y`` (f32 ``acc * alpha + beta``); channel 3's cross (hi < lo: the
+    clamp takes hi)."""
+    span = y.abs().mean().item()
+    lo = -gen.uniform(0.25, 1.0, cout) * span
+    hi = gen.uniform(0.25, 1.0, cout) * span
+    lo[3], hi[3] = 0.2 * span, -0.1 * span
+    return _dev(np.stack([lo, hi]).astype(np.float32), device)
+
+
+CLIP_CONV_CASES = [
+    # n, h, cin, cout, k, stride, pad, out_requant, the route: the mainloop's per-tap (4-D boxes) and
+    # flat 1x1 forms, the gather-K route, pixel groups, the general tile (Cin 9)
+    (2, 56, 64, 64, 3, 1, 1, (0.05, 113), "sm90"),
+    (2, 56, 64, 64, 3, 1, 1, None, "sm90"),
+    (2, 28, 128, 128, 3, 2, 1, (0.05, 120), "sm90"),
+    (2, 56, 64, 256, 1, 1, 0, None, "sm90"),
+    (2, 56, 64, 256, 1, 1, 0, (0.05, 113), "sm90"),
+    (2, 14, 256, 512, 1, 2, 0, None, "sm90"),
+    (2, 115, 12, 64, 4, 1, 0, (0.05, 130), "sm90"),
+    (2, 115, 12, 64, 4, 1, 0, None, "sm90"),
+    (2, 224, 3, 64, 7, 2, 3, None, "sm90"),
+    (2, 112, 24, 48, 1, 1, 0, (0.05, 113), "sm90"),
+    (2, 14, 9, 40, 1, 1, 0, (0.05, 113), "tile"),
+    (2, 14, 9, 40, 1, 1, 0, None, "tile"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,cin,cout,k,s,pad,req,route", CLIP_CONV_CASES)
+def test_conv_clip_instances_match_plain(cuda_device, gen, n, h, cin, cout, k, s, pad, req, route):
+    """K2 with the RangeBN clamp on each route's CLIP instances (counted
+    under ``<route>+clip``): s8 equal to the plain version, f32 within
+    F32_ATOL; the clamp changes the output."""
+    x, w_ck, alpha, beta = _conv_case(gen, cuda_device, n, h, cin, cout, k)
+    y = ops.int8_conv_direct_plain(x, w_ck, (k, k), alpha, beta, s, pad, -5, False, None)
+    yc = _clip_bounds(gen, cout, y, cuda_device)
+    args = ((k, k), alpha, beta, s, pad, -5, True, req)
+    name = "int8_conv_direct_gatherk" if cin <= 32 and k > 1 else "int8_conv_direct"
+    routes = _routes(name)
+    clip = ops.kernel_clip(yc, cout, req, True)
+    got = ops.int8_conv_direct_ck(x, w_ck, *args, clip=clip)
+    torch.cuda.synchronize()
+    assert _routes(name).get(route + "+clip", 0) == routes.get(route + "+clip", 0) + 1, _routes(name)
+    want = ops.int8_conv_direct_plain(x, w_ck, *args, clip=clip)
+    if req is None:
+        torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+    else:
+        assert torch.equal(got, want)
+    assert not torch.equal(got, ops.int8_conv_direct_ck(x, w_ck, *args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,route", [(32, 2048, 1000, "sm90"), (6272, 576, 64, "sm90"), (1000, 64, 256, "sm90"),
+                                         (9, 301, 130, "tile"), (300, 27, 16, "tile")])
+def test_gemm_clip_instances_match_plain(cuda_device, gen, m, k, n, route):
+    """K1 with the clamp, f32 and requant forms, on the Hopper GEMM and the
+    general tile: equal to the plain versions."""
+    a, w, alpha, beta = _gemm_case(gen, cuda_device, m, k, n)
+    yc = _clip_bounds(gen, n, ops.int8_matmul_plain(a, w, alpha, beta), cuda_device)
+    routes = {name: _routes(name) for name in ("int8_matmul", "int8_matmul_requant")}
+    qc = ops.requant_clip_bounds((yc[0], yc[1]), 0.01, 113, True)
+    y = ops.int8_matmul_nk(a, w, alpha, beta, relu=True, clip=yc)
+    q = ops.int8_matmul_requant_nk(a, w, alpha, beta, 0.01, 113, relu=True, clip=qc)
+    torch.cuda.synchronize()
+    for name in routes:
+        assert _routes(name).get(route + "+clip", 0) == routes[name].get(route + "+clip", 0) + 1, _routes(name)
+    torch.testing.assert_close(y, ops.int8_matmul_plain(a, w, alpha, beta, True, clip=yc), atol=F32_ATOL, rtol=0)
+    assert torch.equal(q, ops.int8_matmul_requant_plain(a, w, alpha, beta, 0.01, 113, True, clip=qc))
+    assert not torch.equal(q, ops.int8_matmul_requant_nk(a, w, alpha, beta, 0.01, 113, relu=True))
+
+
+def _rangebn_cifar20(backend, device):
+    """A RangeBN CIFAR ResNet-20, two observer-update passes on seeded
+    images, its RangeBN observers narrowed to 40% (the clamp binds), built
+    on ``backend``."""
+    from quantized_tpu_torch.engine import build_int8_resident
+    from quantized_tpu_torch.models import get_model
+    from quantized_tpu_torch.models.layers import RangeBN
+
+    model = get_model("resnet_quantized")(dataset="cifar10", depth=20, generator=torch.Generator().manual_seed(0))
+    model.train()
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for _ in range(2):
+            model(torch.randn((8, 32, 32, 3), generator=g))
+        for m in model.modules():
+            if isinstance(m, RangeBN):
+                m.quantize_input.running_min.mul_(0.4)
+                m.quantize_input.running_max.mul_(0.4)
+    return build_int8_resident(model.eval(), backend=backend, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("via_convert", [False, True])
+def test_strict_engine_of_a_model_already_on_the_gpu(cuda_device, via_convert):
+    """``convert_to_int_strict`` (and ``convert_to_int(weight_quant=
+    "per_tensor")``) of a RangeBN CIFAR ResNet-20 that already lies on the
+    card: every buffer and parameter of the result on the card, its logits
+    within 2 fc steps of the CPU twin's, the argmax equal."""
+    import copy
+
+    from quantized_tpu_torch.engine import convert_to_int, convert_to_int_strict
+    from quantized_tpu_torch.models import get_model
+    from quantized_tpu_torch.models.layers import RangeBN
+
+    model = get_model("resnet_quantized")(dataset="cifar10", depth=20, generator=torch.Generator().manual_seed(0))
+    model.train()
+    g = torch.Generator().manual_seed(5)
+    with torch.no_grad():
+        for _ in range(2):
+            model(torch.randn((8, 32, 32, 3), generator=g))
+    model.eval()
+    assert any(isinstance(m, RangeBN) for m in model.modules())
+    convert = ((lambda m, **kw: convert_to_int(m, weight_quant="per_tensor", **kw)) if via_convert
+               else convert_to_int_strict)
+    gpu = convert(copy.deepcopy(model).to(cuda_device))
+    cpu = convert(copy.deepcopy(model), device="cpu")
+    assert all(t.device.type == "cuda" for t in list(gpu.parameters()) + list(gpu.buffers()))
+    x = torch.randn((4, 32, 32, 3), generator=g)
+    with torch.inference_mode():
+        got, want = gpu(x.to(cuda_device)).cpu(), cpu(x)
+    assert (got - want).abs().max().item() < 2 * cpu.fc.act_scale
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["pallas", "gemm"])
+def test_rangebn_engine_on_the_gpu_equals_its_cpu_twin(cuda_device, backend):
+    """The clamped CIFAR ResNet-20 on K2 (gather-K and per-tap CLIP
+    instances, the prescaled f32 legs) or on K1 (im2col): every launch on a
+    CLIP instance but the fc's, the logits equal to the CPU twin's within
+    F32_ATOL, and no block fused."""
+    from quantized_tpu_torch.engine import fuse_resident_blocks
+
+    u8 = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (4, 32, 32, 3), dtype=np.uint8))
+    gpu, cpu = _rangebn_cifar20(backend, cuda_device), _rangebn_cifar20(backend, "cpu")
+    assert fuse_resident_blocks(gpu) == 0
+    ops.reset_launches()
+    with torch.inference_mode():
+        got, want = gpu.run_u8(u8.to(cuda_device)).cpu(), cpu.run_u8(u8)
+    torch.cuda.synchronize()
+    for name, by_route in ops.route_counts().items():
+        clipped = sum(v for r, v in by_route.items() if r.endswith("+clip"))
+        assert clipped == sum(by_route.values()) - (1 if name == "int8_matmul" else 0), (name, by_route)
+    torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)

@@ -27,9 +27,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["imported"] >= 20, result
     assert result["bad"] == [], result
-    # the autotuned bench path: the tuner, the throughput hook, the float ResNet
+    # the autotuned bench path: the tuner, the throughput hook, the float ResNet;
+    # the RangeBN flavor and the strict engine
     assert {"quantized_tpu_torch.engine.autotune", "quantized_tpu_torch.engine.bench_hook",
-            "quantized_tpu_torch.models.resnet"} <= set(result["names"]), result
+            "quantized_tpu_torch.models.resnet", "quantized_tpu_torch.quantcore.rangebn",
+            "quantized_tpu_torch.models.resnet_quantized", "quantized_tpu_torch.engine.strict",
+            "quantized_tpu_torch.engine.convert"} <= set(result["names"]), result
 
 
 _SMOKE_PROBE = r"""
