@@ -165,8 +165,20 @@ and a non-zero exit:
    AlexNet int8 and int4 at batches 1, 8 and 128, timed with CUDA events in
    turns (a, b, b, a) per model and batch, a profile of where the device
    time goes and the peak memory of each, and the device time of each
-   unfused MobileNet's 13 plain depthwise convs;
-7. autotune: ResNet-50 and MobileNet-v1 w1.0 at batch 128 (``bench.py``'s
+   unfused MobileNet's 13 plain depthwise convs; the existing serving
+   paths build their executors with ``graphs=False``, so their launch
+   counts stay those of eager forwards;
+7. graphs: every engine built so far (ResNet-50 unfused, fused, int4 and
+   RangeBN, ResNet-18 and CIFAR ResNet-20 unfused and fused, both
+   MobileNets fused, AlexNet int8 and int4 on uint8 ingest; the RangeBN
+   ``convert_to_int`` and strict engines on f32) captured at batch 8 by
+   ``IntExecutor(graphs=True)``: two replays bit-equal to the eager
+   forward, every launch of the captured forward on its Hopper route
+   ("sm90", or "sm90+clip" where the clamp rides), its capture time and
+   pool printed; then AlexNet int8 and int4 at batches 1 and 8, graph
+   against eager (CUDA events over 10 calls from device inputs, in turns,
+   and a profile: kernel time and idle share);
+8. autotune: ResNet-50 and MobileNet-v1 w1.0 at batch 128 (``bench.py``'s
    batch) built on "pallas", then ``engine.autotune_resident`` with every
    race on (conv backends, maxpool, stem, fc, blocks or pairs), measured
    afresh into a temporary cache, one printed line per race with every
@@ -184,13 +196,31 @@ and a non-zero exit:
    ``models.get_model("resnet")``, fp32 with TF32 off) timed in turns by
    ``engine.model_throughput``, img/s and the tuned/float ratio printed
    with the card's name and power limit; the phase's seconds;
-8. the card's nvidia-smi line, then the kernels line: one JSON object with
+9. serve batcher: the tuned ResNet-50 behind ``ContinuousBatcher``
+   (uint8 ingest, buckets 1, 8, 32 and 128) at pipeline depths 1 and 4,
+   once with an ``IntExecutor`` replaying one CUDA graph per bucket and
+   once eager, with the launch counts set to 0 just before and read just
+   after: 320 seeded requests in bursts of 1-128, submitted 12 times over,
+   every answer bit-equal to an eager batch-1 forward of its image (within
+   LOGIT_ATOL where a bf16 conv form serves), one graph per bucket, every
+   captured launch on its Hopper route, one replay per served batch;
+   ``stats()`` (latency p50/p95/p99, occupancy, stage means), img/s, the
+   pinned slots' memory, each bucket's capture time and pool; then one
+   journaled pass (not timed: the journal fsyncs every request), three
+   ``/predict`` requests through ``_start_http`` on 127.0.0.1 (the eager
+   top-5) and the journal replayed into a fresh batcher (the same answers);
+10. cli: ``quantized_tpu_torch.cli.main.main`` in-process on ResNet-50
+   (``resnet_quantized_float_bn``, ImageNet, depth 50) with ``--calibrate
+   2 --convert-int --resident -b 128``: ``-e`` over the synthetic
+   stand-in's 512 images (top-1 and top-5 printed), then ``--serve
+   --serve-steps 20 --serve-u8 --serve-pipeline 4``; both return 0;
+11. the card's nvidia-smi line, then the kernels line: one JSON object with
    each kernel's numbers; ``launches`` is the count on the path that runs
    the kernel (``path``: a serving path's 3 forwards, or an op path),
    ``launches_autotuned`` its count in one tuned forward of each model,
    ``launches_rangebn`` on the RangeBN path's 3 forwards, and ``clip`` (K1,
    K2) its CLIP instances' numbers beside the unclamped instance's;
-9. last line: ``{"ok": true, "device": {...}}``.
+12. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1283,7 +1313,7 @@ def phase_gemm(pallas_engine, sample):
     from quantized_tpu_torch.engine import IntExecutor
 
     engine = _build("resnet50", "gemm", "cuda")
-    executor = IntExecutor(engine, ingest="u8", device="cuda")
+    executor = IntExecutor(engine, ingest="u8", device="cuda", graphs=False)
     executor.warmup(sample)
     torch.cuda.synchronize()
     ops.reset_launches()
@@ -1311,7 +1341,7 @@ def phase_model(key):
     plan, fused_plan, n_blocks = PLANS[key]
     t0 = time.perf_counter()
     engine = _build(key, "pallas", "cuda")
-    executor = IntExecutor(engine, ingest="u8", device="cuda")
+    executor = IntExecutor(engine, ingest="u8", device="cuda", graphs=False)
     log(f"[{key}] int8-resident engine built on the GPU in {time.perf_counter() - t0:.1f} s")
     requests = _requests(side)
     sample = requests[0][:2]
@@ -1329,7 +1359,7 @@ def phase_model(key):
     n_fused = fuse(fused)
     if n_fused != n_blocks:
         raise AssertionError(f"{key}: {fuse.__name__} fused {n_fused}, expected {n_blocks}")
-    fused_executor = IntExecutor(fused, ingest="u8", device="cuda")
+    fused_executor = IntExecutor(fused, ingest="u8", device="cuda", graphs=False)
     fused_executor.warmup(sample)
     counts[f"{key} fused"] = _serve(f"{key} fused", fused_executor, requests, fused_plan, classes)
     cpu_fused = copy.deepcopy(cpu_engine)
@@ -1364,7 +1394,7 @@ def phase_alexnet():
             f"(negative BN factor) {json.dumps(masks)}")
         if not all(masks.values()):
             raise AssertionError(f"{what}: the min-pool dual is not engaged")
-        executor = IntExecutor(engine, ingest="u8", device="cuda")
+        executor = IntExecutor(engine, ingest="u8", device="cuda", graphs=False)
         executor.warmup(sample)
         counts[what] = _serve(what, executor, requests, ALEXNET_PLANS[bits], 1000)
         outs = _stage_outputs(engine, sample.cuda())
@@ -1391,7 +1421,7 @@ def phase_resnet50_int4():
     n_fused = fuse_resident_blocks(copy.deepcopy(engine))
     if n_fused != 0:
         raise AssertionError(f"{what}: fuse_resident_blocks fused {n_fused} int4 blocks")
-    executor = IntExecutor(engine, ingest="u8", device="cuda")
+    executor = IntExecutor(engine, ingest="u8", device="cuda", graphs=False)
     requests = _requests(224)
     sample = requests[0][:2]
     executor.warmup(sample)
@@ -1434,7 +1464,8 @@ def phase_rangebn():
     clamped requant and f32 forms) against "pallas" within 1 step,
     ``convert_to_int(backend="pallas")`` (K2's clamped f32 form) against its
     CPU twin, and the strict engine on a batch of RANGEBN_STRICT_BATCH
-    against its CPU twin. Returns the executor and the paths' counts."""
+    against its CPU twin. Returns the executor, the paths' counts and the
+    ``convert_to_int`` and strict engines (for the graphs phase)."""
     from quantized_tpu_torch import ops
     from quantized_tpu_torch.engine import IntExecutor, build_int8_resident, convert_to_int, fuse_resident_blocks
     from quantized_tpu_torch.engine.int_layers import IntConv2d
@@ -1455,7 +1486,7 @@ def phase_rangebn():
         raise AssertionError(f"{key}: fuse_resident_blocks fused {n_fused} clamped blocks")
     log(f"[{key}] {len(convs)} convs (the stem's s2d and raw forms among them), every one clamped; "
         f"fuse_resident_blocks fuses {n_fused} blocks")
-    executor = IntExecutor(engine, ingest="u8", device="cuda")
+    executor = IntExecutor(engine, ingest="u8", device="cuda", graphs=False)
     requests = _requests(side)
     sample = requests[0][:2]
     executor.warmup(sample)
@@ -1498,7 +1529,6 @@ def phase_rangebn():
     _check_launches(counts[what], PLANS["resnet50"][0], 1, what)
     _per_forward_routes(what, routes, RANGEBN_ROUTES, 1)
     _compare_stages({"logits": got}, {"logits": want}, f"{what} gpu vs cpu")
-    del cvt
 
     what = f"{key} strict"
     xs = torch.randn((RANGEBN_STRICT_BATCH, side, side, 3), generator=gen)
@@ -1517,7 +1547,7 @@ def phase_rangebn():
     if (tuple(got.shape) != (RANGEBN_STRICT_BATCH, classes) or not torch.isfinite(got).all() or not err < 2 * fc_step
             or not (got[:2].cpu().argmax(-1) == want.argmax(-1)).all()):
         raise AssertionError(f"{what}: the GPU strict engine and its CPU twin disagree ({err})")
-    return executor, counts
+    return executor, counts, {"convert_to_int": cvt, "strict": strict}
 
 
 def _path_counts(what, run):
@@ -1855,7 +1885,8 @@ def phase_autotune(card, timer):
     every race on and measured afresh into a temporary cache, the tuned
     engine against the untuned one, the cache applied to a fresh engine, the
     tuned forward's routes, then the tuned, fused and unfused forwards (and
-    the float ResNet-50, TF32 off) timed in turns."""
+    the float ResNet-50, TF32 off) timed in turns. Returns the counts and the
+    tuned ResNet-50 (served by the serve batcher phase)."""
     import tempfile
 
     from quantized_tpu_torch.engine import (
@@ -1918,10 +1949,308 @@ def phase_autotune(card, timer):
             if key == "resnet50":
                 ratio = (sum(ips["autotuned"]) / sum(ips["float (fp32, TF32 off)"]))
                 log(f"[autotune] resnet50 tuned / float img/s: {ratio:.3f}; card {card}")
+            if key == "resnet50":
+                kept = tuned
             del untuned, tuned, fused, engines
             torch.cuda.empty_cache()
     log(f"[autotune] phase took {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, kept
+
+
+# ----------------------------------------------------------------- CUDA graphs, the batcher, the CLI
+
+GRAPH_BATCH = 8  # the "graphs" phase captures each engine at this batch
+GRAPH_TIMING_BATCHES = (1, 8)  # AlexNet, graph against eager, where PERF.md saw the host bound
+HOPPER_ROUTES = ("sm90", "sm90+clip")
+SERVE_BUCKETS = (1, 8, 32, THROUGHPUT_BATCH)  # the CLI's --serve buckets at -b 128
+SERVE_DEPTHS = (1, 4)
+SERVE_STREAM = 320  # seeded uint8 requests, in bursts of 1-128
+SERVE_PASSES = 24  # the backlog: the stream submitted this many times over in each timed run, bursts 2 ms apart
+SERVE_PACED_BURSTS = 64  # the paced stream: bursts of 1-32 requests ...
+SERVE_PACED_GAP_S = 0.015  # ... this far apart, wider than a batch-32 forward: buckets 1, 8 and 32 serve
+SERVE_TURNS = ("graph", "eager", "eager", "graph")
+SERVE_HTTP_REQUESTS = 3
+
+
+def _captured_routes_ok(what, stats, allowed=HOPPER_ROUTES):
+    """Every launch of the captured forward on a Hopper route: each
+    launched kernel's launches, all counted by route, on ``allowed``."""
+    launches, routes = stats["launches"], stats["routes"]
+    for name, n in launches.items():
+        by_route = routes.get(name, {})
+        if sum(by_route.values()) != n or set(by_route) - set(allowed):
+            raise AssertionError(f"{what}: {name} captured {n} launches, by route {by_route}")
+    return launches
+
+
+def _graph_check(what, model, x, ingest, card):
+    """Capture ``model``'s forward at ``x``'s shape; the replay (twice) bit-
+    equal to the eager forward, every captured launch on a Hopper route.
+    Returns the graph and eager executors."""
+    from quantized_tpu_torch.engine import IntExecutor
+
+    eager = IntExecutor(model, ingest=ingest, device="cuda", graphs=False)
+    graph = IntExecutor(model, ingest=ingest, device="cuda", graphs=True)
+    want = eager(x)
+    got, again = graph(x), graph(x)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(again, want)):
+        raise AssertionError(f"[graphs] {what}: the replay differs from the eager forward by "
+                             f"{(got - want).abs().max().item()}")
+    stats = graph.graph_stats()[tuple(x.shape)]
+    launches = _captured_routes_ok(f"[graphs] {what}", stats)
+    log(f"[graphs] {what}: batch {x.shape[0]} captured in {stats['seconds'] * 1e3:.1f} ms (its pool "
+        f"{stats['pool_bytes'] / 2**20:.1f} MiB reserved), {sum(launches.values())} kernel launches a replay "
+        f"{json.dumps(stats['routes'])}; {stats['replays']} replays bit-equal to the eager forward; card {card}")
+    return graph, eager
+
+
+def phase_graphs(executors, rangebn_extra, card):
+    """Each engine this run built, captured at batch GRAPH_BATCH and held bit-
+    equal to its eager forward; then AlexNet int8 and int4 at batches 1 and
+    8 timed graph against eager (CUDA events over 10 calls from device
+    inputs, and a profile: device time and idle share)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(23)
+    engines = [(f"{key} {kind}", ex.model, MODELS[key][2]) for key in ("resnet50", "resnet18", "cifar20")
+               for kind, ex in executors[key].items()]
+    engines += [(f"{key} fused", executors[key]["fused"].model, 224) for key in ("mobilenet", "mobilenet w0.75")]
+    engines += [(f"alexnet {kind}", ex.model, 224) for kind, ex in executors["alexnet"].items()]
+    for what, model, side in engines:
+        u8 = torch.randint(0, 256, (GRAPH_BATCH, side, side, 3), generator=gen, dtype=torch.uint8)
+        _graph_check(what, model, u8.cuda(), "u8", card)
+    x = torch.randn((GRAPH_BATCH, 224, 224, 3), generator=gen).cuda()
+    for kind, model in rangebn_extra.items():  # f32 ingest: no uint8 path in the module surgery
+        _graph_check(f"resnet50 rangebn {kind}", model, x, "f32", card)
+    for kind in ("int8", "int4"):
+        model = executors["alexnet"][kind].model
+        for batch in GRAPH_TIMING_BATCHES:
+            u8 = torch.randint(0, 256, (batch, 224, 224, 3), generator=gen, dtype=torch.uint8).cuda()
+            graph, eager = _graph_check(f"alexnet {kind} batch {batch}", model, u8, "u8", card)
+            runs = {"graph": graph, "eager": eager}
+            times = {name: [] for name in runs}
+            for name in ["graph", "eager", "eager", "graph"]:
+                times[name].append(_time_forward(runs[name], u8))
+            for name, ex in runs.items():
+                ms = sum(times[name]) / len(times[name])
+                log(f"[graphs] alexnet {kind} batch {batch} {name}: {ms:.4f} ms a forward "
+                    f"({', '.join(f'{v:.4f}' for v in times[name])}), input on the device; card {card}")
+                _profile(ex, u8, ms, f"alexnet {kind} {name} batch {batch}")
+    log(f"[graphs] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _request_stream():
+    """SERVE_STREAM seeded uint8 224x224 images, the backlog's burst sizes
+    (1-128, covering the images once) and the paced stream's
+    (SERVE_PACED_BURSTS bursts of 1-32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    imgs = rng.integers(0, 256, (SERVE_STREAM, 224, 224, 3), dtype=np.uint8)
+    bursts, left = [], SERVE_STREAM
+    while left:
+        bursts.append(min(left, int(rng.integers(1, THROUGHPUT_BATCH + 1))))
+        left -= bursts[-1]
+    paced = [int(n) for n in rng.integers(1, 33, SERVE_PACED_BURSTS)]
+    return imgs, bursts, paced
+
+
+def _run_stream(batcher, imgs, bursts, gap_s, passes=1):
+    """Submit the bursts ``gap_s`` apart (on a fixed schedule), ``passes``
+    times over, request j being image j modulo their count; then wait for
+    every answer. Returns the answers and the wall seconds from the first
+    submit to the last answer."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    futures = []
+    for k, n in enumerate(bursts * passes):
+        delay = t0 + k * gap_s - time.perf_counter()
+        if delay > 0:
+            time.sleep(delay)
+        futures.extend(batcher.submit(imgs[j % len(imgs)]) for j in range(len(futures), len(futures) + n))
+    answers = np.stack([f.result(timeout=120) for f in futures])
+    return answers, time.perf_counter() - t0
+
+
+def _http_predict(port, img):
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict", data=img.tobytes(), method="POST",
+                                 headers={"X-Shape": ",".join(map(str, img.shape)), "X-Dtype": "u8"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _serve_graphs_ok(what, executor, batches, card):
+    """One graph per bucket, every captured launch on its Hopper route, and
+    one replay for each served batch (the warmup's call replays once).
+    Returns the captured launches and the batches each bucket served."""
+    graph_stats = executor.graph_stats()
+    if set(graph_stats) != {(b, 224, 224, 3) for b in SERVE_BUCKETS}:
+        raise AssertionError(f"[serve batcher] {what}: graphs {sorted(graph_stats)}")
+    served = {}
+    for shape, gs in sorted(graph_stats.items()):
+        launches = _captured_routes_ok(f"[serve batcher] {what} bucket {shape[0]}", gs, ("sm90",))
+        served[shape[0]] = gs["replays"] - 1
+        log(f"[serve batcher] {what} bucket {shape[0]}: captured in {gs['seconds'] * 1e3:.1f} ms, its pool "
+            f"{gs['pool_bytes'] / 2**20:.1f} MiB reserved, {sum(launches.values())} launches a replay on sm90, "
+            f"{gs['replays'] - 1} replays serving; card {card}")
+    if sum(served.values()) != batches:
+        raise AssertionError(f"[serve batcher] {what}: {served} replays for {batches} batches")
+    return launches, served
+
+
+def phase_serve_batcher(tuned, card):
+    """The tuned ResNet-50 behind ``ContinuousBatcher`` (``serve``'s
+    executor, ``make_executor``: u8 ingest, buckets SERVE_BUCKETS) at
+    pipeline depths 1 and 4 under two streams: the backlog (SERVE_STREAM
+    seeded requests in bursts of 1-128 2 ms apart, SERVE_PASSES times over)
+    and the paced stream (bursts of 1-32, SERVE_PACED_GAP_S apart). Each
+    cell runs an executor that replays one CUDA graph per bucket and one
+    that runs eagerly in turns (SERVE_TURNS), each run with a fresh
+    executor and batcher and the launch counts set to 0 before it and read
+    after: every answer against an eager batch-1 forward of its image
+    (bit-equal, or within LOGIT_ATOL where a bf16 conv form serves), the
+    captured forwards on Hopper routes, ``stats()`` and img/s printed. Then,
+    at depth 4 with graphs, one pass journaled (a request log fsyncs every
+    request, so it is not timed) and replayed into a fresh batcher (the same
+    answers), and three /predict requests through the HTTP endpoint (the
+    eager top-5)."""
+    import tempfile
+
+    import numpy as np
+
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.engine import IntExecutor
+    from quantized_tpu_torch.engine.batching import ContinuousBatcher, replay_request_log
+    from quantized_tpu_torch.engine.server import _start_http, make_executor
+
+    t_phase = time.perf_counter()
+    forms = _conv_forms(tuned)
+    exact = not any(str(f).startswith(("bf16", "raw-bf16")) for f in forms.values())
+    imgs, bursts, paced = _request_stream()
+    reference = IntExecutor(tuned, ingest="u8", device="cuda", graphs=False)
+    want = np.concatenate([reference(imgs[i: i + 1]).cpu().numpy() for i in range(len(imgs))])
+    log(f"[serve batcher] tuned ResNet-50 ({sum(str(f).startswith('Fused') for f in forms.values())} fused "
+        f"blocks, bf16 forms: {not exact}); {len(imgs)} requests; backlog bursts {bursts} 2 ms apart, "
+        f"{SERVE_PASSES} passes a run; paced bursts {paced} {SERVE_PACED_GAP_S * 1e3:.0f} ms apart")
+
+    def check(answers, what):
+        err = float(np.abs(answers - want[np.arange(len(answers)) % len(want)]).max())
+        if (exact and err != 0.0) or not err <= LOGIT_ATOL:
+            raise AssertionError(f"[serve batcher] {what}: answers differ from eager batch-1 forwards by {err}")
+        return err
+
+    def batcher_for(executor, depth, journal=None):
+        return ContinuousBatcher(executor, (224, 224, 3), SERVE_BUCKETS, dtype=np.uint8, pipeline_depth=depth,
+                                 request_log=journal)
+
+    streams = {"backlog": (bursts, 0.002, SERVE_PASSES), "paced": (paced, SERVE_PACED_GAP_S, 1)}
+    for depth in SERVE_DEPTHS:
+        for stream, (stream_bursts, gap_s, passes) in streams.items():
+            runs = {kind: [] for kind in SERVE_TURNS}
+            for turn, kind in enumerate(SERVE_TURNS):
+                what = f"depth {depth} {stream} {kind} (turn {turn + 1})"
+                torch.cuda.synchronize()
+                ops.reset_launches()
+                executor = make_executor(tuned, ingest="u8", graphs=kind == "graph", pipeline_depth=depth)
+                batcher = batcher_for(executor, depth)
+                t = time.perf_counter()
+                batcher.warmup()
+                warm_s = time.perf_counter() - t
+                batcher.start()
+                answers, secs = _run_stream(batcher, imgs, stream_bursts, gap_s, passes)
+                batcher.stop()
+                counts = ops.launch_counts()
+                err = check(answers, what)
+                st = batcher.stats()
+                runs[kind].append((st["requests"] / secs, st["latency_p50_ms"], st["latency_p95_ms"],
+                                   st["latency_p99_ms"]))
+                log(f"[serve batcher] {what}: {st['requests']} requests in {secs:.3f} s, "
+                    f"{st['requests'] / secs:.1f} img/s; latency p50 {st['latency_p50_ms']:.3f} p95 "
+                    f"{st['latency_p95_ms']:.3f} p99 {st['latency_p99_ms']:.3f} ms; {st['batches']} batches, "
+                    f"occupancy {st['occupancy']:.3f}; stage means (ms/batch) drain {st['stage_drain_ms']:.3f} "
+                    f"assemble {st['stage_assemble_ms']:.3f} dispatch {st['stage_dispatch_ms']:.3f} resolve "
+                    f"{st['stage_resolve_ms']:.3f}; answers against eager batch-1 forwards max abs diff {err:.3g}; "
+                    f"warmup {warm_s:.2f} s; pinned slots {executor.pinned_bytes() / 2**20:.1f} MiB; card {card}")
+                if st["requests"] != len(answers) or st["timed_out"]:
+                    raise AssertionError(f"[serve batcher] {what}: stats {st}")
+                if kind == "graph":
+                    launches, served = _serve_graphs_ok(what, executor, st["batches"], card)
+                    _require_launched(counts, list(launches), f"serve batcher {what}")
+                    if stream == "paced" and not sum(n for b, n in served.items() if b < THROUGHPUT_BATCH):
+                        raise AssertionError(f"[serve batcher] {what}: no small bucket served {served}")
+                del executor, batcher
+            spread = {kind: ", ".join(f"{r[0]:.1f} img/s p50 {r[1]:.3f} p99 {r[3]:.3f} ms" for r in rs)
+                      for kind, rs in runs.items()}
+            mean = {kind: sum(r[0] for r in rs) / len(rs) for kind, rs in runs.items()}
+            log(f"[serve batcher] depth {depth} {stream}, turns {'/'.join(SERVE_TURNS)}: graph {spread['graph']}; "
+                f"eager {spread['eager']}; graph / eager img/s {mean['graph'] / mean['eager']:.3f}; card {card}")
+
+    what = f"depth {max(SERVE_DEPTHS)} graph, journaled"
+    executor = make_executor(tuned, ingest="u8", pipeline_depth=max(SERVE_DEPTHS))
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = str(Path(tmp) / "requests")
+        batcher = batcher_for(executor, max(SERVE_DEPTHS), journal).warmup().start()
+        answers, _ = _run_stream(batcher, imgs, bursts, 0.002)
+        check(answers, what)
+        httpd = _start_http(batcher, 0)
+        try:
+            for i in range(SERVE_HTTP_REQUESTS):
+                got = _http_predict(httpd.server_address[1], imgs[i])
+                top5 = [int(c) for c in np.argsort(-want[i])[:5]]
+                if got["top5"] != top5:
+                    raise AssertionError(f"[serve batcher] /predict top-5 {got['top5']} != eager {top5}")
+                log(f"[serve batcher] /predict {i} on 127.0.0.1: top-5 {got['top5']}, the eager top-5")
+        finally:
+            httpd.shutdown()
+        batcher.stop()
+        fresh = batcher_for(executor, max(SERVE_DEPTHS)).start()
+        futures = replay_request_log(journal, fresh)
+        replayed = np.stack([futures[rid].result(timeout=120) for rid in sorted(futures)])
+        fresh.stop()
+    if len(futures) != len(imgs) + SERVE_HTTP_REQUESTS or not np.array_equal(replayed[:len(imgs)], answers):
+        raise AssertionError(f"[serve batcher] the replayed journal ({len(futures)} requests) differs from the "
+                             f"original answers")
+    _serve_graphs_ok(what, executor, batcher.stats()["batches"] + fresh.stats()["batches"], card)
+    log(f"[serve batcher] {what}: the journal of {len(futures)} requests (the /predict ones included) replayed "
+        f"into a fresh batcher gives the same answers")
+    log(f"[serve batcher] phase took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_cli(card):
+    """``quantized_tpu_torch.cli.main.main`` in-process on the calibrated
+    ResNet-50 (``resnet_quantized_float_bn``, depth 50, ImageNet geometry,
+    the synthetic stand-in's 512 validation images), ``--calibrate 2
+    --convert-int --resident -b 128``: once with ``-e`` (top-1 and top-5
+    printed), once with ``--serve --serve-steps 20 --serve-u8
+    --serve-pipeline 4``; both must return 0."""
+    import contextlib
+    import io
+    import tempfile
+
+    from quantized_tpu_torch.cli.main import main as cli_main
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--model", "resnet_quantized_float_bn", "--dataset", "imagenet", "--model_config",
+                  "{'depth': 50}", "--calibrate", "2", "--convert-int", "--resident", "-b", str(THROUGHPUT_BATCH),
+                  "--results_dir", tmp]
+        for what, extra in (("eval", ["-e"]),
+                            ("serve", ["--serve", "--serve-steps", "20", "--serve-u8", "--serve-pipeline", "4"])):
+            out = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(common + ["--save", what] + extra)
+            printed = out.getvalue().strip().splitlines()
+            log(f"[cli] {what}: rc {rc} in {time.perf_counter() - t:.1f} s; printed {printed[-1:] or '(nothing)'}; "
+                f"card {card}")
+            if rc != 0:
+                raise AssertionError(f"[cli] {what} returned {rc}")
+            if what == "eval" and not (printed and "top1" in printed[-1] and "top5" in printed[-1]):
+                raise AssertionError(f"[cli] eval printed no top1/top5: {printed}")
+    log(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:
@@ -1948,15 +2277,21 @@ def main() -> int:
     path_counts.update(counts)
     executors["resnet50"]["int4"], counts = phase_resnet50_int4()
     path_counts.update(counts)
-    executors["resnet50"]["rangebn"], counts = phase_rangebn()
+    executors["resnet50"]["rangebn"], counts, rangebn_extra = phase_rangebn()
     path_counts.update(counts)
     for key in ("resnet50", "resnet18", "mobilenet", "mobilenet w0.75"):
         phase_throughput(key, executors[key], card, timer)
     for batch in ALEXNET_BATCHES:
         phase_throughput("alexnet", executors["alexnet"], card, timer, batch=batch)
-    del executors
+    phase_graphs(executors, rangebn_extra, card)
+    del executors, rangebn_extra
     torch.cuda.empty_cache()
-    path_counts.update(phase_autotune(card, timer))
+    counts, tuned = phase_autotune(card, timer)
+    path_counts.update(counts)
+    phase_serve_batcher(tuned, card)
+    del tuned
+    torch.cuda.empty_cache()
+    phase_cli(card)
 
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():

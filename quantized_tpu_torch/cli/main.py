@@ -1,0 +1,272 @@
+"""Command line of the port (counterpart of ``quantized_tpu/cli/main.py``):
+evaluation, calibration, integer conversion, serving and checkpoint export.
+
+The flag surface is the JAX package's (the same argparse destinations).
+Where the two differ:
+
+- ``--type`` selects the device: ``cuda.float`` (the default; the
+  reference's ``torch.cuda.FloatTensor`` is taken too) or ``cpu.float``,
+  where every kernel's plain PyTorch version runs. A ``tpu.*`` type is
+  refused, and a ``.bf16`` type waits for the training slice.
+- ``--backend`` defaults to ``pallas``: the hand-written Hopper kernels,
+  as ``build_int8_resident`` does. The JAX package defaults to ``xla``,
+  which in the port means plain PyTorch library calls.
+- Training waits for ROADMAP item A9: a run that neither evaluates
+  (``-e``), serves (``--serve``) nor exports (``--export-reference``)
+  exits with a message naming it, as does ``--compute-dtype bf16``.
+  ``--mesh-model-parallel`` and ``--tp-explicit`` wait for item A10.
+- ``--serve`` replays one CUDA graph per batch bucket; ``--debug-nans``
+  turns the graphs off (its int16-leg saturation count reads back to the
+  host inside the forward) and raises on non-finite logits.
+- ``--prng``, ``--gpus`` and ``--workers`` are taken for parity; they
+  change nothing here.
+
+Run it as ``python -m quantized_tpu_torch.cli.main ...``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import logging
+import os
+import sys
+from datetime import datetime
+
+TRAINING_SLICE = "QAT training is not ported yet (ROADMAP item A9)"
+MESH_SLICE = "distribution over a device mesh is not ported yet (ROADMAP item A10)"
+FLOAT_ZOO_SLICE = "the float alexnet, mobilenet and mnist models are not ported yet (ROADMAP item A11)"
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="quantized_tpu_torch evaluation and serving")
+    # --- the reference's flags ---
+    p.add_argument("--results_dir", default="./results", help="results dir")
+    p.add_argument("--save", default="", help="saved folder name (default: timestamp)")
+    p.add_argument("--dataset", default="imagenet", help="dataset name or 'synthetic'")
+    p.add_argument("--model", default="alexnet", help="model factory name")
+    p.add_argument("--model_config", default="", help="dict literal with model config, e.g. \"{'depth': 18}\"")
+    p.add_argument("--input_size", type=int, default=None)
+    p.add_argument("--type", default="cuda.float",
+                   help="device.dtype selector: cuda.float (default; the reference's torch.cuda.FloatTensor "
+                        "too) or cpu.float (the kernels' plain versions on the CPU)")
+    p.add_argument("--gpus", default=None, help="taken for reference-CLI parity; one GPU is used")
+    p.add_argument("-j", "--workers", type=int, default=0, help="taken for parity (the native pipeline threads itself)")
+    p.add_argument("-b", "--batch-size", type=int, default=256)
+    p.add_argument("--epochs", type=int, default=90)
+    p.add_argument("--start-epoch", type=int, default=0)
+    p.add_argument("--optimizer", default="SGD")
+    p.add_argument("--lr", type=float, default=0.1)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--weight-decay", type=float, default=1e-4)
+    p.add_argument("--print-freq", type=int, default=10)
+    p.add_argument("--resume", default="", help="native checkpoint dir or reference .pth.tar/.pt")
+    p.add_argument("--save_all", action="store_true", help="keep a per-epoch checkpoint copy")
+    p.add_argument("--sync-checkpoints", action="store_true", help="block on each checkpoint write")
+    p.add_argument("-e", "--evaluate", action="store_true")
+    # --- the engine's extensions ---
+    p.add_argument("--calibrate", type=int, default=0, metavar="N",
+                   help="run N calibration batches (observers update, no grads)")
+    p.add_argument("--convert-int", action="store_true", help="convert to true-integer execution before eval/serve")
+    p.add_argument("--weight-bits", type=int, default=8, choices=[4, 8])
+    p.add_argument("--backend", default="pallas", choices=["xla", "gemm", "pallas", "bf16"],
+                   help="int conv backend: pallas (default) runs the hand-written Hopper kernels; xla runs "
+                        "PyTorch library calls (the JAX package's default); gemm im2col + the int8 GEMM kernel")
+    p.add_argument("--weight-quant", default="per_channel", choices=["per_channel", "per_tensor"],
+                   help="per_channel: production grid (symmetric, BN folded); per_tensor: strict-parity mode, "
+                        "the reference's own affine weight grid, BN unfolded")
+    p.add_argument("--resident", action="store_true",
+                   help="int8-resident engine (activations stay int8 across the net; ResNet, MobileNet, AlexNet)")
+    p.add_argument("--autotune", action="store_true", help="per-layer backend autotune on the device (resident)")
+    p.add_argument("--serve", action="store_true", help="start the continuous-batching server")
+    p.add_argument("--serve-steps", type=int, default=0, help="serve for N scheduler steps then exit (0=forever)")
+    p.add_argument("--serve-u8", action="store_true",
+                   help="serve raw uint8 images (normalize+quantize fused into the engine ingest)")
+    p.add_argument("--serve-http", type=int, default=0, metavar="PORT",
+                   help="expose the server over HTTP on PORT (/predict raw-bytes POST with X-Shape/X-Dtype "
+                        "headers, /stats JSON; 0 = no endpoint)")
+    p.add_argument("--serve-timeout", type=float, default=0.0, metavar="SECS",
+                   help="serving SLA: fail requests still queued after SECS with TimeoutError (0 = no deadline)")
+    p.add_argument("--serve-pipeline", type=int, default=1, metavar="DEPTH",
+                   help="batches kept in flight by the scheduler (1 = lowest latency)")
+    p.add_argument("--mesh-model-parallel", type=int, default=None, help="TP degree (not ported yet: A10)")
+    p.add_argument("--tp-explicit", action="store_true", help="explicit TP forms (not ported yet: A10)")
+    p.add_argument("--export-reference", default="", help="export weights to a reference-format .pth.tar and exit")
+    p.add_argument("--compute-dtype", default="f32", choices=["f32", "bf16"],
+                   help="training operand dtype (bf16 is not ported yet: A9)")
+    p.add_argument("--prng", default="threefry", choices=["threefry", "rbg", "unsafe_rbg"],
+                   help="taken for parity (the JAX package's stochastic-rounding PRNG)")
+    p.add_argument("--seed", type=int, default=123)
+    p.add_argument("--profile", default="", metavar="DIR", help="write a Chrome trace of the eval to DIR/trace.json")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="raise on non-finite logits, count int16-leg saturation (QTPU_DEBUG_S16), no CUDA graphs")
+    p.add_argument("--deterministic", action="store_true",
+                   help="torch.use_deterministic_algorithms(True) and single-threaded data loading")
+    return p
+
+
+def _device_of_type(type_str: str) -> str:
+    """``--type`` -> the device name, or exit with the reason."""
+    t = type_str.lower()
+    if t.startswith("torch."):  # the reference's tensor type names
+        t = t[len("torch."):]
+        t = "cuda.float" if t.startswith("cuda.") else "cpu.float"
+    dev, _, dtype = t.partition(".")
+    if dev == "tpu":
+        raise SystemExit(f"--type {type_str}: this is the PyTorch/CUDA port; use cuda.float or cpu.float "
+                         "(quantized_tpu.cli.main runs on a TPU)")
+    if dev not in ("cuda", "cpu"):
+        raise SystemExit(f"--type {type_str}: expected cuda.float or cpu.float")
+    if dtype in ("bf16", "bfloat16"):
+        raise SystemExit(f"--type {type_str}: a bf16 operand type is a training setting; {TRAINING_SLICE}")
+    return dev
+
+
+def _check_ported(args) -> None:
+    """Exit, naming the ROADMAP item, where the run needs what is not ported."""
+    if args.mesh_model_parallel or args.tp_explicit:
+        raise SystemExit(f"--mesh-model-parallel/--tp-explicit: {MESH_SLICE}")
+    if args.compute_dtype != "f32":
+        raise SystemExit(f"--compute-dtype {args.compute_dtype}: {TRAINING_SLICE}")
+    if not (args.evaluate or args.serve or args.export_reference):
+        raise SystemExit(f"training (no -e, --serve or --export-reference): {TRAINING_SLICE}")
+    if args.model in ("alexnet", "mobilenet", "mnist"):
+        raise SystemExit(f"--model {args.model}: {FLOAT_ZOO_SLICE}")
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    device_name = _device_of_type(args.type)
+    _check_ported(args)
+
+    if args.deterministic:
+        # cuBLAS needs a fixed workspace for deterministic results; set before CUDA starts
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    if args.debug_nans:
+        os.environ["QTPU_DEBUG_S16"] = "1"  # the int16 leg's saturation count (ops/int8_conv)
+    if args.deterministic:
+        torch.use_deterministic_algorithms(True)
+        args.workers = 0
+
+    from quantized_tpu_torch._device import resolve_device
+    from quantized_tpu_torch.data import get_dataset, get_transform
+    from quantized_tpu_torch.models import get_model
+    from quantized_tpu_torch.training import Trainer
+    from quantized_tpu_torch.utils import setup_logging
+    from quantized_tpu_torch.utils.checkpoint import export_reference_checkpoint, load_checkpoint
+    from quantized_tpu_torch.utils.hostbuild import host_build, put_model
+
+    device = resolve_device(device_name)
+    save_name = args.save or datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    save_path = os.path.join(args.results_dir, save_name)
+    os.makedirs(save_path, exist_ok=True)
+    setup_logging(os.path.join(save_path, "log.txt"))
+    logger = logging.getLogger("main")
+    logger.info("args: %s", vars(args))
+    logger.info("device: %s%s", device, f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+
+    model_config = {"dataset": args.dataset} if args.dataset != "synthetic" else {"dataset": "cifar10"}
+    if args.model_config:
+        model_config.update(ast.literal_eval(args.model_config))
+    if args.model in ("alexnet_quantized", "mobilenet_quantized"):
+        model_config.pop("dataset", None)
+
+    # built and loaded on the host, then moved to the device in one step
+    torch.manual_seed(args.seed)
+    with host_build():
+        model = get_model(args.model)(generator=torch.Generator().manual_seed(args.seed), **model_config)
+    logger.info("created model %s with config %s", args.model, model_config)
+
+    if args.resume:
+        if args.resume.endswith((".pth.tar", ".pt")):
+            from quantized_tpu_torch.ingest import load_into_model
+
+            load_into_model(model, args.resume)
+            logger.info("ingested reference checkpoint %s", args.resume)
+        else:
+            meta = load_checkpoint(model, args.resume)
+            args.start_epoch = int(meta.get("epoch", args.start_epoch))
+            logger.info("resumed %s at epoch %d", args.resume, args.start_epoch)
+
+    if args.export_reference:
+        export_reference_checkpoint(model, args.export_reference, {"model": args.model, "config": model_config})
+        logger.info("exported reference checkpoint to %s", args.export_reference)
+        return 0
+
+    transform_name = getattr(model, "input_transform", args.dataset)
+    if args.dataset in ("cifar10", "cifar100", "mnist", "synthetic"):
+        transform_name = "cifar10" if args.dataset == "synthetic" else args.dataset
+    val_tf = get_transform(transform_name, args.input_size, augment=False)
+    val_data = get_dataset(args.dataset, "val", val_tf)
+    if val_data.synthetic:
+        logger.warning("dataset %s not found locally -> synthetic stand-in", args.dataset)
+
+    model = put_model(model, device)
+    if args.calibrate:
+        model.train()
+        with torch.no_grad():
+            for i, (x, _) in enumerate(val_data.batches(args.batch_size)):
+                if i >= args.calibrate:
+                    break
+                model(torch.from_numpy(x).to(device))
+        model.eval()
+        logger.info("calibrated observers on %d batches", args.calibrate)
+
+    if args.convert_int:
+        model = _convert(args, model, device, logger)
+
+    if args.serve:
+        from quantized_tpu_torch.engine.server import serve
+
+        return serve(model, batch_sizes=(1, 8, 32, args.batch_size), max_steps=args.serve_steps,
+                     ingest="u8" if args.serve_u8 else "f32", pipeline_depth=args.serve_pipeline,
+                     http_port=args.serve_http or None, request_timeout_s=args.serve_timeout or None,
+                     device=device, graphs=not args.debug_nans, check_finite=args.debug_nans)
+
+    trainer = Trainer(model, print_freq=args.print_freq, check_finite=args.debug_nans, device=device)
+    if args.profile:
+        from quantized_tpu_torch.utils.profiling import trace
+
+        with trace(args.profile):
+            metrics = trainer.validate(val_data.batches(args.batch_size), 0)
+        logger.info("profile trace written to %s", args.profile)
+    else:
+        metrics = trainer.validate(val_data.batches(args.batch_size), 0)
+    logger.info("EVAL: loss %.4f top1 %.2f%% top5 %.2f%%", metrics["loss"], metrics["top1"], metrics["top5"])
+    print({"top1": float(metrics["top1"]), "top5": float(metrics["top5"]), "loss": float(metrics["loss"])})
+    return 0
+
+
+def _convert(args, model, device, logger):
+    """``--convert-int``: the int8-resident engine (``--resident``, with
+    ``--autotune``) or the module surgery of ``convert_to_int``."""
+    import torch
+
+    if args.resident:
+        from quantized_tpu_torch.engine import build_int8_alexnet, build_int8_mobilenet, build_int8_resident
+
+        build = (build_int8_alexnet if "alexnet" in args.model
+                 else build_int8_mobilenet if "mobilenet" in args.model else build_int8_resident)
+        model = build(model, weight_bits=args.weight_bits, backend=args.backend, device=device)
+        if args.autotune:
+            from quantized_tpu_torch.engine import apply_cached_backends, autotune_resident
+
+            size = args.input_size or getattr(model, "input_size", 224)
+            example = torch.zeros((args.batch_size, size, size, 3), dtype=torch.float32, device=device)
+            if not apply_cached_backends(model, example):
+                autotune_resident(model, example)
+        logger.info("converted to int%d-resident engine (backend=%s)", args.weight_bits, args.backend)
+        return model
+    from quantized_tpu_torch.engine import convert_to_int
+
+    model = convert_to_int(model, weight_bits=args.weight_bits, backend=args.backend,
+                           weight_quant=args.weight_quant, device=device)
+    logger.info("converted to int%d execution (backend=%s, weight_quant=%s)",
+                args.weight_bits, args.backend, args.weight_quant)
+    return model
+
+
+if __name__ == "__main__":
+    sys.exit(main())

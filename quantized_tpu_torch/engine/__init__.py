@@ -2,7 +2,9 @@
 calibrated fake-quant model (the module surgery ``convert_to_int`` and the
 strict engine), the int8-resident ResNet (float-BN and RangeBN flavors),
 MobileNet-v1 and AlexNet (int8 or int4 weights), the fused forms, the
-per-layer backend autotuner, the executor and the throughput hook."""
+per-layer backend autotuner, the executor (one CUDA graph per input shape,
+pinned host slots) and the throughput hook. Serving (continuous batching
+and its HTTP front end) lives in ``engine.batching`` and ``engine.server``."""
 
 from quantized_tpu_torch.engine.autotune import apply_cached_backends, autotune_resident
 from quantized_tpu_torch.engine.bench_hook import model_throughput, resnet50_int8_throughput

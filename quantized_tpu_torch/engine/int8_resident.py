@@ -37,6 +37,7 @@ kernels carry no clamp.
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -265,10 +266,20 @@ def quantize_u8_stored(u8: torch.Tensor, grid: Grid, mean: torch.Tensor,
     return torch.clamp(q, -128.0, 127.0).to(torch.int8)
 
 
+@functools.lru_cache(maxsize=None)
+def imagenet_stats(device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ImageNet mean and std as f32 tensors on ``device``, built once per
+    device: a forward then copies nothing from the host, which a CUDA graph
+    could not capture. Read only."""
+    return (torch.as_tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.as_tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
 def u8_to_stored(u8: torch.Tensor, grid: Grid, mean=None, std=None) -> torch.Tensor:
     """uint8 images -> stored int8 on ``grid``, ImageNet stats by default."""
-    mean = torch.as_tensor(IMAGENET_MEAN if mean is None else mean, dtype=torch.float32, device=u8.device)
-    std = torch.as_tensor(IMAGENET_STD if std is None else std, dtype=torch.float32, device=u8.device)
+    default_mean, default_std = imagenet_stats(u8.device)
+    mean = default_mean if mean is None else torch.as_tensor(mean, dtype=torch.float32, device=u8.device)
+    std = default_std if std is None else torch.as_tensor(std, dtype=torch.float32, device=u8.device)
     return quantize_u8_stored(u8, grid, mean, std)
 
 

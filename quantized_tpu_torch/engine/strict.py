@@ -30,7 +30,7 @@ only. No kernel: the JAX module has no Pallas call either.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 from torch import nn
@@ -51,14 +51,22 @@ def strict_act_qparams(running_min: float, running_max: float, num_bits: int = 8
     return float(scale), float(running_min)
 
 
-def quantize_strict_stored(x: torch.Tensor, scale: float, rmin: float) -> torch.Tensor:
+def quantize_strict_stored(x: torch.Tensor, scale: Union[float, torch.Tensor], rmin: float) -> torch.Tensor:
     """f32 -> stored int8 (uint8 - 128) on the reference grid, in the
     reference's order (subtract min, divide, clip, round), so the integers
     equal the fake-quant path's. The divisor is a tensor on x's device: a
     GPU divides by a Python scalar through its reciprocal, which rounds
-    differently from the division the CPU and the fake-quant path make."""
-    t = (x - f32(rmin)) / torch.tensor(f32(scale), dtype=torch.float32, device=x.device)
+    differently from the division the CPU and the fake-quant path make.
+    ``scale`` is a float, or that divisor already on x's device (the
+    strict layers keep it as ``act_divisor``, built at conversion, so their
+    forward copies nothing from the host and a CUDA graph can capture it)."""
+    divisor = scale if isinstance(scale, torch.Tensor) else _divisor(scale, x.device)
+    t = (x - f32(rmin)) / divisor
     return (torch.round(torch.clamp(t, 0.0, 255.0)) - 128.0).to(torch.int8)
+
+
+def _divisor(scale: float, device=None) -> torch.Tensor:
+    return torch.tensor(f32(scale), dtype=torch.float32, device=device)
 
 
 def _strict_weight_grid(w: torch.Tensor, num_bits: int) -> Tuple[torch.Tensor, float, float]:
@@ -104,6 +112,7 @@ class StrictIntConv2d(nn.Module):
         obs = conv.quantize_input
         self.act_scale, self.act_rmin = strict_act_qparams(float(obs.running_min[0]), float(obs.running_max[0]),
                                                            conv.num_bits)
+        self.register_buffer("act_divisor", _divisor(self.act_scale), persistent=False)
         self.kernel_size = (kh, kw)
         self.stride = tuple(conv.stride)
         self.padding = tuple(conv.padding)
@@ -133,7 +142,7 @@ class StrictIntConv2d(nn.Module):
         return self._border[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.run_q(quantize_strict_stored(x, self.act_scale, self.act_rmin))
+        return self.run_q(quantize_strict_stored(x, self.act_divisor, self.act_rmin))
 
     def run_q(self, a_s: torch.Tensor) -> torch.Tensor:
         """``a_s``: stored int8 on this layer's strict grid."""
@@ -170,6 +179,7 @@ class StrictIntLinear(nn.Module):
         obs = lin.quantize_input
         self.act_scale, self.act_rmin = strict_act_qparams(float(obs.running_min[0]), float(obs.running_max[0]),
                                                            lin.num_bits)
+        self.register_buffer("act_divisor", _divisor(self.act_scale), persistent=False)
         self.taps = w_s.shape[1]
         self.register_buffer("colsum", w_s.to(torch.int64).sum(1).to(torch.int32))
         self.register_buffer("bias_hat", None if lin.bias is None else _bias_hat(lin))
@@ -180,7 +190,7 @@ class StrictIntLinear(nn.Module):
         return self.w_nk.T
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a_s = quantize_strict_stored(x, self.act_scale, self.act_rmin)
+        a_s = quantize_strict_stored(x, self.act_divisor, self.act_rmin)
         acc = exact_int_matmul(a_s, self.w_nk)
         k = self.taps
         r = a_s.to(torch.int32).sum(-1, keepdim=True, dtype=torch.int32)

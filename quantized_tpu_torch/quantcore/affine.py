@@ -16,6 +16,7 @@ Stochastic rounding waits for the training slice of the port.
 
 from __future__ import annotations
 
+import numbers
 from typing import Optional, Tuple
 
 import torch
@@ -27,6 +28,16 @@ _F32 = torch.float32
 
 def _f32(v) -> torch.Tensor:
     return torch.as_tensor(v, dtype=_F32)
+
+
+def _const(v, device) -> torch.Tensor:
+    """``v`` as f32 on ``device``. A number is filled there rather than
+    copied from the host, so a forward on a GPU (a RangeBN's fake-quant of
+    its statistics, in the strict engine) copies nothing from the host and
+    a CUDA graph can capture it; the value is the same f32 either way."""
+    if isinstance(v, numbers.Real):
+        return torch.full((), float(v), dtype=_F32, device=device)
+    return _f32(v).to(device)
 
 
 def chunked_min_max(x: torch.Tensor, num_chunks: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,13 +65,13 @@ def fake_quant_array(
         est_min, est_max = chunked_min_max(compute, num_chunks)
         min_value = est_min if min_value is None else min_value
         max_value = est_max if max_value is None else max_value
-    min_value = _f32(min_value).to(compute.device)
-    max_value = _f32(max_value).to(compute.device)
+    min_value = _const(min_value, compute.device)
+    max_value = _const(max_value, compute.device)
 
-    qmin = _f32(0.0).to(compute.device)
-    qmax = _f32(2.0**num_bits - 1.0).to(compute.device)
+    qmin = _const(0.0, compute.device)
+    qmax = _const(2.0**num_bits - 1.0, compute.device)
     scale = (max_value - min_value) / (qmax - qmin)
-    scale = torch.maximum(scale, _f32(SCALE_FLOOR).to(compute.device))
+    scale = torch.maximum(scale, _const(SCALE_FLOOR, compute.device))
 
     if enforce_true_zero:
         zero_point = torch.trunc(torch.clamp(qmin - min_value / scale, qmin, qmax))

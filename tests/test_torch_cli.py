@@ -1,0 +1,142 @@
+"""The port's command line against the JAX package's, on the CPU
+(in-process; ``--type cpu.float`` runs every kernel's plain version).
+
+- The parser takes the same flags: its argparse destinations equal those of
+  JAX's ``build_parser()``.
+- A reference checkpoint exported by JAX's CLI (a CIFAR ResNet-20 drawn by
+  JAX's initializers) is evaluated by both CLIs with ``--resume x.pth.tar
+  --calibrate 2 --convert-int --resident -e``: each calibrates on its own
+  side, so the two grids agree to float rounding, and each runs its own
+  default backend (JAX "xla", the port "pallas"). The engine bound is
+  LOGIT_ATOL = 0.25 on logits (``tests/test_torch_resident.py``), which
+  moves a mean cross-entropy by at most 2 * LOGIT_ATOL. Top-1 and top-5
+  may differ only by the images whose label sits within 2 * LOGIT_ATOL of
+  the k-th boundary of the port's own logits (recomputed here through the
+  API, and checked to give the CLI's printed numbers).
+- ``--serve --serve-steps 3`` returns 0, with and without the resident
+  engine, and ``--export-reference`` writes a reference file (its round
+  trip through JAX's ingest is held in ``tests/test_torch_checkpoint.py``).
+- What is not ported exits with a message naming its ROADMAP item: training
+  and ``--compute-dtype bf16`` (A9), ``--mesh-model-parallel`` and
+  ``--tp-explicit`` (A10), the float models (A11); a TPU type is refused.
+"""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from quantized_tpu.cli.main import build_parser as j_build_parser
+from quantized_tpu.cli.main import main as j_main
+from quantized_tpu_torch.cli.main import build_parser, main
+from quantized_tpu_torch.data import get_dataset, get_transform
+from quantized_tpu_torch.engine import build_int8_resident
+from quantized_tpu_torch.ingest import load_into_model
+from quantized_tpu_torch.models import get_model
+from quantized_tpu_torch.training import cross_entropy
+from quantized_tpu_torch.utils import accuracy
+
+LOGIT_ATOL = 0.25
+R20 = ["--model", "resnet_quantized_float_bn", "--dataset", "synthetic", "--model_config", "{'depth': 20}"]
+
+
+def _dests(parser):
+    return {a.dest for a in parser._actions if a.dest != "help"}
+
+
+def test_parser_has_the_jax_flag_surface():
+    assert _dests(build_parser()) == _dests(j_build_parser())
+    args = build_parser().parse_args(["--model", "resnet_quantized", "-b", "32", "-e", "--resume", "x.pth.tar",
+                                      "--type", "torch.cuda.FloatTensor"])
+    assert args.model == "resnet_quantized" and args.batch_size == 32 and args.evaluate
+    assert build_parser().parse_args([]).backend == "pallas" and build_parser().parse_args([]).type == "cuda.float"
+
+
+def _printed(capsys):
+    lines = [line for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    return ast.literal_eval(lines[-1])
+
+
+def _port_logits(ckpt, batch):
+    """The port CLI's evaluation, step by step through the API."""
+    tf = get_transform("cifar10", None, augment=False)
+    val = get_dataset("synthetic", "val", tf)
+    model = get_model("resnet_quantized_float_bn")(generator=torch.Generator().manual_seed(123),
+                                                   dataset="cifar10", depth=20)
+    load_into_model(model, ckpt)
+    model.train()
+    with torch.no_grad():
+        for i, (x, _) in enumerate(val.batches(batch)):
+            if i >= 2:
+                break
+            model(torch.from_numpy(x))
+    eng = build_int8_resident(model.eval(), device="cpu")
+    logits, labels = [], []
+    with torch.inference_mode():
+        for x, y in val.batches(batch):
+            logits.append(eng(torch.from_numpy(x)))
+            labels.append(torch.from_numpy(y))
+    return logits, labels
+
+
+def _ambiguous(logits: np.ndarray, labels: np.ndarray, k: int, eps: float) -> int:
+    """Images whose label's top-k membership can flip when every logit moves
+    by at most ``eps``."""
+    own = logits[np.arange(len(labels)), labels][:, None]
+    surely_above = (logits > own + 2 * eps).sum(1)
+    maybe_above = (logits >= own - 2 * eps).sum(1) - 1  # the label itself counts once
+    return int(((surely_above < k) & (maybe_above >= k)).sum())
+
+
+def test_jax_export_evaluates_alike_in_both_clis(tmp_path, capsys):
+    ckpt = str(tmp_path / "r20.pth.tar")
+    common = ["--type", "cpu.float", *R20, "--results_dir", str(tmp_path)]
+    assert j_main(common + ["--save", "export", "--export-reference", ckpt]) == 0
+    run = ["--resume", ckpt, "--calibrate", "2", "--convert-int", "--resident", "-e", "-b", "64"]
+    assert j_main(common + ["--save", "jax"] + run) == 0
+    want = _printed(capsys)
+    assert main(common + ["--save", "port"] + run) == 0
+    got = _printed(capsys)
+    assert os.path.exists(tmp_path / "port" / "log.txt")
+    assert abs(got["loss"] - want["loss"]) <= 2 * LOGIT_ATOL, (got, want)
+
+    logits, labels = _port_logits(ckpt, 64)
+    n = sum(len(y) for y in labels)
+    loss = sum(float(cross_entropy(lg, y)) * len(y) for lg, y in zip(logits, labels)) / n
+    top = np.mean([accuracy(lg, y, topk=(1, 5)) for lg, y in zip(logits, labels)], axis=0)
+    assert loss == pytest.approx(got["loss"], rel=1e-12) and tuple(top) == pytest.approx((got["top1"], got["top5"]))
+    all_logits, all_labels = torch.cat(logits).numpy(), torch.cat(labels).numpy()
+    for k, key in ((1, "top1"), (5, "top5")):
+        flips = round(abs(got[key] - want[key]) * n / 100.0)
+        assert flips <= _ambiguous(all_logits, all_labels, k, LOGIT_ATOL), (key, got, want)
+
+
+def test_cli_serves_and_exports(tmp_path):
+    common = ["--type", "cpu.float", *R20, "--results_dir", str(tmp_path), "-b", "8", "--calibrate", "1"]
+    assert main(common + ["--save", "serve", "--convert-int", "--serve", "--serve-steps", "3"]) == 0
+    assert main(common + ["--save", "serve_u8", "--convert-int", "--resident", "--serve", "--serve-steps", "3",
+                          "--serve-u8", "--serve-pipeline", "2"]) == 0
+    out = str(tmp_path / "port.pth.tar")
+    assert main(common + ["--save", "export", "--export-reference", out]) == 0
+    ckpt = torch.load(out, weights_only=True)
+    assert ckpt["model"] == "resnet_quantized_float_bn" and "layer1.0.conv1.weight" in ckpt["state_dict"]
+
+
+@pytest.mark.parametrize("extra,message", [
+    ([], "A9"),  # no -e, --serve or --export-reference: training
+    (["-e", "--compute-dtype", "bf16"], "A9"),
+    (["-e", "--mesh-model-parallel", "2"], "A10"),
+    (["-e", "--tp-explicit"], "A10"),
+    (["-e", "--type", "tpu.float"], "TPU"),
+    (["-e", "--type", "cuda.bf16"], "A9"),
+])
+def test_unported_paths_exit_with_their_item(tmp_path, extra, message):
+    with pytest.raises(SystemExit, match=message):
+        main(["--type", "cpu.float", *R20, "--results_dir", str(tmp_path), *extra])
+
+
+def test_float_zoo_exits_naming_a11(tmp_path):
+    with pytest.raises(SystemExit, match="A11"):
+        main(["--type", "cpu.float", "--model", "alexnet", "--results_dir", str(tmp_path), "-e"])

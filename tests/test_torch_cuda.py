@@ -1442,3 +1442,136 @@ def test_rangebn_engine_on_the_gpu_equals_its_cpu_twin(cuda_device, backend):
         clipped = sum(v for r, v in by_route.items() if r.endswith("+clip"))
         assert clipped == sum(by_route.values()) - (1 if name == "int8_matmul" else 0), (name, by_route)
     torch.testing.assert_close(got, want, atol=F32_ATOL, rtol=0)
+
+
+# ----------------------------------------------------------------- the executor: CUDA graphs and pinned slots
+
+
+def test_executor_on_cuda_raises_without_a_gpu(monkeypatch):
+    """``IntExecutor(device="cuda")`` refuses where torch sees no GPU (here
+    by monkeypatching, so the check runs on any machine)."""
+    from quantized_tpu_torch.engine import IntExecutor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        IntExecutor(torch.nn.Linear(2, 2), device="cuda")
+
+
+def _graph_engines(device):
+    """CIFAR ResNet-20 (unfused and fused) and MobileNet-v1 w0.25 at 64x64
+    (fused), each with its side."""
+    import copy
+
+    from quantized_tpu_torch.engine import build_int8_mobilenet, fuse_mobilenet_blocks, fuse_resident_blocks
+
+    r20 = _cifar20_engine("pallas", device)
+    r20_fused = copy.deepcopy(r20)
+    fuse_resident_blocks(r20_fused)
+    mob = build_int8_mobilenet(_observed_mobilenet(0.25, 64), backend="pallas", device=device)
+    fuse_mobilenet_blocks(mob)
+    return {"resnet20": (r20, 32), "resnet20 fused": (r20_fused, 32), "mobilenet w0.25 fused": (mob, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key", ["resnet20", "resnet20 fused", "mobilenet w0.25 fused"])
+def test_graph_replay_equals_eager(cuda_device, key):
+    """One CUDA graph per input shape: the replay's logits equal the eager
+    forward's bit for bit, at two batch shapes, from host and device
+    inputs; the captured forward's launches are the eager forward's, on
+    their Hopper routes; each shape replays its own graph."""
+    from quantized_tpu_torch.engine import IntExecutor
+
+    engine, side = _graph_engines(cuda_device)[key]
+    graph = IntExecutor(engine, ingest="u8", device=cuda_device, graphs=True)
+    eager = IntExecutor(engine, ingest="u8", device=cuda_device, graphs=False)
+    gen = np.random.default_rng(3)
+    for batch in (1, 8):
+        for _ in range(2):
+            u8 = torch.from_numpy(gen.integers(0, 256, (batch, side, side, 3), dtype=np.uint8))
+            want = eager(u8)
+            assert torch.equal(graph(u8), want)
+            assert torch.equal(graph(u8.to(cuda_device)), want)
+    stats = graph.graph_stats()
+    assert set(stats) == {(1, side, side, 3), (8, side, side, 3)}
+    ops.reset_launches()
+    eager(u8)
+    torch.cuda.synchronize()
+    for s in stats.values():
+        assert s["replays"] == 4 and s["seconds"] > 0
+        assert s["launches"] == {k: n for k, n in ops.launch_counts().items() if n}
+        assert all(set(r) <= {"sm90"} for r in s["routes"].values()), s["routes"]
+
+
+@pytest.mark.cuda
+def test_pinned_slot_ring_under_pipelining(cuda_device):
+    """``dispatch`` with 5 slots a shape (pipeline depth 4): 12 batches of
+    one bucket back to back, waited on only afterwards, oldest first. No
+    replay may overwrite logits still on their way to the host, and no
+    slot may be refilled before its copies complete: every result equals
+    the eager forward of its own batch. Then the batcher at depth 4 over the
+    same executor answers each request as the eager forward of its image."""
+    from quantized_tpu_torch.engine import IntExecutor
+    from quantized_tpu_torch.engine.batching import ContinuousBatcher
+
+    engine, side = _graph_engines(cuda_device)["resnet20"]
+    ex = IntExecutor(engine, ingest="u8", device=cuda_device, graphs=True, slots=5)
+    eager = IntExecutor(engine, ingest="u8", device=cuda_device, graphs=False)
+    gen = np.random.default_rng(4)
+    batches = [gen.integers(0, 256, (8, side, side, 3), dtype=np.uint8) for _ in range(12)]
+    results = [ex.dispatch(b) for b in batches]
+    for b, r in zip(batches, results):
+        np.testing.assert_array_equal(r.wait(), eager(torch.from_numpy(b)).cpu().numpy())
+    assert ex.pinned_bytes() == 5 * (8 * side * side * 3 + 8 * 10 * 4)
+    assert ex.graph_stats()[(8, side, side, 3)]["replays"] == 12
+
+    imgs = gen.integers(0, 256, (40, side, side, 3), dtype=np.uint8)
+    batcher = ContinuousBatcher(ex, (side, side, 3), batch_sizes=(1, 8), dtype=np.uint8, pipeline_depth=4)
+    batcher.warmup().start()
+    futs = [batcher.submit(im) for im in imgs]
+    got = np.stack([f.result(timeout=60) for f in futs])
+    batcher.stop()
+    want = np.concatenate([eager(torch.from_numpy(imgs[i: i + 1])).cpu().numpy() for i in range(len(imgs))])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_lent_input_slots(cuda_device):
+    """``input_slot`` lends a pinned slot of a captured shape (None for a
+    shape not captured or another dtype); a batch assembled in it and
+    dispatched equals the eager forward, with no host copy of the batch; a
+    lent slot is not lent again until its batch was dispatched and waited."""
+    from quantized_tpu_torch.engine import IntExecutor
+
+    engine, side = _graph_engines(cuda_device)["resnet20"]
+    ex = IntExecutor(engine, ingest="u8", device=cuda_device, graphs=True, slots=3)
+    eager = IntExecutor(engine, ingest="u8", device=cuda_device, graphs=False)
+    shape = (8, side, side, 3)
+    assert ex.input_slot(shape, np.uint8) is None  # not captured yet
+    ex.warmup(np.zeros(shape, np.uint8))
+    assert ex.input_slot(shape, np.float32) is None
+    gen = np.random.default_rng(6)
+    results, batches = [], []
+    for _ in range(7):
+        slot = ex.input_slot(shape, np.uint8)
+        assert slot.shape == shape and all(slot is not b for b in batches[-2:])
+        slot[:] = gen.integers(0, 256, shape, dtype=np.uint8)
+        batches.append(slot)
+        want = eager(torch.from_numpy(slot.copy())).cpu().numpy()
+        results.append((ex.dispatch(slot), want))
+    for result, want in results:
+        np.testing.assert_array_equal(result.wait(), want)
+    assert ex.pinned_bytes() == 3 * (8 * side * side * 3 + 8 * 10 * 4)
+
+
+@pytest.mark.cuda
+def test_capture_raises_under_debug_s16(cuda_device, monkeypatch):
+    """QTPU_DEBUG_S16 reads a count back to the host inside the forward:
+    capture refuses it (no silent eager forward); graphs=False serves."""
+    from quantized_tpu_torch.engine import IntExecutor
+
+    engine, side = _graph_engines(cuda_device)["resnet20"]
+    monkeypatch.setenv("QTPU_DEBUG_S16", "1")
+    u8 = torch.zeros((2, side, side, 3), dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="QTPU_DEBUG_S16"):
+        IntExecutor(engine, ingest="u8", device=cuda_device, graphs=True)(u8)
+    assert IntExecutor(engine, ingest="u8", device=cuda_device, graphs=False)(u8).shape == (2, 10)

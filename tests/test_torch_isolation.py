@@ -33,6 +33,14 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "quantized_tpu_torch.models.resnet", "quantized_tpu_torch.quantcore.rangebn",
             "quantized_tpu_torch.models.resnet_quantized", "quantized_tpu_torch.engine.strict",
             "quantized_tpu_torch.engine.convert"} <= set(result["names"]), result
+    # the serving and evaluation entry point and what it needs
+    assert {"quantized_tpu_torch.cli.main", "quantized_tpu_torch.engine.batching",
+            "quantized_tpu_torch.engine.server", "quantized_tpu_torch.engine.executor",
+            "quantized_tpu_torch.data.preprocess", "quantized_tpu_torch.data.native",
+            "quantized_tpu_torch.data.datasets", "quantized_tpu_torch.ingest.torch_loader",
+            "quantized_tpu_torch.utils.checkpoint", "quantized_tpu_torch.utils.meters",
+            "quantized_tpu_torch.utils.logging_utils", "quantized_tpu_torch.utils.hostbuild",
+            "quantized_tpu_torch.utils.profiling", "quantized_tpu_torch.training.qat"} <= set(result["names"]), result
 
 
 _SMOKE_PROBE = r"""
