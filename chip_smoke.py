@@ -214,13 +214,37 @@ and a non-zero exit:
    2 --convert-int --resident -b 128``: ``-e`` over the synthetic
    stand-in's 512 images (top-1 and top-5 printed), then ``--serve
    --serve-steps 20 --serve-u8 --serve-pipeline 4``; both return 0;
-11. the card's nvidia-smi line, then the kernels line: one JSON object with
+11. train: QAT on the card, no kernel of the port launched in training
+   (the counts set to 0 just before each training run and read after):
+   the flagship ``resnet_quantized`` (ImageNet ResNet-50, 8-bit gradients
+   and bi-precision) through ``Trainer`` for 6 SGD steps (lr 0.01,
+   momentum 0.9) at batch 64 on the synthetic ImageNet stand-in, every
+   parameter moved and finite, the observers' and RangeBN's statistics
+   moved, every grad-quant stream advanced by 6, the loss lower over a
+   second pass; ResNet-50 train steps at batch 128 through
+   ``probes/train_step`` (float-BN f32 and bf16, the flagship full,
+   ``nobiprec`` and ``nogradq``): device ms, ms between events with the
+   host's launches, img/s, peak memory, and the profiler's kernel ms, idle
+   share and launches a step, and the library's convs and products against
+   the elementwise passes and reductions; one SGD step of CIFAR ResNet-20
+   (the float ``resnet`` and the float-BN model) at batch 32 on the card
+   against its CPU twin (the loss, every parameter and buffer, within
+   ``TRAIN_PARITY_TOL``); the trained
+   float-BN ResNet-50 and the trained flagship converted by
+   ``build_int8_resident(..., backend="pallas")`` and served 3 requests of
+   32 ("train float-bn serve": every K1 and K2 launch on "sm90"; "train
+   flagship serve": every conv on "sm90+clip"), stage by stage against
+   their CPU twins; then ``python -m quantized_tpu_torch.cli.main --model
+   mnist --dataset mnist -b 32 --epochs 1`` in three processes at once,
+   plain and twice ``--deterministic --seed 7``: each exits 0 with its
+   ``results.csv`` and checkpoint, the two deterministic files equal;
+12. the card's nvidia-smi line, then the kernels line: one JSON object with
    each kernel's numbers; ``launches`` is the count on the path that runs
    the kernel (``path``: a serving path's 3 forwards, or an op path),
    ``launches_autotuned`` its count in one tuned forward of each model,
    ``launches_rangebn`` on the RangeBN path's 3 forwards, and ``clip`` (K1,
    K2) its CLIP instances' numbers beside the unclamped instance's;
-12. last line: ``{"ok": true, "device": {...}}``.
+13. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -228,6 +252,7 @@ from __future__ import annotations
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -318,7 +343,10 @@ PREDICTIONS = ("autotune phase, batch 128, as the first run of this tree measure
                "tuned ResNet-50 about 7.5 ms (fused 7.9, unfused 17.9, float fp32 55.3: tuned/float about 7.3); "
                "MobileNet: the 9 depthwise signatures on 'bf16', all 12 pairs 'fused', tuned 2.3 ms (fused 2.9); "
                "the tuned ResNet-50's device idle share under 0.06; "
-               "the float twin's BN and ReLU passes a third or more of its device time")
+               "the float twin's BN and ReLU passes a third or more of its device time; "
+               "train phase (ResNet-50, batch 128, as earlier runs of this tree measured it within 10%): float-BN f32 "
+               "about 277 ms a step, bf16 185-216, the flagship 613-679, nobiprec 4-6% and nogradq about 25% under "
+               "it; the card's step within TRAIN_PARITY_TOL of the CPU's; the phase 140-190 s")
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
@@ -1687,7 +1715,11 @@ def _time_forward(executor, dev_batch, iters=10):
     return start.elapsed_time(end) / iters
 
 
-def _profile(executor, dev_batch, ms, what, n_prof=3):
+def _profile(executor, dev_batch, ms, what, n_prof=3, unit="forward"):
+    """Device time by kernel over ``n_prof`` calls of ``executor(dev_batch)``:
+    logs the per-call kernel ms, idle share against ``ms``, our kernels'
+    and the other kernels' ms and launches; returns (kernel ms, idle share,
+    launches) per call, or None where the profiler saw no device time."""
     batch = dev_batch.shape[0]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n_prof):
@@ -1699,16 +1731,17 @@ def _profile(executor, dev_batch, ms, what, n_prof=3):
                   reverse=True)
     if not rows:
         log(f"[profile] {what}: torch.profiler recorded no device kernels here: breakdown not measured")
-        return
+        return None
     total = sum(r[0] for r in rows) / 1e3
     ours = [r for r in rows if any(k in r[2] for k in OUR_KERNELS)]
     ours_ms = sum(r[0] for r in ours) / 1e3
-    log(f"[profile] {what}, per batch-{batch} forward: kernels {total:.3f} ms of {ms:.3f} ms "
+    log(f"[profile] {what}, per batch-{batch} {unit}: kernels {total:.3f} ms of {ms:.3f} ms "
         f"(idle share {max(0.0, 1 - total / ms):.3f}); hand-written kernels {ours_ms:.3f} ms in "
         f"{sum(r[1] for r in ours)} launches, other kernels (glue) {total - ours_ms:.3f} ms in "
         f"{sum(r[1] for r in rows) - sum(r[1] for r in ours)} launches")
     for us, count, key in rows[:12]:
         log(f"[profile] {what} {us / 1e3:9.3f} ms {count:4d}x {key[:100]}")
+    return total, max(0.0, 1 - total / ms), sum(r[1] for r in rows), rows
 
 
 def _depthwise_ms(key, engine, dev_batch, timer):
@@ -2252,6 +2285,268 @@ def phase_cli(card):
                 raise AssertionError(f"[cli] eval printed no top1/top5: {printed}")
     log(f"[cli] phase took {time.perf_counter() - t_phase:.1f} s")
 
+# the "train" phase: QAT on the card, then the trained models converted and served
+TRAIN_STEPS = 6  # the flagship's checked SGD steps, as JAX's flagship test takes them
+TRAIN_FLAGSHIP_BATCH = 64
+TRAIN_BATCH = 128  # the timed variants
+TRAIN_REGIME = {0: {"optimizer": "SGD", "lr": 0.01, "momentum": 0.9}}
+# label: (registered model, compute dtype, variant of probes/train_step), ResNet-50 at TRAIN_BATCH
+TRAIN_VARIANTS = {
+    "float-BN f32": ("resnet_quantized_float_bn", "f32", "full"),
+    "float-BN bf16": ("resnet_quantized_float_bn", "bf16", "full"),
+    "flagship": ("resnet_quantized", "f32", "full"),
+    "flagship nobiprec": ("resnet_quantized", "f32", "nobiprec"),
+    "flagship nogradq": ("resnet_quantized", "f32", "nogradq"),
+}
+# one SGD step of CIFAR ResNet-20 at batch TRAIN_PARITY_BATCH on the card against its CPU twin, from the same
+# weights: model -> (loss rtol, update rtol of the norm of all parameters' updates, per-tensor rtol against the
+# larger of the tensor's magnitude and the largest step), each about twice the larger of two distances that
+# tests/torch_trainer_spread.py (case "chip") measures for this very step on the CPU: JAX's own Trainer jitted
+# against eager, and the CPU port against JAX (the loss bound at least 1e-5). The float ``resnet`` 9e-8, 1.4e-3, 5.4e-4 (BN biases are sums with
+# cancellation; the port against JAX 2.8e-7, 8.0e-3, 2.3e-3); ``resnet_quantized_float_bn`` 4.5e-4, 0.26, 0.086 (a
+# fake-quant boundary moved by one ulp of a conv sum rounds to the other step; the port against JAX 1.4e-4, 0.26,
+# 0.046)
+TRAIN_PARITY_BATCH = 32
+TRAIN_PARITY_REGIME = {0: {"optimizer": "SGD", "lr": 0.05, "momentum": 0.9, "weight_decay": 1e-4}}
+TRAIN_PARITY_TOL = {"resnet": (1e-5, 0.02, 5e-3), "resnet_quantized_float_bn": (1e-3, 0.5, 0.15)}
+TRAIN_STATS = ("mean", "var", "running_mean", "running_var", "running_min", "running_max")
+TRAIN_CLI_TIMEOUT_S = 300
+LIBRARY_PRODUCTS = ("xmma", "cudnn", "implicit_gemm", "wgrad", "dgrad", "fprop", "gemm", "cutlass", "sm90_", "sm80_")
+
+
+def _no_kernel_launched(what):
+    """The training path launches none of the port's hand-written kernels
+    (the counts were set to 0 just before it)."""
+    from quantized_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    launched = {k: n for k, n in ops.launch_counts().items() if n}
+    if launched:
+        raise AssertionError(f"{what}: hand-written kernels launched in training: {launched}")
+
+
+def _train_flagship(card):
+    """``resnet_quantized`` (the flagship: 8-bit gradients, bi-precision),
+    ImageNet ResNet-50, TRAIN_STEPS SGD steps at batch TRAIN_FLAGSHIP_BATCH
+    on the synthetic ImageNet stand-in through ``Trainer`` on the card, then
+    the checks of JAX's ``test_grad_quant_biprec_trainer_step_flagship``.
+    Returns the trained model (on the card)."""
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.data import get_dataset, get_transform
+    from quantized_tpu_torch.models import get_model
+    from quantized_tpu_torch.models import layers as L
+    from quantized_tpu_torch.training import Trainer
+
+    what = "train flagship"
+    data = get_dataset("imagenet", "train", get_transform("imagenet", augment=False))
+    batches = [b for _, b in zip(range(TRAIN_STEPS), data.batches(TRAIN_FLAGSHIP_BATCH, drop_remainder=True))]
+    model = get_model("resnet_quantized")(dataset="imagenet", depth=50, generator=torch.Generator().manual_seed(0))
+    qconvs = [m for m in model.modules() if isinstance(m, L.QConv2d)]
+    rbns = [m for m in model.modules() if isinstance(m, L.RangeBN)]
+    if not (qconvs and rbns and all(c.num_bits_grad == 8 and c.biprecision for c in qconvs)
+            and model.fc.num_bits_grad == 8 and model.fc.biprecision and all(b.num_bits_grad == 8 for b in rbns)):
+        raise AssertionError(f"{what}: the flagship constants are not wired into every layer")
+    p_before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    ema_before = model.conv1.quantize_input.running_max.clone()
+    bn_before = rbns[0].running_mean.clone()
+    streams = [m.grad_quant_rng for m in model.modules() if hasattr(m, "grad_quant_rng")]
+    counts_before = [st.count for st in streams]
+    trainer = Trainer(model, regime=TRAIN_REGIME, print_freq=10**6, device="cuda")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    m0 = trainer.train_epoch(batches, 0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    _no_kernel_launched(what)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    moved = {k: (p.detach().cpu() - p_before[k]).abs().max().item() for k, p in model.named_parameters()}
+    bad = [k for k, d in moved.items() if not (math.isfinite(d) and d > 0)]
+    if bad or not all(torch.isfinite(p).all() for p in model.parameters()):
+        raise AssertionError(f"{what}: parameters that did not move or are not finite: {bad[:8]}")
+    if torch.equal(model.conv1.quantize_input.running_max.cpu(), ema_before) or torch.equal(
+            rbns[0].running_mean.cpu(), bn_before):
+        raise AssertionError(f"{what}: the observers' EMA or RangeBN's running statistics did not move")
+    if not all(st.count == c + TRAIN_STEPS for st, c in zip(streams, counts_before)):
+        raise AssertionError(f"{what}: a grad-quant stream did not advance once per step")
+    t = time.perf_counter()
+    m1 = trainer.train_epoch(batches, 1)
+    secs1 = time.perf_counter() - t
+    log(f"[{what}] ResNet-50 (resnet_quantized, ImageNet), batch {TRAIN_FLAGSHIP_BATCH}, {TRAIN_STEPS} steps of SGD "
+        f"lr 0.01 momentum 0.9 on the card: loss {m0['loss']:.4f}, then {m1['loss']:.4f} over a second pass of the "
+        f"same batches; {len(moved)} parameters all moved and finite (smallest max step {min(moved.values()):.3g}); "
+        f"conv1's observer max {ema_before.item():.4g} -> {model.conv1.quantize_input.running_max.item():.4g}; "
+        f"{len(streams)} grad-quant streams each advanced by {TRAIN_STEPS}; host wall {secs / TRAIN_STEPS * 1e3:.1f} / "
+        f"{secs1 / TRAIN_STEPS * 1e3:.1f} ms a step (the batch copied in and the loss read each step); peak memory "
+        f"{peak:.0f} MiB; no hand-written kernel launched; card {card}")
+    if not (math.isfinite(m0["loss"]) and math.isfinite(m1["loss"]) and m1["loss"] < m0["loss"]):
+        raise AssertionError(f"{what}: the loss did not fall over the second pass: {m0['loss']} -> {m1['loss']}")
+    return model
+
+
+def _train_variants(card, timer):
+    """ResNet-50 train steps at TRAIN_BATCH through ``probes/train_step``:
+    the float-BN model in f32 and bf16 and the flagship in its three
+    variants, each with its device ms, its ms between CUDA events (host
+    launches in), img/s, peak memory, and the profiler's kernel ms, idle
+    share and launches per step. Returns the float-BN f32 model (trained by
+    its timed steps)."""
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.probes.train_step import build, make_step, step_times
+
+    kept, numbers = None, {}
+    for label, (name, dtype, variant) in TRAIN_VARIANTS.items():
+        what = f"train {label}"
+        model, x, y = build(TRAIN_BATCH, name, 50, dtype, "imagenet", variant)
+        step = make_step(model, x, y)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        ms, event_ms = step_times(step, timer)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        loss = float(step())
+        _no_kernel_launched(what)
+        prof = _profile(lambda _: step(), x, event_ms, f"{what} batch {TRAIN_BATCH}", n_prof=2, unit="step")
+        numbers[label] = (ms, event_ms, peak, prof)
+        if prof:  # the library's convs and products against the elementwise passes and reductions around them
+            lib = sum(us for us, _, key in prof[3] if any(k in key for k in LIBRARY_PRODUCTS)) / 1e3
+            log(f"[{what}] convs and products (cuDNN, cuBLAS) {lib:.2f} ms, elementwise passes and reductions "
+                f"{prof[0] - lib:.2f} ms of the step's {prof[0]:.2f} kernel ms")
+        log(f"[{what}] ResNet-50 ({name}, {dtype}, {variant}) batch {TRAIN_BATCH} fwd+bwd+SGD: {ms:.2f} ms device "
+            f"({TRAIN_BATCH / ms * 1e3:.1f} img/s), {event_ms:.2f} ms between events with the host's launches "
+            f"({TRAIN_BATCH / event_ms * 1e3:.1f} img/s); peak memory {peak:.0f} MiB; "
+            + (f"kernels {prof[0]:.2f} ms, idle share {prof[1]:.3f}, {prof[2]} launches a step; " if prof else "")
+            + f"loss {loss:.4f}; card {card}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"{what}: non-finite loss {loss}")
+        if label == "float-BN f32":
+            kept = model
+        del model, x, y, step
+        torch.cuda.empty_cache()
+    full, nobi, nogq = (numbers[k][1] for k in ("flagship", "flagship nobiprec", "flagship nogradq"))
+    f32, bf16 = numbers["float-BN f32"][1], numbers["float-BN bf16"][1]
+    log(f"[train] between events: bi-precision's second product {full - nobi:.2f} ms of the flagship's {full:.2f} "
+        f"({(full - nobi) / full:.3f}); gradient quantization {nobi - nogq:.2f} ms ({(nobi - nogq) / full:.3f}); "
+        f"bf16 / f32 float-BN {bf16 / f32:.3f}; card {card}")
+    return kept
+
+
+def _train_parity():
+    """One SGD step of CIFAR ResNet-20 (the float ``resnet``, then
+    ``resnet_quantized_float_bn``) at batch TRAIN_PARITY_BATCH through
+    ``Trainer`` on the card and on the CPU from the same weights: the loss
+    and every parameter and buffer after it, held to TRAIN_PARITY_TOL."""
+    from quantized_tpu_torch.models import get_model
+    from quantized_tpu_torch.training import Trainer
+
+    gen = torch.Generator().manual_seed(3)
+    batch = [(torch.randn((TRAIN_PARITY_BATCH, 32, 32, 3), generator=gen).numpy(),
+              torch.randint(0, 10, (TRAIN_PARITY_BATCH,), generator=gen).numpy())]
+    for name, (loss_tol, update_tol, tensor_tol) in TRAIN_PARITY_TOL.items():
+        cpu_model = get_model(name)(dataset="cifar10", depth=20, generator=torch.Generator().manual_seed(0))
+        gpu_model = copy.deepcopy(cpu_model)
+        before = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+        want = Trainer(cpu_model, regime=TRAIN_PARITY_REGIME, print_freq=10**6, device="cpu").train_epoch(batch, 0)
+        got = Trainer(gpu_model, regime=TRAIN_PARITY_REGIME, print_freq=10**6, device="cuda").train_epoch(batch, 0)
+        cpu_after = cpu_model.state_dict()
+        gpu_after = {k: v.cpu() for k, v in gpu_model.state_dict().items()}
+        params = [k for k in cpu_after if not k.endswith(TRAIN_STATS)]
+        step = max((cpu_after[k] - before[k]).abs().max().item() for k in params)
+        du = torch.cat([(gpu_after[k] - cpu_after[k]).ravel() for k in params]).norm().item()
+        u = torch.cat([(cpu_after[k] - before[k]).ravel() for k in params]).norm().item()
+        worst = max(((gpu_after[k] - v).abs().max().item() / max(v.abs().max().item(), step), k)
+                    for k, v in cpu_after.items())
+        loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        log(f"[train parity] {name} CIFAR ResNet-20, one SGD step at batch {TRAIN_PARITY_BATCH}, card against CPU: "
+            f"loss {got['loss']:.6f} / {want['loss']:.6f} (relative {loss_err:.3g}, tolerance {loss_tol}); the "
+            f"update {du / u:.3g} of its norm (tolerance {update_tol}); worst tensor {worst[1]} {worst[0]:.3g} of "
+            f"its scale (tolerance {tensor_tol})")
+        if not (loss_err <= loss_tol and du <= update_tol * u and worst[0] <= tensor_tol):
+            raise AssertionError(f"train parity {name}: the card's step left the CPU's beyond "
+                                 f"{TRAIN_PARITY_TOL[name]}")
+
+
+def _train_convert_serve(float_bn, flagship):
+    """Each trained ResNet-50 in eval mode through ``build_int8_resident(...,
+    backend="pallas")``, served by ``IntExecutor`` (3 requests of 32, the
+    counts set to 0 just before and read just after), every K1 and K2
+    launch on its Hopper route ("sm90+clip" on the flagship's clamped
+    convs), stage by stage against the same engine built on the CPU."""
+    from quantized_tpu_torch.engine import IntExecutor, build_int8_resident
+
+    requests = _requests(224)
+    sample = requests[0][:2]
+    counts = {}
+    float_routes = {k: {"sm90": n} for k, n in PLANS["resnet50"][0].items()}
+    for what, model, route, routes in (("train float-bn serve", float_bn, "sm90", float_routes),
+                                       ("train flagship serve", flagship, "sm90+clip", RANGEBN_ROUTES)):
+        host = copy.deepcopy(model).eval().cpu()
+        engine = build_int8_resident(copy.deepcopy(host), backend="pallas", device="cuda")
+        executor = IntExecutor(engine, ingest="u8", device="cuda", graphs=False)
+        executor.warmup(sample)
+        counts[what] = _serve(what, executor, requests, PLANS["resnet50"][0], 1000, route=route)
+        _per_forward_routes(what, PATH_ROUTES[what], routes, len(requests))
+        cpu_engine = build_int8_resident(host, backend="pallas", device="cpu")
+        _compare_stages(_stage_outputs(engine, sample.cuda()), _stage_outputs(cpu_engine, sample),
+                        f"{what} gpu vs cpu")
+        del engine, executor, cpu_engine
+    return counts
+
+
+def _train_cli(card):
+    """``python -m quantized_tpu_torch.cli.main --model mnist --dataset mnist
+    -b 32 --epochs 1`` on the card, three processes at once: one plain run
+    and two ``--deterministic --seed 7`` runs, each exiting 0 with its
+    ``results.csv`` and checkpoint, the two deterministic files equal."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        base = [sys.executable, "-m", "quantized_tpu_torch.cli.main", "--model", "mnist", "--dataset", "mnist",
+                "-b", "32", "--epochs", "1", "--results_dir", tmp]
+        runs = {"plain": ["--save", "plain"], "det_a": ["--save", "det_a", "--deterministic", "--seed", "7"],
+                "det_b": ["--save", "det_b", "--deterministic", "--seed", "7"]}
+        t = time.perf_counter()
+        procs = {name: subprocess.Popen(base + extra, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True) for name, extra in runs.items()}
+        try:
+            outs = {name: p.communicate(timeout=TRAIN_CLI_TIMEOUT_S) for name, p in procs.items()}
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        csvs = {}
+        for name, p in procs.items():
+            run = Path(tmp) / name
+            tail = outs[name][1].strip().splitlines()[-1:] or ["(nothing)"]
+            log(f"[train cli] {name}: rc {p.returncode}; {tail[0][:160]}")
+            if p.returncode != 0 or not (run / "results.csv").exists() or not (run / "checkpoint.pt").exists():
+                files = sorted(os.listdir(run)) if run.exists() else None
+                raise AssertionError(f"[train cli] {name}: rc {p.returncode}, files {files}:\n{outs[name][1][-2000:]}")
+            if "device: cuda" not in (run / "log.txt").read_text():
+                raise AssertionError(f"[train cli] {name} did not run on the card")
+            csvs[name] = (run / "results.csv").read_text()
+        if csvs["det_a"] != csvs["det_b"]:
+            raise AssertionError(f"[train cli] --deterministic runs differ:\n{csvs['det_a']}\n{csvs['det_b']}")
+        log(f"[train cli] mnist one epoch, three processes in {time.perf_counter() - t:.1f} s on {card}; the "
+            f"deterministic results.csv equal: {csvs['det_a'].splitlines()[-1]}")
+
+
+def phase_train(card, timer):
+    """QAT on the card (see the module docstring, phase 11). Returns the
+    serve paths' counts."""
+    t_phase = time.perf_counter()
+    flagship = _train_flagship(card)
+    float_bn = _train_variants(card, timer)
+    _train_parity()
+    counts = _train_convert_serve(float_bn, flagship)
+    del float_bn, flagship
+    torch.cuda.empty_cache()
+    _train_cli(card)
+    log(f"[train] phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
 
 def main() -> int:
     require_environment()
@@ -2292,6 +2587,7 @@ def main() -> int:
     del tuned
     torch.cuda.empty_cache()
     phase_cli(card)
+    path_counts.update(phase_train(card, timer))
 
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():

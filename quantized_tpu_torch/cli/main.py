@@ -1,25 +1,36 @@
 """Command line of the port (counterpart of ``quantized_tpu/cli/main.py``):
-evaluation, calibration, integer conversion, serving and checkpoint export.
+QAT training, evaluation, calibration, integer conversion, serving and
+checkpoint export.
 
 The flag surface is the JAX package's (the same argparse destinations).
 Where the two differ:
 
 - ``--type`` selects the device: ``cuda.float`` (the default; the
   reference's ``torch.cuda.FloatTensor`` is taken too) or ``cpu.float``,
-  where every kernel's plain PyTorch version runs. A ``tpu.*`` type is
-  refused, and a ``.bf16`` type waits for the training slice.
+  where every kernel's plain PyTorch version runs; ``cuda.bf16`` (or
+  ``cpu.bf16``) also sets ``--compute-dtype bf16``. A ``tpu.*`` type is
+  refused.
 - ``--backend`` defaults to ``pallas``: the hand-written Hopper kernels,
   as ``build_int8_resident`` does. The JAX package defaults to ``xla``,
   which in the port means plain PyTorch library calls.
-- Training waits for ROADMAP item A9: a run that neither evaluates
-  (``-e``), serves (``--serve``) nor exports (``--export-reference``)
-  exits with a message naming it, as does ``--compute-dtype bf16``.
-  ``--mesh-model-parallel`` and ``--tp-explicit`` wait for item A10.
+- Training (no ``-e``, ``--serve`` or ``--export-reference``) runs the
+  JAX CLI's epoch loop: ``--lr``/``--optimizer`` other than the defaults
+  replace the model's regime, a checkpoint each epoch (``model_best`` when
+  the validation top-1 improves), ``results.csv``, ``--start-epoch`` and
+  ``--resume``. The stochastic rounding of the gradient-quantizing layers
+  draws from torch generators seeded from ``--seed`` (through the model's
+  init generator), so a run repeats; ``--prng`` (JAX's PRNG choice) is
+  taken for parity and changes nothing.
+- ``--mesh-model-parallel`` and ``--tp-explicit`` wait for ROADMAP item
+  A10 and exit naming it.
 - ``--serve`` replays one CUDA graph per batch bucket; ``--debug-nans``
   turns the graphs off (its int16-leg saturation count reads back to the
   host inside the forward) and raises on non-finite logits.
-- ``--prng``, ``--gpus`` and ``--workers`` are taken for parity; they
-  change nothing here.
+- ``--deterministic`` calls ``torch.use_deterministic_algorithms(True)``
+  (cuDNN's deterministic algorithms, a fixed cuBLAS workspace) and loads
+  data on one thread.
+- ``--gpus`` and ``--workers`` are taken for parity; they change nothing
+  here.
 
 Run it as ``python -m quantized_tpu_torch.cli.main ...``.
 """
@@ -33,13 +44,11 @@ import os
 import sys
 from datetime import datetime
 
-TRAINING_SLICE = "QAT training is not ported yet (ROADMAP item A9)"
 MESH_SLICE = "distribution over a device mesh is not ported yet (ROADMAP item A10)"
-FLOAT_ZOO_SLICE = "the float alexnet, mobilenet and mnist models are not ported yet (ROADMAP item A11)"
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="quantized_tpu_torch evaluation and serving")
+    p = argparse.ArgumentParser(description="quantized_tpu_torch training, evaluation and serving")
     # --- the reference's flags ---
     p.add_argument("--results_dir", default="./results", help="results dir")
     p.add_argument("--save", default="", help="saved folder name (default: timestamp)")
@@ -49,7 +58,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_size", type=int, default=None)
     p.add_argument("--type", default="cuda.float",
                    help="device.dtype selector: cuda.float (default; the reference's torch.cuda.FloatTensor "
-                        "too) or cpu.float (the kernels' plain versions on the CPU)")
+                        "too) or cpu.float (the kernels' plain versions on the CPU); .bf16 sets --compute-dtype bf16")
     p.add_argument("--gpus", default=None, help="taken for reference-CLI parity; one GPU is used")
     p.add_argument("-j", "--workers", type=int, default=0, help="taken for parity (the native pipeline threads itself)")
     p.add_argument("-b", "--batch-size", type=int, default=256)
@@ -93,9 +102,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp-explicit", action="store_true", help="explicit TP forms (not ported yet: A10)")
     p.add_argument("--export-reference", default="", help="export weights to a reference-format .pth.tar and exit")
     p.add_argument("--compute-dtype", default="f32", choices=["f32", "bf16"],
-                   help="training operand dtype (bf16 is not ported yet: A9)")
+                   help="training conv/GEMM operand dtype: bf16 runs them on the tensor cores' bf16 path "
+                        "(fake-quant boundaries, observers, BN stats and SGD stay f32)")
     p.add_argument("--prng", default="threefry", choices=["threefry", "rbg", "unsafe_rbg"],
-                   help="taken for parity (the JAX package's stochastic-rounding PRNG)")
+                   help="taken for parity (the JAX package's PRNG choice); the gradient-rounding streams "
+                        "are torch generators seeded from --seed")
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--profile", default="", metavar="DIR", help="write a Chrome trace of the eval to DIR/trace.json")
     p.add_argument("--debug-nans", action="store_true",
@@ -105,8 +116,9 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _device_of_type(type_str: str) -> str:
-    """``--type`` -> the device name, or exit with the reason."""
+def _device_of_type(type_str: str):
+    """``--type`` -> (the device name, whether it asks for bf16), or exit
+    with the reason."""
     t = type_str.lower()
     if t.startswith("torch."):  # the reference's tensor type names
         t = t[len("torch."):]
@@ -117,26 +129,20 @@ def _device_of_type(type_str: str) -> str:
                          "(quantized_tpu.cli.main runs on a TPU)")
     if dev not in ("cuda", "cpu"):
         raise SystemExit(f"--type {type_str}: expected cuda.float or cpu.float")
-    if dtype in ("bf16", "bfloat16"):
-        raise SystemExit(f"--type {type_str}: a bf16 operand type is a training setting; {TRAINING_SLICE}")
-    return dev
+    return dev, dtype in ("bf16", "bfloat16")
 
 
 def _check_ported(args) -> None:
     """Exit, naming the ROADMAP item, where the run needs what is not ported."""
     if args.mesh_model_parallel or args.tp_explicit:
         raise SystemExit(f"--mesh-model-parallel/--tp-explicit: {MESH_SLICE}")
-    if args.compute_dtype != "f32":
-        raise SystemExit(f"--compute-dtype {args.compute_dtype}: {TRAINING_SLICE}")
-    if not (args.evaluate or args.serve or args.export_reference):
-        raise SystemExit(f"training (no -e, --serve or --export-reference): {TRAINING_SLICE}")
-    if args.model in ("alexnet", "mobilenet", "mnist"):
-        raise SystemExit(f"--model {args.model}: {FLOAT_ZOO_SLICE}")
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    device_name = _device_of_type(args.type)
+    device_name, bf16_type = _device_of_type(args.type)
+    if bf16_type:
+        args.compute_dtype = "bf16"
     _check_ported(args)
 
     if args.deterministic:
@@ -170,7 +176,7 @@ def main(argv=None):
     model_config = {"dataset": args.dataset} if args.dataset != "synthetic" else {"dataset": "cifar10"}
     if args.model_config:
         model_config.update(ast.literal_eval(args.model_config))
-    if args.model in ("alexnet_quantized", "mobilenet_quantized"):
+    if args.model in ("alexnet", "alexnet_quantized", "mnist", "mobilenet", "mobilenet_quantized"):
         model_config.pop("dataset", None)
 
     # built and loaded on the host, then moved to the device in one step
@@ -178,6 +184,11 @@ def main(argv=None):
     with host_build():
         model = get_model(args.model)(generator=torch.Generator().manual_seed(args.seed), **model_config)
     logger.info("created model %s with config %s", args.model, model_config)
+
+    regime = getattr(model, "regime", None)
+    if args.lr != 0.1 or args.optimizer != "SGD":
+        regime = {0: {"optimizer": args.optimizer, "lr": args.lr, "momentum": args.momentum,
+                      "weight_decay": args.weight_decay}}
 
     if args.resume:
         if args.resume.endswith((".pth.tar", ".pt")):
@@ -225,7 +236,11 @@ def main(argv=None):
                      http_port=args.serve_http or None, request_timeout_s=args.serve_timeout or None,
                      device=device, graphs=not args.debug_nans, check_finite=args.debug_nans)
 
-    trainer = Trainer(model, print_freq=args.print_freq, check_finite=args.debug_nans, device=device)
+    trainer = Trainer(model, regime=regime, print_freq=args.print_freq,
+                      compute_dtype=None if args.compute_dtype == "f32" else args.compute_dtype,
+                      check_finite=args.debug_nans, device=device)
+    if not args.evaluate:
+        return _train(args, trainer, model, model_config, regime, transform_name, val_data, save_path, logger)
     if args.profile:
         from quantized_tpu_torch.utils.profiling import trace
 
@@ -236,6 +251,38 @@ def main(argv=None):
         metrics = trainer.validate(val_data.batches(args.batch_size), 0)
     logger.info("EVAL: loss %.4f top1 %.2f%% top5 %.2f%%", metrics["loss"], metrics["top1"], metrics["top5"])
     print({"top1": float(metrics["top1"]), "top5": float(metrics["top5"]), "loss": float(metrics["loss"])})
+    return 0
+
+
+def _train(args, trainer, model, model_config, regime, transform_name, val_data, save_path, logger) -> int:
+    """The reference's epoch loop: train, validate, checkpoint (``model_best``
+    when the validation top-1 improves) and a ``results.csv`` row per
+    epoch."""
+    from quantized_tpu_torch.data import get_dataset, get_transform
+    from quantized_tpu_torch.utils import ResultsLog, save_checkpoint, wait_for_checkpoints
+
+    train_tf = get_transform(transform_name, args.input_size, augment=True)
+    train_data = get_dataset(args.dataset, "train", train_tf)
+    results = ResultsLog(os.path.join(save_path, "results.csv"))
+    results.plot("epoch", ["train_loss", "val_loss"], title="loss")
+    results.plot("epoch", ["train_top1", "val_top1"], title="top-1", ylabel="%")
+    best_prec1 = 0.0
+    for epoch in range(args.start_epoch, args.epochs):
+        t = trainer.train_epoch(
+            train_data.batches(args.batch_size, shuffle=True, seed=epoch, drop_remainder=True), epoch)
+        v = trainer.validate(val_data.batches(args.batch_size), epoch)
+        is_best = v["top1"] > best_prec1
+        best_prec1 = max(best_prec1, v["top1"])
+        save_checkpoint(model, save_path,
+                        meta={"epoch": epoch + 1, "model": args.model, "config": model_config,
+                              "best_prec1": best_prec1,
+                              "regime": {str(k): v2 for k, v2 in (regime or {}).items()}},
+                        is_best=is_best, save_all=args.save_all, async_save=not args.sync_checkpoints)
+        results.add(epoch=epoch, train_loss=t["loss"], val_loss=v["loss"], train_top1=t["top1"],
+                    val_top1=v["top1"], train_top5=t["top5"], val_top5=v["top5"])
+        results.save()
+        logger.info("epoch %d: train top1 %.2f val top1 %.2f (best %.2f)", epoch, t["top1"], v["top1"], best_prec1)
+    wait_for_checkpoints()  # the last asynchronous save is on disk before the exit
     return 0
 
 

@@ -7,14 +7,14 @@ Layout NHWC, kernels HWIO; submodule names match the JAX model
 (``conv1``..``conv5``, ``bn1``..``bn5``, ``fc1``..``fc3``, ``bnf1``,
 ``bnf2``), so its parameters and statistics map onto this one key for key.
 
-The skeleton takes its conv and dense constructors from the caller; the
-quantized ones are in ``alexnet_quantized.py``. The float ``alexnet``
-factory waits for the float layers.
+The skeleton takes its conv and dense constructors from the caller: the
+float ``alexnet`` here, the quantized ones in ``alexnet_quantized.py``.
+Dropout draws its masks from a stream of its own (``layers.Dropout``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -45,8 +45,9 @@ class AlexNetOWTBN(nn.Module):
     padding=, use_bias=, generator=)`` and ``linear(cin, cout, use_bias=,
     generator=)`` build its layers."""
 
-    def __init__(self, num_classes: int, conv: Callable[..., nn.Module], linear: Callable[..., nn.Module],
-                 dropout: float = 0.5, *, generator: torch.Generator):
+    def __init__(self, num_classes: int = 1000, conv: Callable[..., nn.Module] = layers.Conv2d,
+                 linear: Callable[..., nn.Module] = layers.Linear, dropout: float = 0.5, *,
+                 generator: torch.Generator):
         super().__init__()
         g = generator
         self.conv1 = conv(3, 64, 11, stride=4, padding=2, use_bias=False, generator=g)
@@ -68,7 +69,7 @@ class AlexNetOWTBN(nn.Module):
         self.fc2 = linear(4096, 4096, use_bias=False, generator=g)
         self.bnf2 = _bn(4096)
         self.fc3 = linear(4096, num_classes, use_bias=True, generator=g)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = layers.Dropout(dropout, generator=g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn1(_maxpool(self.conv1(x))))
@@ -80,3 +81,14 @@ class AlexNetOWTBN(nn.Module):
         x = self.dropout(F.relu(self.bnf1(self.fc1(x))))
         x = self.dropout(F.relu(self.bnf2(self.fc2(x))))
         return self.fc3(x)
+
+
+def alexnet(num_classes: int = 1000, generator: Optional[torch.Generator] = None, **_) -> AlexNetOWTBN:
+    """Factory ``alexnet(**model_config)``, the float model: parameters
+    drawn on the CPU from ``generator`` (default: seed 0)."""
+    generator = generator if generator is not None else torch.Generator().manual_seed(0)
+    model = AlexNetOWTBN(num_classes, generator=generator)
+    model.regime = ALEXNET_REGIME
+    model.input_size = 224
+    model.input_transform = "imagenet"
+    return model

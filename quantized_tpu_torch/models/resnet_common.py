@@ -177,6 +177,21 @@ IMAGENET_DEPTH_CONFIGS = {
 }
 
 
+# the reference's optimizer regimes (resnet*.py: ResNet_imagenet / ResNet_cifar10)
+IMAGENET_REGIME = {
+    0: {"optimizer": "SGD", "lr": 1e-1, "weight_decay": 1e-4, "momentum": 0.9},
+    30: {"lr": 1e-2},
+    60: {"lr": 1e-3, "weight_decay": 0},
+    90: {"lr": 1e-4},
+}
+CIFAR_REGIME = {
+    0: {"optimizer": "SGD", "lr": 1e-1, "weight_decay": 1e-4, "momentum": 0.9},
+    81: {"lr": 1e-2},
+    122: {"lr": 1e-3, "weight_decay": 0},
+    164: {"lr": 1e-4},
+}
+
+
 def build_resnet(kit: LayerKit, dataset: str = "imagenet", depth: int = 18,
                  num_classes: Optional[int] = None, generator: Optional[torch.Generator] = None
                  ) -> nn.Module:
@@ -188,10 +203,12 @@ def build_resnet(kit: LayerKit, dataset: str = "imagenet", depth: int = 18,
             raise ValueError(f"ImageNet depths are {sorted(IMAGENET_DEPTH_CONFIGS)}, got {depth}")
         block_cls, layers = IMAGENET_DEPTH_CONFIGS[depth]
         model = ResNetImageNet(kit, block_cls, layers, num_classes or 1000, generator=generator)
+        model.regime = IMAGENET_REGIME
         model.input_size = 224
     elif dataset in ("cifar10", "cifar100"):
         default_classes = 10 if dataset == "cifar10" else 100
         model = ResNetCifar(kit, depth, num_classes or default_classes, generator=generator)
+        model.regime = CIFAR_REGIME
         model.input_size = 32
     else:
         raise ValueError(f"unknown dataset {dataset!r}")

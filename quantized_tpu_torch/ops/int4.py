@@ -33,6 +33,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from quantized_tpu_torch.ops import _cuda
@@ -52,6 +53,18 @@ _INT4_MATMUL = _cuda.CudaKernel(
     "int4_matmul", "int4_gemm.cu", "qt_int4_matmul",
     ["ptr"] * 5 + ["int"] * 6 + ["float"] * 3 + GEMM_PLAN_ARGS,
 )
+
+
+def int4_weight_qparams(w_ko: np.ndarray) -> np.ndarray:
+    """(K, N) weights -> per-column scales for the [-7, 7] grid."""
+    absmax = np.max(np.abs(w_ko), axis=0)
+    return np.maximum(absmax / 7.0, 1e-12).astype(np.float32)
+
+
+def quantize_int4(w_ko: np.ndarray, scale: np.ndarray) -> np.ndarray:
+    """(K, N) weights onto the int4 grid of ``scale``, as int8 on [-7, 7]."""
+    q = np.round(w_ko / scale[None, :])
+    return np.clip(q, -7, 7).astype(np.int8)
 
 
 def _pack_halves(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,12 @@ so eager results agree bit for bit:
 - ``x -> (x - min) / scale + qmin``, clamp, round half to even, dequantize
   ``(q - qmin) * scale + min``; ``enforce_true_zero`` uses the truncated
   zero-point instead;
-- a missing min/max comes from the mean-of-chunk-extrema estimator.
-
-Stochastic rounding waits for the training slice of the port.
+- a missing min/max comes from the mean-of-chunk-extrema estimator;
+- stochastic rounding adds U[-0.5, 0.5) noise after the affine map, before
+  the clamp and the round. The noise is drawn from an explicit
+  ``torch.Generator`` on the tensor's device (JAX draws it from a PRNG key;
+  the two streams differ, so stochastic results agree in distribution,
+  not bit for bit).
 """
 
 from __future__ import annotations
@@ -55,10 +58,15 @@ def fake_quant_array(
     min_value=None,
     max_value=None,
     num_chunks: Optional[int] = None,
+    stochastic: bool = False,
     enforce_true_zero: bool = False,
+    generator: Optional[torch.Generator] = None,
     out_half: bool = False,
 ) -> torch.Tensor:
-    """Quantize-dequantize ``x`` on the affine grid (forward only)."""
+    """Quantize-dequantize ``x`` on the affine grid (no gradient semantics:
+    ``ste.fake_quant`` is the straight-through wrapper). ``stochastic``
+    rounding draws its noise from ``generator``, which must live on ``x``'s
+    device."""
     x = torch.as_tensor(x)
     compute = x.to(_F32)
     if min_value is None or max_value is None:
@@ -78,6 +86,11 @@ def fake_quant_array(
         out = compute / scale + zero_point
     else:
         out = (compute - min_value) / scale + qmin
+
+    if stochastic:
+        if generator is None:
+            raise ValueError("stochastic rounding requires a torch.Generator")
+        out = out + (torch.rand(out.shape, generator=generator, dtype=out.dtype, device=out.device) - 0.5)
 
     out = torch.round(torch.clamp(out, qmin, qmax))
 
@@ -134,3 +147,23 @@ def quantize_int(
     if dtype == torch.int8:
         q = q - 2.0 ** (num_bits - 1)
     return q.to(dtype)
+
+
+def storage_shift(num_bits: int, dtype: torch.dtype) -> int:
+    """Offset between the logical unsigned grid and the stored signed values."""
+    return int(2 ** (num_bits - 1)) if dtype == torch.int8 else 0
+
+
+def dequantize(q: torch.Tensor, scale, zero_point, num_bits: int = 8,
+               channel_axis: Optional[int] = None) -> torch.Tensor:
+    """Integer -> real: ``x_hat = (u - zp) * scale`` with ``u`` the logical
+    unsigned value (signed storage un-shifted first)."""
+    u = q.to(_F32) + float(storage_shift(num_bits, q.dtype))
+    scale = _f32(scale).to(q.device)
+    zero_point = _f32(zero_point).to(q.device)
+    if channel_axis is not None:
+        shape = [1] * q.ndim
+        shape[channel_axis] = -1
+        scale = scale.reshape(shape)
+        zero_point = zero_point.reshape(shape)
+    return (u - zero_point) * scale

@@ -1,4 +1,4 @@
-"""RangeBN, range-based batch normalization, forward only (PyTorch port of
+"""RangeBN, range-based batch normalization (PyTorch port of
 ``quantized_tpu/quantcore/rangebn.py``).
 
 - statistic, per channel C of an NHWC batch: the (B, H, W) values of a
@@ -11,6 +11,11 @@
 - normalization ``(x - mean) / (q(scale) + eps) * q(gamma) + q(beta)``, the
   scale and gamma vectors fake-quantized on their own min/max, beta on the
   chunk estimator's default (global) range.
+
+The statistics carry the gradient through ``x``: ``amax``/``amin`` split a
+tie's gradient evenly, as JAX's ``max``/``min`` do, and the quantizers are
+straight-through, so the scale's gradient reaches ``x`` through the chunk
+extrema.
 
 The running buffers (``models.layers.RangeBN``) keep the *scale* in
 ``running_var``, as the reference checkpoints do.

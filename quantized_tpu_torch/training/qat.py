@@ -1,13 +1,15 @@
-"""Evaluation loop (counterpart of ``quantized_tpu/training/qat.py``, its
-evaluation half).
+"""QAT trainer of the port (counterpart of ``quantized_tpu/training/qat.py``,
+the reference's ``main.py`` epoch loop and its shared ``forward`` batch
+loop).
 
-The reference's shared ``forward(data_loader, model, criterion, epoch,
-training, optimizer)`` loop with its meters and periodic logging, run on
-the card (unless the caller asks for the CPU) under ``torch.inference_mode()``. QAT training (the
-straight-through backward, the optimizer, the regime switch) waits for the
-training slice, ROADMAP item A9: ``train_epoch``, ``adjust_for_epoch`` and
-a training ``run_epoch`` raise ``NotImplementedError`` naming it, and the
-data-parallel mesh waits for item A10.
+A training step is the model's train-mode forward (the observers and BN
+statistics update in place, outside the graph), ``cross_entropy``, the
+backward through the straight-through quantizers (with gradient
+quantization and bi-precision where the layers ask for them) and one step
+of the regime's optimizer (``training.regime``); evaluation runs under
+``torch.inference_mode()``. The model and each batch live on ``device``,
+the card unless the caller asks for the CPU; nothing falls back to the CPU.
+The data-parallel mesh is ROADMAP item A10 and raises.
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from quantized_tpu_torch._device import DeviceLike, resolve_device
+from quantized_tpu_torch.models import layers as L
+from quantized_tpu_torch.training.regime import build_optimizer, regime_settings, update_hyperparams
 from quantized_tpu_torch.utils.meters import AverageMeter, accuracy
 
 logger = logging.getLogger(__name__)
 
-TRAINING_SLICE = "QAT training (the STE backward, the optimizer and the regime) is not ported yet: ROADMAP item A9"
 MESH_SLICE = "distribution over a device mesh is not ported yet: ROADMAP item A10"
 
 
@@ -37,11 +40,29 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, labels.to(torch.int64)[:, None]).mean()
 
 
-class Trainer:
-    """Epoch-driven loop with the reference's meters; evaluation only.
+def set_compute_dtype(model: nn.Module, dtype: Optional[torch.dtype]) -> int:
+    """Run every conv and dense product of ``model`` in ``dtype`` (bf16:
+    the tensor cores' operand type, f32 accumulation), the fake-quant
+    boundaries, observers, BN statistics, loss, gradients and optimizer
+    staying f32; ``None`` restores f32. Returns the number of layers
+    switched. bf16 operands blur each fake-quant boundary by about 2^-8
+    relative, so reference-parity checks keep f32."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, (L.Conv2d, L.Linear, L.QConv2d, L.QLinear)):
+            m.compute_dtype = dtype
+            n += 1
+    return n
 
-    The model is moved to ``device`` (the card unless the caller asks for the
-    CPU) and each batch with it. ``check_finite`` raises ``FloatingPointError`` on a batch whose logits
+
+class Trainer:
+    """Epoch-driven QAT trainer with the reference's regime semantics.
+
+    The model is moved to ``device`` (the card unless the caller asks for
+    the CPU) and each batch with it. ``compute_dtype`` ``"bf16"`` runs the
+    products in bf16 (:func:`set_compute_dtype`). The optimizer is built
+    from the regime's settings when a step first needs it.
+    ``check_finite`` raises ``FloatingPointError`` on a batch whose logits
     hold a NaN or an infinity (the CLI's ``--debug-nans``)."""
 
     def __init__(
@@ -56,24 +77,59 @@ class Trainer:
     ):
         if mesh is not None:
             raise NotImplementedError(MESH_SLICE)
-        if compute_dtype is not None:
-            raise NotImplementedError(f"compute_dtype={compute_dtype!r}: {TRAINING_SLICE}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        if compute_dtype is not None:
+            set_compute_dtype(model, torch.bfloat16 if compute_dtype in ("bf16", "bfloat16") else compute_dtype)
         self.regime = regime if regime is not None else getattr(model, "regime", None)
         self.print_freq = print_freq
         self.check_finite = check_finite
+        self._settings = regime_settings(self.regime, 0)
+        self._opt = None
+
+    @property
+    def optimizer(self):
+        """The optimizer of the current settings, built on first use."""
+        if self._opt is None:
+            self._opt = build_optimizer(self._settings, self.model.parameters())
+        return self._opt
 
     def adjust_for_epoch(self, epoch: int):
-        raise NotImplementedError(TRAINING_SLICE)
+        """The reference's ``adjust_optimizer``: apply the regime's settings
+        for ``epoch``. A change of optimizer class rebuilds the optimizer
+        (fresh state); lr, momentum and weight decay change in place."""
+        new = regime_settings(self.regime, epoch)
+        if new != self._settings:
+            if new["optimizer"] != self._settings["optimizer"]:
+                self._opt = None
+                logger.info("regime: optimizer -> %s", new["optimizer"])
+            elif self._opt is not None:
+                update_hyperparams(self._opt, new)
+            logger.info("regime epoch %d: %s", epoch, new)
+            self._settings = new
+
+    def _train_step(self, x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        opt = self.optimizer
+        logits = self.model(x)
+        loss = cross_entropy(logits, y)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach(), logits.detach()
+
+    def _eval_step(self, x: torch.Tensor, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        with torch.inference_mode():
+            logits = self.model(x)
+            return cross_entropy(logits, y), logits
 
     def run_epoch(self, batches: Iterable[Tuple[np.ndarray, np.ndarray]], epoch: int,
                   training: bool) -> Dict[str, float]:
-        """The reference's shared ``forward`` loop; ``training=True`` raises
-        until the training slice lands."""
+        """The reference's shared ``forward`` loop (main.py ~L215-290)."""
         if training:
-            raise NotImplementedError(TRAINING_SLICE)
-        self.model.eval()
+            self.model.train()
+            self.adjust_for_epoch(epoch)
+        else:
+            self.model.eval()
         dev = self.device
         losses, top1, top5 = AverageMeter(), AverageMeter(), AverageMeter()
         batch_time, data_time = AverageMeter(), AverageMeter()
@@ -82,11 +138,10 @@ class Trainer:
             data_time.update(time.time() - end)
             xs = torch.as_tensor(np.asarray(x, np.float32)).to(dev)
             ys = torch.as_tensor(np.asarray(y)).to(dev)
-            with torch.inference_mode():
-                logits = self.model(xs)
-                loss_t = cross_entropy(logits, ys)
+            loss_t, logits = (self._train_step if training else self._eval_step)(xs, ys)
             if self.check_finite and not bool(torch.isfinite(logits).all()):
-                raise FloatingPointError(f"eval epoch {epoch} batch {i}: non-finite logits")
+                raise FloatingPointError(f"{'train' if training else 'eval'} epoch {epoch} batch {i}: "
+                                         "non-finite logits")
             loss = float(loss_t)
             k = min(5, logits.shape[-1])
             accs = accuracy(logits, y, topk=(1, k))
@@ -97,8 +152,9 @@ class Trainer:
             batch_time.update(time.time() - end)
             end = time.time()
             if i % self.print_freq == 0:
-                logger.info("eval epoch %d [%d]: loss %.4f (%.4f) top1 %.2f (%.2f) time %.3fs data %.3fs",
-                            epoch, i, loss, losses.avg, accs[0], top1.avg, batch_time.val, data_time.val)
+                logger.info("%s epoch %d [%d]: loss %.4f (%.4f) top1 %.2f (%.2f) time %.3fs data %.3fs",
+                            "train" if training else "eval", epoch, i, loss, losses.avg, accs[0], top1.avg,
+                            batch_time.val, data_time.val)
         return {
             "loss": losses.avg,
             "top1": top1.avg,
@@ -108,7 +164,7 @@ class Trainer:
         }
 
     def train_epoch(self, batches, epoch: int):
-        raise NotImplementedError(TRAINING_SLICE)
+        return self.run_epoch(batches, epoch, training=True)
 
     def validate(self, batches, epoch: int = 0):
         return self.run_epoch(batches, epoch, training=False)

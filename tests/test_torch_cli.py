@@ -16,9 +16,16 @@
 - ``--serve --serve-steps 3`` returns 0, with and without the resident
   engine, and ``--export-reference`` writes a reference file (its round
   trip through JAX's ingest is held in ``tests/test_torch_checkpoint.py``).
-- What is not ported exits with a message naming its ROADMAP item: training
-  and ``--compute-dtype bf16`` (A9), ``--mesh-model-parallel`` and
-  ``--tp-explicit`` (A10), the float models (A11); a TPU type is refused.
+- Training, the port of JAX's ``test_cli_train_one_epoch_and_resume`` on
+  a CIFAR ResNet-8: one epoch writes ``results.csv`` and a checkpoint, and
+  ``--resume`` of it with ``--calibrate 1 --convert-int -e`` returns 0;
+  two ``--deterministic`` mnist runs write identical ``results.csv``
+  files (JAX's ``test_cli_deterministic_reruns_bitmatch``); a bf16 run
+  (``--compute-dtype bf16`` or ``--type cpu.bf16``) trains; the float
+  models train, evaluate or export without a refusal.
+- What is not ported exits with a message naming its ROADMAP item:
+  ``--mesh-model-parallel`` and ``--tp-explicit`` (A10); a TPU type is
+  refused.
 """
 
 import ast
@@ -37,6 +44,7 @@ from quantized_tpu_torch.ingest import load_into_model
 from quantized_tpu_torch.models import get_model
 from quantized_tpu_torch.training import cross_entropy
 from quantized_tpu_torch.utils import accuracy
+from torch_threads import one_torch_thread  # noqa: F401  (fixture)
 
 LOGIT_ATOL = 0.25
 R20 = ["--model", "resnet_quantized_float_bn", "--dataset", "synthetic", "--model_config", "{'depth': 20}"]
@@ -125,18 +133,58 @@ def test_cli_serves_and_exports(tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    ([], "A9"),  # no -e, --serve or --export-reference: training
-    (["-e", "--compute-dtype", "bf16"], "A9"),
     (["-e", "--mesh-model-parallel", "2"], "A10"),
     (["-e", "--tp-explicit"], "A10"),
     (["-e", "--type", "tpu.float"], "TPU"),
-    (["-e", "--type", "cuda.bf16"], "A9"),
 ])
 def test_unported_paths_exit_with_their_item(tmp_path, extra, message):
     with pytest.raises(SystemExit, match=message):
         main(["--type", "cpu.float", *R20, "--results_dir", str(tmp_path), *extra])
 
 
-def test_float_zoo_exits_naming_a11(tmp_path):
-    with pytest.raises(SystemExit, match="A11"):
-        main(["--type", "cpu.float", "--model", "alexnet", "--results_dir", str(tmp_path), "-e"])
+R8 = ["--model", "resnet_quantized_float_bn", "--dataset", "synthetic", "--model_config", "{'depth': 8}"]
+MNIST = ["--model", "mnist", "--dataset", "mnist", "-b", "32", "--epochs", "1"]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_cli_train_one_epoch_and_resume(tmp_path):
+    common = ["--type", "cpu.float", *R8, "-b", "64", "--results_dir", str(tmp_path), "--lr", "0.02"]
+    assert main(common + ["--save", "trainrun", "--epochs", "1"]) == 0
+    run = tmp_path / "trainrun"
+    rows = (run / "results.csv").read_text().splitlines()
+    assert rows[0].startswith("epoch,train_loss,val_loss") and len(rows) == 2
+    assert (run / "checkpoint.pt").exists() and (run / "model_best.pt").exists()
+    assert main(common + ["--save", "evalrun", "--resume", str(run), "--calibrate", "1", "--convert-int", "-e"]) == 0
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_cli_deterministic_reruns_bitmatch(tmp_path):
+    was = torch.are_deterministic_algorithms_enabled()
+    try:
+        csvs = []
+        for name in ("det_a", "det_b"):
+            assert main(["--type", "cpu.float", *MNIST, "--results_dir", str(tmp_path), "--save", name,
+                         "--deterministic", "--seed", "7"]) == 0
+            csvs.append((tmp_path / name / "results.csv").read_text())
+        assert csvs[0] == csvs[1]
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("flags", [["--type", "cpu.float", "--compute-dtype", "bf16"], ["--type", "cpu.bf16"]])
+def test_cli_bf16_trains(tmp_path, flags):
+    assert main([*flags, *MNIST, "--results_dir", str(tmp_path), "--save", "bf16"]) == 0
+    assert (tmp_path / "bf16" / "results.csv").exists()
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("model,extra", [
+    ("alexnet", ["--export-reference", "alexnet.pth.tar"]),
+    ("mobilenet", ["--model_config", "{'width_mult': 0.25, 'num_classes': 10}", "--dataset", "cifar10",
+                   "--input_size", "32", "-b", "128", "--epochs", "1"]),
+])
+def test_float_zoo_runs(tmp_path, model, extra):
+    extra = [str(tmp_path / e) if e.endswith(".pth.tar") else e for e in extra]
+    assert main(["--type", "cpu.float", "--model", model, "--results_dir", str(tmp_path), "--save", model,
+                 *extra]) == 0

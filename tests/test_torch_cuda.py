@@ -1575,3 +1575,53 @@ def test_capture_raises_under_debug_s16(cuda_device, monkeypatch):
     with pytest.raises(RuntimeError, match="QTPU_DEBUG_S16"):
         IntExecutor(engine, ingest="u8", device=cuda_device, graphs=True)(u8)
     assert IntExecutor(engine, ingest="u8", device=cuda_device, graphs=False)(u8).shape == (2, 10)
+
+
+@pytest.mark.cuda
+def test_grad_quant_draws_on_the_gpu(cuda_device):
+    """A gradient-quantizing layer on the card draws its stochastic rounding
+    from a generator made on the card (a CPU generator cannot draw there):
+    the step runs, the stream advances once, and the quantized cotangent
+    stays within one grad step of the exact one."""
+    from quantized_tpu_torch.models import layers as L
+    from quantized_tpu_torch.quantcore.ste import quantize_grad
+
+    conv = L.QConv2d(8, 16, 3, padding=1, num_bits_grad=8, biprecision=True,
+                     generator=torch.Generator().manual_seed(0)).to(cuda_device).train()
+    x = torch.randn(4, 12, 12, 8, device=cuda_device, requires_grad=True)
+    conv(x).square().sum().backward()
+    assert conv.grad_quant_rng.count == 1 and torch.isfinite(x.grad).all() and conv.kernel.grad.abs().max() > 0
+    g = torch.randn(64, 64, device=cuda_device)
+    y = torch.zeros_like(g, requires_grad=True)
+    gen = conv.grad_quant_rng(cuda_device)
+    assert gen.device.type == "cuda"
+    (quantize_grad(y, gen) * g).sum().backward()
+    step = (g.max() - g.min()) / 255.0
+    assert ((y.grad - g).abs() <= step * (1 + 1e-4)).all()
+
+
+@pytest.mark.cuda
+def test_trainer_step_on_the_gpu_matches_the_cpu(cuda_device):
+    """One SGD step of the float CIFAR ResNet-8 through ``Trainer`` on the
+    card against the CPU from the same weights: every tensor within 5e-3 of
+    the larger of its magnitude and the largest step (conv sums in another
+    order; BN biases are sums with cancellation), the loss within 1e-5."""
+    import copy
+
+    from quantized_tpu_torch.models import get_model
+    from quantized_tpu_torch.training import Trainer
+
+    regime = {0: {"optimizer": "SGD", "lr": 0.05, "momentum": 0.9, "weight_decay": 1e-4}}
+    cpu = get_model("resnet")(dataset="cifar10", depth=8, generator=torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu)
+    before = {k: v.clone() for k, v in cpu.state_dict().items()}
+    rng = np.random.default_rng(3)
+    batch = [(rng.standard_normal((16, 32, 32, 3)).astype(np.float32), rng.integers(0, 10, 16))]
+    want = Trainer(cpu, regime=regime, device="cpu").train_epoch(batch, 0)
+    got = Trainer(gpu, regime=regime, device=cuda_device).train_epoch(batch, 0)
+    assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+    step = max((v - before[k]).abs().max().item() for k, v in cpu.state_dict().items()
+               if not k.endswith(("mean", "var")))
+    for k, v in cpu.state_dict().items():
+        err = (gpu.state_dict()[k].cpu() - v).abs().max().item()
+        assert err <= 5e-3 * max(v.abs().max().item(), step), (k, err)

@@ -41,6 +41,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "quantized_tpu_torch.utils.checkpoint", "quantized_tpu_torch.utils.meters",
             "quantized_tpu_torch.utils.logging_utils", "quantized_tpu_torch.utils.hostbuild",
             "quantized_tpu_torch.utils.profiling", "quantized_tpu_torch.training.qat"} <= set(result["names"]), result
+    # QAT training and the float models
+    assert {"quantized_tpu_torch.training.regime", "quantized_tpu_torch.models.mnist",
+            "quantized_tpu_torch.models.mobilenet", "quantized_tpu_torch.models.alexnet",
+            "quantized_tpu_torch.probes.train_step"} <= set(result["names"]), result
 
 
 _SMOKE_PROBE = r"""
