@@ -209,12 +209,32 @@ and a non-zero exit:
    journaled pass (not timed: the journal fsyncs every request), three
    ``/predict`` requests through ``_start_http`` on 127.0.0.1 (the eager
    top-5) and the journal replayed into a fresh batcher (the same answers);
-10. cli: ``quantized_tpu_torch.cli.main.main`` in-process on ResNet-50
+10. mesh: the float-BN ResNet-50 on "pallas" and the tuned one, saved
+   for ``quantized_tpu_torch.probes.mesh_ranks``, started on every GPU
+   (``torch.cuda.device_count()`` ranks, torchrun's variables, NCCL: one
+   rank on one card): each rank checks an all-gather, a reduce-scatter and
+   an all-reduce over both mesh axes, runs ``IntExecutor(mesh=...)`` once
+   eagerly (launches by kernel and route and collectives a forward counted,
+   the launches equal to the single-device forward's) and then with one
+   CUDA graph per shape, the NCCL collectives captured in it (every
+   captured launch on its Hopper route), its logits at batch 128 bit-equal
+   to the single-device executor's, the two timed in turns, and serves the
+   backlog's 320 requests through ``serve_multihost`` over the tuned engine
+   at buckets 1, 8, 32 and 128 (each answer bit-equal to a batch-1
+   forward; p50 and p99 printed with the card); no fallback to gloo, eager
+   or the CPU. Then the shards in turn: at model degrees 2 and 4 every
+   sharded conv and the fc of the "pallas" engine (layer4's convs are the
+   explicit-TP stage) run shard by shard on the card on one forward's
+   inputs at batch 32, the shards' outputs concatenated bit-equal to the
+   whole layer, each layer's routes printed (a shard off the Hopper route
+   named), and the explicit-TP fc head's K blocks, their int32 partials
+   summed as its reduce-scatter sums them, bit-equal to the whole fc;
+11. cli: ``quantized_tpu_torch.cli.main.main`` in-process on ResNet-50
    (``resnet_quantized_float_bn``, ImageNet, depth 50) with ``--calibrate
    2 --convert-int --resident -b 128``: ``-e`` over the synthetic
    stand-in's 512 images (top-1 and top-5 printed), then ``--serve
    --serve-steps 20 --serve-u8 --serve-pipeline 4``; both return 0;
-11. train: QAT on the card, no kernel of the port launched in training
+12. train: QAT on the card, no kernel of the port launched in training
    (the counts set to 0 just before each training run and read after):
    the flagship ``resnet_quantized`` (ImageNet ResNet-50, 8-bit gradients
    and bi-precision) through ``Trainer`` for 6 SGD steps (lr 0.01,
@@ -238,13 +258,15 @@ and a non-zero exit:
    mnist --dataset mnist -b 32 --epochs 1`` in three processes at once,
    plain and twice ``--deterministic --seed 7``: each exits 0 with its
    ``results.csv`` and checkpoint, the two deterministic files equal;
-12. the card's nvidia-smi line, then the kernels line: one JSON object with
+13. the card's nvidia-smi line, then the kernels line: one JSON object with
    each kernel's numbers; ``launches`` is the count on the path that runs
    the kernel (``path``: a serving path's 3 forwards, or an op path),
    ``launches_autotuned`` its count in one tuned forward of each model,
-   ``launches_rangebn`` on the RangeBN path's 3 forwards, and ``clip`` (K1,
-   K2) its CLIP instances' numbers beside the unclamped instance's;
-13. last line: ``{"ok": true, "device": {...}}``.
+   ``launches_rangebn`` on the RangeBN path's 3 forwards,
+   ``launches_mesh`` in one forward of the "pallas" engine over the mesh
+   on rank 0, and ``clip`` (K1, K2) its CLIP instances' numbers beside the
+   unclamped instance's;
+14. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -346,7 +368,10 @@ PREDICTIONS = ("autotune phase, batch 128, as the first run of this tree measure
                "the float twin's BN and ReLU passes a third or more of its device time; "
                "train phase (ResNet-50, batch 128, as earlier runs of this tree measured it within 10%): float-BN f32 "
                "about 277 ms a step, bf16 185-216, the flagship 613-679, nobiprec 4-6% and nogradq about 25% under "
-               "it; the card's step within TRAIN_PARITY_TOL of the CPU's; the phase 140-190 s")
+               "it; the card's step within TRAIN_PARITY_TOL of the CPU's; the phase 140-190 s; "
+               "mesh phase (one rank, batch 128): mesh / single forward 1.10-1.20 on 'pallas' (54 all-gathers, "
+               "each now one copy of a conv's output), under 1.03 autotuned; every shard at degrees 2 and 4 on "
+               "the Hopper route; served p50 20-45 ms; the phase 10-30 s")
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
@@ -2252,6 +2277,223 @@ def phase_serve_batcher(tuned, card):
     log(f"[serve batcher] phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# ----------------------------------------------------------------- the mesh
+
+MESH_PARTS = (2, 4)  # model degrees whose shards run in turn on the card
+MESH_SHARD_BATCH = 32
+MESH_ITERS = 10  # timed forwards a turn, at batch THROUGHPUT_BATCH
+MESH_RANK_TIMEOUT_S = 600
+MESH_ENGINES = ("pallas", "autotuned")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _per_forward(engine, u8):
+    """Launches and routes of one eager single-device forward (the first
+    forms the kernels' operands, the second is counted)."""
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.engine import IntExecutor
+
+    ex = IntExecutor(copy.deepcopy(engine), ingest="u8", device="cuda", graphs=False)
+    with torch.inference_mode():
+        ex(u8)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        ex(u8)
+        torch.cuda.synchronize()
+    return {k: v for k, v in ops.launch_counts().items() if v}, ops.route_counts()
+
+
+def _mesh_ranks(engines, u8, card):
+    """``probes/mesh_ranks`` on every GPU (torchrun's variables, NCCL): the
+    collectives, ``IntExecutor(mesh=)`` with the collectives captured in its
+    graphs against the single-device executor, and ``serve_multihost``.
+    Returns each rank's record."""
+    import tempfile
+
+    imgs, bursts, _ = _request_stream()
+    world = torch.cuda.device_count()
+    job = {"device": "cuda", "model_parallel": None, "engines": engines, "u8": u8.cpu(),
+           "requests": torch.from_numpy(imgs), "buckets": SERVE_BUCKETS, "bursts": bursts, "iters": MESH_ITERS,
+           "serve_engine": "autotuned"}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(job, Path(tmp) / "job.pt")
+        env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+               "WORLD_SIZE": str(world)}
+        procs = [subprocess.Popen([sys.executable, "-m", "quantized_tpu_torch.probes.mesh_ranks", tmp], cwd=ROOT,
+                                  env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=MESH_RANK_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        results = []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            path = Path(tmp) / f"rank{r}.json"
+            res = json.loads(path.read_text()) if path.exists() else {"error": "no record"}
+            if p.returncode != 0 or "error" in res:
+                raise AssertionError(f"[mesh] rank {r} exited {p.returncode}: {res.get('error')}\n{out[-4000:]}")
+            results.append(res)
+    return results
+
+
+def _record_calls(engine, x):
+    """Every ``IntConv2d.run_q`` and ``IntLinear.run_q`` call of one eager
+    forward of ``engine``: (name, layer, args, kwargs, output)."""
+    from quantized_tpu_torch.engine.int_layers import IntConv2d, IntLinear
+
+    calls = []
+    for name, layer in engine.named_modules():
+        if isinstance(layer, (IntConv2d, IntLinear)):
+            def record(*args, _layer=layer, _name=name, _run=layer.run_q, **kwargs):
+                out = _run(*args, **kwargs)
+                calls.append((_name, _layer, args, kwargs, out))
+                return out
+
+            layer.run_q = record
+    with torch.inference_mode():
+        engine.run_u8(x)
+    for _, layer, _, _, _ in calls:
+        del layer.run_q
+    return calls
+
+
+def _shards_in_turn(engine, x):
+    """At each model degree of MESH_PARTS, every sharded conv and dense
+    layer of the mesh executor's engine (the explicit-TP layer4 among them:
+    ``apply_explicit_tp`` runs the same shards in the same forms) run shard
+    by shard on the card through their kernels, on the inputs of one
+    forward; the shards' outputs concatenated along channels must equal the
+    whole layer's, bit for bit. Each shard's launches by kernel and route
+    are printed; a shard off the Hopper routes is printed as such. Then the
+    explicit-TP fc head: each rank's K block (``head_shard``) multiplied on
+    the card, the int32 partials summed as the reduce-scatter sums them,
+    each rank's epilogue on its N block, against the whole fc (K1)."""
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.engine.int_layers import IntConv2d
+    from quantized_tpu_torch.ops.int8_matmul import acc_epilogue
+    from quantized_tpu_torch.parallel.tp_engine import head_shard, int_partial, shard_copies
+
+    calls = _record_calls(engine, x)
+    off_hopper = {}
+    for parts in MESH_PARTS:
+        for name, layer, args, kwargs, whole in calls:
+            cout = layer.alpha.shape[0]
+            if cout % parts:
+                log(f"[mesh] mp {parts} {name}: Cout {cout} does not split, whole on every rank")
+                continue
+            outs, shard_routes = [], []
+            for shard in shard_copies(layer, parts):
+                launches0, routes0 = ops.launch_counts(), ops.route_counts()
+                with torch.inference_mode():
+                    outs.append(shard.run_q(*args, **kwargs))
+                launched = {k: n - launches0.get(k, 0) for k, n in ops.launch_counts().items()
+                            if n > launches0.get(k, 0)}
+                routes = {k: {r: n - routes0.get(k, {}).get(r, 0) for r, n in rs.items()
+                              if n > routes0.get(k, {}).get(r, 0)} for k, rs in ops.route_counts().items()}
+                shard_routes.append({k: routes.get(k) or {"(no route)": n} for k, n in launched.items()})
+            torch.cuda.synchronize()
+            got = torch.cat(outs, dim=-1)
+            if got.shape != whole.shape or not torch.equal(got.view(torch.int8), whole.view(torch.int8)):
+                raise AssertionError(f"[mesh] mp {parts} {name}: the shards differ from the whole layer")
+            if not all(shard_routes):
+                raise AssertionError(f"[mesh] mp {parts} {name}: a shard launched no kernel of the port")
+            general = sorted({f"{k}:{r}" for sr in shard_routes for k, rs in sr.items() for r in rs
+                              if r not in HOPPER_ROUTES})
+            if general:
+                off_hopper[(parts, name)] = general
+            stage4 = " (explicit-TP layer4)" if name.startswith("layer4.") and isinstance(layer, IntConv2d) else ""
+            same = all(r == shard_routes[0] for r in shard_routes)
+            routes_text = (f"each shard {json.dumps(shard_routes[0])}" if same else
+                           "; ".join(f"shard {i} {json.dumps(r)}" for i, r in enumerate(shard_routes)))
+            log(f"[mesh] mp {parts} {name}{stage4}: Cout {cout} -> {cout // parts} a shard, {parts} shards "
+                f"bit-equal to the whole layer; routes: {routes_text}"
+                + (f"; off the Hopper route: {', '.join(general)}" if general else ""))
+        fc_call = next(c for c in calls if c[0] == "fc")
+        _, fc, (x_q,), _, whole = fc_call
+        partials, shares = [], [head_shard(fc, i, parts) for i in range(parts)]
+        for share in shares:
+            xb = x_q[:, share["k_block"][0]:share["k_block"][1]]
+            xb = torch.nn.functional.pad(xb, (0, share["pad_k"]))
+            partials.append(int_partial(xb, share["w_nk"]))
+        total = torch.stack(partials).sum(0).chunk(parts, dim=1)
+        logits = torch.cat([acc_epilogue(total[i], sh["alpha"], sh["beta"], fc.relu) for i, sh in enumerate(shares)],
+                           dim=1)[:, :shares[0]["n"]]
+        if not torch.equal(logits, whole):
+            raise AssertionError(f"[mesh] mp {parts} explicit-TP head differs from the whole fc by "
+                                 f"{float((logits - whole).abs().max())}")
+        k = shares[0]["w_nk"].shape
+        log(f"[mesh] mp {parts} explicit-TP fc head: {parts} K blocks of {k[1]} (N padded to {k[0]}), the int32 "
+            f"partial on {'torch._int_mm' if x_q.shape[0] >= 17 and k[1] % 8 == 0 else 'the exact product'} "
+            f"(JAX's lax.dot_general, outside any kernel), summed as the reduce-scatter sums, the epilogue on each "
+            f"N block: bit-equal to the whole fc (K1)")
+    return off_hopper
+
+
+def phase_mesh(tuned, card):
+    """The mesh serving path: ``probes/mesh_ranks`` on every GPU over NCCL
+    (the float-BN ResNet-50 at full width on "pallas" and its autotuned
+    form; ``IntExecutor(mesh=)`` bit-equal to the single-device executor,
+    its launches per forward by kernel and route equal to the single-device
+    forward's, its collectives per forward printed, its graphs capturing the
+    collectives; ``serve_multihost`` over the tuned engine at buckets 1, 8,
+    32 and 128), the forward ms at batch 128 beside the single-device
+    executor's and the served burst's latencies with the card; then the
+    shards in turn at model degrees 2 and 4 (``_shards_in_turn``). Returns
+    the mesh path's launches per forward (the "pallas" engine on rank 0)."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(23)
+    u8 = torch.randint(0, 256, (THROUGHPUT_BATCH, 224, 224, 3), generator=gen, dtype=torch.uint8).cuda()
+    engines = {"pallas": _build("resnet50", "pallas", "cuda"), "autotuned": tuned}
+    single = {name: _per_forward(eng, u8) for name, eng in engines.items()}
+    ranks = _mesh_ranks(engines, u8, card)
+    _require_launched(single["pallas"][0], ["int8_conv_direct", "int8_conv_direct_gatherk", "int8_matmul"],
+                      "mesh pallas")
+    for res in ranks:
+        if res["backend"] != "nccl":
+            raise AssertionError(f"[mesh] rank {res['rank']} ran {res['backend']}, not NCCL")
+        log(f"[mesh] rank {res['rank']}/{res['world']} on {res['device']}, mesh {json.dumps(res['mesh'])}, "
+            f"{res['backend']}: collectives {json.dumps(res['collectives'])}; {res['seconds']:.1f} s")
+        for name in MESH_ENGINES:
+            e = res["engines"][name]
+            launches, routes = single[name]
+            if e["launches_per_forward"] != launches or e["routes_per_forward"] != routes:
+                raise AssertionError(f"[mesh] {name}: mesh launches {e['launches_per_forward']} routes "
+                                     f"{e['routes_per_forward']}, single-device {launches} {routes}")
+            stats = e["graphs"][str((THROUGHPUT_BATCH, 224, 224, 3))]
+            _captured_routes_ok(f"mesh {name}", stats)
+            single_ms, mesh_ms = e["ms"]["single"], e["ms"]["mesh"]
+            log(f"[mesh] {name}: logits at batch {e['batch']} bit-equal to the single-device executor's (graph "
+                f"and eager); launches a forward {json.dumps(e['launches_per_forward'])}, by route "
+                f"{json.dumps(e['routes_per_forward'])}, the single-device forward's; collectives a forward "
+                f"{json.dumps(e['collectives_per_forward'])} ({e['sharded'][0]} convs and {e['sharded'][1]} dense "
+                f"layers sharded), captured in the graph; forward ms at batch {e['batch']}, graphs, turns "
+                f"single/mesh/mesh/single: single {', '.join(f'{v:.3f}' for v in single_ms)}, mesh "
+                f"{', '.join(f'{v:.3f}' for v in mesh_ms)}, mesh / single {sum(mesh_ms) / sum(single_ms):.3f}; "
+                f"card {card}")
+        sv = res["serve"]
+        if sv["buckets_captured"] != list(SERVE_BUCKETS):
+            raise AssertionError(f"[mesh] serve_multihost captured {sv['buckets_captured']}")
+        log(f"[mesh] serve_multihost (autotuned, buckets {SERVE_BUCKETS}, one graph each): {sv['requests']} "
+            f"requests in {sv['batches']} batches, {sv['seconds']:.3f} s, {sv['requests'] / sv['seconds']:.1f} img/s, "
+            f"latency p50 {sv['latency_p50_ms']:.3f} p99 {sv['latency_p99_ms']:.3f} ms, occupancy "
+            f"{sv['occupancy']:.3f}; every answer bit-equal to a batch-1 forward; card {card}")
+    off_hopper = _shards_in_turn(engines["pallas"], u8[:MESH_SHARD_BATCH])
+    log(f"[mesh] shards in turn: {len(off_hopper)} (degree, layer) pairs with a shard off the Hopper route: "
+        f"{json.dumps({f'{p} {n}': r for (p, n), r in off_hopper.items()})}")
+    log(f"[mesh] phase took {time.perf_counter() - t_phase:.1f} s")
+    return ranks[0]["engines"]["pallas"]["launches_per_forward"]
+
+
 def phase_cli(card):
     """``quantized_tpu_torch.cli.main.main`` in-process on the calibrated
     ResNet-50 (``resnet_quantized_float_bn``, depth 50, ImageNet geometry,
@@ -2584,6 +2826,7 @@ def main() -> int:
     counts, tuned = phase_autotune(card, timer)
     path_counts.update(counts)
     phase_serve_batcher(tuned, card)
+    mesh_launches = phase_mesh(tuned, card)
     del tuned
     torch.cuda.empty_cache()
     phase_cli(card)
@@ -2601,6 +2844,7 @@ def main() -> int:
             "event_ms": numbers["event_ms"], "path": path, "case": numbers["case"],
             "launches_autotuned": {key: path_counts[f"{key} autotuned"][kname] for key in AUTOTUNE_MODELS},
             "launches_rangebn": path_counts["resnet50 rangebn serve"][kname],
+            "launches_mesh": mesh_launches.get(kname, 0),
         })
         if "clip" in numbers:  # the CLIP instances beside the unclamped ones on the same inputs
             kernels[-1]["clip"] = numbers["clip"]

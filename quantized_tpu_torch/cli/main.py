@@ -21,8 +21,17 @@ Where the two differ:
   draws from torch generators seeded from ``--seed`` (through the model's
   init generator), so a run repeats; ``--prng`` (JAX's PRNG choice) is
   taken for parity and changes nothing.
-- ``--mesh-model-parallel`` and ``--tp-explicit`` wait for ROADMAP item
-  A10 and exit naming it.
+- ``--mesh-model-parallel M`` runs evaluation, conversion and ``--serve``
+  over a (data, model) mesh of model degree M on ``torch.distributed``:
+  launched one rank per GPU by ``torchrun`` (its environment joins the
+  ranks, NCCL) or as one process (a one-rank group; gloo with ``--type
+  cpu.float``). Evaluation forwards each rank's rows of a batch and gathers
+  the logits, so every rank reports the same metrics; ``--serve`` runs the
+  multi-host batcher on every rank (``--serve-pipeline 1``).
+  ``--tp-explicit`` (with ``--convert-int``) wires the explicit TP forms
+  into the engine's last stage and fc head, and without a mesh exits with
+  the JAX CLI's message. Training over a mesh exits naming ROADMAP item
+  A10b.
 - ``--serve`` replays one CUDA graph per batch bucket; ``--debug-nans``
   turns the graphs off (its int16-leg saturation count reads back to the
   host inside the forward) and raises on non-finite logits.
@@ -44,7 +53,7 @@ import os
 import sys
 from datetime import datetime
 
-MESH_SLICE = "distribution over a device mesh is not ported yet (ROADMAP item A10)"
+MESH_TRAINING = "training over a device mesh is not ported yet (ROADMAP item A10b)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -98,8 +107,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serving SLA: fail requests still queued after SECS with TimeoutError (0 = no deadline)")
     p.add_argument("--serve-pipeline", type=int, default=1, metavar="DEPTH",
                    help="batches kept in flight by the scheduler (1 = lowest latency)")
-    p.add_argument("--mesh-model-parallel", type=int, default=None, help="TP degree (not ported yet: A10)")
-    p.add_argument("--tp-explicit", action="store_true", help="explicit TP forms (not ported yet: A10)")
+    p.add_argument("--mesh-model-parallel", type=int, default=None,
+                   help="TP degree of a (data, model) mesh over the torch.distributed ranks")
+    p.add_argument("--tp-explicit", action="store_true",
+                   help="explicit TP forms: the last stage's all-gather convs and the reduce-scatter fc head")
     p.add_argument("--export-reference", default="", help="export weights to a reference-format .pth.tar and exit")
     p.add_argument("--compute-dtype", default="f32", choices=["f32", "bf16"],
                    help="training conv/GEMM operand dtype: bf16 runs them on the tensor cores' bf16 path "
@@ -132,10 +143,33 @@ def _device_of_type(type_str: str):
     return dev, dtype in ("bf16", "bfloat16")
 
 
-def _check_ported(args) -> None:
-    """Exit, naming the ROADMAP item, where the run needs what is not ported."""
-    if args.mesh_model_parallel or args.tp_explicit:
-        raise SystemExit(f"--mesh-model-parallel/--tp-explicit: {MESH_SLICE}")
+def _check_mesh_flags(args) -> None:
+    """Exit where the mesh flags ask for what does not run: explicit TP
+    without a mesh (the JAX CLI's message), training over a mesh."""
+    if args.tp_explicit and not args.mesh_model_parallel:
+        raise SystemExit("--tp-explicit requires --mesh-model-parallel")
+    if args.mesh_model_parallel and not (args.evaluate or args.serve or args.export_reference):
+        raise SystemExit(f"--mesh-model-parallel: {MESH_TRAINING}")
+
+
+def _make_mesh(args, device):
+    """The (data, model) mesh of ``--mesh-model-parallel`` over the ranks
+    torchrun started (or this one process); whether this call made the
+    process group."""
+    import torch.distributed as dist
+
+    from quantized_tpu_torch.parallel import create_mesh
+    from quantized_tpu_torch.parallel.distributed import initialize_multihost
+
+    made = not dist.is_initialized()
+    if made:
+        initialize_multihost(device=device)
+    try:
+        return create_mesh(model_parallel=args.mesh_model_parallel, device=device), made
+    except ValueError as e:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
+        raise SystemExit(f"--mesh-model-parallel {args.mesh_model_parallel}: {e}") from e
 
 
 def main(argv=None):
@@ -143,7 +177,7 @@ def main(argv=None):
     device_name, bf16_type = _device_of_type(args.type)
     if bf16_type:
         args.compute_dtype = "bf16"
-    _check_ported(args)
+    _check_mesh_flags(args)
 
     if args.deterministic:
         # cuBLAS needs a fixed workspace for deterministic results; set before CUDA starts
@@ -159,7 +193,6 @@ def main(argv=None):
     from quantized_tpu_torch._device import resolve_device
     from quantized_tpu_torch.data import get_dataset, get_transform
     from quantized_tpu_torch.models import get_model
-    from quantized_tpu_torch.training import Trainer
     from quantized_tpu_torch.utils import setup_logging
     from quantized_tpu_torch.utils.checkpoint import export_reference_checkpoint, load_checkpoint
     from quantized_tpu_torch.utils.hostbuild import host_build, put_model
@@ -214,7 +247,26 @@ def main(argv=None):
     if val_data.synthetic:
         logger.warning("dataset %s not found locally -> synthetic stand-in", args.dataset)
 
-    model = put_model(model, device)
+    mesh = made_group = None
+    if args.mesh_model_parallel:  # first: a rank's GPU becomes the current device ("cuda" below)
+        mesh, made_group = _make_mesh(args, device)
+        logger.info("mesh: %s over %s", dict(zip(mesh.mesh_dim_names, mesh.shape)), device)
+    try:
+        model = put_model(model, device)
+        return _run(args, model, device, mesh, regime, model_config, transform_name, val_data, save_path, logger)
+    finally:
+        if made_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, model, device, mesh, regime, model_config, transform_name, val_data, save_path, logger) -> int:
+    """Calibration, conversion, then serving, evaluation or training."""
+    import torch
+
+    from quantized_tpu_torch.training import Trainer
+
     if args.calibrate:
         model.train()
         with torch.no_grad():
@@ -227,15 +279,24 @@ def main(argv=None):
 
     if args.convert_int:
         model = _convert(args, model, device, logger)
+        if args.tp_explicit:
+            from quantized_tpu_torch.parallel.tp_engine import apply_explicit_tp
+
+            n = apply_explicit_tp(model, mesh)
+            logger.info("explicit TP wired: fc reduce-scatter head + %d last-stage all-gather convs", n)
 
     if args.serve:
         from quantized_tpu_torch.engine.server import serve
 
-        return serve(model, batch_sizes=(1, 8, 32, args.batch_size), max_steps=args.serve_steps,
+        return serve(model, mesh=mesh, batch_sizes=(1, 8, 32, args.batch_size), max_steps=args.serve_steps,
                      ingest="u8" if args.serve_u8 else "f32", pipeline_depth=args.serve_pipeline,
                      http_port=args.serve_http or None, request_timeout_s=args.serve_timeout or None,
                      device=device, graphs=not args.debug_nans, check_finite=args.debug_nans)
 
+    if mesh is not None:  # evaluation over the mesh: each rank forwards its rows, the logits gathered
+        from quantized_tpu_torch.engine.executor import MeshEngine
+
+        model = MeshEngine(model, mesh)
     trainer = Trainer(model, regime=regime, print_freq=args.print_freq,
                       compute_dtype=None if args.compute_dtype == "f32" else args.compute_dtype,
                       check_finite=args.debug_nans, device=device)

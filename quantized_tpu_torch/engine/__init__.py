@@ -4,7 +4,9 @@ strict engine), the int8-resident ResNet (float-BN and RangeBN flavors),
 MobileNet-v1 and AlexNet (int8 or int4 weights), the fused forms, the
 per-layer backend autotuner, the executor (one CUDA graph per input shape,
 pinned host slots) and the throughput hook. Serving (continuous batching
-and its HTTP front end) lives in ``engine.batching`` and ``engine.server``."""
+and its HTTP front end) lives in ``engine.batching`` and ``engine.server``;
+its multi-host form (each rank's admission queue over one SPMD forward of
+the mesh) in ``engine.multihost``."""
 
 from quantized_tpu_torch.engine.autotune import apply_cached_backends, autotune_resident
 from quantized_tpu_torch.engine.bench_hook import model_throughput, resnet50_int8_throughput
@@ -30,6 +32,7 @@ from quantized_tpu_torch.engine.int8_resident import (
     build_int8_resident,
 )
 from quantized_tpu_torch.engine.int_layers import Identity, IntConv2d, IntLinear
+from quantized_tpu_torch.engine.multihost import HostShardedExecutor, MultiHostBatcher, serve_multihost
 from quantized_tpu_torch.engine.strict import (
     StrictIntConv2d,
     StrictIntLinear,

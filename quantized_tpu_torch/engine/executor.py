@@ -29,8 +29,19 @@ that follows it). ``__call__`` returns the logits as a device tensor.
 A capture that fails raises; there is no fall back to the eager forward.
 On the CPU, and with ``graphs=False``, the forward runs eagerly: ``__call__``
 as a plain forward on the caller's stream, ``dispatch`` (on a GPU) through
-the pinned slots and the executor's stream. Sharding over a mesh waits for
-the distribution slice.
+the pinned slots and the executor's stream.
+
+With ``mesh=`` (a (data, model) ``DeviceMesh``, ``parallel.mesh``) the
+executor runs the model on every rank of the mesh (JAX's ``IntExecutor``
+over a mesh, :class:`MeshEngine`). PyTorch has no GSPMD, so the collectives
+are placed by ``parallel.tp_engine.shard_engine``: every groups-1 conv and
+every dense layer has its out channels sharded over ``model`` and gathered
+after it; the fused blocks and pairs and the depthwise convs stay whole on
+every rank. Each rank runs its rows of the batch, and the logits are
+gathered over ``data``, so every rank returns the whole batch, as JAX's
+global array holds it. Every rank must make the same calls in the same
+order. With CUDA graphs the NCCL collectives are captured in the graph: the
+eager warm-up forwards bring up the communicator first.
 """
 
 from __future__ import annotations
@@ -128,8 +139,52 @@ class _Bucket:
         return sum(t.numel() * t.element_size() for t in self.in_slots + self.out_slots if t is not None)
 
 
+class MeshEngine(nn.Module):
+    """A converted model over a (data, model) mesh, as every rank runs it.
+
+    The model's convs and dense layers are sharded over ``model``
+    (``parallel.tp_engine.shard_engine``). With ``local_rows=False`` the
+    input is the whole batch: this rank forwards its block of rows (the
+    batch padded with zero rows to a multiple of the data degree) and the
+    logits are gathered over ``data``. With ``local_rows=True`` (the
+    multi-host batcher's form) the input is this rank's own rows: the rows
+    of the ranks of its model group are gathered, forwarded together and
+    this rank's logits returned, so no collective crosses the data axis."""
+
+    def __init__(self, model: nn.Module, mesh, local_rows: bool = False):
+        super().__init__()
+        from quantized_tpu_torch.parallel.tp_engine import shard_engine
+
+        self.engine = model
+        self.mesh = mesh
+        self.local_rows = local_rows
+        self.sharded = shard_engine(model, mesh)  # (convs, dense layers)
+        self.input_size = getattr(model, "input_size", 224)
+
+    def _run(self, x: torch.Tensor, fn) -> torch.Tensor:
+        from quantized_tpu_torch.parallel.collectives import all_gather
+        from quantized_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
+
+        n = x.shape[0]
+        if self.local_rows:
+            rows = all_gather(x, self.mesh, MODEL_AXIS)
+            return fn(rows).chunk(axis_size(self.mesh, MODEL_AXIS))[axis_index(self.mesh, MODEL_AXIS)]
+        dp = axis_size(self.mesh, DATA_AXIS)
+        if n % dp:
+            x = torch.cat([x, x.new_zeros((dp - n % dp, *x.shape[1:]))])
+        y = fn(x.chunk(dp)[axis_index(self.mesh, DATA_AXIS)])
+        return all_gather(y, self.mesh, DATA_AXIS)[:n]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._run(x, self.engine)
+
+    def run_u8(self, u8: torch.Tensor) -> torch.Tensor:
+        return self._run(u8, self.engine.run_u8)
+
+
 class IntExecutor:
-    """Forward executor for a converted model on one device.
+    """Forward executor for a converted model on one device, or on this
+    rank's device of a mesh (``mesh=``, see the module docstring).
 
     ``ingest="u8"`` accepts raw uint8 NHWC images and runs the model's fused
     normalize+quantize path (:meth:`Int8ResNet.run_u8`); ``"f32"`` takes
@@ -139,7 +194,9 @@ class IntExecutor:
     one). ``check_finite`` raises ``FloatingPointError`` where a batch's
     logits hold a NaN or an infinity."""
 
-    def __init__(self, model: nn.Module, ingest: str = "f32", device: DeviceLike = "cuda",
+    LOCAL_ROWS = False  # with a mesh: the input is the whole batch (MeshEngine)
+
+    def __init__(self, model: nn.Module, mesh=None, ingest: str = "f32", device: DeviceLike = "cuda",
                  graphs: bool = True, slots: int = 2, check_finite: bool = False):
         if ingest not in ("f32", "u8"):
             raise ValueError(f"ingest must be 'f32' or 'u8', got {ingest!r}")
@@ -149,6 +206,14 @@ class IntExecutor:
         self.ingest = ingest
         self.dtype = torch.uint8 if ingest == "u8" else torch.float32
         self.np_dtype = np.dtype(np.uint8 if ingest == "u8" else np.float32)
+        self.mesh = mesh
+        if mesh is not None:
+            from quantized_tpu_torch.parallel.mesh import check_mesh, rank_device
+
+            if check_mesh(mesh).device_type != self.device.type:
+                raise ValueError(f"a mesh over {mesh.device_type} ranks cannot run on {self.device}")
+            self.device = rank_device(mesh.device_type)
+            model = MeshEngine(model.to(self.device), mesh, local_rows=self.LOCAL_ROWS)
         self.model = model.to(self.device).eval()
         self.cuda = self.device.type == "cuda"
         self.graphs = graphs and self.cuda

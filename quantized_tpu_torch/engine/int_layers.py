@@ -202,6 +202,16 @@ class IntConv2d(nn.Module):
         elif self.w_bf16 is None:
             self._bf16_operands()
 
+    def refresh_operands(self) -> None:
+        """Rebuild what the backend derives from the weights, epilogue and
+        clamp, after they were replaced (``parallel.sharding`` slices them
+        to a rank's out channels)."""
+        self.border_sums = self.pg_w_ck = self.pg_alpha = self.pg_beta = self.w_bf16 = self.bias_f = None
+        self._clip_cache, self._clip_src = {}, None
+        if self.int4_shape is not None:
+            self.int4_shape = (*self.int4_shape[:3], self.alpha.shape[0])
+        self.set_backend(self.backend)
+
     def _pallas_operands(self) -> None:
         """K2's Hopper route reads padded taps as zeros and adds back stored_zp
         times the weights' tap sums (ops.conv_border_sums), and runs a 1x1 over

@@ -3,8 +3,12 @@ endpoint (counterpart of ``quantized_tpu/engine/server.py``, one device).
 
 The batcher feeds an :class:`~quantized_tpu_torch.engine.executor.IntExecutor`
 that replays one CUDA graph per batch bucket (``graphs=False`` runs the
-forward eagerly). Serving over several hosts or a mesh waits for the
-distribution slice.
+forward eagerly). Over a mesh (``mesh=``, ``parallel.create_mesh``) every
+rank runs its own admission queue and batcher, and the ranks agree on each
+step: ``engine.multihost``'s batcher over the rank-sharded executor, with
+the weights sharded over the mesh's ``model`` axis and each rank's batches
+its rows of the ``data`` axis (``parallel.distributed`` joins the
+processes).
 
 The HTTP endpoint (standard library only) accepts POST /predict with a raw
 image body (its shape in the X-Shape header, ``X-Dtype: u8`` for uint8,
@@ -25,20 +29,17 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-MESH_SLICE = "serving over a device mesh is not ported yet: ROADMAP item A10"
-
 
 def make_executor(model, mesh=None, ingest: str = "f32", device="cuda", graphs: bool = True,
                   pipeline_depth: int = 1, check_finite: bool = False):
     """The executor of ``serve``: on ``device`` (the card unless the caller
-    asks for the CPU), one CUDA graph per bucket unless ``graphs=False``,
-    and ``pipeline_depth + 3`` pinned slots per bucket: the batches in
-    flight, the two queued for dispatch and the one being assembled."""
+    asks for the CPU; with a mesh, this rank's device of it), one CUDA
+    graph per bucket unless ``graphs=False``, and ``pipeline_depth + 3``
+    pinned slots per bucket: the batches in flight, the two queued for
+    dispatch and the one being assembled."""
     from quantized_tpu_torch.engine.executor import IntExecutor
 
-    if mesh is not None:
-        raise NotImplementedError(MESH_SLICE)
-    return IntExecutor(model, ingest=ingest, device=device, graphs=graphs, slots=pipeline_depth + 3,
+    return IntExecutor(model, mesh=mesh, ingest=ingest, device=device, graphs=graphs, slots=pipeline_depth + 3,
                        check_finite=check_finite)
 
 
@@ -64,18 +65,28 @@ def serve(
     input traffic). ``pipeline_depth>1`` keeps batches in flight with
     dispatch-time result copies; depth 1 minimizes latency for sparse
     traffic. ``device``, ``graphs`` and ``check_finite`` go to
-    :func:`make_executor`. Returns 0 on clean shutdown."""
+    :func:`make_executor`. With ``mesh`` every rank of it calls ``serve``
+    alike and serves its own traffic through ``engine.multihost``'s batcher
+    (pipeline depth 1). Returns 0 on clean shutdown."""
     from quantized_tpu_torch.engine.batching import ContinuousBatcher
 
     if input_shape is None:
         size = getattr(model, "input_size", 224)
         input_shape = (size, size, 3)
-    ex = make_executor(model, mesh, ingest=ingest, device=device, graphs=graphs, pipeline_depth=pipeline_depth,
-                       check_finite=check_finite)
     dtype = np.uint8 if ingest == "u8" else np.float32
-    batcher = ContinuousBatcher(ex, input_shape, batch_sizes, dtype=dtype,
-                                pipeline_depth=pipeline_depth,
-                                request_timeout_s=request_timeout_s).warmup().start()
+    if mesh is not None:
+        from quantized_tpu_torch.engine.multihost import serve_multihost
+
+        if pipeline_depth != 1:
+            raise ValueError("serving over a mesh runs the multi-host batcher, at pipeline depth 1")
+        batcher = serve_multihost(model, mesh, batch_sizes, input_shape, ingest=ingest, graphs=graphs,
+                                  request_timeout_s=request_timeout_s, check_finite=check_finite)
+    else:
+        ex = make_executor(model, ingest=ingest, device=device, graphs=graphs, pipeline_depth=pipeline_depth,
+                           check_finite=check_finite)
+        batcher = ContinuousBatcher(ex, input_shape, batch_sizes, dtype=dtype,
+                                    pipeline_depth=pipeline_depth,
+                                    request_timeout_s=request_timeout_s).warmup().start()
     logger.info("server up: buckets=%s input=%s", tuple(batch_sizes), input_shape)
 
     httpd = None

@@ -9,7 +9,7 @@ quantization and bi-precision where the layers ask for them) and one step
 of the regime's optimizer (``training.regime``); evaluation runs under
 ``torch.inference_mode()``. The model and each batch live on ``device``,
 the card unless the caller asks for the CPU; nothing falls back to the CPU.
-The data-parallel mesh is ROADMAP item A10 and raises.
+Training over a mesh is ROADMAP item A10b and raises.
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ from quantized_tpu_torch.utils.meters import AverageMeter, accuracy
 
 logger = logging.getLogger(__name__)
 
-MESH_SLICE = "distribution over a device mesh is not ported yet: ROADMAP item A10"
+MESH_SLICE = ("training over a device mesh is not ported yet: ROADMAP item A10b (its batch statistics must be "
+              "taken over the global batch)")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -23,9 +23,13 @@
   files (JAX's ``test_cli_deterministic_reruns_bitmatch``); a bf16 run
   (``--compute-dtype bf16`` or ``--type cpu.bf16``) trains; the float
   models train, evaluate or export without a refusal.
-- What is not ported exits with a message naming its ROADMAP item:
-  ``--mesh-model-parallel`` and ``--tp-explicit`` (A10); a TPU type is
-  refused.
+- The mesh flags: one process with ``--mesh-model-parallel 1
+  --tp-explicit`` (a one-rank gloo group, the explicit TP forms and the
+  mesh executor's collectives) evaluates to the same metrics, to the bit,
+  as the run without a mesh, and serves; ``--tp-explicit`` without a mesh
+  exits with the JAX CLI's message, a model degree that the world does not
+  divide exits naming it, and training over a mesh exits naming ROADMAP
+  item A10b; a TPU type is refused.
 """
 
 import ast
@@ -34,6 +38,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from quantized_tpu.cli.main import build_parser as j_build_parser
 from quantized_tpu.cli.main import main as j_main
@@ -48,6 +53,7 @@ from torch_threads import one_torch_thread  # noqa: F401  (fixture)
 
 LOGIT_ATOL = 0.25
 R20 = ["--model", "resnet_quantized_float_bn", "--dataset", "synthetic", "--model_config", "{'depth': 20}"]
+R8 = ["--model", "resnet_quantized_float_bn", "--dataset", "synthetic", "--model_config", "{'depth': 8}"]
 
 
 def _dests(parser):
@@ -133,16 +139,37 @@ def test_cli_serves_and_exports(tmp_path):
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["-e", "--mesh-model-parallel", "2"], "A10"),
-    (["-e", "--tp-explicit"], "A10"),
+    (["-e", "--mesh-model-parallel", "2"], "model groups of 2"),
+    (["-e", "--tp-explicit"], "--tp-explicit requires --mesh-model-parallel"),
+    (["--mesh-model-parallel", "1"], "A10b"),
     (["-e", "--type", "tpu.float"], "TPU"),
 ])
 def test_unported_paths_exit_with_their_item(tmp_path, extra, message):
     with pytest.raises(SystemExit, match=message):
         main(["--type", "cpu.float", *R20, "--results_dir", str(tmp_path), *extra])
+    assert not dist.is_initialized()
 
 
-R8 = ["--model", "resnet_quantized_float_bn", "--dataset", "synthetic", "--model_config", "{'depth': 8}"]
+def test_cli_mesh_evaluates_alike(tmp_path, capsys):
+    """``-e`` over a one-rank mesh with the explicit TP forms: the metrics of
+    the run without a mesh, bit for bit (the same logits), and the process
+    group made for the run is gone after it."""
+    common = ["--type", "cpu.float", *R8, "--results_dir", str(tmp_path), "-b", "64", "--calibrate", "1",
+              "--convert-int", "--resident", "-e"]
+    assert main(common + ["--save", "plain"]) == 0
+    want = _printed(capsys)
+    assert main(common + ["--save", "mesh", "--mesh-model-parallel", "1", "--tp-explicit"]) == 0
+    assert _printed(capsys) == want
+    assert not dist.is_initialized()
+
+
+def test_cli_serves_over_a_mesh(tmp_path):
+    common = ["--type", "cpu.float", *R8, "--results_dir", str(tmp_path), "-b", "8", "--calibrate", "1"]
+    assert main(common + ["--convert-int", "--resident", "--serve", "--serve-steps", "3",
+                          "--mesh-model-parallel", "1", "--tp-explicit"]) == 0
+    assert not dist.is_initialized()
+
+
 MNIST = ["--model", "mnist", "--dataset", "mnist", "-b", "32", "--epochs", "1"]
 
 

@@ -1625,3 +1625,80 @@ def test_trainer_step_on_the_gpu_matches_the_cpu(cuda_device):
     for k, v in cpu.state_dict().items():
         err = (gpu.state_dict()[k].cpu() - v).abs().max().item()
         assert err <= 5e-3 * max(v.abs().max().item(), step), (k, err)
+
+
+# ----------------------------------------------------------------- the mesh (one rank a GPU, NCCL)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_mesh_executor_with_graphs(cuda_device):
+    """``create_mesh`` with no process group brings up a one-rank NCCL group;
+    ``IntExecutor(mesh=)`` with one CUDA graph per shape (the collectives
+    captured in it) gives the single-device executor's logits, bit for
+    bit, at two shapes."""
+    import copy
+
+    import torch.distributed as dist
+
+    from quantized_tpu_torch.engine import IntExecutor
+    from quantized_tpu_torch.parallel import create_mesh
+    from quantized_tpu_torch.parallel.collectives import collective_counts, reset_collectives
+
+    engine = _cifar20_engine("pallas", cuda_device)
+    mesh = create_mesh(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and tuple(mesh.shape) == (1, 1)
+        single = IntExecutor(copy.deepcopy(engine), ingest="u8", device=cuda_device)
+        reset_collectives()
+        meshed = IntExecutor(copy.deepcopy(engine), mesh=mesh, ingest="u8", device=cuda_device)
+        gen = np.random.default_rng(5)
+        for batch in (1, 8):
+            u8 = torch.from_numpy(gen.integers(0, 256, (batch, 32, 32, 3), dtype=np.uint8)).to(cuda_device)
+            assert torch.equal(meshed(u8), single(u8))
+        assert set(meshed.graph_stats()) == {(1, 32, 32, 3), (8, 32, 32, 3)}
+        assert collective_counts()["all_gather"]["model"] > 0  # counted at the eager warm-ups and the captures
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_layer4_shards_in_turn_at_model_parallel_4(cuda_device):
+    """ResNet-50's layer4 convs (the explicit-TP stage) as the four ranks of
+    a model axis of 4 hold them, run in turn on the card on the inputs of
+    one forward: each shard launches its kernel, and the shards' outputs
+    concatenated along channels equal the whole conv's, bit for bit."""
+    from quantized_tpu_torch.engine import build_int8_resident
+    from quantized_tpu_torch.entry import _calibrated_model
+    from quantized_tpu_torch.parallel.tp_engine import shard_copies
+
+    model = _calibrated_model("resnet_quantized_float_bn", device="cpu", generator=torch.Generator().manual_seed(0),
+                              dataset="imagenet", depth=50)
+    engine = build_int8_resident(model, backend="pallas", device=cuda_device)
+    calls = []
+    for block in engine.layer4.children():
+        for name in ("conv1", "conv2", "conv3", "downsample"):
+            conv = getattr(block, name, None)
+            if conv is None:
+                continue
+            run = conv.run_q
+
+            def record(*args, _conv=conv, _run=run, **kwargs):
+                out = _run(*args, **kwargs)
+                calls.append((_conv, args, kwargs, out))
+                return out
+
+            conv.run_q = record
+    u8 = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (8, 224, 224, 3), dtype=np.uint8))
+    with torch.inference_mode():
+        engine.run_u8(u8.to(cuda_device))
+    assert len(calls) == 10
+    for conv, args, kwargs, whole in calls:
+        del conv.run_q
+        outs = []
+        for shard in shard_copies(conv, 4):
+            ops.reset_launches()
+            with torch.inference_mode():
+                outs.append(shard.run_q(*args, **kwargs))
+            assert sum(ops.launch_counts().values()) == 1
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(outs, dim=-1), whole)

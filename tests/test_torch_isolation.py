@@ -45,6 +45,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {"quantized_tpu_torch.training.regime", "quantized_tpu_torch.models.mnist",
             "quantized_tpu_torch.models.mobilenet", "quantized_tpu_torch.models.alexnet",
             "quantized_tpu_torch.probes.train_step"} <= set(result["names"]), result
+    # distribution: the mesh, the rules, the collectives, the runtime, explicit TP, multi-host serving
+    assert {"quantized_tpu_torch.parallel.mesh", "quantized_tpu_torch.parallel.sharding",
+            "quantized_tpu_torch.parallel.collectives", "quantized_tpu_torch.parallel.distributed",
+            "quantized_tpu_torch.parallel.tp_engine", "quantized_tpu_torch.engine.multihost"} <= set(result["names"]), result
 
 
 _SMOKE_PROBE = r"""

@@ -21,10 +21,17 @@ binds, and carried to the JAX model key for key. Bounds, and why:
 - ``convert_to_int``'s layers emit f32, which K2 and K1 compute as
   ``int8_conv_xla`` does: logits within float32 rounding on every integer
   backend.
+
+C5 (a fault of the JAX package that the port does not copy): JAX's
+explicit-TP conv never passes the clamp, so its ``apply_explicit_tp``
+engine equals its single-device engine with the last stage's clamps
+stripped. The port's explicit-TP engine, run by a 4-rank gloo group
+(``tests/torch_dist.py``), equals its single-device engine.
 """
 
 import copy
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +43,8 @@ from quantized_tpu.engine import fused as jfused
 from quantized_tpu.engine import int8_resident as jres
 from quantized_tpu.engine.int_layers import IntConv2d as JIntConv2d
 from quantized_tpu.ops.int8_conv import int8_conv_xla as j_int8_conv_xla
+from quantized_tpu.parallel import create_mesh as j_create_mesh
+from quantized_tpu.parallel.tp_engine import apply_explicit_tp as j_apply_explicit_tp
 from quantized_tpu_torch import ops
 from quantized_tpu_torch.engine import convert_to_int, fuse_resident_blocks
 from quantized_tpu_torch.engine import int8_resident as tres
@@ -43,6 +52,7 @@ from quantized_tpu_torch.engine.int_layers import IntConv2d
 from quantized_tpu_torch.models import get_model
 from quantized_tpu_torch.models.layers import RangeBN
 from quantized_tpu_torch.ops.int8_matmul import requant_clip_bounds
+from torch_dist import Ranks
 from torch_jax_twins import jax_model, load_flat_state
 
 LOGIT_ATOL = 0.25
@@ -396,3 +406,45 @@ def test_jax_fused_blocks_drop_the_clamp(calibrated):
     assert np.abs(unfused_strip - unfused).max() > 0
     err_fused, err_unfused = np.abs(fused - ref).max(), np.abs(unfused - ref).max()
     assert err_fused > 4 * err_unfused, (err_fused, err_unfused)
+
+
+def test_port_explicit_tp_keeps_the_clamp(calibrated, tmp_path):
+    """C5, the port's side: ``apply_explicit_tp`` at (1, 4) over four gloo
+    ranks slices each clamp with its shard's channels, so the explicit-TP
+    RangeBN engine equals the single-device engine on "xla" and "pallas"."""
+    tq, _, x, _, _ = calibrated
+    spec = ("resnet_quantized", {"dataset": "cifar10", "depth": 20}, _port_state(tq))
+    ranks = Ranks(4, {"cases": [("c5", "explicit_tp", dict(tp=4, model=spec, x=x, backends=("xla", "pallas")))]},
+                  tmp_path)
+    results, codes, outs = ranks.results()
+    assert codes == [0] * 4 and all("error" not in r for r in results), (codes, results, outs)
+    for res in results:
+        for backend in ("xla", "pallas"):
+            c = res["c5"][backend]
+            assert c["wrapped"] == 7
+            np.testing.assert_array_equal(c["tp"], c["single"])
+
+
+def test_jax_explicit_tp_drops_the_clamp(calibrated):
+    """C5, the JAX side: JAX's explicit-TP engine (its last stage's 7 convs
+    over a 4-way model axis) equals its single-device engine with layer3's
+    clamps stripped, and lands more than 0.05 from its own single-device
+    engine (0.081 on these inputs; logits reach about 0.6)."""
+    _, jax_twin, x, _, _ = calibrated
+
+    def forward(eng):
+        graphdef, state = nnx.split(eng)
+        return np.asarray(jax.jit(lambda s, v: nnx.merge(graphdef, s)(v))(state, jnp.asarray(x)))
+
+    eng = jres.build_int8_resident(jax_twin(), backend="xla")
+    single = forward(eng)
+    tp = copy.deepcopy(eng)
+    assert j_apply_explicit_tp(tp, j_create_mesh(num_devices=8, model_parallel=4)) == 7
+    got = forward(tp)
+    for k in range(eng.layer3.num_blocks):
+        blk = getattr(eng.layer3, str(k))
+        for name in ("conv1", "conv2", "downsample"):
+            if getattr(blk, name, None) is not None:
+                getattr(blk, name).y_clip = None
+    np.testing.assert_allclose(got, forward(eng), atol=1e-6, rtol=0)
+    assert np.abs(got - single).max() > 0.05, np.abs(got - single).max()

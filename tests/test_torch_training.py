@@ -28,7 +28,7 @@
   mode (the straight-through backward is live everywhere).
 - The regime switch (JAX's ``test_trainer_regime_epoch_switch_changes_lr``),
   with the optimizer state kept across an lr change and rebuilt across a
-  class change; ``mesh=`` raises naming A10.
+  class change; ``mesh=`` raises naming A10b.
 """
 
 import numpy as np
@@ -146,5 +146,5 @@ def test_regime_switch_changes_lr_and_keeps_the_state():
 
 def test_mesh_raises_naming_a10():
     model = get_model("resnet")(dataset="cifar10", depth=8)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
         Trainer(model, mesh=object(), device="cpu")
