@@ -242,8 +242,8 @@ and a non-zero exit:
    parameter moved and finite, the observers' and RangeBN's statistics
    moved, every grad-quant stream advanced by 6, the loss lower over a
    second pass; ResNet-50 train steps at batch 128 through
-   ``probes/train_step`` (float-BN f32 and bf16, the flagship full,
-   ``nobiprec`` and ``nogradq``): device ms, ms between events with the
+   ``probes/train_step`` (float-BN f32, bf16 and bf16 rematerialized, the
+   flagship full, ``nobiprec`` and ``nogradq``): device ms, ms between events with the
    host's launches, img/s, peak memory, and the profiler's kernel ms, idle
    share and launches a step, and the library's convs and products against
    the elementwise passes and reductions; one SGD step of CIFAR ResNet-20
@@ -258,7 +258,23 @@ and a non-zero exit:
    mnist --dataset mnist -b 32 --epochs 1`` in three processes at once,
    plain and twice ``--deterministic --seed 7``: each exits 0 with its
    ``results.csv`` and checkpoint, the two deterministic files equal;
-13. the card's nvidia-smi line, then the kernels line: one JSON object with
+13. mesh train: ``probes/mesh_train`` on every GPU (torchrun's variables,
+   NCCL; world size 1 on one card): ImageNet ResNet-50 at batch 128, the
+   flagship ``resnet_quantized`` and ``resnet_quantized_float_bn``, two
+   SGD steps of ``Trainer(mesh=create_mesh(model_parallel=1))`` against
+   ``Trainer(model)`` from the same weights, beside a second
+   ``Trainer(model)`` (the control), first under the deterministic
+   algorithms, where at world size 1 the mesh step must be bit-equal to
+   the single-device step (a bigger world is held to ``TRAIN_PARITY_TOL``
+   of the float-BN model), then afresh under the default algorithms,
+   where the mesh's and the control's distances from the single run are
+   printed side by side (the tensors that are not equal counted and the
+   first named), no kernel of the port launched
+   in training (the counts set to 0 before and read after, in the rank),
+   the collectives a step by op and axis, ms a step mesh against single in
+   turns, peak memory; then ``entry.dryrun_multichip`` on every rank at
+   224; the phase's seconds;
+14. the card's nvidia-smi line, then the kernels line: one JSON object with
    each kernel's numbers; ``launches`` is the count on the path that runs
    the kernel (``path``: a serving path's 3 forwards, or an op path),
    ``launches_autotuned`` its count in one tuned forward of each model,
@@ -266,7 +282,7 @@ and a non-zero exit:
    ``launches_mesh`` in one forward of the "pallas" engine over the mesh
    on rank 0, and ``clip`` (K1, K2) its CLIP instances' numbers beside the
    unclamped instance's;
-14. last line: ``{"ok": true, "device": {...}}``.
+15. last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -371,7 +387,12 @@ PREDICTIONS = ("autotune phase, batch 128, as the first run of this tree measure
                "it; the card's step within TRAIN_PARITY_TOL of the CPU's; the phase 140-190 s; "
                "mesh phase (one rank, batch 128): mesh / single forward 1.10-1.20 on 'pallas' (54 all-gathers, "
                "each now one copy of a conv's output), under 1.03 autotuned; every shard at degrees 2 and 4 on "
-               "the Hopper route; served p50 20-45 ms; the phase 10-30 s")
+               "the Hopper route; served p50 20-45 ms; the phase 10-30 s; "
+               "train phase: bf16-remat peak memory 0.35-0.6x of bf16's, its step 1.25-1.45x; "
+               "mesh train phase (one rank, ResNet-50 at 128): both models' mesh steps bit-equal to the single-device "
+               "steps, mesh / single 1.02-1.10 (flagship, 587 collectives a step) and 1.01-1.05 (float-BN, 163); "
+               "the phase 60-120 s; under the default algorithms the flagship's mesh and control both off the "
+               "single run by 0.3-1.0 of the update's norm, the float-BN model's both bit-equal or both off")
 # the path whose launch counts the kernels line reports (default: resnet50 unfused)
 KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "resnet50 fused",
                "fused_bottleneck_ds": "resnet50 fused", "fused_basicblock_s1": "resnet18 fused",
@@ -2536,6 +2557,7 @@ TRAIN_REGIME = {0: {"optimizer": "SGD", "lr": 0.01, "momentum": 0.9}}
 TRAIN_VARIANTS = {
     "float-BN f32": ("resnet_quantized_float_bn", "f32", "full"),
     "float-BN bf16": ("resnet_quantized_float_bn", "bf16", "full"),
+    "float-BN bf16-remat": ("resnet_quantized_float_bn", "bf16-remat", "full"),
     "flagship": ("resnet_quantized", "f32", "full"),
     "flagship nobiprec": ("resnet_quantized", "f32", "nobiprec"),
     "flagship nogradq": ("resnet_quantized", "f32", "nogradq"),
@@ -2667,10 +2689,12 @@ def _train_variants(card, timer):
         del model, x, y, step
         torch.cuda.empty_cache()
     full, nobi, nogq = (numbers[k][1] for k in ("flagship", "flagship nobiprec", "flagship nogradq"))
-    f32, bf16 = numbers["float-BN f32"][1], numbers["float-BN bf16"][1]
+    f32, bf16, remat = (numbers[k][1] for k in ("float-BN f32", "float-BN bf16", "float-BN bf16-remat"))
+    peak, peak_remat = numbers["float-BN bf16"][2], numbers["float-BN bf16-remat"][2]
     log(f"[train] between events: bi-precision's second product {full - nobi:.2f} ms of the flagship's {full:.2f} "
         f"({(full - nobi) / full:.3f}); gradient quantization {nobi - nogq:.2f} ms ({(nobi - nogq) / full:.3f}); "
-        f"bf16 / f32 float-BN {bf16 / f32:.3f}; card {card}")
+        f"bf16 / f32 float-BN {bf16 / f32:.3f}; bf16-remat / bf16 {remat / bf16:.3f} in time, peak memory "
+        f"{peak_remat:.0f} / {peak:.0f} MiB ({peak_remat / peak:.3f}); card {card}")
     return kept
 
 
@@ -2790,6 +2814,89 @@ def phase_train(card, timer):
     return counts
 
 
+# the "mesh train" phase: Trainer(mesh=) on every GPU against the single-device trainer
+MESH_TRAIN_MODELS = ("resnet_quantized", "resnet_quantized_float_bn")  # ImageNet ResNet-50
+MESH_TRAIN_BATCH = 128
+MESH_TRAIN_STEPS = 2
+MESH_TRAIN_ITERS = 3  # timed steps a turn
+MESH_TRAIN_TIMEOUT_S = 900
+# a world of one rank must compute the single-device step bit for bit under the deterministic algorithms (the
+# probe asserts it); a bigger one sums in another order, as tests/test_torch_mesh_training.py bounds it, and is
+# held to the float-BN model's card-against-CPU tolerance, the flagship too
+MESH_TRAIN_TOL = {name: TRAIN_PARITY_TOL["resnet_quantized_float_bn"] for name in MESH_TRAIN_MODELS}
+
+
+def phase_mesh_train(card):
+    """``probes/mesh_train`` on every GPU (torchrun's variables, NCCL): see
+    the module docstring, phase 13."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    world = torch.cuda.device_count()
+    job = {"device": "cuda", "model_parallel": 1, "models": MESH_TRAIN_MODELS, "depth": 50, "dataset": "imagenet",
+           "batch": MESH_TRAIN_BATCH, "steps": MESH_TRAIN_STEPS, "regime": TRAIN_REGIME, "tol": MESH_TRAIN_TOL,
+           "iters": MESH_TRAIN_ITERS, "dryrun": True, "dryrun_side": 224}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save(job, Path(tmp) / "job.pt")
+        env = {**os.environ, "MASTER_ADDR": "localhost", "MASTER_PORT": str(_free_port()),
+               "WORLD_SIZE": str(world), "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}  # cuBLAS's deterministic workspace
+        procs = [subprocess.Popen([sys.executable, "-m", "quantized_tpu_torch.probes.mesh_train", tmp], cwd=ROOT,
+                                  env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in range(world)]
+        try:
+            outs = [p.communicate(timeout=MESH_TRAIN_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        results = []
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            path = Path(tmp) / f"rank{r}.json"
+            res = json.loads(path.read_text()) if path.exists() else {"error": "no record"}
+            if "error" in res or "models" not in res:
+                raise AssertionError(f"[mesh train] rank {r} exited {p.returncode}: {res.get('error')}\n{out[-4000:]}")
+            res["returncode"] = p.returncode
+            results.append(res)
+    failed = []
+    for res in results:
+        if res["backend"] != "nccl":
+            raise AssertionError(f"[mesh train] rank {res['rank']} ran {res['backend']}, not NCCL")
+        for name, m in res["models"].items():
+            def against(mode, label):
+                r = m["modes"][mode]
+                if r["bit_equal"][label]:
+                    return f"bit-equal (all {r['tensors']} tensors and the losses)"
+                return (f"{r['unequal'][label]} of {r['tensors']} tensors not bit-equal (first "
+                        f"{r['first_unequal'][label]}), loss {r['loss_err'][label]:.3g}, update "
+                        f"{r['update'][label]:.3g}, worst {r['worst'][label][1]} {r['worst'][label][0]:.3g}")
+
+            det = m["modes"]["deterministic"]
+            single = [ms for label, ms in m["turns"] if label == "single"]
+            mesh = [ms for label, ms in m["turns"] if label == "mesh"]
+            advanced = all(r["streams_advanced"] for r in m["modes"].values())
+            log(f"[mesh train] rank {res['rank']}/{res['world']} mesh {json.dumps(res['mesh'])}: {name} ResNet-50 "
+                f"ImageNet at {m['side']}, batch {MESH_TRAIN_BATCH}, {MESH_TRAIN_STEPS} SGD steps, Trainer(mesh=) "
+                f"against Trainer(model) from the same weights, with a second Trainer(model) as the control; under "
+                f"the deterministic algorithms: losses {det['losses']['mesh']} / {det['losses']['single']}, mesh "
+                f"{against('deterministic', 'mesh')} (required at world size 1, else the tolerance "
+                f"{MESH_TRAIN_TOL[name]}), control {against('deterministic', 'control')}; under the default "
+                f"algorithms: mesh {against('default', 'mesh')}, control {against('default', 'control')}; "
+                f"grad-quant streams equal{' and advanced' if advanced else ''}; collectives a step "
+                f"{json.dumps(m['collectives_per_step'])}; ms a step between events (default algorithms), turns "
+                f"single/mesh/mesh/single: {', '.join(f'{v:.2f}' for v in single[:1] + mesh + single[1:])}, "
+                f"mesh / single {sum(mesh) / sum(single):.3f}; peak memory single {m['peak_mib']['single']:.0f} MiB, "
+                f"mesh {m['peak_mib']['mesh']:.0f} MiB; launched {m['launched'] or 'no hand-written kernel'}; "
+                f"card {card}")
+            if not m["ok"]:
+                failed.append(f"rank {res['rank']} {name}: {m['why']}")
+        log(f"[mesh train] rank {res['rank']}: {res['dryrun']} ({res['dryrun_seconds']:.1f} s); training "
+            f"{res['train_seconds']:.1f} s")
+    log(f"[mesh train] phase took {time.perf_counter() - t_phase:.1f} s")
+    if failed or any(res["returncode"] for res in results):
+        raise AssertionError(f"[mesh train] {failed or [res['returncode'] for res in results]}")
+
+
 def main() -> int:
     require_environment()
     from quantized_tpu_torch import ops
@@ -2831,6 +2938,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_cli(card)
     path_counts.update(phase_train(card, timer))
+    phase_mesh_train(card)
 
     kernels = []
     for kname, (source, replaces) in KERNEL_INFO.items():

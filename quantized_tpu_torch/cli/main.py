@@ -21,17 +21,21 @@ Where the two differ:
   draws from torch generators seeded from ``--seed`` (through the model's
   init generator), so a run repeats; ``--prng`` (JAX's PRNG choice) is
   taken for parity and changes nothing.
-- ``--mesh-model-parallel M`` runs evaluation, conversion and ``--serve``
-  over a (data, model) mesh of model degree M on ``torch.distributed``:
-  launched one rank per GPU by ``torchrun`` (its environment joins the
-  ranks, NCCL) or as one process (a one-rank group; gloo with ``--type
-  cpu.float``). Evaluation forwards each rank's rows of a batch and gathers
-  the logits, so every rank reports the same metrics; ``--serve`` runs the
-  multi-host batcher on every rank (``--serve-pipeline 1``).
-  ``--tp-explicit`` (with ``--convert-int``) wires the explicit TP forms
-  into the engine's last stage and fc head, and without a mesh exits with
-  the JAX CLI's message. Training over a mesh exits naming ROADMAP item
-  A10b.
+- ``--mesh-model-parallel M`` runs training, evaluation, conversion and
+  ``--serve`` over a (data, model) mesh of model degree M on
+  ``torch.distributed``: launched one rank per GPU by ``torchrun`` (its
+  environment joins the ranks, NCCL) or as one process (a one-rank group;
+  gloo with ``--type cpu.float``). Training runs the epoch loop through
+  ``Trainer(mesh=)`` (every statistic over the global batch); rank 0 writes
+  ``results.csv`` and the checkpoints, which hold the gathered state, as a
+  one-device run writes it, and every rank logs (ranks past 0 to
+  ``log_rank<r>.txt``) under rank 0's ``--save`` directory. Evaluation
+  forwards each rank's rows of a batch and gathers the logits, so every
+  rank reports the same metrics; ``--serve`` runs the multi-host batcher
+  on every rank (``--serve-pipeline 1``). ``--tp-explicit`` (with
+  ``--convert-int``) wires the explicit TP forms into the engine's last
+  stage and fc head, and without a mesh exits with the JAX CLI's
+  message.
 - ``--serve`` replays one CUDA graph per batch bucket; ``--debug-nans``
   turns the graphs off (its int16-leg saturation count reads back to the
   host inside the forward) and raises on non-finite logits.
@@ -52,8 +56,6 @@ import logging
 import os
 import sys
 from datetime import datetime
-
-MESH_TRAINING = "training over a device mesh is not ported yet (ROADMAP item A10b)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -145,11 +147,9 @@ def _device_of_type(type_str: str):
 
 def _check_mesh_flags(args) -> None:
     """Exit where the mesh flags ask for what does not run: explicit TP
-    without a mesh (the JAX CLI's message), training over a mesh."""
+    without a mesh (the JAX CLI's message)."""
     if args.tp_explicit and not args.mesh_model_parallel:
         raise SystemExit("--tp-explicit requires --mesh-model-parallel")
-    if args.mesh_model_parallel and not (args.evaluate or args.serve or args.export_reference):
-        raise SystemExit(f"--mesh-model-parallel: {MESH_TRAINING}")
 
 
 def _make_mesh(args, device):
@@ -191,17 +191,38 @@ def main(argv=None):
         args.workers = 0
 
     from quantized_tpu_torch._device import resolve_device
+
+    device = resolve_device(device_name)
+    mesh = made_group = None
+    if args.mesh_model_parallel:  # first: a rank's GPU becomes the current device ("cuda" below)
+        mesh, made_group = _make_mesh(args, device)
+    try:
+        return _main(args, device, mesh)
+    finally:
+        if made_group:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(args, device, mesh) -> int:
+    """Logging, the model, the data, then :func:`_run`."""
+    import torch
+    import torch.distributed as dist
+
     from quantized_tpu_torch.data import get_dataset, get_transform
     from quantized_tpu_torch.models import get_model
     from quantized_tpu_torch.utils import setup_logging
     from quantized_tpu_torch.utils.checkpoint import export_reference_checkpoint, load_checkpoint
     from quantized_tpu_torch.utils.hostbuild import host_build, put_model
 
-    device = resolve_device(device_name)
-    save_name = args.save or datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
-    save_path = os.path.join(args.results_dir, save_name)
+    save_name = [args.save or datetime.now().strftime("%Y-%m-%d_%H-%M-%S")]
+    rank = dist.get_rank() if mesh is not None else 0
+    if mesh is not None:  # every rank under rank 0's directory
+        dist.broadcast_object_list(save_name, src=0)
+    save_path = os.path.join(args.results_dir, save_name[0])
     os.makedirs(save_path, exist_ok=True)
-    setup_logging(os.path.join(save_path, "log.txt"))
+    setup_logging(os.path.join(save_path, "log.txt" if rank == 0 else f"log_rank{rank}.txt"))
     logger = logging.getLogger("main")
     logger.info("args: %s", vars(args))
     logger.info("device: %s%s", device, f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
@@ -235,8 +256,9 @@ def main(argv=None):
             logger.info("resumed %s at epoch %d", args.resume, args.start_epoch)
 
     if args.export_reference:
-        export_reference_checkpoint(model, args.export_reference, {"model": args.model, "config": model_config})
-        logger.info("exported reference checkpoint to %s", args.export_reference)
+        if rank == 0:  # one file for the group
+            export_reference_checkpoint(model, args.export_reference, {"model": args.model, "config": model_config})
+            logger.info("exported reference checkpoint to %s", args.export_reference)
         return 0
 
     transform_name = getattr(model, "input_transform", args.dataset)
@@ -247,18 +269,10 @@ def main(argv=None):
     if val_data.synthetic:
         logger.warning("dataset %s not found locally -> synthetic stand-in", args.dataset)
 
-    mesh = made_group = None
-    if args.mesh_model_parallel:  # first: a rank's GPU becomes the current device ("cuda" below)
-        mesh, made_group = _make_mesh(args, device)
+    if mesh is not None:
         logger.info("mesh: %s over %s", dict(zip(mesh.mesh_dim_names, mesh.shape)), device)
-    try:
-        model = put_model(model, device)
-        return _run(args, model, device, mesh, regime, model_config, transform_name, val_data, save_path, logger)
-    finally:
-        if made_group:
-            import torch.distributed as dist
-
-            dist.destroy_process_group()
+    model = put_model(model, device)
+    return _run(args, model, device, mesh, regime, model_config, transform_name, val_data, save_path, logger)
 
 
 def _run(args, model, device, mesh, regime, model_config, transform_name, val_data, save_path, logger) -> int:
@@ -293,11 +307,11 @@ def _run(args, model, device, mesh, regime, model_config, transform_name, val_da
                      http_port=args.serve_http or None, request_timeout_s=args.serve_timeout or None,
                      device=device, graphs=not args.debug_nans, check_finite=args.debug_nans)
 
-    if mesh is not None:  # evaluation over the mesh: each rank forwards its rows, the logits gathered
+    if mesh is not None and args.evaluate:  # evaluation over the mesh: each rank forwards its rows, the logits gathered
         from quantized_tpu_torch.engine.executor import MeshEngine
 
         model = MeshEngine(model, mesh)
-    trainer = Trainer(model, regime=regime, print_freq=args.print_freq,
+    trainer = Trainer(model, regime=regime, mesh=None if args.evaluate else mesh, print_freq=args.print_freq,
                       compute_dtype=None if args.compute_dtype == "f32" else args.compute_dtype,
                       check_finite=args.debug_nans, device=device)
     if not args.evaluate:
@@ -318,9 +332,13 @@ def _run(args, model, device, mesh, regime, model_config, transform_name, val_da
 def _train(args, trainer, model, model_config, regime, transform_name, val_data, save_path, logger) -> int:
     """The reference's epoch loop: train, validate, checkpoint (``model_best``
     when the validation top-1 improves) and a ``results.csv`` row per
-    epoch."""
+    epoch; over a mesh every rank trains and rank 0 writes."""
+    import torch.distributed as dist
+
     from quantized_tpu_torch.data import get_dataset, get_transform
     from quantized_tpu_torch.utils import ResultsLog, save_checkpoint, wait_for_checkpoints
+
+    writes = trainer.mesh is None or dist.get_rank() == 0
 
     train_tf = get_transform(transform_name, args.input_size, augment=True)
     train_data = get_dataset(args.dataset, "train", train_tf)
@@ -334,11 +352,15 @@ def _train(args, trainer, model, model_config, regime, transform_name, val_data,
         v = trainer.validate(val_data.batches(args.batch_size), epoch)
         is_best = v["top1"] > best_prec1
         best_prec1 = max(best_prec1, v["top1"])
+        state = trainer.full_state()  # over a mesh a collective: every rank gathers
+        if not writes:
+            continue
         save_checkpoint(model, save_path,
                         meta={"epoch": epoch + 1, "model": args.model, "config": model_config,
                               "best_prec1": best_prec1,
                               "regime": {str(k): v2 for k, v2 in (regime or {}).items()}},
-                        is_best=is_best, save_all=args.save_all, async_save=not args.sync_checkpoints)
+                        is_best=is_best, save_all=args.save_all, async_save=not args.sync_checkpoints,
+                        state=state)
         results.add(epoch=epoch, train_loss=t["loss"], val_loss=v["loss"], train_top1=t["top1"],
                     val_top1=v["top1"], train_top5=t["top5"], val_top5=v["top5"])
         results.save()

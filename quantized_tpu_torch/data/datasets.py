@@ -49,10 +49,26 @@ class ArrayDataset:
         return len(self.images)
 
     def __getitem__(self, i: int) -> Tuple[np.ndarray, int]:
-        img = self.images[i]
+        img = self._image(i)
         if self.transform is not None:
             img = self.transform(img)
         return img, int(self.labels[i])
+
+    def _image(self, i: int) -> np.ndarray:
+        """Sample ``i``'s stored uint8 image."""
+        return self.images[i]
+
+    def _sample(self, i: int, seed: int) -> np.ndarray:
+        """Sample ``i`` through the transform; a random augmentation draws
+        from a generator seeded by (``seed``, ``i``), so every process that
+        batches the same epoch draws alike (the native pipeline seeds its
+        draws by the epoch's seed too)."""
+        img = self._image(i)
+        if self.transform is None:
+            return img
+        if getattr(self.transform, "augment", False):
+            return self.transform(img, np.random.default_rng((seed, int(i))))
+        return self.transform(img)
 
     def batches(
         self,
@@ -69,7 +85,9 @@ class ArrayDataset:
         (native/dataload.cpp — the framework's counterpart of the reference's
         native DataLoader workers). ``None`` auto-enables it
         when the library builds and the transform is supported; the numpy
-        ``Transform`` path remains the PIL-parity route."""
+        ``Transform`` path remains the PIL-parity route. Either way a random
+        augmentation is a function of ``seed`` and the sample, so processes
+        that batch alike (the ranks of a mesh) get the same batches."""
         idx = np.arange(len(self))
         if shuffle:
             (rng or np.random.default_rng(seed)).shuffle(idx)
@@ -82,7 +100,7 @@ class ArrayDataset:
             if pipe is not None:
                 imgs = pipe(np.ascontiguousarray(self.images[sel]))
             else:
-                imgs = np.stack([self[i][0] for i in sel])
+                imgs = np.stack([self._sample(i, seed) for i in sel])
             labels = self.labels[sel].astype(np.int32)
             yield imgs, labels
 
@@ -206,13 +224,10 @@ def _load_imagefolder(root: str, name: str, split: str, transform) -> Optional[A
 
 @dataclasses.dataclass
 class _LazyImageFolder(ArrayDataset):
-    def __getitem__(self, i):
+    def _image(self, i):
         from PIL import Image
 
-        img = np.asarray(Image.open(self.images[i]).convert("RGB"))
-        if self.transform is not None:
-            img = self.transform(img)
-        return img, int(self.labels[i])
+        return np.asarray(Image.open(self.images[i]).convert("RGB"))
 
 
 def _load_stl10(root: str, split: str, transform) -> Optional[ArrayDataset]:

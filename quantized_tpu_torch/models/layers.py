@@ -27,6 +27,17 @@ init generator's state and advanced once per training forward; neither the
 seed nor the count is a buffer, so the state dict keeps JAX's keys. The
 conv and dense layers run their product in ``compute_dtype`` when it is set
 (``training.qat.set_compute_dtype``), the result cast back to f32.
+
+Training over a mesh (``training.qat.Trainer(mesh=)``): each layer holds a
+``parallel.sharding.MeshPlace`` in ``mesh_place`` (None off the mesh, where
+every layer runs its one-device code). On the mesh a layer computes what
+one device computes on the global batch, restricted to this rank's rows
+and, where its out channels are sliced, to its channels: a conv or dense
+layer quantizes its weight block on the range of the whole weight and its
+bias as a whole vector; an observer, BN and RangeBN take their statistics
+over the global batch; the quantized cotangents take their range over both
+axes and their noise from the global draw; the channels are gathered where
+``MeshPlace.gather`` says.
 """
 
 from __future__ import annotations
@@ -114,14 +125,36 @@ def _grad_paths(layer: nn.Module, op, x: torch.Tensor, w: torch.Tensor, b: Optio
     the bi-precision recombination; the gradient paths only while training
     with autograd on."""
     training = layer.training and torch.is_grad_enabled()
+    place = layer.mesh_place
     if not layer.biprecision or layer.num_bits_grad is None:
         out = op(x, w, b)
         if layer.num_bits_grad is not None and training:
-            out = quantize_grad(out, layer.grad_quant_rng(out.device), num_bits=layer.num_bits_grad)
+            out = quantize_grad(out, layer.grad_quant_rng(out.device), num_bits=layer.num_bits_grad, place=place)
         return out
     if training:
-        return biprec(op, x, w, b, layer.grad_quant_rng(x.device), layer.num_bits_grad)
+        return biprec(op, x, w, b, layer.grad_quant_rng(x.device), layer.num_bits_grad, place=place)
     return op(x, w, b)
+
+
+def _local_input(layer: nn.Module, x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """The input and the group count of this rank's conv or dense product.
+    Off a mesh, or where the layer's out channels are whole, ``x`` itself.
+    Where they are sliced over ``model``, ``x`` with its gradient summed
+    over ``model`` (each rank's product sends back its channels' share), and
+    for a grouped conv only the input channels of its groups."""
+    place, groups = layer.mesh_place, getattr(layer, "groups", 1)
+    if place is None or not place.sharded:
+        return x, groups
+    x = place.shared_input(x)
+    if groups == 1:
+        return x, 1
+    return place.block(x), groups // place.model_size
+
+
+def _gathered(layer: nn.Module, y: torch.Tensor) -> torch.Tensor:
+    """``y`` with the channels of every model rank where the layer gathers them."""
+    place = layer.mesh_place
+    return place.gather_channels(y) if place is not None and place.gather else y
 
 
 class Dropout(nn.Dropout):
@@ -132,12 +165,17 @@ class Dropout(nn.Dropout):
     def __init__(self, p: float = 0.5, *, generator: torch.Generator):
         super().__init__(p)
         self.rng = RandomStream(_seed_of(generator, "dropout"))
+        self.mesh_place = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
         keep = 1.0 - self.p
-        mask = torch.rand(x.shape, generator=self.rng(x.device), device=x.device) < keep
+        gen = self.rng(x.device)
+        if self.mesh_place is None:
+            mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        else:  # this rank's rows of the global batch's mask
+            mask = self.mesh_place.uniform(x.shape, gen, x.device, channels_sharded=False) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -161,11 +199,13 @@ class Conv2d(nn.Module):
             he_fan_out_(torch.empty(kh, kw, in_channels // groups, out_channels), generator))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if use_bias else None
         self.compute_dtype: Optional[torch.dtype] = None
+        self.mesh_place = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, groups = _local_input(self, x)
         y = _cast_op(self, lambda xx, ww: conv2d_nhwc(xx, ww, self.stride, self.padding, self.dilation,
-                                                      self.groups), x, self.kernel)
-        return y if self.bias is None else y + self.bias
+                                                      groups), x, self.kernel)
+        return _gathered(self, y if self.bias is None else y + self.bias)
 
 
 class Linear(nn.Module):
@@ -180,10 +220,11 @@ class Linear(nn.Module):
         self.weight = nn.Parameter(_uniform((out_features, in_features), bound, generator))
         self.bias = nn.Parameter(_uniform((out_features,), bound, generator)) if use_bias else None
         self.compute_dtype: Optional[torch.dtype] = None
+        self.mesh_place = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = _cast_op(self, lambda xx, ww: xx @ ww.T, x, self.weight)
-        return y if self.bias is None else y + self.bias
+        y = _cast_op(self, lambda xx, ww: xx @ ww.T, _local_input(self, x)[0], self.weight)
+        return _gathered(self, y if self.bias is None else y + self.bias)
 
 
 class QuantMeasure(nn.Module):
@@ -195,11 +236,15 @@ class QuantMeasure(nn.Module):
         self.momentum = momentum
         self.register_buffer("running_min", torch.zeros(1))
         self.register_buffer("running_max", torch.zeros(1))
+        self.mesh_place = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, channels_sharded: bool = False) -> torch.Tensor:
+        """``channels_sharded``: on a mesh, ``x`` holds this rank's block of
+        the channels (a RangeBN's input after a sliced conv)."""
         state = observers.QuantMeasureState(self.running_min, self.running_max)
         y, new = observers.quant_measure(x, state, training=self.training, num_bits=self.num_bits,
-                                         momentum=self.momentum)
+                                         momentum=self.momentum, place=self.mesh_place,
+                                         channels_sharded=channels_sharded)
         if self.training:
             self.running_min.copy_(new.running_min)
             self.running_max.copy_(new.running_max)
@@ -223,24 +268,42 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
+        self.mesh_place = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        place = self.mesh_place
         if self.training:
             dims = tuple(range(x.ndim - 1))
-            mean = x.mean(dims)
-            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            mean, msq = x.mean(dims), (x * x).mean(dims)
+            if place is not None:  # over the global batch: the shards' means averaged, the gradient summed back
+                mean, msq = place.data_mean(torch.stack([mean, msq]))
+            var = torch.clamp_min(msq - mean * mean, 0.0)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
                 self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
         else:
             mean, var = self.mean, self.var
         # flax's association: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        return (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias
+        return _gathered(self, (x - mean) * (torch.rsqrt(var + self.epsilon) * self.scale) + self.bias)
 
 
-def _quant_weight(w: torch.Tensor, num_bits: int) -> torch.Tensor:
-    """Per-tensor weight fake-quant on the range recomputed every forward."""
-    return fake_quant(w, num_bits=num_bits, min_value=w.min(), max_value=w.max())
+def _quant_weight(w: torch.Tensor, num_bits: int, place=None) -> torch.Tensor:
+    """Per-tensor weight fake-quant on the range recomputed every forward
+    (on a mesh, the range of the whole weight where ``w`` is a block)."""
+    lo, hi = w.min(), w.max()
+    if place is not None and place.sharded:
+        lo, hi = place.model_min_max(lo, hi)
+    return fake_quant(w, num_bits=num_bits, min_value=lo, max_value=hi)
+
+
+def _quant_bias(b: Optional[torch.Tensor], num_bits: int, place=None) -> Optional[torch.Tensor]:
+    """The bias at ``num_bits`` on its global range (on a mesh, a sliced
+    bias gathered, quantized whole and sliced again)."""
+    if b is None:
+        return None
+    if place is None or not place.sharded:
+        return fake_quant(b, num_bits=num_bits)
+    return place.block(fake_quant(place.gather_channels(b), num_bits=num_bits))
 
 
 class QConv2d(nn.Module):
@@ -272,18 +335,19 @@ class QConv2d(nn.Module):
         self.quantize_input = QuantMeasure(num_bits)
         self.grad_quant_rng = RandomStream(_seed_of(generator, "qconv"))
         self.compute_dtype: Optional[torch.dtype] = None
+        self.mesh_place = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qinput = self.quantize_input(x)
-        qweight = _quant_weight(self.kernel, self.num_bits_weight)
-        qbias = None if self.bias is None else fake_quant(self.bias, num_bits=self.num_bits_weight)
+        qinput, groups = _local_input(self, self.quantize_input(x))
+        qweight = _quant_weight(self.kernel, self.num_bits_weight, self.mesh_place)
+        qbias = _quant_bias(self.bias, self.num_bits_weight, self.mesh_place)
 
         def conv_op(xx, ww, bb):
             y = _cast_op(self, lambda a, k: conv2d_nhwc(a, k, self.stride, self.padding, self.dilation,
-                                                        self.groups), xx, ww)
+                                                        groups), xx, ww)
             return y if bb is None else y + bb
 
-        return _grad_paths(self, conv_op, qinput, qweight, qbias)
+        return _gathered(self, _grad_paths(self, conv_op, qinput, qweight, qbias))
 
 
 class QLinear(nn.Module):
@@ -305,17 +369,18 @@ class QLinear(nn.Module):
         self.quantize_input = QuantMeasure(num_bits)
         self.grad_quant_rng = RandomStream(_seed_of(generator, "qlinear"))
         self.compute_dtype: Optional[torch.dtype] = None
+        self.mesh_place = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        qinput = self.quantize_input(x)
-        qweight = _quant_weight(self.weight, self.num_bits_weight)
-        qbias = None if self.bias is None else fake_quant(self.bias, num_bits=self.num_bits_weight)
+        qinput = _local_input(self, self.quantize_input(x))[0]
+        qweight = _quant_weight(self.weight, self.num_bits_weight, self.mesh_place)
+        qbias = _quant_bias(self.bias, self.num_bits_weight, self.mesh_place)
 
         def linear_op(xx, ww, bb):
             y = _cast_op(self, lambda a, k: a @ k.T, xx, ww)
             return y if bb is None else y + bb
 
-        return _grad_paths(self, linear_op, qinput, qweight, qbias)
+        return _gathered(self, _grad_paths(self, linear_op, qinput, qweight, qbias))
 
 
 class RangeBN(nn.Module):
@@ -350,20 +415,23 @@ class RangeBN(nn.Module):
             self.weight = self.bias = None
         self.quantize_input = QuantMeasure(num_bits)
         self.grad_quant_rng = RandomStream(_seed_of(generator, "rangebn"))
+        self.mesh_place = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.quantize_input(x)
+        place = self.mesh_place
+        x = self.quantize_input(x, channels_sharded=place is not None and place.sharded)
         squeeze_2d = x.ndim == 2
         if squeeze_2d:
             x = x[:, None, None, :]
         if self.training:
-            mean, scale = rangebn.range_bn_stats(x, self.num_chunks)
+            mean, scale = rangebn.range_bn_stats(x, self.num_chunks, place=place)
             with torch.no_grad():
                 self.running_mean.copy_(observers.ema_update(self.running_mean, mean.detach(), self.momentum))
                 self.running_var.copy_(observers.ema_update(self.running_var, scale.detach(), self.momentum))
         else:
             mean, scale = self.running_mean, self.running_var
-        out = rangebn.range_bn_apply(x, mean, scale, self.weight, self.bias, eps=self.eps, num_bits=self.num_bits)
+        out = rangebn.range_bn_apply(x, mean, scale, self.weight, self.bias, eps=self.eps, num_bits=self.num_bits,
+                                     place=place)
         if self.num_bits_grad is not None and self.training and torch.is_grad_enabled():
-            out = quantize_grad(out, self.grad_quant_rng(out.device), num_bits=self.num_bits_grad)
-        return out[:, 0, 0, :] if squeeze_2d else out
+            out = quantize_grad(out, self.grad_quant_rng(out.device), num_bits=self.num_bits_grad, place=place)
+        return _gathered(self, out[:, 0, 0, :] if squeeze_2d else out)

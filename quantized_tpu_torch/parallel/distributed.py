@@ -68,9 +68,16 @@ def heartbeat_barrier(timeout_s: float = 60.0, tag: str = "heartbeat") -> None:
         done.set()
 
 
-def local_batch_slice(global_batch: int) -> slice:
-    """This rank's slice of a globally ordered batch."""
-    count = dist.get_world_size() if dist.is_initialized() else 1
-    index = dist.get_rank() if dist.is_initialized() else 0
+def local_batch_slice(global_batch: int, mesh=None) -> slice:
+    """This rank's slice of a globally ordered batch: by its world rank, or
+    over a (data, model) ``mesh`` by its data index, so that the model
+    ranks of one data group take the same rows."""
+    if mesh is not None:
+        from quantized_tpu_torch.parallel.mesh import DATA_AXIS, axis_index, axis_size
+
+        count, index = axis_size(mesh, DATA_AXIS), axis_index(mesh, DATA_AXIS)
+    else:
+        count = dist.get_world_size() if dist.is_initialized() else 1
+        index = dist.get_rank() if dist.is_initialized() else 0
     per = global_batch // count
     return slice(index * per, (index + 1) * per)

@@ -9,8 +9,11 @@ Usage: ``python -m quantized_tpu_torch.probes.train_step [B] [model]
 
 - dtype ``f32`` (the reference's arithmetic) or ``bf16`` (every conv and
   dense product in bf16, ``training.qat.set_compute_dtype``); TF32 is off
-  either way. The JAX probe's ``-remat`` suffix (a rematerialized
-  forward) is not ported.
+  either way. The suffix ``-remat`` (``f32-remat``, ``bf16-remat``)
+  rematerializes the forward: each residual block runs under
+  ``torch.utils.checkpoint`` (:func:`rematerialize`), its activations
+  recomputed in the backward rather than kept, which trades the block's
+  forward a second time for the memory its activations held.
 - variant, for the gradient-quantizing flagship ``resnet_quantized``:
   ``full`` (the module defaults: 8-bit gradients and bi-precision),
   ``nobiprec`` (gradient quantization kept, bi-precision off: the second
@@ -25,6 +28,8 @@ img/s of each and the peak memory. It needs a CUDA GPU.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import subprocess
 import sys
 from typing import Callable, Tuple
@@ -32,14 +37,71 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from quantized_tpu_torch.models import get_model
 from quantized_tpu_torch.models import layers as L
+from quantized_tpu_torch.models.resnet_common import BasicBlock, Bottleneck
 from quantized_tpu_torch.training.qat import cross_entropy, set_compute_dtype
 
 LR = 0.01
 VARIANTS = ("full", "nobiprec", "nogradq")
 DTYPES = {"f32": None, "bf16": torch.bfloat16}
+REMAT = "-remat"
+
+
+class _Replay:
+    """Makes the recomputation of a checkpointed block leave no trace: the
+    block's random streams go back to their counts at the original forward
+    for the replay (it draws that forward's noise and masks, so what it
+    recomputes is what the forward saved) and forward again after it, and
+    the buffers the replay updates (observers, BN and RangeBN statistics)
+    get back their values."""
+
+    def __init__(self, block: nn.Module):
+        self.block = block
+        self.streams = [v for m in block.modules() for v in vars(m).values() if isinstance(v, L.RandomStream)]
+        self.counts = []
+
+    def contexts(self):
+        return self._forward(), self._replay()
+
+    @contextlib.contextmanager
+    def _forward(self):
+        self.counts = [st.count for st in self.streams]
+        yield
+
+    @contextlib.contextmanager
+    def _replay(self):
+        after = [st.count for st in self.streams]
+        kept = [(b, b.detach().clone()) for b in self.block.buffers()]
+        for st, c in zip(self.streams, self.counts):
+            st.count = c
+        try:
+            yield
+        finally:
+            for st, c in zip(self.streams, after):
+                st.count = c
+            with torch.no_grad():
+                for b, v in kept:
+                    b.copy_(v)
+
+
+def _checkpointed(forward, replay: _Replay, x: torch.Tensor) -> torch.Tensor:
+    return checkpoint(forward, x, use_reentrant=False, context_fn=replay.contexts)
+
+
+def rematerialize(model: nn.Module) -> int:
+    """Run each residual block of ``model`` under ``torch.utils.checkpoint``
+    (its ``forward`` replaced on the instance; the state's keys stay), the
+    recomputation leaving the streams and buffers as the plain step leaves
+    them (:class:`_Replay`). Returns the blocks wrapped."""
+    blocks = [m for m in model.modules() if isinstance(m, (BasicBlock, Bottleneck))]
+    if not blocks:
+        raise ValueError(f"{type(model).__name__} has no residual block to rematerialize")
+    for block in blocks:
+        block.forward = functools.partial(_checkpointed, block.forward, _Replay(block))
+    return len(blocks)
 
 
 def apply_variant(model: nn.Module, variant: str) -> nn.Module:
@@ -58,12 +120,17 @@ def apply_variant(model: nn.Module, variant: str) -> nn.Module:
 
 def build(batch: int, model_name: str, depth: int, dtype: str, dataset: str, variant: str,
           device="cuda") -> Tuple[nn.Module, torch.Tensor, torch.Tensor]:
-    """The model (seed 0, in train mode, on ``device``) and its seeded batch."""
-    if dtype not in DTYPES:
-        raise ValueError(f"dtype {dtype!r}: expected one of {sorted(DTYPES)} (the -remat suffix is not ported)")
+    """The model (seed 0, in train mode, on ``device``) and its seeded
+    batch; ``dtype`` with the ``-remat`` suffix rematerializes the blocks."""
+    remat = dtype.endswith(REMAT)
+    base = dtype[: -len(REMAT)] if remat else dtype
+    if base not in DTYPES:
+        raise ValueError(f"dtype {dtype!r}: expected one of {sorted(DTYPES)}, with {REMAT!r} or without")
     cfg = {"dataset": dataset, "depth": depth} if "resnet" in model_name else {}
     model = apply_variant(get_model(model_name)(generator=torch.Generator().manual_seed(0), **cfg), variant)
-    set_compute_dtype(model, DTYPES[dtype])
+    set_compute_dtype(model, DTYPES[base])
+    if remat:
+        rematerialize(model)
     model.to(device).train()
     size = getattr(model, "input_size", 224)
     chans = 1 if dataset == "mnist" else 3

@@ -62,11 +62,13 @@ def fake_quant_array(
     enforce_true_zero: bool = False,
     generator: Optional[torch.Generator] = None,
     out_half: bool = False,
+    noise: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Quantize-dequantize ``x`` on the affine grid (no gradient semantics:
     ``ste.fake_quant`` is the straight-through wrapper). ``stochastic``
     rounding draws its noise from ``generator``, which must live on ``x``'s
-    device."""
+    device, or takes ``noise``, a U[0, 1) draw of ``x``'s shape made for it
+    (a block of the global draw on a mesh)."""
     x = torch.as_tensor(x)
     compute = x.to(_F32)
     if min_value is None or max_value is None:
@@ -88,9 +90,11 @@ def fake_quant_array(
         out = (compute - min_value) / scale + qmin
 
     if stochastic:
-        if generator is None:
+        if noise is None and generator is None:
             raise ValueError("stochastic rounding requires a torch.Generator")
-        out = out + (torch.rand(out.shape, generator=generator, dtype=out.dtype, device=out.device) - 0.5)
+        if noise is None:
+            noise = torch.rand(out.shape, generator=generator, dtype=out.dtype, device=out.device)
+        out = out + (noise - 0.5)
 
     out = torch.round(torch.clamp(out, qmin, qmax))
 

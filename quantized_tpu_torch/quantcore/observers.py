@@ -7,7 +7,11 @@
 - observer-update (training) mode quantizes with the current batch
   statistic; eval mode uses the frozen running buffers;
 - the quantize call passes ``num_chunks=16`` (dead on the explicit min/max
-  path, kept for parity).
+  path, kept for parity);
+- on a mesh (``place``, a ``parallel.sharding.MeshPlace``) the statistic is
+  the global batch's: a sample's min and max over the model ranks where
+  its channels are split, every sample's gathered over the data ranks and
+  their mean taken as one device takes it.
 """
 
 from __future__ import annotations
@@ -33,9 +37,16 @@ class QuantMeasureState(NamedTuple):
         return cls(torch.zeros(1, device=device), torch.zeros(1, device=device))
 
 
-def batch_min_max_stat(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def batch_min_max_stat(x: torch.Tensor, place=None, channels_sharded: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean over the batch of the per-sample min and max. On a mesh the
+    batch is the global one: ``x`` is this rank's rows (and, with
+    ``channels_sharded``, its block of the channels)."""
     y = x.reshape(x.shape[0], -1)
-    return y.amin(dim=-1).mean(), y.amax(dim=-1).mean()
+    lo, hi = y.amin(dim=-1), y.amax(dim=-1)
+    if place is None:
+        return lo.mean(), hi.mean()
+    return place.sample_means(lo, hi, channels_sharded)
 
 
 def ema_update(running: torch.Tensor, new: torch.Tensor, momentum: float = DEFAULT_MOMENTUM) -> torch.Tensor:
@@ -50,10 +61,12 @@ def quant_measure(
     num_bits: int = 8,
     momentum: float = DEFAULT_MOMENTUM,
     fake_quant_fn=fake_quant,
+    place=None,
+    channels_sharded: bool = False,
 ) -> Tuple[torch.Tensor, QuantMeasureState]:
     """Observe + fake-quantize. Returns (quantized x, new state)."""
     if training:
-        min_value, max_value = batch_min_max_stat(x.detach())
+        min_value, max_value = batch_min_max_stat(x.detach(), place, channels_sharded)
         new_state = QuantMeasureState(
             running_min=ema_update(state.running_min, min_value, momentum),
             running_max=ema_update(state.running_max, max_value, momentum),

@@ -19,6 +19,14 @@ extrema.
 
 The running buffers (``models.layers.RangeBN``) keep the *scale* in
 ``running_var``, as the reference checkpoints do.
+
+On a mesh (``place``, a ``parallel.sharding.MeshPlace``) ``x`` is this
+rank's rows and its block of the channels. The statistics are the global
+batch's: the chunks are cut from the global (B, H, W) rows, so a chunk may
+straddle two data ranks (``MeshPlace.chunk_extrema``), and the
+channel mean is the data ranks' means averaged with the gradient summed
+back. The scale, gamma and beta vectors are gathered to full width,
+quantized as one device quantizes them and sliced again.
 """
 
 from __future__ import annotations
@@ -38,26 +46,44 @@ def range_bn_scale_fix(n: int) -> float:
     return (0.5 * 0.35) * (1 + (math.pi * math.log(4)) ** 0.5) / ((2 * math.log(n)) ** 0.5)
 
 
-def range_bn_stats(x_nhwc: torch.Tensor, num_chunks: int = RANGE_BN_NUM_CHUNKS
+def range_bn_stats(x_nhwc: torch.Tensor, num_chunks: int = RANGE_BN_NUM_CHUNKS, place=None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel (mean, range scale) of an NHWC batch."""
+    """Per-channel (mean, range scale) of an NHWC batch (on a mesh, of the
+    global batch: module docstring)."""
     b, h, w, c = x_nhwc.shape
     y = x_nhwc.permute(3, 0, 1, 2).reshape(c, -1)
-    chunk = (b * h * w) // num_chunks
-    yc = y[:, : chunk * num_chunks].reshape(c, num_chunks, chunk)
-    mean_max = yc.amax(dim=-1).mean(dim=-1)
-    mean_min = yc.amin(dim=-1).mean(dim=-1)
-    return y.mean(dim=-1), (mean_max - mean_min) * range_bn_scale_fix(chunk)
+    if place is None:
+        chunk = (b * h * w) // num_chunks
+        yc = y[:, : chunk * num_chunks].reshape(c, num_chunks, chunk)
+        mean_max = yc.amax(dim=-1).mean(dim=-1)
+        mean_min = yc.amin(dim=-1).mean(dim=-1)
+        return y.mean(dim=-1), (mean_max - mean_min) * range_bn_scale_fix(chunk)
+    chunk = (b * h * w * place.data_size) // num_chunks
+    chunk_max, chunk_min = place.chunk_extrema(y, chunk, num_chunks)
+    scale = (chunk_max.mean(dim=-1) - chunk_min.mean(dim=-1)) * range_bn_scale_fix(chunk)
+    return place.data_mean(y.mean(dim=-1)), scale
+
+
+def _whole(v: torch.Tensor, quantize, place) -> torch.Tensor:
+    """``quantize(v)`` of a per-channel vector; on a mesh where ``v`` is a
+    block, of the gathered vector, sliced again."""
+    if place is None or not place.sharded:
+        return quantize(v)
+    return place.block(quantize(place.gather_channels(v)))
+
+
+def _on_own_range(num_bits: int):
+    return lambda v: fake_quant(v, num_bits=num_bits, min_value=v.min(), max_value=v.max())
 
 
 def range_bn_apply(x_nhwc: torch.Tensor, mean: torch.Tensor, scale: torch.Tensor,
                    gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor], eps: float = 1e-5,
-                   num_bits: int = 8) -> torch.Tensor:
+                   num_bits: int = 8, place=None) -> torch.Tensor:
     """Normalize with the quantized scale, gamma and beta vectors."""
-    qscale = fake_quant(scale, num_bits=num_bits, min_value=scale.min(), max_value=scale.max())
+    qscale = _whole(scale, _on_own_range(num_bits), place)
     out = (x_nhwc - mean) / (qscale + eps)
     if gamma is not None:
-        out = out * fake_quant(gamma, num_bits=num_bits, min_value=gamma.min(), max_value=gamma.max())
+        out = out * _whole(gamma, _on_own_range(num_bits), place)
     if beta is not None:
-        out = out + fake_quant(beta, num_bits=num_bits)
+        out = out + _whole(beta, lambda v: fake_quant(v, num_bits=num_bits), place)
     return out

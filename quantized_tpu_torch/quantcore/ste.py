@@ -19,6 +19,11 @@
 Random draws come from an explicit ``torch.Generator`` on the tensor's
 device (a layer makes one per training forward, ``layers.RandomStream``);
 stochastic results agree with JAX's in distribution, not bit for bit.
+
+On a mesh (``place``, a ``parallel.sharding.MeshPlace``) the cotangent is
+this rank's block of the global one: its range is reduced over both axes,
+and its noise is this rank's block of the draw one device makes for the
+whole tensor, so the quantized block equals the one-device values there.
 """
 
 from __future__ import annotations
@@ -64,25 +69,31 @@ def fake_quant(
 
 class _QuantizeGrad(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, generator, num_bits, stochastic):
-        ctx.generator, ctx.num_bits, ctx.stochastic = generator, num_bits, stochastic
+    def forward(ctx, x, generator, num_bits, stochastic, place):
+        ctx.generator, ctx.num_bits, ctx.stochastic, ctx.place = generator, num_bits, stochastic, place
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        gq = fake_quant_array(g, num_bits=ctx.num_bits, min_value=g.min(), max_value=g.max(),
-                              stochastic=ctx.stochastic, generator=ctx.generator)
-        return gq, None, None, None
+        lo, hi, noise, place = g.min(), g.max(), None, ctx.place
+        if place is not None:
+            lo, hi = place.global_min_max(lo, hi)
+            if ctx.stochastic:
+                noise = place.uniform(g.shape, ctx.generator, g.device, channels_sharded=place.sharded)
+        gq = fake_quant_array(g, num_bits=ctx.num_bits, min_value=lo, max_value=hi,
+                              stochastic=ctx.stochastic, generator=ctx.generator, noise=noise)
+        return gq, None, None, None, None
 
 
 def quantize_grad(x: torch.Tensor, generator: Optional[torch.Generator], num_bits: int = 8,
-                  stochastic: bool = True) -> torch.Tensor:
+                  stochastic: bool = True, place=None) -> torch.Tensor:
     """Identity forward; the backward quantizes the incoming cotangent on its
     own min and max, stochastically from ``generator`` unless
-    ``stochastic=False``."""
+    ``stochastic=False`` (on a mesh, as one device would: module
+    docstring)."""
     if stochastic and generator is None:
         raise ValueError("stochastic gradient rounding requires a torch.Generator")
-    return _QuantizeGrad.apply(x, generator, num_bits, stochastic)
+    return _QuantizeGrad.apply(x, generator, num_bits, stochastic, place)
 
 
 def biprec(
@@ -92,13 +103,14 @@ def biprec(
     b: Optional[torch.Tensor],
     generator: Optional[torch.Generator],
     num_bits_grad: int = 8,
+    place=None,
 ) -> torch.Tensor:
     """Bi-precision recombination (the reference's ``conv2d_biprec`` /
     ``linear_biprec``): ``out1`` carries the weight and bias gradients at
     full precision, ``out2`` the input gradient through ``quantize_grad``."""
     out1 = op(x.detach(), w, b)
     out2 = op(x, w.detach(), None if b is None else b.detach())
-    out2 = quantize_grad(out2, generator, num_bits=num_bits_grad)
+    out2 = quantize_grad(out2, generator, num_bits=num_bits_grad, place=place)
     return out1 + out2 - out2.detach()
 
 

@@ -28,8 +28,8 @@ import torch
 from torch import nn
 
 
-def _host_state(model: nn.Module) -> Dict[str, torch.Tensor]:
-    return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+def _host_state(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().to("cpu", copy=True) for k, v in state.items()}
 
 
 class _PendingSaves:
@@ -71,14 +71,17 @@ def save_checkpoint(
     filename: str = "checkpoint",
     save_all: bool = False,
     async_save: bool = False,
+    state: Optional[Dict[str, torch.Tensor]] = None,
 ) -> str:
     """Save the model's state and ``meta`` under ``path/filename``; copy them
     to ``model_best`` when ``is_best`` and to ``checkpoint_epoch_<epoch>``
     with ``save_all``. Returns the state file's path. With ``async_save``
-    the state is copied to the host here and written on a thread."""
+    the state is copied to the host here and written on a thread. ``state``
+    is saved in place of the model's own (a mesh trainer's gathered
+    ``Trainer.full_state()``, the state one device would hold)."""
     os.makedirs(path, exist_ok=True)
     target = os.path.join(path, filename)
-    state = _host_state(model)
+    state = _host_state(model.state_dict() if state is None else state)
     wait_for_checkpoints()
     with open(target + ".meta.json", "w") as f:
         json.dump({k: _jsonable(v) for k, v in (meta or {}).items()}, f)

@@ -27,8 +27,11 @@ from quantized_tpu_torch.parallel import create_mesh
 from quantized_tpu_torch.parallel import collectives as C
 from quantized_tpu_torch.parallel.distributed import heartbeat_barrier, local_batch_slice
 from quantized_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_index, axis_size
-from quantized_tpu_torch.parallel.sharding import shard_tensor
+from quantized_tpu_torch.parallel.sharding import MeshPlace, shard_tensor
 from quantized_tpu_torch.parallel.tp_engine import ExplicitTPConv, apply_explicit_tp, tp_int8_conv
+from quantized_tpu_torch.quantcore import quantize_grad
+from quantized_tpu_torch.training import Trainer
+from quantized_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 BUILDERS = {"resnet": build_int8_resident, "mobilenet": build_int8_mobilenet, "alexnet": build_int8_alexnet}
 
@@ -211,8 +214,129 @@ def case_kill(job):
     return {"shapes": shapes, "failures": failures, "window_s": window, "refused": refused}
 
 
+_MESHES = {}
+
+
+def _train_mesh(tp):
+    """One mesh a model degree, made once (every rank makes its groups in the same order)."""
+    if tp not in _MESHES:
+        _MESHES[tp] = create_mesh(model_parallel=tp, device="cpu")
+    return _MESHES[tp]
+
+
+def _trained(mesh, spec, regime, compute_dtype=None):
+    """A mesh trainer of the model ``spec`` (name, config, state in numpy
+    or None), drawn from seed 0 (which seeds its grad-quant streams), the
+    state loaded."""
+    name, cfg, state = spec
+    model = get_model(name)(generator=torch.Generator().manual_seed(0), **cfg)
+    if state is not None:
+        model.load_state_dict({k: _t(v) for k, v in state.items()})
+    return Trainer(model, regime=regime, mesh=mesh, print_freq=10**6, compute_dtype=compute_dtype, device="cpu")
+
+
+def _streams(model):
+    return [m.grad_quant_rng.count for m in model.modules() if hasattr(m, "grad_quant_rng")]
+
+
+def _numpy_state(state):
+    return {k: v.numpy().copy() for k, v in state.items()} if dist.get_rank() == 0 else None
+
+
+def case_train(job):
+    """``Trainer(mesh=)`` at model degree ``tp`` from the job's weights, one
+    step a batch: the global loss, the gathered state after each step (rank
+    0), the stream counts, one step's collectives, this rank's block
+    shapes; rank 0 saves the trained state where ``save`` names a
+    directory."""
+    tr = _trained(_train_mesh(job["tp"]), job["model"], job["regime"])
+    losses, states, counts = [], [], None
+    for x, y in job["batches"]:
+        C.reset_collectives()
+        losses.append(tr.train_epoch([(x, y)], 0)["loss"])
+        counts = C.collective_counts()
+        states.append(_numpy_state(tr.full_state()))
+    if job.get("save"):
+        state = tr.full_state()
+        if dist.get_rank() == 0:
+            save_checkpoint(tr.model, job["save"], meta={"epoch": 1}, state=state)
+        dist.barrier()
+    return {"losses": losses, "states": states, "streams": _streams(tr.model), "counts": counts,
+            "blocks": {k: tuple(v.shape) for k, v in tr.model.state_dict().items()},
+            "coords": _mesh_coords(tr.mesh)}
+
+
+def case_resume(job):
+    """A fresh model loaded from the saved checkpoint, trained one step at
+    model degree ``tp``: the gathered state after it (rank 0)."""
+    name, cfg, _ = job["model"]
+    model = get_model(name)(generator=torch.Generator().manual_seed(0), **cfg)
+    load_checkpoint(model, job["load"])
+    tr = Trainer(model, regime=job["regime"], mesh=_train_mesh(job["tp"]), print_freq=10**6, device="cpu")
+    loss = tr.train_epoch(job["batches"], 0)["loss"]
+    return {"loss": loss, "state": _numpy_state(tr.full_state())}
+
+
+def case_epochs(job):
+    """JAX's ``test_trainer_on_mesh_dp_tp`` and its bf16 twin: two epochs
+    over the job's batches at model degree ``tp``, the losses and the
+    parameters' dtypes after them."""
+    tr = _trained(_train_mesh(job["tp"]), job["model"], job["regime"], job.get("compute_dtype"))
+    m0 = tr.train_epoch(job["batches"], 0)
+    m1 = tr.train_epoch(job["batches"], 1)
+    return {"losses": (m0["loss"], m1["loss"]), "dtypes": sorted({str(p.dtype) for p in tr.model.parameters()}),
+            "switched": sum(1 for m in tr.model.modules() if getattr(m, "compute_dtype", None) is not None)}
+
+
+def case_extrema(job):
+    """``collectives.chunk_extrema`` over ``data`` at the job's split of a
+    (C, N) tensor into rows, with its gradient for the job's cotangents:
+    this rank's values and gradient block."""
+    mesh = _train_mesh(job["tp"])
+    dp, d, _, _ = _mesh_coords(mesh)
+    y = _t(job["y"])
+    n = y.shape[1] // dp
+    mine = y[:, d * n:(d + 1) * n].clone().requires_grad_(True)
+    chunk = y.shape[1] // job["num_chunks"]
+    gmax, gmin = C.chunk_extrema(mine, mesh, DATA_AXIS, d * n, chunk, job["num_chunks"])
+    # every rank holds its share of one loss over the global values: a quarter of it at data degree 4
+    (((gmax * _t(job["g_max"])).sum() + (gmin * _t(job["g_min"])).sum()) / dp).backward()
+    return {"max": gmax.detach().numpy(), "min": gmin.detach().numpy(), "grad": mine.grad.numpy(), "rows": (d, n)}
+
+
+def case_grad_block(job):
+    """``quantize_grad``'s stochastic backward on this rank's block of the
+    job's global cotangent (its rows over ``data``; with ``sharded`` also
+    its channels over ``model``), from a generator seeded by the job, as a
+    layer on the mesh runs it: this rank's quantized blocks and its
+    coordinates."""
+    mesh = _train_mesh(job["tp"])
+    dp, d, tp, m = _mesh_coords(mesh)
+    g = _t(job["g"])
+    rows = g.shape[0] // dp
+    blocks = {}
+    for sharded in (False, True):
+        place = MeshPlace.of(mesh, sharded=sharded)
+        block = g[d * rows:(d + 1) * rows]
+        block = place.block(block) if sharded else block
+        x = torch.zeros_like(block, requires_grad=True)
+        gen = torch.Generator().manual_seed(job["seed"])
+        quantize_grad(x, gen, num_bits=job["bits"], place=place).backward(block)
+        blocks[sharded] = x.grad.numpy()
+    return {"blocks": blocks, "coords": (dp, d, tp, m)}
+
+
+def case_dryrun(job):
+    """``entry.dryrun_multichip`` on this rank of the group, at the job's side."""
+    from quantized_tpu_torch.entry import dryrun_multichip
+
+    return {"line": dryrun_multichip(dist.get_world_size(), device="cpu", side=job["side"])}
+
+
 CASES = {"collectives": case_collectives, "tp_conv": case_tp_conv, "explicit_tp": case_explicit_tp,
-         "executor": case_executor, "serve": case_serve, "kill": case_kill}
+         "executor": case_executor, "serve": case_serve, "kill": case_kill, "train": case_train,
+         "resume": case_resume, "epochs": case_epochs, "extrema": case_extrema,
+         "grad_block": case_grad_block, "dryrun": case_dryrun}
 
 
 def main():
