@@ -1,0 +1,3 @@
+"""ResNet-50 offline: device ms a batch in the profiled slice."""
+
+from portbench.readings import forward_device_ms as read  # noqa: F401
