@@ -8,8 +8,9 @@ the executor sees exactly ``len(batch_sizes)`` input shapes. With the
 port's :class:`~quantized_tpu_torch.engine.executor.IntExecutor` that is one
 CUDA graph per bucket, captured at ``warmup``.
 
-Metrics: per-request latency (admission -> result), batch occupancy,
-throughput counters and per-stage host time, as JSON-able dicts.
+Metrics: per-request latency (admission -> result) and queue wait
+(admission -> the end of the drain that took the request), batch
+occupancy, throughput counters and per-stage host time, as JSON-able dicts.
 
 Failure recovery: the engine's weights do not change while it serves, so
 recovering from a crash means replaying the requests not yet answered.
@@ -178,6 +179,7 @@ class ContinuousBatcher:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.latencies_ms: List[float] = []
+        self.queue_wait_ms: List[float] = []
         self.batches_run = 0
         self.requests_done = 0
         self.padded_slots = 0
@@ -323,6 +325,13 @@ class ContinuousBatcher:
                 out.append(r)
         return out
 
+    def _waited(self, reqs: List[_Request]) -> float:
+        """Note the queue wait of each request of a batch just drained, to
+        now; returns now (``time.perf_counter()``)."""
+        t = time.perf_counter()
+        self.queue_wait_ms.extend((t - r.t_submit) * 1e3 for r in reqs)
+        return t
+
     def _pick_bucket(self, n: int) -> int:
         for b in self.batch_sizes:
             if b >= n:
@@ -427,7 +436,7 @@ class ContinuousBatcher:
             reqs = self._drain(self.batch_sizes[-1])
             if not reqs:
                 continue
-            self.stage_s["drain"] += time.perf_counter() - t0
+            self.stage_s["drain"] += self._waited(reqs) - t0
             self.steps += 1
             entry = self._dispatch(reqs, self._assemble(reqs, self._pick_bucket(len(reqs))))
             if entry is not None:
@@ -471,7 +480,7 @@ class ContinuousBatcher:
                 reqs = self._drain(self.batch_sizes[-1])
                 if not reqs:
                     continue
-                self.stage_s["drain"] += time.perf_counter() - t0
+                self.stage_s["drain"] += self._waited(reqs) - t0
                 self.steps += 1
                 dq.put((reqs, self._assemble(reqs, self._pick_bucket(len(reqs)))))
         finally:
@@ -481,6 +490,7 @@ class ContinuousBatcher:
     # ------------------------------------------------------------- metrics
     def stats(self) -> Dict[str, float]:
         lat = np.asarray(self.latencies_ms) if self.latencies_ms else np.zeros(1)
+        waited = np.asarray(self.queue_wait_ms) if self.queue_wait_ms else np.zeros(1)
         total = self.requests_done + self.padded_slots
         nb = max(self.batches_run, 1)
         return {
@@ -491,6 +501,9 @@ class ContinuousBatcher:
             "latency_p50_ms": float(np.percentile(lat, 50)),
             "latency_p95_ms": float(np.percentile(lat, 95)),
             "latency_p99_ms": float(np.percentile(lat, 99)),
+            # admission to the end of the drain that took the request
+            "queue_wait_p50_ms": float(np.percentile(waited, 50)),
+            "queue_wait_p95_ms": float(np.percentile(waited, 95)),
             # per-batch host-side stage means (ms): where scheduler time goes
             **{f"stage_{k}_ms": v * 1e3 / nb for k, v in self.stage_s.items()},
         }

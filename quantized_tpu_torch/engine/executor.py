@@ -26,6 +26,23 @@ a :class:`HostResult` whose :meth:`~HostResult.wait` waits on that batch's
 event only (the counterpart of JAX's ``copy_to_host_async`` and the fetch
 that follows it). ``__call__`` returns the logits as a device tensor.
 
+Spans (``utils.profiling``, recorded only while the recorder is on):
+``executor.dispatch`` around each :meth:`IntExecutor.dispatch`, cut into
+consecutive phases that cover it whole: ``executor.slot_wait`` (from the
+dispatch's start until a slot is ready: the lent-slot and bucket lookups
+and ``_Bucket.take_slot``, which waits for the slot's previous batch and
+its event), ``executor.host_copy`` (the batch into its pinned slot) and
+``executor.enqueue`` (the host-to-device copy, the replay, the copy back
+and the event, the slot handed back, to the dispatch's end; or the eager
+forward where there is no graph). Where the batcher borrows the slot through
+:meth:`IntExecutor.input_slot`, its ``take_slot`` is an
+``executor.slot_wait`` span of its own, and the dispatch has no
+``executor.host_copy``. On :meth:`HostResult.wait`,
+``executor.result_wait`` (the event) and ``executor.result_copy`` (the
+numpy copy), both caused by the dispatch and in its batch. The CPU path
+records ``executor.host_copy`` and ``executor.enqueue`` (it has no
+slots).
+
 A capture that fails raises; there is no fall back to the eager forward.
 On the CPU, and with ``graphs=False``, the forward runs eagerly: ``__call__``
 as a plain forward on the caller's stream, ``dispatch`` (on a GPU) through
@@ -57,6 +74,7 @@ from torch import nn
 
 from quantized_tpu_torch._device import DeviceLike, resolve_device
 from quantized_tpu_torch.ops import _cuda
+from quantized_tpu_torch.utils import profiling
 
 WARMUP_FORWARDS = 2  # eager forwards on the executor's stream before a capture
 
@@ -71,18 +89,22 @@ class HostResult:
     host slot. :meth:`wait` blocks on this batch's event alone and returns a
     numpy copy, so the slot may be reused after it."""
 
-    def __init__(self, slot: Optional[torch.Tensor], event, value: Optional[np.ndarray] = None):
+    def __init__(self, slot: Optional[torch.Tensor], event, cause=None):
         self._slot = slot
-        self._event = event
-        self._value = value
+        self._event = event  # None on the CPU: the slot holds the logits already
+        self._value: Optional[np.ndarray] = None
+        self._cause = cause  # the dispatch's span, while the recorder is on
         self._lock = threading.Lock()
 
     def wait(self) -> np.ndarray:
         with self._lock:
             if self._value is None:
-                self._event.synchronize()  # a device fault of this batch surfaces here
-                self._value = self._slot.numpy().copy()
-                self._slot = self._event = None
+                with profiling.span("executor.result_wait", cause=self._cause):
+                    if self._event is not None:
+                        self._event.synchronize()  # a device fault of this batch surfaces here
+                with profiling.span("executor.result_copy", cause=self._cause):
+                    self._value = self._slot.numpy().copy()
+                self._slot = self._event = self._cause = None
             return self._value
 
     def __array__(self, dtype=None, copy=None):
@@ -300,7 +322,8 @@ class IntExecutor:
             b = self._buckets.get(tuple(shape)) if self.graphs else self._bucket(tuple(shape))
         if b is None:
             return None
-        i = b.take_slot()
+        with profiling.span("executor.slot_wait"):
+            i = b.take_slot()
         view = b.in_slots[i].numpy()
         with self._lock:
             self._lent[id(view)] = (b, i, view)
@@ -310,11 +333,19 @@ class IntExecutor:
         """Start one batch (a host array of a bucket's shape, or a slot from
         :meth:`input_slot`) and return at once; :meth:`HostResult.wait`
         gives its logits as a numpy array."""
+        with profiling.span("executor.dispatch") as span:
+            return self._dispatch(batch, span)
+
+    def _dispatch(self, batch, span) -> HostResult:
         if not self.cuda:
+            phase = profiling.phases(span, "executor.host_copy")
+            x = torch.as_tensor(batch).to(self.dtype)
+            phase.next("executor.enqueue")
             with torch.inference_mode():
-                out = self._forward(torch.as_tensor(batch).to(self.dtype))
+                out = self._forward(x)
             self._check(out)
-            return HostResult(None, None, out.numpy())
+            return HostResult(out, None, span)
+        phase = profiling.phases(span, "executor.slot_wait")
         with self._lock:
             lent = self._lent.pop(id(batch), None)
         if lent is not None:
@@ -324,7 +355,9 @@ class IntExecutor:
             with self._lock:
                 b = self._bucket(tuple(x.shape))
             i = b.take_slot()
+            phase.next("executor.host_copy")
             b.in_slots[i].copy_(x)
+        phase.next("executor.enqueue")
         result = None
         try:
             with self._lock, torch.cuda.device(self.device), torch.cuda.stream(self.stream), \
@@ -334,7 +367,7 @@ class IntExecutor:
                     self._check(out)
                     slot = b.out_slot(i, out)
                     slot.copy_(out, non_blocking=True)  # the result's copy to the host starts here
-                    result = HostResult(slot, b.events[i])
+                    result = HostResult(slot, b.events[i], span)
                 finally:
                     b.events[i].record(self.stream)  # the slot's copies, whether or not the batch failed
         finally:

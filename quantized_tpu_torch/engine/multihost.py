@@ -192,6 +192,8 @@ class MultiHostBatcher(ContinuousBatcher):
         err = None
         while True:
             reqs = self._drain(self.batch_sizes[-1])
+            if reqs:
+                self._waited(reqs)
             done_local = self._stop.is_set() and self._queue.empty() and not reqs
             try:
                 n_global, done_all, err_any = self._coordinate(len(reqs), done_local, err_local=err is not None)

@@ -13,8 +13,10 @@ processes).
 The HTTP endpoint (standard library only) accepts POST /predict with a raw
 image body (its shape in the X-Shape header, ``X-Dtype: u8`` for uint8,
 else float32) and returns the top-5 classes and logits as JSON; GET /stats
-returns the scheduler's metrics. The handler threads only submit to the
-batcher and wait on futures; they never touch CUDA.
+returns the scheduler's metrics (``ContinuousBatcher.stats()``: latency and
+queue-wait percentiles, occupancy, per-stage host time). The handler
+threads only submit to the batcher and wait on futures; they never touch
+CUDA.
 """
 
 from __future__ import annotations
