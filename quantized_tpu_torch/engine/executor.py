@@ -2,24 +2,46 @@
 ``quantized_tpu/engine/executor.py``, single device).
 
 The JAX executor compiles the forward once per input shape. Its
-counterpart here is one CUDA graph per input shape: the batcher's buckets
-are a few fixed shapes, so each gets a graph at ``warmup`` and every later
-batch of that shape is one replay instead of a Python dispatch per kernel
-launch. Per shape the executor keeps:
+counterpart here is CUDA graphs per input shape: the batcher's buckets are a
+few fixed shapes, so each is captured at ``warmup`` and every later batch of
+that shape is one replay instead of a Python dispatch per kernel launch.
+Per shape the executor keeps:
 
-- the graph, captured on the executor's stream after a few eager warm-up
-  forwards there (they build the kernels, encode their TMA maps and fill
-  every lazily formed operand before capture), with its own memory pool and
-  its own static input and output tensors;
+- two device input buffers and one graph per buffer, each captured on the
+  executor's compute stream after the same few eager warm-up forwards there
+  (they build the kernels, encode their TMA maps and fill every lazily
+  formed operand before capture), each with its own memory pool and static
+  output. Batch n of the shape goes through buffer ``n % 2`` and its graph.
+  A shape whose input is under ``OVERLAP_BYTES`` keeps one buffer and one
+  graph, and its batches are copied on the compute stream, right before
+  the replay: such a copy is shorter than the latency the second stream
+  and graph add;
 - a ring of pinned host slots, taken in turn: a request batch is copied
   into an input slot, or assembled there (:meth:`IntExecutor.input_slot`
-  lends the next one), and the host-to-device copy is enqueued before the
-  replay; the logits are copied into the matching output slot right after
-  the replay, and an event is recorded. A slot is taken again only after
-  its batch was dispatched, its event has completed and its logits were
-  copied out, so a later replay of the same shape cannot overwrite logits
-  still on their way to the host: that copy precedes the next replay in
-  stream order.
+  lends the next one).
+
+Every replay of a two-buffer shape, from :meth:`IntExecutor.dispatch` or
+``__call__``, runs one choreography over two streams, so that batch n's
+host-to-device copy runs under replay n - 1:
+
+1. the copy stream waits on the buffer's ``read`` event, recorded on the
+   compute stream after replay n - 2, the last to read the buffer;
+2. the copy stream copies the batch into the buffer and records the
+   buffer's ``copied`` event;
+3. the compute stream waits on ``copied``, replays the buffer's graph and
+   records ``read``; ``dispatch`` then copies the logits into the slot's
+   output slot and records the slot's event.
+
+So ``read`` guards a buffer against a copy while a replay still reads it,
+``copied`` a replay against a buffer still being filled, and the slot's
+event the pinned slot: it is recorded after the copy back, which follows
+the copy in, and a slot is taken again only after its batch was
+dispatched, its event has completed and its logits were copied out. A later
+replay of the same graph cannot overwrite logits still on their way to the
+host: that copy precedes the replay in the compute stream's order.
+``graph_stats()`` counts per shape the ``copies_under_replay``: copies to
+the copy stream enqueued while the shape's previous replay had not
+completed, the ones that had a replay to hide under.
 
 :meth:`IntExecutor.dispatch` is the batcher's entry: it returns at once with
 a :class:`HostResult` whose :meth:`~HostResult.wait` waits on that batch's
@@ -32,9 +54,9 @@ consecutive phases that cover it whole: ``executor.slot_wait`` (from the
 dispatch's start until a slot is ready: the lent-slot and bucket lookups
 and ``_Bucket.take_slot``, which waits for the slot's previous batch and
 its event), ``executor.host_copy`` (the batch into its pinned slot) and
-``executor.enqueue`` (the host-to-device copy, the replay, the copy back
-and the event, the slot handed back, to the dispatch's end; or the eager
-forward where there is no graph). Where the batcher borrows the slot through
+``executor.enqueue`` (the copy in, the replay, the copy back and the
+events, the slot handed back, to the dispatch's end; or the eager forward
+where there is no graph). Where the batcher borrows the slot through
 :meth:`IntExecutor.input_slot`, its ``take_slot`` is an
 ``executor.slot_wait`` span of its own, and the dispatch has no
 ``executor.host_copy``. On :meth:`HostResult.wait`,
@@ -46,7 +68,7 @@ slots).
 A capture that fails raises; there is no fall back to the eager forward.
 On the CPU, and with ``graphs=False``, the forward runs eagerly: ``__call__``
 as a plain forward on the caller's stream, ``dispatch`` (on a GPU) through
-the pinned slots and the executor's stream.
+the pinned slots and the executor's compute stream, with no copy stream.
 
 With ``mesh=`` (a (data, model) ``DeviceMesh``, ``parallel.mesh``) the
 executor runs the model on every rank of the mesh (JAX's ``IntExecutor``
@@ -57,8 +79,9 @@ after it; the fused blocks and pairs and the depthwise convs stay whole on
 every rank. Each rank runs its rows of the batch, and the logits are
 gathered over ``data``, so every rank returns the whole batch, as JAX's
 global array holds it. Every rank must make the same calls in the same
-order. With CUDA graphs the NCCL collectives are captured in the graph: the
-eager warm-up forwards bring up the communicator first.
+order. With CUDA graphs the NCCL collectives are captured in both graphs of
+a shape, in the same order on every rank, and the ranks replay them in
+turn alike: the eager warm-up forwards bring up the communicator first.
 """
 
 from __future__ import annotations
@@ -77,6 +100,11 @@ from quantized_tpu_torch.ops import _cuda
 from quantized_tpu_torch.utils import profiling
 
 WARMUP_FORWARDS = 2  # eager forwards on the executor's stream before a capture
+BUFFERS = 2  # device input buffers and graphs a shape: batch n's copy runs under replay n - 1
+# A shape whose input is smaller keeps one buffer and graph and copies on the compute stream. On an H100 a
+# batch of 1 of ResNet-50 (147 KiB) took 33 us longer from dispatch to logits through the copy stream and
+# two graphs; 2 MiB take about 50 us to copy at the 42 GB/s the copy reaches.
+OVERLAP_BYTES = 2 << 20
 
 
 def _added(before: Dict[str, int], after: Dict[str, int]) -> Dict[str, int]:
@@ -113,15 +141,20 @@ class HostResult:
 
 
 class _Bucket:
-    """One input shape on a CUDA device: its graph, static tensors and
-    pinned slots."""
+    """One input shape on a CUDA device: its graphs, their device input
+    buffers and events, and its pinned slots."""
 
     def __init__(self, shape: Tuple[int, ...], dtype: torch.dtype, slots: int):
         self.shape, self.dtype = shape, dtype
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
-        self.static_in: Optional[torch.Tensor] = None
-        self.static_out: Optional[torch.Tensor] = None
+        # one entry a device input buffer (see the module docstring)
+        self.graphs: List[torch.cuda.CUDAGraph] = []
+        self.static_in: List[torch.Tensor] = []
+        self.static_out: List[torch.Tensor] = []
         self.in_slots = [torch.zeros(shape, dtype=dtype, pin_memory=True) for _ in range(slots)]
+        self.buffers = BUFFERS if self.in_slots[0].nbytes >= OVERLAP_BYTES else 1
+        self.copied = [torch.cuda.Event() for _ in range(self.buffers)]
+        self.read = [torch.cuda.Event() for _ in range(self.buffers)]
+        self.captures: List[Dict[str, object]] = []
         self.out_slots: List[Optional[torch.Tensor]] = [None] * slots
         self.events = [torch.cuda.Event() for _ in range(slots)]
         self.results: List[Optional[HostResult]] = [None] * slots
@@ -129,7 +162,7 @@ class _Bucket:
         self.next = 0
         self.turn = threading.Condition()
         self.replays = 0
-        self.capture: Dict[str, object] = {}
+        self.copies_under_replay = 0
 
     def take_slot(self) -> int:
         """The next slot of the ring, once the batch it last held was
@@ -210,8 +243,8 @@ class IntExecutor:
 
     ``ingest="u8"`` accepts raw uint8 NHWC images and runs the model's fused
     normalize+quantize path (:meth:`Int8ResNet.run_u8`); ``"f32"`` takes
-    normalized f32 images. On a CUDA device ``graphs=True`` captures one
-    CUDA graph per input shape (see the module docstring); ``slots`` is the
+    normalized f32 images. On a CUDA device ``graphs=True`` captures CUDA
+    graphs per input shape (see the module docstring); ``slots`` is the
     number of pinned slots per shape (what the caller keeps in flight, plus
     one). ``check_finite`` raises ``FloatingPointError`` where a batch's
     logits hold a NaN or an infinity."""
@@ -242,6 +275,7 @@ class IntExecutor:
         self.slots = max(2, int(slots))
         self.check_finite = check_finite
         self.stream = torch.cuda.Stream(self.device) if self.cuda else None
+        self.copy_stream = torch.cuda.Stream(self.device) if self.graphs else None
         self._buckets: Dict[Tuple[int, ...], _Bucket] = {}
         self._lent: Dict[int, Tuple[_Bucket, int, np.ndarray]] = {}
         self._lock = threading.Lock()
@@ -267,7 +301,8 @@ class IntExecutor:
 
     def _capture(self, b: _Bucket) -> None:
         """Warm up eagerly on the executor's stream, then capture one forward
-        into ``b.graph`` with its own memory pool. Raises if the capture fails."""
+        from each of the bucket's device input buffers, each graph with its
+        own memory pool. Raises if a capture fails."""
         if os.environ.get("QTPU_DEBUG_S16"):
             raise RuntimeError("QTPU_DEBUG_S16 reads a count back to the host inside the forward, which a CUDA "
                                "graph cannot capture: use graphs=False with it")
@@ -275,40 +310,58 @@ class IntExecutor:
         with torch.cuda.device(self.device), torch.inference_mode():
             s.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(s):
-                b.static_in = torch.zeros(b.shape, dtype=b.dtype, device=self.device)
+                b.static_in = [torch.zeros(b.shape, dtype=b.dtype, device=self.device) for _ in range(b.buffers)]
                 for _ in range(WARMUP_FORWARDS):
-                    self._forward(b.static_in)
+                    self._forward(b.static_in[0])
             s.synchronize()
-            launches0, routes0 = _cuda.launch_counts(), _cuda.route_counts()
-            torch.cuda.empty_cache()  # as the capture does first: the pool's growth is measured from here
-            reserved = torch.cuda.memory_reserved(self.device)
-            t0 = time.perf_counter()
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=s):
-                    b.static_out = self._forward(b.static_in)
-            except RuntimeError as e:
-                raise RuntimeError(f"CUDA graph capture of the forward at input {b.shape} failed: {e}") from e
-            seconds = time.perf_counter() - t0
-        b.graph = graph
-        routes = {k: _added(routes0.get(k, {}), rs) for k, rs in _cuda.route_counts().items()}
-        b.capture = {
-            "seconds": seconds,
-            "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
-            "launches": _added(launches0, _cuda.launch_counts()),
-            "routes": {k: v for k, v in routes.items() if v},
-        }
+            for x in b.static_in:
+                launches0, routes0 = _cuda.launch_counts(), _cuda.route_counts()
+                torch.cuda.empty_cache()  # as the capture does first: the pool's growth is measured from here
+                reserved = torch.cuda.memory_reserved(self.device)
+                t0 = time.perf_counter()
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph, pool=torch.cuda.graph_pool_handle(), stream=s):
+                        out = self._forward(x)
+                except RuntimeError as e:
+                    raise RuntimeError(f"CUDA graph capture of the forward at input {b.shape} failed: {e}") from e
+                seconds = time.perf_counter() - t0
+                b.graphs.append(graph)
+                b.static_out.append(out)
+                routes = {k: _added(routes0.get(k, {}), rs) for k, rs in _cuda.route_counts().items()}
+                b.captures.append({
+                    "seconds": seconds,
+                    "pool_bytes": torch.cuda.memory_reserved(self.device) - reserved,
+                    "launches": _added(launches0, _cuda.launch_counts()),
+                    "routes": {k: v for k, v in routes.items() if v},
+                })
 
     def _run_on_stream(self, b: _Bucket, x: torch.Tensor) -> torch.Tensor:
         """The forward of ``x`` (on the device, or a pinned host slot) on the
-        executor's stream: a copy into the static input and a replay, or the
-        eager forward. The caller holds the lock and the stream context."""
-        if b.graph is None:
+        executor's stream: the copy into the next device input buffer on the
+        copy stream and that buffer's replay (the module docstring's three
+        steps), the copy and the replay on the compute stream for a
+        one-buffer shape, or the eager forward. The caller holds the lock and
+        the compute stream's context; a device ``x`` is ready on the copy
+        stream."""
+        if not b.graphs:
             return self._forward(x.to(self.device, non_blocking=True))
-        b.static_in.copy_(x, non_blocking=True)
-        b.graph.replay()
+        k = b.replays % b.buffers
+        if b.buffers == 1:
+            b.static_in[k].copy_(x, non_blocking=True)
+            b.graphs[k].replay()
+        else:
+            if not b.read[k - 1].query():  # the shape's previous replay is still running
+                b.copies_under_replay += 1
+            self.copy_stream.wait_event(b.read[k])  # replay n - 2 has read the buffer
+            with torch.cuda.stream(self.copy_stream):
+                b.static_in[k].copy_(x, non_blocking=True)
+                b.copied[k].record(self.copy_stream)
+            self.stream.wait_event(b.copied[k])
+            b.graphs[k].replay()
+            b.read[k].record(self.stream)
         b.replays += 1
-        return b.static_out
+        return b.static_out[k]
 
     # ---------------------------------------------------------------- entries
     def input_slot(self, shape: Tuple[int, ...], dtype) -> Optional[np.ndarray]:
@@ -392,12 +445,13 @@ class IntExecutor:
                 self.stream.wait_stream(cur)
                 with torch.cuda.stream(self.stream):
                     if i is None:
-                        self._run_on_stream(b, x.to(self.dtype))
+                        self.copy_stream.wait_stream(cur)  # x is the caller's
+                        out = self._run_on_stream(b, x)
                     else:
                         b.in_slots[i].copy_(x)
-                        self._run_on_stream(b, b.in_slots[i])
+                        out = self._run_on_stream(b, b.in_slots[i])
                         b.events[i].record(self.stream)
-                    out = b.static_out.clone()  # the static output belongs to the next replay
+                    out = out.clone()  # the static output belongs to the graph's next replay
                 cur.wait_stream(self.stream)
         finally:
             if i is not None:
@@ -414,9 +468,16 @@ class IntExecutor:
 
     # ---------------------------------------------------------------- records
     def graph_stats(self) -> Dict[Tuple[int, ...], Dict[str, object]]:
-        """Per captured shape: capture seconds, the pool's reserved bytes, the
-        kernel launches and routes of the captured forward, and replays."""
-        return {b.shape: {**b.capture, "replays": b.replays} for b in self._buckets.values() if b.graph is not None}
+        """Per captured shape: capture seconds and the pools' reserved bytes
+        (both summed over the shape's graphs), the kernel launches and routes
+        of one replay, the replays of all its graphs, and the
+        ``copies_under_replay`` (see the module docstring; 0 for a
+        one-buffer shape)."""
+        return {b.shape: {"seconds": sum(c["seconds"] for c in b.captures),
+                          "pool_bytes": sum(c["pool_bytes"] for c in b.captures),
+                          "launches": b.captures[0]["launches"], "routes": b.captures[0]["routes"],
+                          "replays": b.replays, "copies_under_replay": b.copies_under_replay}
+                for b in self._buckets.values() if b.graphs}
 
     def pinned_bytes(self) -> int:
         """Bytes of pinned host memory held by the slots."""

@@ -1564,6 +1564,58 @@ def test_lent_input_slots(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("path", ["dispatch", "input_slot", "call"])
+def test_copies_run_under_the_previous_replay(cuda_device, path):
+    """12 distinct batches of one shape (5 slots, 4 in flight) through
+    ``dispatch``, through lent ``input_slot`` slots or through ``__call__``,
+    enqueued behind a sleep on the executor's compute stream. At 1024
+    images (3 MiB, two buffers) the copy stream runs ahead of the replays,
+    so a copy that did not wait for the replay two turns back would
+    overwrite a device input buffer it still has to read; at 8 images
+    (under ``OVERLAP_BYTES``) the copies stay on the compute stream. Each
+    batch's logits equal the eager forward's bit for bit; the 12 replays
+    are counted over the shape's graphs, and copies enqueued under a pending
+    replay are counted for the two-buffer shape alone."""
+    from quantized_tpu_torch.engine import IntExecutor
+    from quantized_tpu_torch.engine.executor import OVERLAP_BYTES
+
+    engine, side = _graph_engines(cuda_device)["resnet20"]
+    ex = IntExecutor(engine, ingest="u8", device=cuda_device, graphs=True, slots=5)
+    eager = IntExecutor(engine, ingest="u8", device=cuda_device, graphs=False)
+    gen = np.random.default_rng(7)
+    for batch, overlapped in ((1024, True), (8, False)):
+        shape = (batch, side, side, 3)
+        assert (batch * side * side * 3 >= OVERLAP_BYTES) == overlapped
+        ex.warmup(np.zeros(shape, np.uint8))
+        batches = [gen.integers(0, 256, shape, dtype=np.uint8) for _ in range(12)]
+        want = [eager(torch.from_numpy(b)).cpu().numpy() for b in batches]
+        before = ex.graph_stats()[shape]
+        with torch.cuda.stream(ex.stream):
+            torch.cuda._sleep(100_000_000)  # tens of milliseconds
+        pending, got = [], []
+        for b in batches:
+            if path == "dispatch":
+                pending.append(ex.dispatch(b))
+            elif path == "input_slot":
+                slot = ex.input_slot(shape, np.uint8)
+                slot[:] = b
+                pending.append(ex.dispatch(slot))
+            else:
+                pending.append(ex(b))
+            if len(pending) == 4:
+                got.append(pending.pop(0))
+                if path != "call":
+                    got[-1].wait()
+        got += pending
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy() if path == "call" else g.wait(), w)
+        after = ex.graph_stats()[shape]
+        assert after["replays"] - before["replays"] == 12
+        under = after["copies_under_replay"] - before["copies_under_replay"]
+        assert under > 0 if overlapped else under == 0, (batch, under)
+
+
+@pytest.mark.cuda
 def test_capture_raises_under_debug_s16(cuda_device, monkeypatch):
     """QTPU_DEBUG_S16 reads a count back to the host inside the forward:
     capture refuses it (no silent eager forward); graphs=False serves."""
