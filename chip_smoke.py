@@ -317,6 +317,7 @@ MODELS = {
     # C = 24 at the first pair: K2's per-tap form on groups of four pixels, B5 computing at C = 32
     "mobilenet w0.75": ("mobilenet_quantized", dict(num_classes=1000, width_mult=0.75), 224, 1000),
     "alexnet": ("alexnet_quantized", dict(num_classes=1000), 224, 1000),
+    "efficientnet": ("efficientnet_quantized", dict(num_classes=1000), 224, 1000),
     # the reference's own flavor, RangeBN: every conv carries the folded observer clamp
     "resnet50 rangebn": ("resnet_quantized", dict(dataset="imagenet", depth=50), 224, 1000),
 }
@@ -337,6 +338,18 @@ PLANS = {
                    "int8_matmul": 1}, 12),
 }
 PLANS["mobilenet w0.75"] = PLANS["mobilenet"]
+# EfficientNet-B0 (16 blocks, 9 with a skip): the stem; 15 expand, 7 project convs and the head per tap, 9 project
+# convs with the residual; each block's depthwise conv, squeeze, reduce (K1 requant), expand (K1) and gate pass; the fc
+EFFICIENTNET_PLAN = {"int8_conv_direct_gatherk": 1, "int8_conv_direct": 23, "int8_conv_direct_residual": 9,
+                     "dw_conv": 16, "se_squeeze": 16, "int8_matmul_requant": 16, "int8_matmul": 17, "se_gate": 16}
+# ... and by route a forward: K1's reduces, fc and the expands over squeeze width 48 on its Hopper route, the
+# expands over squeeze widths 4-28 (K % 16 != 0) on its tile kernel
+EFFICIENTNET_ROUTES = {"int8_matmul": {"sm90": 5, "tile": 12}, "int8_matmul_requant": {"sm90": 16},
+                       "dw_conv": {"sm90": 16}, "se_squeeze": {"sm90": 16}, "se_gate": {"sm90": 16}}
+# B0's depthwise convs at 224: (input side, channels, k, stride)
+EFFICIENTNET_DW = [(112, 32, 3, 1), (112, 96, 3, 2), (56, 144, 3, 1), (56, 144, 5, 2), (28, 240, 5, 1),
+                   (28, 240, 3, 2), (14, 480, 3, 1), (14, 480, 5, 1), (14, 672, 5, 1), (14, 672, 5, 2),
+                   (7, 1152, 5, 1), (7, 1152, 3, 1)]
 GEMM_PLAN = {"int8_matmul_requant": 33, "int8_matmul": 21}  # ResNet-50 on the "gemm" backend
 # AlexNet (int8 and int4 weights) and the int4 ResNet-50, launches per forward
 ALEXNET_PLANS = {8: {"int8_conv_direct": 4, "int8_conv_direct_gatherk": 1, "int8_matmul": 3},
@@ -373,6 +386,10 @@ KERNEL_INFO = {
     "bulk_copy": ("quantized_tpu_torch/csrc/copy_probe.cu", "bench/dma_ring_probe2.py:47, bench/dma_ring_probe3.py:185"),
     "fused_stages_conv1": ("quantized_tpu_torch/csrc/fused_stages.cu", "bench/fused_probe.py:66"),
     "fused_stages_conv12": ("quantized_tpu_torch/csrc/fused_stages.cu", "bench/fused_probe.py:75"),
+    # port only: the JAX package has no EfficientNet
+    "dw_conv": ("quantized_tpu_torch/csrc/mbconv.cu", "none (EfficientNet-B0's depthwise conv, SiLU and squeeze sums)"),
+    "se_squeeze": ("quantized_tpu_torch/csrc/mbconv.cu", "none (EfficientNet-B0's squeeze onto the reduce grid)"),
+    "se_gate": ("quantized_tpu_torch/csrc/mbconv.cu", "none (EfficientNet-B0's gate pass)"),
 }
 # what this run should show, written before it ran; printed as it starts
 PREDICTIONS = ("autotune phase, batch 128, as the first run of this tree measured it within 3%: 14 of ResNet-50's 15 "
@@ -399,11 +416,12 @@ KERNEL_PATH = {"int8_matmul_requant": "resnet50 gemm", "fused_bottleneck_s1": "r
                "fused_basicblock_ds": "resnet18 fused", "fused_dw_pw": "mobilenet fused",
                "int4_matmul": "alexnet int4 serve", "int8_conv_flat": "conv sweep",
                "int8_conv_direct_residual": "conv ops", "grid_copy": "copy probe", "ring_copy": "copy probe",
-               "bulk_copy": "copy probe", "fused_stages_conv1": "fused stages", "fused_stages_conv12": "fused stages"}
+               "bulk_copy": "copy probe", "fused_stages_conv1": "fused stages", "fused_stages_conv12": "fused stages",
+               "dw_conv": "efficientnet serve", "se_squeeze": "efficientnet serve", "se_gate": "efficientnet serve"}
 OUR_KERNELS = ("int8_conv_kernel", "conv_sm90_kernel", "gatherk_sm90_kernel", "int8_matmul_kernel", "gemm_sm90_kernel",
                "bottleneck_sm90_kernel", "basic_sm90_kernel", "fused_dw_pw_kernel", "dw_pw_sm90_kernel",
                "int4_matmul_kernel", "int8_conv_flat_kernel", "grid_copy_kernel", "grid_copy_tma_kernel",
-               "ring_copy_kernel", "bulk_copy_kernel")  # device kernel names
+               "ring_copy_kernel", "bulk_copy_kernel", "dw_kernel", "squeeze_kernel", "gate_kernel")  # device kernel names
 SWEEP_MODES = ("direct", "flat", "gemm")  # the conv sweep path: K2, B7 and im2col + K1
 BLOCK_KERNELS = ("fused_bottleneck_s1", "fused_bottleneck_ds", "fused_basicblock_s1", "fused_basicblock_ds")
 PATH_ROUTES = {}  # path: {kernel: {route: launches}} of the kernels with routes
@@ -658,15 +676,14 @@ def _route_of(name, before):
     return taken[0]
 
 
-def phase_kernels(timer):
-    """Each kernel against its plain version at serving shapes; returns
-    {kernel name: numbers} for the kernels line."""
+def _recorder(timer, results):
+    """``record(name, case, kernel, plain, lib, nbytes, nops, representative)``:
+    the kernel (one launch of ``name``) against its plain version (int8
+    equal, else within F32_ATOL), timed beside the plain version, the
+    yardstick ``lib`` and the bound of ``nbytes`` and ``nops``; the numbers
+    into ``results[name]`` (the representative case's as the kernel's)."""
     from quantized_tpu_torch import ops
-    from quantized_tpu_torch.probes.gemm_sweep import BATCHES, FC, IM2COL, INT4_FC, bound_ms, gemm_work
-
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(1234)
-    results = {}
+    from quantized_tpu_torch.probes.gemm_sweep import bound_ms
 
     def record(name, case, kernel, plain, lib, nbytes, nops, representative, plain_iters=10):
         before = ops.KERNELS[name].launches
@@ -695,6 +712,21 @@ def phase_kernels(timer):
             entry.update(case=case, ms=ms, event_ms=event_ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=b_ms, bound_by=b_by)
         return ms, plain_ms, b_ms, b_by
+
+    return record
+
+
+def phase_kernels(timer):
+    """Each kernel against its plain version at serving shapes; returns
+    {kernel name: numbers} for the kernels line."""
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.probes.gemm_sweep import BATCHES, FC, IM2COL, INT4_FC, bound_ms, gemm_work
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1234)
+    results = {}
+
+    record = _recorder(timer, results)
 
     def _block_case(name, case, kind, x, cm, cout, s, ds, kernel, plain, nbytes, nops, rep):
         """B3 or B4: its plan, then the kernel against its plain version and
@@ -1123,7 +1155,46 @@ def phase_kernels(timer):
                 log(f"[kernels] int8_matmul (K1) on the same product, unpacked: ms {k1_ms:.4f} "
                     f"bound_ms {k1_bound:.4f} ({k1_by})")
                 results["int4_matmul"]["int8_matmul_ms"] = k1_ms
+    _mbconv_cases(record, gen, dev)
     return results
+
+
+def _mbconv_cases(record, gen, dev):
+    """EfficientNet-B0's depthwise kernel at each of its depthwise shapes at
+    batch 128 (block 1's, 112 -> 56 over 96 channels, representative), with
+    cuDNN's bf16 depthwise conv on the same shape as the yardstick; the
+    squeeze and the gate pass at block 1's widths."""
+    import torch.nn.functional as F
+
+    from quantized_tpu_torch import ops
+    from quantized_tpu_torch.ops.int8_matmul import ACT_SILU
+
+    b = THROUGHPUT_BATCH
+    for side, c, k, s in EFFICIENTNET_DW:
+        x = _rand_int8(gen, (b, side, side, c))
+        w = _rand_int8(gen, (k, k, c), low=-127)
+        alpha = ((torch.rand(c, generator=gen) + 0.5) * 4e-4).to(dev)
+        beta = ((torch.rand(c, generator=gen) - 0.5) * 4).to(dev)
+        args = (alpha, beta, s, -9, ACT_SILU, (0.03, 40))
+        words = ops.dw_weight_words(w)
+        xb = x.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        wb = w.to(torch.bfloat16).permute(2, 0, 1).unsqueeze(1).contiguous(memory_format=torch.channels_last)
+        ho = (side + 2 * (k // 2) - k) // s + 1
+        nbytes = x.numel() + k * k * c + 8 * c + b * ho * ho * c + 4 * b * c
+        for i, name in enumerate(("dw_conv", "sums")):  # the output, then its sums
+            record("dw_conv", f"{side}x{side}x{c} k{k} s{s} batch {b} {name}",
+                   lambda x=x, w=w, args=args, words=words, i=i: ops.dw_conv(x, w, *args, words=words)[i],
+                   lambda x=x, w=w, args=args, i=i: ops.dw_conv_plain(x, w, *args)[i],
+                   lambda xb=xb, wb=wb, s=s, k=k, c=c: F.conv2d(xb, wb, stride=s, padding=k // 2, groups=c),
+                   nbytes, 2 * b * ho * ho * c * k * k, (side, c, s, i) == (112, 96, 2, 0), plain_iters=2)
+    x = _rand_int8(gen, (b, 56, 56, 96))
+    sums = x.to(torch.int32).sum(dim=(1, 2), dtype=torch.int32)
+    record("se_squeeze", f"56x56x96 batch {b}", lambda: ops.se_squeeze(sums, 56 * 56, (0.03, 40), (0.01, 20)),
+           lambda: ops.se_squeeze_plain(sums, 56 * 56, (0.03, 40), (0.01, 20)), None, 5 * b * 96, 0, True)
+    g = torch.rand((b, 96), generator=gen).to(dev)
+    record("se_gate", f"56x56x96 batch {b}", lambda: ops.se_gate(x, g, (0.03, 40), (0.02, 100)),
+           lambda: ops.se_gate_plain(x, g, (0.03, 40), (0.02, 100)), lambda: x.to(torch.float32) * g[:, None, None, :],
+           2 * x.numel() + 4 * g.numel(), 0, True)
 
 
 def _first_block_input(engine, x_q):
@@ -1319,11 +1390,19 @@ def _flip_gamma(model):
 
 
 def _build(key: str, backend: str, device: str, weight_bits: int = 8):
-    from quantized_tpu_torch.engine import build_int8_alexnet, build_int8_mobilenet, build_int8_resident
+    from quantized_tpu_torch.engine import (
+        build_int8_alexnet,
+        build_int8_efficientnet,
+        build_int8_mobilenet,
+        build_int8_resident,
+    )
     from quantized_tpu_torch.entry import _calibrated_model
 
     name, cfg, side, _ = MODELS[key]
     model = _calibrated_model(name, device="cpu", generator=torch.Generator().manual_seed(0), **cfg)
+    if name == "efficientnet_quantized":
+        return build_int8_efficientnet(_observe(model, side), weight_bits=weight_bits, backend=backend,
+                                       device=device)
     if name == "mobilenet_quantized":
         return build_int8_mobilenet(_observe(model, side), weight_bits=weight_bits, backend=backend,
                                     device=device)
@@ -1442,6 +1521,47 @@ def phase_model(key):
                     f"{key} fused gpu vs fused cpu")
     compare(engine, fused, sample.cuda(), f"{key} fused vs unfused")
     return {"unfused": executor, "fused": fused_executor}, counts
+
+
+def phase_efficientnet(card, timer):
+    """EfficientNet-B0 at 224 served through the executor (each depthwise
+    conv, squeeze and gate pass on the MBConv kernels, K2 and K1 on their
+    Hopper routes), held against its CPU twin block by block (at most one
+    step apart, where the card's expf and the host's exp round a SiLU or
+    the sigmoid apart), then timed at batch 128 eager and as a graph.
+    Returns the path's counts."""
+    from quantized_tpu_torch.engine import IntExecutor
+    from quantized_tpu_torch.engine.int8_resident import u8_to_stored
+
+    t0 = time.perf_counter()
+    engine = _build("efficientnet", "pallas", "cuda")
+    executor = IntExecutor(engine, ingest="u8", device="cuda", graphs=False)
+    log(f"[efficientnet] int8-resident engine built on the GPU in {time.perf_counter() - t0:.1f} s")
+    requests = _requests(224)
+    sample = requests[0][:2]
+    executor.warmup(sample)
+    counts = {"efficientnet serve": _serve("efficientnet serve", executor, requests, EFFICIENTNET_PLAN, 1000)}
+    routes = engine.routes()
+    log(f"[efficientnet] the engine's routes a forward {json.dumps(routes)}")
+    if any(n for r, n in routes.items() if r.endswith(".plain")) or sum(routes.values()) != 48:
+        raise AssertionError(f"[efficientnet] a part off its kernel: {routes}")
+    served, forwards = PATH_ROUTES["efficientnet serve"], len(requests)
+    for name, want in EFFICIENTNET_ROUTES.items():
+        if served.get(name) != {route: n * forwards for route, n in want.items()}:
+            raise AssertionError(f"[efficientnet] {name} launches by route {served.get(name)}, {want} a forward "
+                                 "expected")
+    cpu = _build("efficientnet", "pallas", "cpu")
+    with torch.inference_mode():
+        got = engine.block_outputs(u8_to_stored(sample.cuda(), engine.input_grid))
+        want = cpu.block_outputs(u8_to_stored(sample, cpu.input_grid))
+    tally = [_check_int8(g, w, f"efficientnet gpu vs cpu, boundary {i}", exact=False) for i, (g, w) in
+             enumerate(zip(got, want))]
+    log(f"[compare] efficientnet gpu vs cpu: the stem's and the 16 blocks' outputs, steps and shares apart "
+        f"{[(s, round(share, 6)) for s, share in tally]}")
+    _check_logits(executor(sample), cpu.run_u8(sample), "efficientnet gpu vs cpu")
+    graph = IntExecutor(engine, ingest="u8", device="cuda", graphs=True)
+    phase_throughput("efficientnet", {"eager": executor, "graph": graph}, card, timer)
+    return counts
 
 
 def _requests(side):
@@ -2923,6 +3043,7 @@ def main() -> int:
     path_counts.update(counts)
     executors["resnet50"]["rangebn"], counts, rangebn_extra = phase_rangebn()
     path_counts.update(counts)
+    path_counts.update(phase_efficientnet(card, timer))
     for key in ("resnet50", "resnet18", "mobilenet", "mobilenet w0.75"):
         phase_throughput(key, executors[key], card, timer)
     for batch in ALEXNET_BATCHES:

@@ -36,6 +36,10 @@ Where the two differ:
   ``--convert-int``) wires the explicit TP forms into the engine's last
   stage and fc head, and without a mesh exits with the JAX CLI's
   message.
+- ``--model efficientnet*`` (the port alone has it) runs its resident
+  engine on ``--backend pallas`` with the tuner off; another backend or
+  ``--autotune`` with ``--resident`` exits, since the other backends
+  compute ReLU alone, not SiLU.
 - ``--serve`` replays one CUDA graph per batch bucket; ``--debug-nans``
   turns the graphs off (its int16-leg saturation count reads back to the
   host inside the forward) and raises on non-finite logits.
@@ -152,6 +156,13 @@ def _check_mesh_flags(args) -> None:
         raise SystemExit("--tp-explicit requires --mesh-model-parallel")
 
 
+def _check_engine_flags(args) -> None:
+    """Exit where the resident EfficientNet is asked for a route it does not
+    run: a backend other than pallas, or the tuner."""
+    if "efficientnet" in args.model and args.resident and (args.backend != "pallas" or args.autotune):
+        raise SystemExit(f"--model {args.model} --resident runs on --backend pallas alone, without --autotune")
+
+
 def _make_mesh(args, device):
     """The (data, model) mesh of ``--mesh-model-parallel`` over the ranks
     torchrun started (or this one process); whether this call made the
@@ -178,6 +189,7 @@ def main(argv=None):
     if bf16_type:
         args.compute_dtype = "bf16"
     _check_mesh_flags(args)
+    _check_engine_flags(args)
 
     if args.deterministic:
         # cuBLAS needs a fixed workspace for deterministic results; set before CUDA starts
@@ -230,7 +242,8 @@ def _main(args, device, mesh) -> int:
     model_config = {"dataset": args.dataset} if args.dataset != "synthetic" else {"dataset": "cifar10"}
     if args.model_config:
         model_config.update(ast.literal_eval(args.model_config))
-    if args.model in ("alexnet", "alexnet_quantized", "mnist", "mobilenet", "mobilenet_quantized"):
+    if args.model in ("alexnet", "alexnet_quantized", "mnist", "mobilenet", "mobilenet_quantized", "efficientnet",
+                      "efficientnet_quantized"):
         model_config.pop("dataset", None)
 
     # built and loaded on the host, then moved to the device in one step
@@ -375,10 +388,16 @@ def _convert(args, model, device, logger):
     import torch
 
     if args.resident:
-        from quantized_tpu_torch.engine import build_int8_alexnet, build_int8_mobilenet, build_int8_resident
+        from quantized_tpu_torch.engine import (
+            build_int8_alexnet,
+            build_int8_efficientnet,
+            build_int8_mobilenet,
+            build_int8_resident,
+        )
 
         build = (build_int8_alexnet if "alexnet" in args.model
-                 else build_int8_mobilenet if "mobilenet" in args.model else build_int8_resident)
+                 else build_int8_mobilenet if "mobilenet" in args.model
+                 else build_int8_efficientnet if "efficientnet" in args.model else build_int8_resident)
         model = build(model, weight_bits=args.weight_bits, backend=args.backend, device=device)
         if args.autotune:
             from quantized_tpu_torch.engine import apply_cached_backends, autotune_resident

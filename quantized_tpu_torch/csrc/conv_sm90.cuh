@@ -242,7 +242,7 @@ __device__ __forceinline__ uint32_t residual_word(const ConvEpi& ep, int cout, l
   return v;
 }
 
-template <int KC, int BN, bool RES, bool CLIP>
+template <int KC, int BN, bool RES, bool CLIP, bool EXP>
 __global__ void __launch_bounds__(THREADS, 2)
     conv_sm90_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tw, ConvGeom g,
                      ConvEpi ep, int stages) {
@@ -455,7 +455,10 @@ __global__ void __launch_bounds__(THREADS, 2)
             if (!ep.out_int8) y[e] = fminf(fmaxf(y[e], cl[e]), ch[e]);
           }
           // with s8 out a CLIP instance's lo holds the ReLU floor (zps <= lo), so ReLU changes nothing there
-          if (ep.relu && !(CLIP && ep.out_int8)) y[e] = fmaxf(y[e], 0.0f);
+          if constexpr (EXP)
+            y[e] = qt::activate_exp(y[e], ep.relu);  // SiLU or the sigmoid
+          else if (ep.relu && !(CLIP && ep.out_int8))
+            y[e] = fmaxf(y[e], 0.0f);
         }
         const long long o = ri.pix * g.Cout + n;
         if (ep.out_int8) {
@@ -560,10 +563,10 @@ struct ConvPlan {
   int kc, bn, two, tho, nb, stages, blocks, smem;
 };
 
-template <int KC, int BN, bool RES, bool CLIP>
+template <int KC, int BN, bool RES, bool CLIP, bool EXP>
 int launch_instance(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom& g, const ConvEpi& ep,
                     const ConvPlan& p, cudaStream_t stream) {
-  auto kernel = conv_sm90_kernel<KC, BN, RES, CLIP>;
+  auto kernel = conv_sm90_kernel<KC, BN, RES, CLIP, EXP>;
   static std::atomic<bool> opted_in{false};  // the full shared memory, asked for once per instance
   cudaError_t err;
   if (!opted_in.load()) {
@@ -575,14 +578,14 @@ int launch_instance(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool RES, bool CLIP>
+template <bool RES, bool CLIP, bool EXP>
 int launch_kc_bn(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom& g, const ConvEpi& ep,
                  const ConvPlan& p, cudaStream_t s) {
-#define QT_CONV_BN(KC)                                                          \
-  switch (p.bn) {                                                               \
-    case 32: return launch_instance<KC, 32, RES, CLIP>(ta, tw, g, ep, p, s);    \
-    case 64: return launch_instance<KC, 64, RES, CLIP>(ta, tw, g, ep, p, s);    \
-    default: return launch_instance<KC, 128, RES, CLIP>(ta, tw, g, ep, p, s);   \
+#define QT_CONV_BN(KC)                                                              \
+  switch (p.bn) {                                                                   \
+    case 32: return launch_instance<KC, 32, RES, CLIP, EXP>(ta, tw, g, ep, p, s);   \
+    case 64: return launch_instance<KC, 64, RES, CLIP, EXP>(ta, tw, g, ep, p, s);   \
+    default: return launch_instance<KC, 128, RES, CLIP, EXP>(ta, tw, g, ep, p, s);  \
   }
   switch (p.kc) {
     case 32: QT_CONV_BN(32)
@@ -599,10 +602,13 @@ int launch_kc_bn(const CUtensorMap& ta, const CUtensorMap& tw, const ConvGeom& g
 // the NHWC input (K2). Both bases 16-byte aligned, Cin % 16 == 0; 0 or the
 // CUDA error. Refuses a plan that does not fit the shape. RES: B8, with
 // ep.residual, on its own kernel instances; CLIP: the clamp, with
-// ep.clip_lo / clip_hi, on its own (not with RES: no engine needs both).
-template <bool RES = false, bool CLIP = false>
+// ep.clip_lo / clip_hi, on its own (not with RES: no engine needs both);
+// EXP: SiLU or the sigmoid (ep.relu >= qt::ACT_SILU), on its own (with
+// neither).
+template <bool RES = false, bool CLIP = false, bool EXP = false>
 int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& ep, const ConvPlan& p, void* stream) {
   static_assert(!(RES && CLIP), "the residual and the clamp have no instances together");
+  static_assert(!(EXP && (RES || CLIP)), "SiLU and the sigmoid have instances of their own");
   const bool ok = (p.kc == 32 || p.kc == 64 || p.kc == 128) && (p.bn == 32 || p.bn == 64 || p.bn == 128) &&
                   g.Cin % 16 == 0 && (p.kc == 32 || g.Cin % p.kc == 0 || (g.KH * g.KW == 1 && g.Cin < p.kc)) &&
                   p.stages >= 2 && p.stages <= MAX_STAGES && p.blocks >= 1 &&
@@ -615,7 +621,7 @@ int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& ep, con
                                 p.tho * g.SH <= 256 && p.nb <= 256 &&
                                 (ep.border_sums != nullptr || ep.stored_zp == 0 || (g.PH == 0 && g.PW == 0))) &&
                   (ep.residual != nullptr) == RES && (ep.clip_lo != nullptr) == CLIP &&
-                  (ep.clip_hi != nullptr) == CLIP;
+                  (ep.clip_hi != nullptr) == CLIP && (ep.relu >= qt::ACT_SILU) == EXP;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   g.two = p.two;
   g.tho = p.tho;
@@ -655,7 +661,7 @@ int launch_conv(const void* x, const void* w, ConvGeom g, const ConvEpi& ep, con
   CUtensorMap ta, tw;
   if (!conv_map(&ta, k) || !matrix_map(&tw, w, g.Cout, g.KH * g.KW * g.Cin, p.bn, p.kc))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_kc_bn<RES, CLIP>(ta, tw, g, ep, p, static_cast<cudaStream_t>(stream));
+  return launch_kc_bn<RES, CLIP, EXP>(ta, tw, g, ep, p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace

@@ -213,7 +213,7 @@ __device__ __forceinline__ void build_a(const GkGeom& g, const uint8_t* win, uin
   }
 }
 
-template <int CH, int BN, bool CLIP>
+template <int CH, int BN, bool CLIP, bool EXP>
 __global__ void __launch_bounds__(THREADS, 3)
     gatherk_sm90_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, GkGeom g, GkEpi ep) {
   extern __shared__ uint8_t smem_raw[];
@@ -325,7 +325,10 @@ __global__ void __launch_bounds__(THREADS, 3)
           if constexpr (CLIP) {
             if (!ep.out_int8) y = fminf(fmaxf(y, cl), ch);
           }
-          if (ep.relu && !(CLIP && ep.out_int8)) y = fmaxf(y, 0.0f);  // s8 CLIP: the floor is in clip_lo
+          if constexpr (EXP)
+            y = qt::activate_exp(y, ep.relu);  // SiLU or the sigmoid, on instances of their own
+          else if (ep.relu && !(CLIP && ep.out_int8))
+            y = fmaxf(y, 0.0f);  // s8 CLIP: the floor is in clip_lo
           if (ep.out_int8) {  // clip(rint(y * inv + zps), -128, 127), the clip first (sm90.cuh)
             const float v = __fadd_rn(__fmul_rn(y, ep.inv), ep.zps);
             uint32_t q;
@@ -372,10 +375,10 @@ struct GkPlan {
   int kb, bn, two, tho, nb, blocks, smem;
 };
 
-template <int CH, int BN, bool CLIP>
+template <int CH, int BN, bool CLIP, bool EXP>
 int launch_instance(const void* x, const void* w, const GkGeom& g, const GkEpi& ep, int blocks, int smem,
                     cudaStream_t stream) {
-  auto kernel = gatherk_sm90_kernel<CH, BN, CLIP>;
+  auto kernel = gatherk_sm90_kernel<CH, BN, CLIP, EXP>;
   static std::atomic<bool> opted_in{false};  // the full shared memory, asked for once per instance
   if (!opted_in.load()) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, qt::SMEM_LIMIT);
@@ -386,21 +389,25 @@ int launch_instance(const void* x, const void* w, const GkGeom& g, const GkEpi& 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int CH, bool CLIP>
+template <int CH, bool CLIP, bool EXP>
 int launch_bn(const void* x, const void* w, const GkGeom& g, const GkEpi& ep, int bn, int blocks, int smem,
               cudaStream_t s) {
   switch (bn) {
-    case 16: return launch_instance<CH, 16, CLIP>(x, w, g, ep, blocks, smem, s);
-    case 32: return launch_instance<CH, 32, CLIP>(x, w, g, ep, blocks, smem, s);
-    default: return launch_instance<CH, 64, CLIP>(x, w, g, ep, blocks, smem, s);
+    case 16: return launch_instance<CH, 16, CLIP, EXP>(x, w, g, ep, blocks, smem, s);
+    case 32: return launch_instance<CH, 32, CLIP, EXP>(x, w, g, ep, blocks, smem, s);
+    default: return launch_instance<CH, 64, CLIP, EXP>(x, w, g, ep, blocks, smem, s);
   }
 }
 
+// the clamp (CLIP) and SiLU or the sigmoid (EXP) each on instances of their own, never together
 template <int CH>
 int launch_clip(const void* x, const void* w, const GkGeom& g, const GkEpi& ep, int bn, int blocks, int smem,
                 cudaStream_t s) {
-  return ep.clip_lo != nullptr ? launch_bn<CH, true>(x, w, g, ep, bn, blocks, smem, s)
-                               : launch_bn<CH, false>(x, w, g, ep, bn, blocks, smem, s);
+  if (ep.relu >= qt::ACT_SILU)
+    return ep.clip_lo != nullptr ? static_cast<int>(cudaErrorInvalidValue)
+                                 : launch_bn<CH, false, true>(x, w, g, ep, bn, blocks, smem, s);
+  return ep.clip_lo != nullptr ? launch_bn<CH, true, false>(x, w, g, ep, bn, blocks, smem, s)
+                               : launch_bn<CH, false, false>(x, w, g, ep, bn, blocks, smem, s);
 }
 
 // The gather-K form on its Hopper route under plan p; 0 or the CUDA error.

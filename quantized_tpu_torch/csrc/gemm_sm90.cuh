@@ -129,7 +129,7 @@ struct Epilogue {
 // int4 and A is (M, 2*kspan); else W is (N, kspan) s8 and A (M, kspan).
 // CLIP: the epilogue clamps with ep.clip_lo / clip_hi, on instances of its
 // own, so the others carry none of its loads.
-template <int BT, bool PACKED, bool CLIP = false>
+template <int BT, bool PACKED, bool CLIP = false, bool EXP = false>
 __global__ void __launch_bounds__(THREADS) gemm_sm90_kernel(const __grid_constant__ CUtensorMap tw,
                                                             const __grid_constant__ CUtensorMap ta, Epilogue ep,
                                                             int M, int N, int kspan, int steps, int stages) {
@@ -174,7 +174,7 @@ __global__ void __launch_bounds__(THREADS) gemm_sm90_kernel(const __grid_constan
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int n = min(nr[h], N - 1);
-    if (ep.requant) {
+    if (ep.requant && !EXP) {  // EXP: SiLU or the sigmoid come between y and the requant
       al[h] = __fmul_rn(ep.alpha[n], ep.inv);
       be[h] = __fadd_rn(__fmul_rn(ep.beta[n], ep.inv), ep.zps);
     } else {
@@ -276,7 +276,10 @@ __global__ void __launch_bounds__(THREADS) gemm_sm90_kernel(const __grid_constan
       if (m < M && n < N) {
         float y = __fadd_rn(__fmul_rn(static_cast<float>(acc[v]), al[h]), be[h]);
         if constexpr (CLIP) y = fminf(fmaxf(y, cl[h]), ch[h]);
-        if (ep.relu) y = fmaxf(y, 0.0f);
+        if constexpr (EXP)
+          y = qt::activate_exp(y, ep.relu);
+        else if (ep.relu)
+          y = fmaxf(y, 0.0f);
         out[(size_t)m * N + n] = y;
       }
     }
@@ -288,10 +291,15 @@ __global__ void __launch_bounds__(THREADS) gemm_sm90_kernel(const __grid_constan
   for (int v = 0; v < R; ++v) {
     const int h = (v >> 1) & 1;
     int8_t q;
-    if constexpr (CLIP)
+    if constexpr (CLIP) {
       q = qt::requant(acc[v], al[h], be[h], cl[h], ch[h]);
-    else
+    } else if constexpr (EXP) {  // y, its activation, then the requant of K2's epilogue
+      const float y = qt::activate_exp(__fadd_rn(__fmul_rn(static_cast<float>(acc[v]), al[h]), be[h]), ep.relu);
+      q = static_cast<int8_t>(static_cast<int>(fminf(fmaxf(rintf(__fadd_rn(__fmul_rn(y, ep.inv), ep.zps)), ep.lo),
+                                                   127.0f)));
+    } else {
       q = qt::requant(acc[v], al[h], be[h], ep.lo);
+    }
     tile[(8 * (v >> 2) + 2 * t + (v & 1)) * OUT_PITCH + 16 * warp + g + 8 * h] = q;
   }
   __syncthreads();
@@ -360,10 +368,10 @@ inline bool tma_ok(const void* a, const void* w, int kspan, int ka, bool packed)
          qt::aligned16(w);
 }
 
-template <int BT, bool PACKED, bool CLIP>
+template <int BT, bool PACKED, bool CLIP, bool EXP>
 int launch_tile(const CUtensorMap& tw, const CUtensorMap& ta, const Epilogue& ep, int M, int N, int kspan,
                 int split, int steps, int stages, int smem, cudaStream_t stream) {
-  auto kernel = gemm_sm90_kernel<BT, PACKED, CLIP>;
+  auto kernel = gemm_sm90_kernel<BT, PACKED, CLIP, EXP>;
   static std::atomic<bool> opted_in{false};  // the full shared memory, asked for once per instance
   cudaError_t err;
   if (!opted_in.load()) {
@@ -390,25 +398,27 @@ int launch_tile(const CUtensorMap& tw, const CUtensorMap& ta, const Epilogue& ep
 
 // One launch of the plan (tile, split, steps, stages, smem) from gemm_plan;
 // 0 or the CUDA error. The caller has checked tma_ok. CLIP: the clamped
-// epilogue (ep.clip_lo / clip_hi set).
-template <bool PACKED, bool CLIP = false>
+// epilogue (ep.clip_lo / clip_hi set); EXP: SiLU or the sigmoid (ep.relu
+// >= qt::ACT_SILU), on instances of their own (not with CLIP or PACKED).
+template <bool PACKED, bool CLIP = false, bool EXP = false>
 int launch_gemm(const void* a, const void* w, const Epilogue& ep, int M, int N, int kspan, int ka, int tile,
                 int split, int steps, int stages, int smem, void* stream) {
   const int nk = (kspan + BK - 1) / BK;
   const bool plan_ok = split >= 1 && split <= MAX_SPLIT && steps >= 1 && (split - 1) * steps < nk &&
                        split * steps >= nk && stages >= (steps > 1 ? 2 : 1) && stages <= MAX_STAGES && stages <= steps &&
                        smem == smem_bytes(tile, PACKED, split, stages) && smem <= qt::SMEM_LIMIT;
-  if (!plan_ok || M < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(!(EXP && (CLIP || PACKED)), "SiLU and the sigmoid have instances of their own");
+  if (!plan_ok || M < 1 || N < 1 || (ep.relu >= qt::ACT_SILU) != EXP) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tw, ta;
   if (!tensor_map(&tw, w, N, kspan, WROWS) || !tensor_map(&ta, a, M, ka, tile))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile) {
-    case 8: return launch_tile<8, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
-    case 16: return launch_tile<16, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
-    case 32: return launch_tile<32, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
-    case 64: return launch_tile<64, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
-    case 128: return launch_tile<128, PACKED, CLIP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 8: return launch_tile<8, PACKED, CLIP, EXP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 16: return launch_tile<16, PACKED, CLIP, EXP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 32: return launch_tile<32, PACKED, CLIP, EXP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 64: return launch_tile<64, PACKED, CLIP, EXP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
+    case 128: return launch_tile<128, PACKED, CLIP, EXP>(tw, ta, ep, M, N, kspan, split, steps, stages, smem, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

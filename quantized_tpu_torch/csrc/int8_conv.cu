@@ -163,7 +163,7 @@ __global__ void __launch_bounds__(qt::THREADS)
     if constexpr (CLIP) {
       if (!e.out_int8) y = fminf(fmaxf(y, clip_lo[n]), clip_hi[n]);
     }
-    if (e.relu && !(CLIP && e.out_int8)) y = fmaxf(y, 0.0f);  // s8 CLIP: the floor is in clip_lo
+    if (!(CLIP && e.out_int8)) y = qt::activate(y, e.relu);  // s8 CLIP: the ReLU floor is in clip_lo
     if (e.out_int8) {
       float q = rintf(__fadd_rn(__fmul_rn(y, e.inv), e.zps));
       if constexpr (CLIP)
@@ -245,6 +245,7 @@ extern "C" int qt_int8_conv(const void* x, const void* w, const void* alpha, con
                              static_cast<const float*>(clip_lo), static_cast<const float*>(clip_hi)};
     const qtconv::ConvPlan p{kc, bn, two, tho, nb, stages, blocks, smem};
     if (residual != nullptr) return qtconv::launch_conv<true, false>(x, w, g, ep, p, stream);
+    if (relu >= qt::ACT_SILU) return qtconv::launch_conv<false, false, true>(x, w, g, ep, p, stream);
     return clip ? qtconv::launch_conv<false, true>(x, w, g, ep, p, stream)
                 : qtconv::launch_conv<false, false>(x, w, g, ep, p, stream);
   }

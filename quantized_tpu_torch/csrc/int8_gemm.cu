@@ -5,9 +5,12 @@
 // int8_matmul_requant :189).
 //
 //   acc[m, n] = sum_k A[m, k] * W[n, k]                      (s8 x s8 -> s32)
-//   f32 form:     y = acc * alpha[n] + beta[n], then ReLU if asked
+//   f32 form:     y = acc * alpha[n] + beta[n], then the activation (relu: the
+//                 code of int8_mma.cuh, qt::activate)
 //   requant form: q = clip(rint(acc * (alpha[n] * inv) + (beta[n] * inv + zps)),
-//                          lo, 127) -> s8, exactly the order of _requant_kernel
+//                          lo, 127) -> s8, exactly the order of _requant_kernel,
+//                 ReLU folded into lo; under SiLU or the sigmoid (act) K2's
+//                 order: q = clip(rint(act(acc * alpha + beta) * inv + zps), lo, 127)
 //
 // What bounds it on the H100: the fc head (M = batch, K = 2048 to 9216, N =
 // 1000 to 4096) moves its weights (2 to 38 MB) for 2*M*K*N operations, so at
@@ -64,7 +67,11 @@ __global__ void __launch_bounds__(qt::THREADS)
     const int m = m0 + r, n = n0 + c;
     if (m >= M || n >= N) return;
     const float af = static_cast<float>(a);
-    if (REQUANT) {
+    if (REQUANT && relu >= qt::ACT_SILU) {  // y, its activation, then the requant of K2's epilogue
+      const float y = qt::activate(__fadd_rn(__fmul_rn(af, alpha[n]), beta[n]), relu);
+      const float q = fminf(fmaxf(rintf(__fadd_rn(__fmul_rn(y, inv), zps)), lo), 127.0f);
+      static_cast<int8_t*>(out)[(size_t)m * N + n] = static_cast<int8_t>(static_cast<int>(q));
+    } else if (REQUANT) {
       const float alpha2 = __fmul_rn(alpha[n], inv);
       const float beta2 = __fadd_rn(__fmul_rn(beta[n], inv), zps);
       float q = rintf(__fadd_rn(__fmul_rn(af, alpha2), beta2));
@@ -76,7 +83,7 @@ __global__ void __launch_bounds__(qt::THREADS)
     } else {
       float y = __fadd_rn(__fmul_rn(af, alpha[n]), beta[n]);
       if constexpr (CLIP) y = fminf(fmaxf(y, clip_lo[n]), clip_hi[n]);
-      if (relu) y = fmaxf(y, 0.0f);
+      y = qt::activate(y, relu);
       static_cast<float*>(out)[(size_t)m * N + n] = y;
     }
   });
@@ -95,6 +102,10 @@ int launch(const void* a, const void* w, const void* alpha, const void* beta, co
     const qt90::Epilogue ep{static_cast<const float*>(alpha), static_cast<const float*>(beta), out, relu,
                             REQUANT, inv, zps, lo, static_cast<const float*>(clip_lo),
                             static_cast<const float*>(clip_hi)};
+    if (relu >= qt::ACT_SILU)  // SiLU or the sigmoid: instances of their own (never clamped)
+      return CLIP ? static_cast<int>(cudaErrorInvalidValue)
+                  : qt90::launch_gemm<false, false, true>(a, w, ep, M, N, K, K, tile, split, steps, stages, smem,
+                                                          stream);
     return qt90::launch_gemm<false, CLIP>(a, w, ep, M, N, K, K, tile, split, steps, stages, smem, stream);
   }
   const dim3 grid((M + qt::BM - 1) / qt::BM, (N + qt::BN - 1) / qt::BN);
@@ -119,7 +130,8 @@ int launch_any(const void* a, const void* w, const void* alpha, const void* beta
 
 }  // namespace
 
-// f32 out: relu?(clip?(acc * alpha + beta)). A (M,K) s8, W (N,K) s8, out
+// f32 out: act(clip?(acc * alpha + beta)), relu the activation code
+// (qt::activate; ReLU alone with a clamp). A (M,K) s8, W (N,K) s8, out
 // (M,N) f32. sm90: the route (ops.gemm_route), refused where it is not the
 // one taken; (tile, split, steps, stages, smem): the plan of gemm_plan;
 // clip_lo, clip_hi: (N,) f32 bounds of y, or both null.
@@ -132,13 +144,15 @@ extern "C" int qt_int8_matmul(const void* a, const void* w, const void* alpha, c
 }
 
 // s8 out on the (1/inv, zps + 128) grid; lo = zps when ReLU is folded, else
-// -128; clip_lo, clip_hi: (N,) integer-valued f32 bounds in place of [lo,
-// 127], or both null.
+// -128; act: 0 (ReLU rides lo), or SiLU or the sigmoid before the requant
+// (lo -128); clip_lo, clip_hi: (N,) integer-valued f32 bounds in place of
+// [lo, 127], or both null (always null under act).
 extern "C" int qt_int8_matmul_requant(const void* a, const void* w, const void* alpha,
                                       const void* beta, void* out, int M, int N, int K,
-                                      float inv, float zps, float lo, int sm90, int tile, int split,
+                                      float inv, float zps, float lo, int act, int sm90, int tile, int split,
                                       int steps, int stages, int smem, const void* clip_lo,
                                       const void* clip_hi, void* stream) {
-  return launch_any<true>(a, w, alpha, beta, clip_lo, clip_hi, out, M, N, K, 0, inv, zps, lo, sm90, tile, split,
+  if (act >= qt::ACT_SILU && clip_lo != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_any<true>(a, w, alpha, beta, clip_lo, clip_hi, out, M, N, K, act, inv, zps, lo, sm90, tile, split,
                           steps, stages, smem, stream);
 }

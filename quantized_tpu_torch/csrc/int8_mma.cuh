@@ -149,6 +149,24 @@ __device__ __forceinline__ uint4 zero16() { return make_uint4(0u, 0u, 0u, 0u); }
 // 16 bytes of a stored zero point
 __device__ __forceinline__ uint4 fill16(int stored) { return Chunk<16>::fill(zp_bytes(stored)); }
 
+// The epilogues' activation code (the ``relu`` argument of K1 and K2):
+// 0 none, 1 ReLU, 2 SiLU y / (1 + e^-y), 3 the sigmoid 1 / (1 + e^-y).
+// expf is the accurate one (no fast math) and each operation rounds once,
+// as the plain versions (ops.int8_matmul.activate) compute them. The Hopper
+// routes run SiLU and the sigmoid on instances of their own (EXP), so the
+// others keep their ReLU epilogue, its registers and its code as they were.
+constexpr int ACT_RELU = 1, ACT_SILU = 2, ACT_SIGMOID = 3;
+
+// SiLU or the sigmoid: act >= ACT_SILU
+__device__ __forceinline__ float activate_exp(float y, int act) {
+  return __fdiv_rn(act == ACT_SIGMOID ? 1.0f : y, __fadd_rn(1.0f, expf(-y)));
+}
+
+__device__ __forceinline__ float activate(float y, int act) {
+  if (act == ACT_RELU) return fmaxf(y, 0.0f);
+  return act >= ACT_SILU ? activate_exp(y, act) : y;
+}
+
 // clip(rint(acc*a + b), lo, 127) -> s8, one float32 rounding per operation
 // hi: 127, or a clamped conv's per-channel bound (integer-valued, as lo)
 __device__ __forceinline__ int8_t requant(int acc, float a, float b, float lo, float hi = 127.0f) {

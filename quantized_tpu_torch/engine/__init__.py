@@ -1,9 +1,9 @@
 """Integer engine of the port: the int layers, the conversion from a
 calibrated fake-quant model (the module surgery ``convert_to_int`` and the
 strict engine), the int8-resident ResNet (float-BN and RangeBN flavors),
-MobileNet-v1 and AlexNet (int8 or int4 weights), the fused forms, the
-per-layer backend autotuner, the executor (one CUDA graph per input shape,
-pinned host slots) and the throughput hook. Serving (continuous batching
+MobileNet-v1, EfficientNet-B0 and AlexNet (int8 or int4 weights), the
+fused forms, the per-layer backend autotuner, the executor (one CUDA graph
+per input shape, pinned host slots) and the throughput hook. Serving (continuous batching
 and its HTTP front end) lives in ``engine.batching`` and ``engine.server``;
 its multi-host form (each rank's admission queue over one SPMD forward of
 the mesh) in ``engine.multihost``."""
@@ -24,6 +24,7 @@ from quantized_tpu_torch.engine.fused import (
     fuse_resident_blocks,
 )
 from quantized_tpu_torch.engine.int8_alexnet import Int8AlexNet, build_int8_alexnet
+from quantized_tpu_torch.engine.int8_efficientnet import Int8EfficientNet, build_int8_efficientnet
 from quantized_tpu_torch.engine.int8_mobilenet import Int8MobileNet, build_int8_mobilenet
 from quantized_tpu_torch.engine.int8_resident import (
     Int8BasicBlock,

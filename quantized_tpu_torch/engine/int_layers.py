@@ -92,6 +92,7 @@ from quantized_tpu_torch.ops.int8_matmul import (
     int8_matmul_nk,
     int8_matmul_xla_nk,
     kernel_clip,
+    relu_only,
     requant_clip_bounds,
 )
 
@@ -283,6 +284,7 @@ class IntConv2d(nn.Module):
         in f32: a requant with 1/s folded into the bias, a prescaled f32 or
         int16 leg, or f32 ``relu?(y + bias)``. ``y_clip``, the clamp's bounds
         of ``y + bias``, goes through each branch's own map, as in JAX."""
+        relu = relu_only(relu, f"backend {self.backend!r}")
         xb = ((x_q.to(torch.float32) + f32(128 - self.act_zero_point)) * f32(self.act_scale)).to(torch.bfloat16)
         y = bf16_conv(xb, self.w_bf16, self.stride, self.padding, self.groups)
         if out_requant is not None:

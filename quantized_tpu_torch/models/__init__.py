@@ -1,8 +1,10 @@
-"""Model registry of the port: ``get_model(name)(**config)``; the same
-names as the JAX package's ``MODEL_REGISTRY``."""
+"""Model registry of the port: ``get_model(name)(**config)``; the JAX
+package's ``MODEL_REGISTRY`` names, and ``efficientnet`` and
+``efficientnet_quantized``, which the port alone has."""
 
 from quantized_tpu_torch.models.alexnet import alexnet
 from quantized_tpu_torch.models.alexnet_quantized import alexnet_quantized
+from quantized_tpu_torch.models.efficientnet import efficientnet, efficientnet_quantized
 from quantized_tpu_torch.models.mnist import mnist
 from quantized_tpu_torch.models.mobilenet import mobilenet, mobilenet_quantized
 from quantized_tpu_torch.models.resnet import resnet
@@ -12,6 +14,8 @@ from quantized_tpu_torch.models.resnet_quantized_float_bn import resnet_quantize
 MODEL_REGISTRY = {
     "alexnet": alexnet,
     "alexnet_quantized": alexnet_quantized,
+    "efficientnet": efficientnet,
+    "efficientnet_quantized": efficientnet_quantized,
     "mnist": mnist,
     "mobilenet": mobilenet,
     "mobilenet_quantized": mobilenet_quantized,

@@ -1,7 +1,8 @@
 """Integer ops of the port: the hand-written CUDA kernels (K1, K2 and its
 fused-residual form B8, the fused bottlenecks B3, BasicBlocks B4 and
 depthwise-separable pairs B5, the int4 GEMM B6, the flat-row conv B7, the
-copy probes B9, the fused bottleneck's stage probes), the launch plans of
+copy probes B9, the fused bottleneck's stage probes, the EfficientNet
+engine's depthwise conv, squeeze and gate pass), the launch plans of
 the Hopper GEMM (``gemm_plan``: K1, B6), conv mainloop (``conv_plan``: K2's
 per-tap and residual forms, its pixel-group 1x1s, B7) and block mainloop
 (``block_plan``: B3, B4), their plain PyTorch versions, the int4 packing,
@@ -10,7 +11,8 @@ the plain forms the JAX package leaves to XLA (``int8_matmul_xla``,
 native-S4 int4 forms, the bf16 conv), and the tensor plumbing around them.
 K1 and K2 (every route) take the clamp ``y_clip`` on CLIP instances of
 their own, in the form ``kernel_clip`` gives (``requant_clip_bounds``: the
-requant's integer bounds)."""
+requant's integer bounds). K1's and K2's epilogues take an activation
+code (``int8_matmul.activate``: ReLU, SiLU, the sigmoid)."""
 
 from quantized_tpu_torch.ops._cuda import KERNELS, build_kernels, launch_counts, reset_launches, route_counts
 from quantized_tpu_torch.ops.copy_probe import bulk_copy, copy_plain, grid_copy, ring_copy
@@ -90,4 +92,13 @@ from quantized_tpu_torch.ops.int8_matmul import (
     kernel_clip,
     matmul_epilogue_params,
     requant_clip_bounds,
+)
+from quantized_tpu_torch.ops.mbconv import (
+    dw_conv,
+    dw_conv_plain,
+    dw_weight_words,
+    se_gate,
+    se_gate_plain,
+    se_squeeze,
+    se_squeeze_plain,
 )

@@ -46,6 +46,7 @@ from quantized_tpu_torch.ops.int8_matmul import (
     int8_matmul,
     int8_matmul_plain,
     int8_matmul_requant_plain,
+    relu_only,
     requant_scalars,
 )
 
@@ -181,8 +182,10 @@ def _check(a, w_packed_nk, alpha, beta, out_scale, out_zp):
 def int4_matmul_nk(a, w_packed_nk, alpha, beta, relu: bool = False, out_scale: Optional[float] = None,
                    out_zp: Optional[int] = None) -> torch.Tensor:
     """A (M, K) s8 times split-half packed int4 W (N, K/2): f32 ``relu?(acc
-    * alpha + beta)``, or s8 on the (out_scale, out_zp) grid."""
+    * alpha + beta)``, or s8 on the (out_scale, out_zp) grid. ReLU alone:
+    B6 has no SiLU or sigmoid epilogue."""
     _check(a, w_packed_nk, alpha, beta, out_scale, out_zp)
+    relu = relu_only(relu, "int4_matmul (B6)")
     if a.device.type == "cpu":
         return int4_matmul_plain(a, w_packed_nk, alpha, beta, relu, out_scale, out_zp)
     dev = _cuda.require_cuda_tensors(a, w_packed_nk, alpha, beta)

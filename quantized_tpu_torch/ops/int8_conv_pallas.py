@@ -73,10 +73,12 @@ from quantized_tpu_torch.ops.int8_matmul import (
     H100_SMS,
     SMEM_LIMIT,
     Clip,
+    activate,
     clip_args,
     clip_minmax,
     clip_pair,
     exact_int_matmul,
+    exp_act,
     f32,
     kernel_clip,
 )
@@ -365,7 +367,9 @@ def _epilogue(acc: torch.Tensor, alpha, beta, relu: bool, out_requant: Optional[
               clip: Optional[Clip] = None) -> torch.Tensor:
     """``int8_conv_direct``'s epilogue on an int32 accumulator, one float32
     rounding per operation: ``acc * alpha + beta``, the dequantized residual
-    ``(r + (128 - r_zp)) * r_scale``, ReLU, then f32 out or the requant.
+    ``(r + (128 - r_zp)) * r_scale``, the activation (``relu``: a code of
+    ``ops.int8_matmul.activate``: ReLU, SiLU or the sigmoid), then f32 out
+    or the requant.
     ``clip`` (the RangeBN observer clamp, ``ops.int8_matmul.kernel_clip``)
     clips the f32 value before ReLU, or the requant's rounded value to its
     integer bounds in place of ReLU and [-128, 127]."""
@@ -375,8 +379,8 @@ def _epilogue(acc: torch.Tensor, alpha, beta, relu: bool, out_requant: Optional[
         y = y + (residual.to(torch.float32) + f32(128 - r_zp)) * f32(r_scale)
     if clip is not None and out_requant is None:
         y = clip_minmax(y, *clip)
-    if relu and not (clip is not None and out_requant is not None):
-        y = torch.clamp_min(y, 0.0)
+    if not (clip is not None and out_requant is not None):
+        y = activate(y, relu)
     if out_requant is None:
         return y
     q = torch.round(y * f32(1.0 / out_requant[0]) + f32(out_requant[1] - 128))
@@ -521,6 +525,8 @@ def int8_conv_direct_ck(
     _check_conv(x_q, w_ck, kh, kw, alpha, beta)
     ho, wo = conv_out_hw(h, w, (kh, kw), stride, padding)
     clip = clip_pair(clip, cout)
+    if clip is not None and exp_act(relu):
+        raise ValueError("the clamp (y_clip) combines with ReLU alone")
     if residual is not None:
         if res_grid is None:
             raise ValueError("residual requires res_grid=(scale, zero_point)")

@@ -51,8 +51,12 @@ _MATMUL = _cuda.CudaKernel(
 )
 _MATMUL_REQUANT = _cuda.CudaKernel(
     "int8_matmul_requant", "int8_gemm.cu", "qt_int8_matmul_requant",
-    ["ptr"] * 5 + ["int"] * 3 + ["float"] * 3 + GEMM_PLAN_ARGS + CLIP_ARGS,
+    ["ptr"] * 5 + ["int"] * 3 + ["float"] * 3 + ["int"] + GEMM_PLAN_ARGS + CLIP_ARGS,
 )
+
+# The epilogues' activation codes past ReLU (csrc/int8_mma.cuh ``qt::activate``),
+# which K1's and K2's ``relu`` argument takes beside False / True (0 / 1).
+ACT_RELU, ACT_SILU, ACT_SIGMOID = 1, 2, 3
 
 # The launch plan of the Hopper GEMM (csrc/gemm_sm90.cuh), shared by K1 and
 # B6; the constants mirror the header's.
@@ -162,11 +166,42 @@ def matmul_epilogue_params(
 
 def requant_scalars(out_scale: float, out_zp: int, relu: bool) -> Tuple[float, float, float]:
     """(inv, zps, lo) of the requant epilogue: ``inv = f32(1/s)``, ``zps =
-    zp - 128``, ``lo`` = the clip floor (zps when ReLU is folded in)."""
+    zp - 128``, ``lo`` = the clip floor (zps when ReLU is folded in; -128
+    under any other activation code)."""
     inv = f32(1.0 / out_scale)
     zps = f32(out_zp - 128)
-    lo = zps if relu else -128.0
+    lo = zps if int(relu) == ACT_RELU else -128.0
     return inv, zps, lo
+
+
+def activate(y: torch.Tensor, act: int) -> torch.Tensor:
+    """The epilogues' activation of f32 ``y`` by code (:data:`ACT_RELU`,
+    :data:`ACT_SILU` ``y / (1 + exp(-y))``, :data:`ACT_SIGMOID` ``1 / (1 +
+    exp(-y))``; anything else none), one float32 rounding per operation as
+    the kernels compute it (tensor by tensor: a GPU divides by a scalar
+    through its reciprocal)."""
+    act = int(act)
+    if act == ACT_RELU:
+        return torch.clamp_min(y, 0.0)
+    if act == ACT_SILU:
+        return y / (1.0 + torch.exp(-y))
+    if act == ACT_SIGMOID:
+        return torch.ones_like(y) / (1.0 + torch.exp(-y))
+    return y
+
+
+def exp_act(relu) -> bool:
+    """Whether an epilogue's ``relu`` argument is SiLU or the sigmoid, which
+    run on the kernels' ``EXP`` instances and combine with no clamp."""
+    return int(relu) >= ACT_SILU
+
+
+def relu_only(relu, what: str) -> bool:
+    """``relu`` as the bool of an epilogue that computes ReLU alone (the
+    bf16 convs, B6); raises on SiLU or the sigmoid."""
+    if exp_act(relu):
+        raise ValueError(f"{what} computes ReLU alone, not the activation code {int(relu)}")
+    return bool(relu)
 
 
 Clip = Tuple[torch.Tensor, torch.Tensor]
@@ -237,18 +272,25 @@ def exact_int_matmul(a: torch.Tensor, w_nk: torch.Tensor) -> torch.Tensor:
 def acc_epilogue(acc: torch.Tensor, alpha, beta, relu: bool = False,
                  out_requant: Optional[Tuple[float, int]] = None, clip: Optional[Clip] = None) -> torch.Tensor:
     """The fused epilogue of an int32 accumulator, in the JAX kernels' order:
-    f32 ``relu?(clip?(acc * alpha + beta))``, or, on ``out_requant=(s,
-    zp)``, s8 ``clip(round(acc * (alpha * inv) + (beta * inv + zp - 128)),
-    lo, 127)`` with 1/s folded into alpha and beta, the -128 shift into the
-    zero point and ReLU into the clip floor ``lo``; under ``clip`` (the
-    requant's integer bounds, :func:`kernel_clip`) the rounded value is
-    clipped to those bounds alone."""
+    f32 ``act(clip?(acc * alpha + beta))`` (``relu``: an activation code,
+    :func:`activate`), or, on ``out_requant=(s, zp)``, s8 ``clip(round(acc
+    * (alpha * inv) + (beta * inv + zp - 128)), lo, 127)`` with 1/s folded
+    into alpha and beta, the -128 shift into the zero point and ReLU into
+    the clip floor ``lo``; under ``clip`` (the requant's integer bounds,
+    :func:`kernel_clip`) the rounded value is clipped to those bounds
+    alone. Under SiLU or the sigmoid the requant takes K2's order:
+    ``clip(round(act(acc * alpha + beta) * inv + zp - 128), -128, 127)``."""
+    if clip is not None and exp_act(relu):
+        raise ValueError("the clamp (y_clip) combines with ReLU alone")
     if out_requant is None:
         y = acc.to(torch.float32) * alpha + beta
         if clip is not None:
             y = clip_minmax(y, *clip)
-        return torch.clamp_min(y, 0.0) if relu else y
+        return activate(y, relu)
     inv, zps, lo = requant_scalars(out_requant[0], out_requant[1], relu)
+    if exp_act(relu):
+        y = activate(acc.to(torch.float32) * alpha + beta, relu)
+        return torch.clamp(torch.round(y * inv + zps), -128.0, 127.0).to(torch.int8)
     q = torch.round(acc.to(torch.float32) * (alpha * inv) + (beta * inv + zps))
     if clip is not None:
         return clip_minmax(q, *clip).to(torch.int8)
@@ -281,7 +323,8 @@ def _check(a, w_nk, alpha, beta):
 
 
 def int8_matmul_nk(a, w_nk, alpha, beta, relu: bool = False, clip=None) -> torch.Tensor:
-    """f32 ``relu?(clip?(A @ W^T * alpha + beta))``; A (M, K) s8, W (N, K) s8."""
+    """f32 ``act(clip?(A @ W^T * alpha + beta))``; A (M, K) s8, W (N, K) s8;
+    ``relu``: an activation code (:func:`activate`)."""
     _check(a, w_nk, alpha, beta)
     if a.device.type == "cpu":
         return int8_matmul_plain(a, w_nk, alpha, beta, relu, clip)
@@ -300,10 +343,13 @@ def int8_matmul_requant_nk(a, w_nk, alpha, beta, out_scale: float, out_zp: int,
                            relu: bool = True, clip=None) -> torch.Tensor:
     """s8 output on the (out_scale, out_zp) grid (stored u - 128). ``clip``:
     the integer bounds of :func:`requant_clip_bounds` for this grid, which
-    the kernel clamps to in place of [lo, 127]."""
+    the kernel clamps to in place of [lo, 127]. ``relu``: an activation
+    code; SiLU and the sigmoid come before the requant (:func:`acc_epilogue`)."""
     _check(a, w_nk, alpha, beta)
     if a.device.type == "cpu":
         return int8_matmul_requant_plain(a, w_nk, alpha, beta, out_scale, out_zp, relu, clip)
+    if clip is not None and exp_act(relu):
+        raise ValueError("the clamp (y_clip) combines with ReLU alone")
     dev = _cuda.require_cuda_tensors(a, w_nk, alpha, beta)
     (m, k), n = a.shape, w_nk.shape[0]
     inv, zps, lo = requant_scalars(out_scale, out_zp, relu)
@@ -311,7 +357,8 @@ def int8_matmul_requant_nk(a, w_nk, alpha, beta, out_scale: float, out_zp: int,
     plan = gemm_plan(m, n, k, sms=_cuda.sm_count(dev))
     route = gemm_route(plan, a, w_nk)
     _MATMUL_REQUANT(dev, a.data_ptr(), w_nk.data_ptr(), alpha.data_ptr(), beta.data_ptr(),
-                    out.data_ptr(), m, n, k, inv, zps, lo, int(route == "sm90"), *plan.args(),
+                    out.data_ptr(), m, n, k, inv, zps, lo, int(relu) if exp_act(relu) else 0,
+                    int(route == "sm90"), *plan.args(),
                     *clip_args(clip, n, dev), route=route if clip is None else route + "+clip")
     return out
 

@@ -13,6 +13,9 @@
   may differ only by the images whose label sits within 2 * LOGIT_ATOL of
   the k-th boundary of the port's own logits (recomputed here through the
   API, and checked to give the CLI's printed numbers).
+- ``--model efficientnet_quantized`` (the port alone has it) evaluates
+  through the resident engine, ``build_int8_efficientnet``; with another
+  ``--backend`` than pallas, or ``--autotune``, the CLI exits.
 - ``--serve --serve-steps 3`` returns 0, with and without the resident
   engine, and ``--export-reference`` writes a reference file (its round
   trip through JAX's ingest is held in ``tests/test_torch_checkpoint.py``).
@@ -132,6 +135,30 @@ def test_jax_export_evaluates_alike_in_both_clis(tmp_path, capsys):
     for k, key in ((1, "top1"), (5, "top5")):
         flips = round(abs(got[key] - want[key]) * n / 100.0)
         assert flips <= _ambiguous(all_logits, all_labels, k, LOGIT_ATOL), (key, got, want)
+
+
+def test_cli_evaluates_efficientnet_through_the_resident_engine(tmp_path, capsys):
+    """``--model efficientnet_quantized --convert-int --resident -e`` builds
+    ``build_int8_efficientnet`` and evaluates a small EfficientNet (two
+    blocks, the second a 5x5 at stride 2) on the synthetic stand-in."""
+    config = "{'num_classes': 10, 'blocks': [[1, 3, 1, 16, 1], [6, 5, 2, 24, 1]], 'head_width': 64}"
+    assert main(["--type", "cpu.float", "--model", "efficientnet_quantized", "--dataset", "synthetic",
+                 "--model_config", config, "-b", "64", "--calibrate", "1", "--convert-int", "--resident", "-e",
+                 "--results_dir", str(tmp_path)]) == 0
+    got = _printed(capsys)
+    assert set(got) == {"top1", "top5", "loss"} and np.isfinite(got["loss"]) and 0.0 <= got["top1"] <= 100.0
+    with open(tmp_path / os.listdir(tmp_path)[0] / "log.txt") as f:
+        assert "converted to int8-resident engine" in f.read()
+
+
+@pytest.mark.parametrize("flags", [["--backend", "bf16"], ["--backend", "xla"], ["--autotune"]])
+def test_cli_refuses_efficientnet_off_its_route(tmp_path, flags):
+    """The resident EfficientNet runs on backend pallas with the tuner off:
+    the other backends compute ReLU alone, not SiLU, so the CLI exits
+    before it builds anything."""
+    with pytest.raises(SystemExit, match="--backend pallas alone"):
+        main(["--type", "cpu.float", "--model", "efficientnet_quantized", "--dataset", "synthetic",
+              "--convert-int", "--resident", "-e", "--results_dir", str(tmp_path), *flags])
 
 
 def test_cli_serves_and_exports(tmp_path):

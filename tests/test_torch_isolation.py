@@ -41,6 +41,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "quantized_tpu_torch.utils.checkpoint", "quantized_tpu_torch.utils.meters",
             "quantized_tpu_torch.utils.logging_utils", "quantized_tpu_torch.utils.hostbuild",
             "quantized_tpu_torch.utils.profiling", "quantized_tpu_torch.training.qat"} <= set(result["names"]), result
+    # EfficientNet, which the JAX package lacks: its model, engine and kernels
+    assert {"quantized_tpu_torch.models.efficientnet", "quantized_tpu_torch.engine.int8_efficientnet",
+            "quantized_tpu_torch.ops.mbconv"} <= set(result["names"]), result
     # QAT training and the float models
     assert {"quantized_tpu_torch.training.regime", "quantized_tpu_torch.models.mnist",
             "quantized_tpu_torch.models.mobilenet", "quantized_tpu_torch.models.alexnet",
@@ -67,8 +70,9 @@ def test_chip_smoke_imports_no_jax_and_reports_every_kernel():
     """``chip_smoke.py`` (imported, not run) loads no JAX either, and its
     kernels line names every kernel the port registers, the fused
     BasicBlock and depthwise-separable kernels, the int4 GEMM, the flat-row
-    conv, K2's residual form, the three copy kernels and the two stage
-    probes of the fused bottleneck included."""
+    conv, K2's residual form, the three copy kernels, the two stage probes
+    of the fused bottleneck and EfficientNet's depthwise conv, squeeze and
+    gate pass included."""
     out = subprocess.run([sys.executable, "-c", _SMOKE_PROBE], cwd=ROOT, capture_output=True, text=True,
                          timeout=120, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
@@ -76,5 +80,5 @@ def test_chip_smoke_imports_no_jax_and_reports_every_kernel():
     assert result["kernels"] == result["reported"], result
     assert {"fused_basicblock_s1", "fused_basicblock_ds", "fused_dw_pw", "int4_matmul", "int8_conv_flat",
             "int8_conv_direct_residual", "grid_copy", "ring_copy", "bulk_copy", "fused_stages_conv1",
-            "fused_stages_conv12"} <= set(result["kernels"]), result
-    assert len(result["kernels"]) == 17, result
+            "fused_stages_conv12", "dw_conv", "se_squeeze", "se_gate"} <= set(result["kernels"]), result
+    assert len(result["kernels"]) == 17 + 3, result

@@ -3,7 +3,8 @@ package's: the float ``alexnet``, the float ``mobilenet`` (width 0.25 at
 64x64) and ``mnist``, each drawn by ``torch_jax_twins`` on the JAX side and
 carried over by the weight bridge, in eval mode, their logits within 1e-5
 relative of JAX's (f32 convolutions summed in another order; no quantizer
-in these models); the registry, the regimes and the metadata equal JAX's;
+in these models); the registry (with EfficientNet's two names, which the
+port alone has), the regimes and the metadata equal JAX's;
 ``mnist`` exported by ``export_reference_checkpoint`` equals JAX's export
 key for key and value for value (fc1's columns permuted to the NCHW
 flatten); ``int4_weight_qparams`` and ``quantize_int4`` bit-exact; dropout
@@ -62,7 +63,9 @@ def test_float_model_matches_jax(name):
 
 
 def test_registry_equals_jax():
-    assert sorted(MODEL_REGISTRY) == sorted(J_REGISTRY)
+    """The JAX package's names, and EfficientNet's two, which the port alone has."""
+    assert sorted(MODEL_REGISTRY) == sorted(set(J_REGISTRY) | {"efficientnet", "efficientnet_quantized"})
+    assert len(MODEL_REGISTRY) == len(J_REGISTRY) + 2
     with pytest.raises(ValueError, match="unknown model"):
         get_model("nope")
     assert (t_common.IMAGENET_REGIME, t_common.CIFAR_REGIME, MOBILENET_REGIME) == (
